@@ -11,25 +11,46 @@ Phases, each of which exits non-zero when it fails:
 3. kernels -- each kernel against its plain PyTorch version on the same
               inputs at the headline size (1M rows x 28 features x 256
               bins, bench.py's generator, seed 0), both histogram
-              encodings, hist_level at every depth of a depth-6 tree.
+              encodings: hist_level at every depth of a depth-6 tree and at
+              64 and 128 nodes (more than one node group), the histogram
+              for given node ids at the node ids of a real round's levels
+              (the last row block short), and leaf_fit.
 4. main    -- the fused boosting round (train_round_fused) at that size,
               for bf16 and i8 and both final passes: 1 warm-up and 3 timed
               rounds, launch counts per kernel, and every level held
               teacher-forced against the plain versions.  Then GBDT.fit /
-              predict as a user calls them, and the fused round on a small
-              input against the CPU reference round.
-5. report  -- a {"kernels": [...]} line with each kernel's time, launches,
+              predict as a user calls them, the fused round on a small
+              input against the CPU reference round, and one depth-8 fused
+              round per encoding, teacher-forced.
+5. hook    -- the hook-based round: GBDT(engine_allreduce=...).fit (depth
+              + 1 hook calls per tree), train_round's ms/round in bf16 and
+              i8 (1 warm-up, 3 timed), every level teacher-forced.
+6. leaf    -- leaf_fit on a real round's last level: its leaf ids equal
+              route_level's, its leaf masses split_child_masses'.
+7. dp      -- train_round_dp and train_round_dp_fused on an NCCL group of
+              one, bitwise equal to train_round and train_round_fused; then
+              two processes on the one card over gloo with CUDA tensors
+              (rows split by elastic_shard): identical forests on both
+              ranks, the single-process round's splits but for printed near
+              ties.
+8. report  -- a {"kernels": [...]} line with each kernel's time, launches,
               bound, plain-version time and library-call time.
 
-The last line is {"ok": true, "device": {...}}.  The script imports no JAX.
+Launches are counted per path (phases 4-7), each run with the counts set to
+0 just before it and read just after; the phase-3 comparisons and the
+phase-8 timings do not count.  The last line is {"ok": true, "device":
+{...}}.  The script imports no JAX.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import multiprocessing
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -42,17 +63,23 @@ F32_OPS_PER_S = 67e12       # H100 SXM f32 outside the tensor cores
 HIST_RTOL = 1e-5            # histograms: rtol, and atol = 1e-5 * max |bin|
 MARGIN_RTOL = 1e-6
 GAIN_TIE = 1e-4             # a differing split must be this close in gain
+DEEP = 8                    # the deep round's depth: levels of 64 and 128 nodes
+DP_RANKS = 2                # processes of the gloo phase, on the one card
 REPLACES = {
     "hist_level0": "rabit_tpu/ops/boost.py:341",
     "hist_level": "rabit_tpu/ops/boost.py:374",
     "route_level": "rabit_tpu/ops/boost.py:290",
     "route_margin_level": "rabit_tpu/ops/boost.py:260",
+    "node_histograms_kernel": "rabit_tpu/ops/hist.py:157",
+    "leaf_fit": "rabit_tpu/ops/boost.py:413",
 }
 SOURCE = {
     "hist_level0": "rabit_tpu_torch/csrc/hist.cu",
     "hist_level": "rabit_tpu_torch/csrc/hist.cu",
     "route_level": "rabit_tpu_torch/csrc/route.cu",
     "route_margin_level": "rabit_tpu_torch/csrc/route.cu",
+    "node_histograms_kernel": "rabit_tpu_torch/csrc/hist.cu",
+    "leaf_fit": "rabit_tpu_torch/csrc/route.cu",
 }
 
 
@@ -103,9 +130,39 @@ def hist_err(got, ref) -> float:
     return float(((got - ref).abs() / lim.clamp_min(1e-30)).max())
 
 
+def _dp_rank(rank: int, world: int, tmp: str, n_rows: int, n_trees: int) -> None:
+    """One process of the gloo phase: train_round_dp with CUDA tensors on
+    this rank's elastic shard; writes its forest and launch counts."""
+    import torch
+    import torch.distributed as dist
+
+    from rabit_tpu_torch.models import gbdt
+    from rabit_tpu_torch.ops import boost
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(os.path.join(tmp, "store"), world),
+                            rank=rank, world_size=world)
+    try:
+        xb, y = make_data(n_rows, seed=0)
+        xs, ys = gbdt.elastic_shard(xb, y, world, rank)
+        cfg = gbdt.GBDTConfig(n_features=N_FEATURES, n_trees=n_trees, depth=DEPTH,
+                              n_bins=N_BINS)
+        xs, ys = torch.as_tensor(xs, device="cuda"), torch.as_tensor(ys, device="cuda")
+        state = gbdt.init_state(cfg, len(ys), "cuda")
+        boost.launches.clear()
+        for _ in range(n_trees):
+            state = gbdt.train_round_dp(state, xs, ys, cfg)
+        forest = gbdt.forest_to_numpy(state.forest)
+        np.savez(os.path.join(tmp, f"rank{rank}.npz"), feature=forest.feature,
+                 threshold=forest.threshold, leaf=forest.leaf,
+                 launches=boost.launches["node_histograms_kernel"])
+    finally:
+        dist.destroy_process_group()
+
+
 class Smoke:
-    def __init__(self, torch, boost, gbdt, n_rows: int, device="cuda"):
-        self.torch, self.boost, self.gbdt = torch, boost, gbdt
+    def __init__(self, torch, boost, hist, gbdt, n_rows: int, device="cuda"):
+        self.torch, self.boost, self.hist, self.gbdt = torch, boost, hist, gbdt
         self.dev = torch.device(device)
         self.n_rows = n_rows
         xb, y = make_data(n_rows, seed=0)
@@ -117,7 +174,8 @@ class Smoke:
         margin = torch.as_tensor(rng.randn(n_rows).astype(np.float32) * 0.5,
                                  device=self.dev)
         cfg = gbdt.GBDTConfig(n_features=N_FEATURES)
-        g, h = gbdt.gradients(cfg, margin, self.y)
+        self.g, self.h = gbdt.gradients(cfg, margin, self.y)
+        g, h = self.g, self.h
         self.g3, _ = boost.block_rows(g)
         self.h3, _ = boost.block_rows(h)
         self.margin3, _ = boost.block_rows(margin)
@@ -131,6 +189,25 @@ class Smoke:
     def sync(self):
         if self.dev.type == "cuda":
             self.torch.cuda.synchronize()
+
+    def route(self, node, feat, thr):
+        """Node ids one level down (train_round's routing): right iff the
+        row's bin of its node's feature is above the threshold."""
+        p = node.long()
+        xv = self.xb.gather(1, feat.long()[p][:, None])[:, 0]
+        return node * 2 + (xv > thr[p]).to(self.torch.int32)
+
+    def path(self, fn):
+        """Run one path with every launch count set to 0 just before it and
+        read just after; adds them to the report's launches."""
+        self.sync()
+        self.boost.launches.clear()
+        out = fn()
+        self.sync()
+        counts = dict(self.boost.launches)
+        for k, v in counts.items():
+            self.launches[k] += v
+        return out, counts
 
     # -- phase 3 ------------------------------------------------------------------
     def level_inputs(self, d: int):
@@ -191,22 +268,96 @@ class Smoke:
         print(f"  route_level: node ids equal; route_margin_level: node ids "
               f"equal, max |d margin| {merr:.3e}")
 
+    def check_deep_levels(self):
+        """hist_level at 64 and 128 nodes: more than one node group."""
+        boost = self.boost
+        for d in (DEPTH, DEPTH + 1):
+            node3, feat, thr = self.level_inputs(d)
+            for i8 in (False, True):
+                args = (self.xb3, node3, self.g3, self.h3, feat, thr)
+                got, nk = boost.hist_level(*args, depth=d, n_bins=N_BINS, mxu_i8=i8)
+                ref, npl = boost.hist_level_plain(*args, depth=d, n_bins=N_BINS,
+                                                  mxu_i8=i8)
+                e = hist_err(got, ref)
+                same = bool(self.torch.equal(nk, npl))
+                print(f"  hist_level d={d} ({2 ** d} nodes) {'i8' if i8 else 'bf16'}:"
+                      f" max |d| {float((got - ref).abs().max()):.3e} (err/limit"
+                      f" {e:.3f}), node ids equal: {same}")
+                require(same and e <= 1.0, f"hist_level d={d} disagrees with its "
+                        "plain version")
+
+    def real_levels(self):
+        """The node ids, histograms and split tables of a real round's
+        levels (train_round's loop on the card, bf16, seeded margin)."""
+        torch, gbdt = self.torch, self.gbdt
+        cfg = gbdt.GBDTConfig(n_features=N_FEATURES, depth=DEPTH, n_bins=N_BINS)
+        node = torch.zeros(self.n_rows, dtype=torch.int32, device=self.dev)
+        levels = []
+        for d in range(DEPTH):
+            hist = self.hist.node_histograms_kernel(self.xb, self.g, self.h, node,
+                                                    2 ** d, N_BINS)
+            feat, thr, _ = gbdt.best_splits(hist, cfg)
+            levels.append((node, hist, feat, thr))
+            node = self.route(node, feat, thr)
+        return levels
+
+    def check_node_kernel(self):
+        """The histogram for given node ids at a real round's node ids,
+        d = 0..5 (1-32 nodes); the last row block is short."""
+        hist = self.hist
+        self.levels = self.real_levels()
+        for i8 in (False, True):
+            for d, (node, _, _, _) in enumerate(self.levels):
+                args = (self.xb, self.g, self.h, node, 2 ** d, N_BINS)
+                got = hist.node_histograms_kernel(*args, mxu_i8=i8)
+                ref = hist.node_histograms_kernel_plain(*args, mxu_i8=i8)
+                e = hist_err(got, ref)
+                print(f"  node_histograms_kernel d={d} {'i8' if i8 else 'bf16'}: "
+                      f"max |d| {float((got - ref).abs().max()):.3e} (err/limit {e:.3f})")
+                require(e <= 1.0, f"node_histograms_kernel d={d} disagrees with "
+                        "its plain version")
+                self.err["node_histograms_kernel"] = max(
+                    self.err["node_histograms_kernel"], float((got - ref).abs().max()))
+
+    def leaf_inputs(self):
+        """leaf_fit's inputs from the real round: the last level's node ids
+        (blocked) and split tables."""
+        node, hist, feat, thr = self.levels[-1]
+        node3, _ = self.boost.block_rows(node)
+        return (self.xb3, node3, self.g3, self.h3, feat, thr), hist
+
+    def check_leaf_fit(self):
+        args, _ = self.leaf_inputs()
+        gk, nk = self.boost.leaf_fit(*args, depth=DEPTH)
+        gp, npl = self.boost.leaf_fit_plain(*args, depth=DEPTH)
+        e = hist_err(gk, gp)
+        same = bool(self.torch.equal(nk, npl))
+        print(f"  leaf_fit: max |d| {float((gk - gp).abs().max()):.3e} (err/limit "
+              f"{e:.3f}), leaf ids equal: {same}")
+        require(same and e <= 1.0, "leaf_fit disagrees with its plain version")
+        self.err["leaf_fit"] = float((gk - gp).abs().max())
+
     # -- phase 4 ------------------------------------------------------------------
+    def near_ties(self, hist, feat, thr, cfg, where: str, what: str):
+        """Split tables ``feat``/``thr`` against the best splits of ``hist``:
+        a differing split must be a near tie on ``hist``; each is printed."""
+        gbdt, torch = self.gbdt, self.torch
+        fp, tp, _ = gbdt.best_splits(hist, cfg)
+        gains = gbdt.split_gains(hist, cfg)
+        for nd in torch.nonzero((feat != fp) | (thr != tp)).flatten().tolist():
+            a = float(gains[nd, int(feat[nd]) * N_BINS + int(thr[nd])])
+            b = float(gains[nd, int(fp[nd]) * N_BINS + int(tp[nd])])
+            gap = abs(a - b) / max(abs(a), abs(b), 1e-30)
+            print(f"    {where} node {nd}: {what} split ({int(feat[nd])},{int(thr[nd])})"
+                  f" vs plain ({int(fp[nd])},{int(tp[nd])}), gains {a:.7g} / {b:.7g}")
+            require(gap < GAIN_TIE, f"{where}: split differs beyond a near tie")
+
     def compare_splits(self, hk, hp, cfg, where: str):
         """Split tables from the kernel's and the plain histogram; a differing
         split must be a near tie on the plain histogram.  Returns the
         kernel's tables (the teacher-forced path goes on with them)."""
-        gbdt, torch = self.gbdt, self.torch
-        fk, tk, _ = gbdt.best_splits(hk, cfg)
-        fp, tp, _ = gbdt.best_splits(hp, cfg)
-        gains = gbdt.split_gains(hp, cfg)
-        for nd in torch.nonzero((fk != fp) | (tk != tp)).flatten().tolist():
-            a = float(gains[nd, int(fk[nd]) * N_BINS + int(tk[nd])])
-            b = float(gains[nd, int(fp[nd]) * N_BINS + int(tp[nd])])
-            gap = abs(a - b) / max(abs(a), abs(b), 1e-30)
-            print(f"    {where} node {nd}: kernel split ({int(fk[nd])},{int(tk[nd])})"
-                  f" vs plain ({int(fp[nd])},{int(tp[nd])}), gains {a:.7g} / {b:.7g}")
-            require(gap < GAIN_TIE, f"{where}: split differs beyond a near tie")
+        fk, tk, _ = self.gbdt.best_splits(hk, cfg)
+        self.near_ties(hp, fk, tk, cfg, where, "kernel")
         return fk, tk
 
     def teacher_forced(self, state, cfg):
@@ -327,7 +478,212 @@ class Smoke:
                     "small input: leaves differ from the reference")
         print("  small input: fused round on the card grows the CPU reference's trees")
 
+    def deep_round(self, i8: bool):
+        """One depth-8 fused round (levels of 64 and 128 nodes), teacher-forced
+        against the plain versions."""
+        torch, gbdt = self.torch, self.gbdt
+        cfg = gbdt.GBDTConfig(n_features=N_FEATURES, n_trees=1, depth=DEEP,
+                              n_bins=N_BINS, mxu_i8=i8)
+        start = gbdt.init_state(cfg, self.n_rows, self.dev)
+        t0 = time.perf_counter()
+        state, counts = self.path(
+            lambda: gbdt.train_round_fused(start, self.xb3, self.y, cfg))
+        ms = (time.perf_counter() - t0) * 1e3
+        want = {"hist_level0": 1, "hist_level": DEEP - 1, "route_level": 1}
+        require(counts == want, f"depth-{DEEP} launch counts {counts}, expected {want}")
+        feats, thrs = self.teacher_forced(start, cfg)
+        for d in range(DEEP):
+            n = 2 ** d
+            require(bool(torch.equal(state.forest.feature[0, d, :n], feats[d])) and
+                    bool(torch.equal(state.forest.threshold[0, d, :n], thrs[d])),
+                    f"depth-{DEEP} round differs from the teacher-forced tree at level {d}")
+        print(f"  depth-{DEEP} fused round {'i8' if i8 else 'bf16'}: {ms:.3f} ms "
+              f"(one round, cold), launches {counts}, every level matches the plain path")
+
     # -- phase 5 ------------------------------------------------------------------
+    def teacher_forced_hook(self, state, cfg):
+        """train_round level by level: the kernel's histogram against its
+        plain twin on the kernel path's inputs; returns the kernel path's
+        split tables."""
+        torch, gbdt, hist = self.torch, self.gbdt, self.hist
+        g, h = gbdt.gradients(cfg, state.margin, self.y)
+        node = torch.zeros(self.n_rows, dtype=torch.int32, device=self.dev)
+        feats, thrs = [], []
+        for d in range(cfg.depth):
+            args = (self.xb, g, h, node, 2 ** d, N_BINS)
+            hk = hist.node_histograms_kernel(*args, mxu_i8=cfg.mxu_i8)
+            hp = hist.node_histograms_kernel_plain(*args, mxu_i8=cfg.mxu_i8)
+            require(hist_err(hk, hp) <= 1.0, f"hook level {d} histogram disagrees")
+            feat, thr = self.compare_splits(hk, hp, cfg, f"hook level {d}")
+            feats.append(feat)
+            thrs.append(thr)
+            node = self.route(node, feat, thr)
+        return feats, thrs
+
+    def hook_path(self):
+        """GBDT(engine_allreduce=...) as a user calls it, then train_round's
+        ms/round per encoding, every level teacher-forced."""
+        torch, gbdt = self.torch, self.gbdt
+        X = self.xb.cpu().numpy().astype(np.float32)
+        y = self.y.cpu().numpy()
+        calls = []
+
+        def engine_allreduce(a):  # a counting identity: one process
+            calls.append(a.shape)
+            return a
+
+        model = gbdt.GBDT(engine_allreduce=engine_allreduce, device=self.dev,
+                          n_trees=3, depth=DEPTH, n_bins=N_BINS)
+        t0 = time.perf_counter()
+        _, counts = self.path(lambda: model.fit(X, y))
+        fit_s = time.perf_counter() - t0
+        want = {"node_histograms_kernel": 3 * DEPTH}
+        require(counts == want, f"hooked GBDT.fit launch counts {counts}, expected {want}")
+        require(len(calls) == 3 * (DEPTH + 1),
+                f"{len(calls)} hook calls, expected {3 * (DEPTH + 1)}")
+        acc = float((model.predict(X) == y).mean())
+        print(f"  GBDT(engine_allreduce).fit (3 trees, incl. bin edges): {fit_s:.2f} s;"
+              f" {len(calls)} hook calls; launches {counts}; train accuracy {acc:.4f}")
+        require(acc > float(max(y.mean(), 1 - y.mean())),
+                "the hooked forest does not beat the majority class")
+        round_ms = {}
+        for i8 in (False, True):
+            cfg = gbdt.GBDTConfig(n_features=N_FEATURES, n_trees=4, depth=DEPTH,
+                                  n_bins=N_BINS, mxu_i8=i8)
+            state = gbdt.init_state(cfg, self.n_rows, self.dev)
+            state = gbdt.train_round(state, self.xb, self.y, cfg)  # warm-up
+            warm = state
+
+            def rounds():
+                s = warm
+                for _ in range(3):
+                    s = gbdt.train_round(s, self.xb, self.y, cfg)
+                return s
+
+            t0 = time.perf_counter()
+            state, counts = self.path(rounds)
+            ms = (time.perf_counter() - t0) * 1e3 / 3
+            want = {"node_histograms_kernel": 3 * DEPTH}
+            require(counts == want, f"train_round launch counts {counts}, expected {want}")
+            require(bool(torch.isfinite(state.margin).all()), "non-finite margin")
+            feats, thrs = self.teacher_forced_hook(warm, cfg)
+            t = warm.round
+            for d in range(DEPTH):
+                n = 2 ** d
+                require(bool(torch.equal(state.forest.feature[t, d, :n], feats[d])) and
+                        bool(torch.equal(state.forest.threshold[t, d, :n], thrs[d])),
+                        f"teacher-forced tree differs from train_round at level {d}")
+            mode = "i8" if i8 else "bf16"
+            round_ms[mode] = ms
+            print(f"  train_round {mode}: {ms:.3f} ms/round (3 rounds after 1 "
+                  f"warm-up), launches {counts}")
+        return round_ms
+
+    # -- phase 6 ------------------------------------------------------------------
+    def leaf_path(self):
+        """leaf_fit on the real round's last level: the leaf masses of the
+        round's tree, held against split_child_masses of the same level."""
+        args, hist = self.leaf_inputs()
+        (gk, nk), counts = self.path(lambda: self.boost.leaf_fit(*args, depth=DEPTH))
+        require(counts == {"leaf_fit": 1}, f"leaf path launch counts {counts}")
+        masses = self.gbdt.split_child_masses(hist, args[4], args[5])
+        e = hist_err(gk, masses)
+        nr = self.boost.route_level(args[0], args[1], args[4], args[5], depth=DEPTH)
+        same = bool(self.torch.equal(nk, nr))
+        print(f"  leaf_fit vs split_child_masses: max |d| "
+              f"{float((gk - masses).abs().max()):.3e} (err/limit {e:.3f}); "
+              f"leaf ids equal route_level's: {same}")
+        require(same and e <= 1.0, "leaf_fit disagrees with the round's leaves")
+
+    # -- phase 7 ------------------------------------------------------------------
+    def dp_single(self):
+        """train_round_dp / train_round_dp_fused on an NCCL group of one:
+        bitwise train_round / train_round_fused."""
+        import torch.distributed as dist
+
+        torch, gbdt = self.torch, self.gbdt
+        cfg = gbdt.GBDTConfig(n_features=N_FEATURES, n_trees=2, depth=DEPTH,
+                              n_bins=N_BINS)
+        start = gbdt.init_state(cfg, self.n_rows, self.dev)
+        with tempfile.TemporaryDirectory() as tmp:
+            dist.init_process_group("nccl", store=dist.FileStore(
+                os.path.join(tmp, "store"), 1), rank=0, world_size=1)
+            try:
+                (s_dp, s_f), counts = self.path(lambda: (
+                    gbdt.train_round_dp(start, self.xb, self.y, cfg),
+                    gbdt.train_round_dp_fused(start, self.xb3, self.y, cfg)))
+            finally:
+                dist.destroy_process_group()
+        want = {"node_histograms_kernel": DEPTH, "hist_level0": 1,
+                "hist_level": DEPTH - 1, "route_level": 1}
+        require(counts == want, f"dp launch counts {counts}, expected {want}")
+        for got, ref, name in (
+                (s_dp, gbdt.train_round(start, self.xb, self.y, cfg), "train_round_dp"),
+                (s_f, gbdt.train_round_fused(start, self.xb3, self.y, cfg),
+                 "train_round_dp_fused")):
+            same = all(bool(torch.equal(a, b)) for a, b in zip(got.forest, ref.forest))
+            same = same and bool(torch.equal(got.margin, ref.margin))
+            require(same, f"{name} on one NCCL rank differs from the single-process round")
+        print(f"  NCCL, world 1: train_round_dp and train_round_dp_fused bitwise equal "
+              f"to the single-process rounds; launches {counts}")
+
+    def dp_two_ranks(self, n_trees: int = 2):
+        """DP_RANKS processes on the one card over gloo with CUDA tensors;
+        their forests against each other and against the single-process
+        round, teacher-forced on the ranks' tables."""
+        torch, gbdt = self.torch, self.gbdt
+        ctx = multiprocessing.get_context("spawn")
+        with tempfile.TemporaryDirectory() as tmp:
+            procs = [ctx.Process(target=_dp_rank,
+                                 args=(r, DP_RANKS, tmp, self.n_rows, n_trees))
+                     for r in range(DP_RANKS)]
+            t0 = time.perf_counter()
+            for p in procs:
+                p.start()
+            try:
+                for p in procs:
+                    p.join(timeout=600)
+            finally:
+                for p in procs:
+                    if p.is_alive():
+                        p.terminate()
+                        p.join()
+            codes = [p.exitcode for p in procs]
+            require(codes == [0] * DP_RANKS, f"gloo ranks exited {codes}")
+            runs = [dict(np.load(os.path.join(tmp, f"rank{r}.npz")))
+                    for r in range(DP_RANKS)]
+        wall = time.perf_counter() - t0
+        for run in runs[1:]:
+            require(all(np.array_equal(run[k], runs[0][k])
+                        for k in ("feature", "threshold", "leaf")),
+                    "the gloo ranks' forests differ")
+        launches = [int(run["launches"]) for run in runs]
+        require(all(n == n_trees * DEPTH for n in launches),
+                f"gloo ranks' node_histograms_kernel launches {launches}")
+        cfg = gbdt.GBDTConfig(n_features=N_FEATURES, n_trees=n_trees, depth=DEPTH,
+                              n_bins=N_BINS)
+        forest = [torch.as_tensor(runs[0][k], device=self.dev)
+                  for k in ("feature", "threshold", "leaf")]
+        margin = torch.zeros(self.n_rows, device=self.dev)
+        for t in range(n_trees):
+            g, h = gbdt.gradients(cfg, margin, self.y)
+            node = torch.zeros(self.n_rows, dtype=torch.int32, device=self.dev)
+            for d in range(DEPTH):
+                n = 2 ** d
+                hist = self.hist.node_histograms_kernel(self.xb, g, h, node, n, N_BINS)
+                feat, thr = forest[0][t, d, :n], forest[1][t, d, :n]
+                self.near_ties(hist, feat, thr, cfg, f"gloo tree {t} level {d}", "ranks'")
+                node = self.route(node, feat, thr)
+            leaf_gh = self.hist.segment_sum(torch.stack([g, h], -1), node, 2 ** DEPTH)
+            leaf = -cfg.learning_rate * leaf_gh[:, 0] / (leaf_gh[:, 1] + cfg.reg_lambda)
+            require(bool(torch.allclose(forest[2][t], leaf, rtol=1e-4, atol=1e-6)),
+                    f"gloo tree {t}: leaves differ from the single-process sums")
+            margin = margin + forest[2][t][node.long()]
+        print(f"  gloo, {DP_RANKS} ranks on one card ({wall:.1f} s incl. start-up): "
+              f"identical forests; launches per rank {launches}; the single-process "
+              "round's splits at every level")
+
+    # -- phase 8 ------------------------------------------------------------------
     def measure(self):
         torch, boost = self.torch, self.boost
         xb3, g3, h3 = self.xb3, self.g3, self.h3
@@ -399,6 +755,48 @@ class Smoke:
                 xb3, node3, m3, feat, thr, leaf, depth=DEPTH), 5)
         self.library_ms["route_margin_level"] = None
         self.bound["route_margin_level"] = (rows * (32 + 4 + 4 + 4 + 4), 3.0 * rows)
+        # hist_level past depth 6 (more than one node group): times only
+        for d in (DEPTH, DEPTH + 1):
+            node3, feat, thr = self.level_inputs(d)
+            t = [cuda_ms(torch, lambda: boost.hist_level(
+                xb3, node3, g3, h3, feat, thr, depth=d, n_bins=N_BINS,
+                mxu_i8=i8), 5) for i8 in (False, True)]
+            print(f"  hist_level d={d} ({2 ** d} nodes) ms bf16 {t[0]:.4f}, i8 {t[1]:.4f}")
+        # node_histograms_kernel at the real round's node ids, d = 0..5 (bf16)
+        n = self.n_rows
+        ms, pms, lms, byts = [], [], [], []
+        for d, (node, _, _, _) in enumerate(self.levels):
+            args = (self.xb, self.g, self.h, node, 2 ** d, N_BINS)
+            ms.append(cuda_ms(torch, lambda: self.hist.node_histograms_kernel(*args), 10))
+            pms.append(cuda_ms(torch, lambda: self.hist.node_histograms_kernel_plain(
+                *args), 1))
+            lms.append(library(boost.block_rows(node)[0].reshape(-1)))
+            byts.append(n * N_FEATURES * 4 + 3 * n * 4 + hist_bytes(2 ** d))
+        print("  bf16 node_histograms_kernel ms by level d=0..5: "
+              + ", ".join(f"{t:.4f}" for t in ms))
+        i8_ms = [cuda_ms(torch, lambda: self.hist.node_histograms_kernel(
+            self.xb, self.g, self.h, node, 2 ** d, N_BINS, mxu_i8=True), 10)
+            for d, (node, _, _, _) in enumerate(self.levels)]
+        print("  i8 node_histograms_kernel ms by level d=0..5: "
+              + ", ".join(f"{t:.4f}" for t in i8_ms))
+        k = "node_histograms_kernel"
+        self.ms[k] = sum(ms) / len(ms)
+        self.plain_ms[k] = sum(pms) / len(pms)
+        self.library_ms[k] = sum(lms) / len(lms)
+        self.bound[k] = (sum(byts) / len(byts), 2.0 * n * N_FEATURES)
+        # leaf_fit at the real round's last level; the yardstick is one
+        # index_add_ of the rows' (g, h) into the 2**depth leaves
+        largs, _ = self.leaf_inputs()
+        self.ms["leaf_fit"] = cuda_ms(torch, lambda: boost.leaf_fit(*largs, depth=DEPTH), 50)
+        self.plain_ms["leaf_fit"] = cuda_ms(
+            torch, lambda: boost.leaf_fit_plain(*largs, depth=DEPTH), 1)
+        leaf_ids = boost.leaf_fit(*largs, depth=DEPTH)[1].reshape(-1).long()
+        gh2 = torch.stack([g3.reshape(-1), h3.reshape(-1)], -1)
+        out = torch.zeros(2 ** DEPTH, 2, device=self.dev)
+        self.library_ms["leaf_fit"] = cuda_ms(
+            torch, lambda: out.zero_().index_add_(0, leaf_ids, gh2), 50)
+        self.bound["leaf_fit"] = (rows * (32 + 4 + 4 + 4 + 4) + 2 ** DEPTH * 8,
+                                  4.0 * rows)
 
     def kernels_line(self):
         out = []
@@ -432,7 +830,7 @@ def main() -> int:
     try:
         from rabit_tpu_torch import _build
         from rabit_tpu_torch.models import gbdt
-        from rabit_tpu_torch.ops import boost
+        from rabit_tpu_torch.ops import boost, hist
     except ImportError as e:
         print(f"FAIL: run from the root of a checkout ({e})", file=sys.stderr)
         return 2
@@ -452,9 +850,12 @@ def main() -> int:
         print(f"[build] {time.perf_counter() - t0:.1f} s", flush=True)
 
         phase = "kernels"
-        smoke = Smoke(torch, boost, gbdt, args.rows)
+        smoke = Smoke(torch, boost, hist, gbdt, args.rows)
         print(f"[kernels] {args.rows} rows x {N_FEATURES} features x {N_BINS} bins")
         smoke.check_kernels()
+        smoke.check_deep_levels()
+        smoke.check_node_kernel()
+        smoke.check_leaf_fit()
 
         phase = "main"
         round_ms = {}
@@ -464,7 +865,21 @@ def main() -> int:
                 round_ms[key] = smoke.main_path(i8, fused_final)
         smoke.user_entry()
         smoke.small_reference()
+        for i8 in (False, True):
+            smoke.deep_round(i8)
         print("[main] ms/round " + json.dumps(round_ms), flush=True)
+
+        phase = "hook"
+        hook_ms = smoke.hook_path()
+        print("[hook] train_round ms/round " + json.dumps(hook_ms), flush=True)
+
+        phase = "leaf"
+        smoke.leaf_path()
+
+        phase = "dp"
+        smoke.dp_single()
+        smoke.dp_two_ranks()
+        print("[dp] done", flush=True)
 
         phase = "report"
         smoke.measure()

@@ -1,15 +1,23 @@
 """Histogram gradient-boosted decision trees, in PyTorch.
 
-The counterpart of ``rabit_tpu/models/gbdt.py`` for one device.  Features
-are quantized to ``n_bins`` integer bins once; every boosting round grows
-one depth-``D`` tree level by level from (node, feature, bin) gradient
-histograms.  Two rounds compute the same trees:
+The counterpart of ``rabit_tpu/models/gbdt.py``.  Features are quantized to
+``n_bins`` integer bins once; every boosting round grows one depth-``D``
+tree level by level from (node, feature, bin) gradient histograms.  Two
+rounds compute the same trees:
 
-* ``train_round`` -- the reference, on the CPU: exact-f32 histograms per
-  level (``ops.hist``), row routing and leaf sums in plain PyTorch.
-* ``train_round_fused`` -- the main path: the fused row passes of
-  ``ops.boost`` (hand-written CUDA kernels on a CUDA device, their plain
-  versions on the CPU), with leaf masses read off the last histogram.
+* ``train_round`` -- the hook-based round: one histogram per level
+  (``ops.hist.node_histograms``: the CUDA kernel on a card, the exact-f32
+  scatter on the CPU) passed through the ``hist_fn`` hook, row routing by
+  gathers, leaf sums (``ops.hist.segment_sum``) through ``combine_leaf``.
+  The hooks are the round's only communication points.
+* ``train_round_fused`` -- the fused row passes of ``ops.boost``
+  (hand-written CUDA kernels on a CUDA device, their plain versions on the
+  CPU), with leaf masses read off the last histogram.
+
+Across processes (``torch.distributed``; NCCL for CUDA tensors, gloo for
+CPU ones) ``train_round_dp`` and ``train_round_dp_fused`` sum each level's
+histogram with one ``all_reduce``; ``GBDT(engine_allreduce=...)`` is the
+rabit-classic pattern, where a host hook combines numpy histograms.
 
 Entry points run on ``"cuda"`` unless the caller passes ``device="cpu"``;
 asking for CUDA where there is no card raises.  A ``Forest`` and a
@@ -20,11 +28,13 @@ the bin edges they are the model's parameters.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from rabit_tpu_torch import elastic
 from rabit_tpu_torch.ops import boost
 from rabit_tpu_torch.ops import hist as _hist
 
@@ -214,36 +224,55 @@ def _padded(x: torch.Tensor, size: int) -> torch.Tensor:
     return out
 
 
+def _identity(a: torch.Tensor) -> torch.Tensor:
+    return a
+
+
 def train_round(state: TrainState, xb: torch.Tensor, y: torch.Tensor,
-                cfg: GBDTConfig) -> TrainState:
-    """Grow one tree on the CPU with exact-f32 histograms; the reference for
-    train_round_fused."""
+                cfg: GBDTConfig,
+                hist_fn: Callable[..., torch.Tensor] | None = None,
+                combine_leaf: Callable[[torch.Tensor], torch.Tensor] = _identity,
+                ) -> TrainState:
+    """Grow one tree on (this shard of) the data and append it to the
+    forest.  ``xb`` is the unblocked [n, F] bin matrix.
+
+    ``hist_fn(xb, g, h, node, n_nodes, n_bins) -> [n_nodes, F, B, 2]`` is
+    the histogram-build-and-allreduce hook (default: this process's
+    histogram, ``ops.hist.node_histograms`` with ``cfg.mxu_i8``);
+    ``combine_leaf`` takes the [2**depth, 2] leaf (g, h) masses.  These
+    hooks are the round's only communication points.  On the CPU with the
+    default hook this is the exact-f32 reference of train_round_fused."""
+    if hist_fn is None:
+        hist_fn = lambda xb_, g_, h_, node_, nn, nb: _hist.node_histograms(
+            xb_, g_, h_, node_, nn, nb, mxu_i8=cfg.mxu_i8)
     n, F = xb.shape
     max_nodes = 2 ** (cfg.depth - 1)
     g, h = gradients(cfg, state.margin, y)
     node = torch.zeros(n, dtype=torch.int32, device=xb.device)
     feats, thrs = [], []
     for d in range(cfg.depth):
-        hist = _hist.node_histograms(xb, g, h, node, 2 ** d, cfg.n_bins)
+        hist = hist_fn(xb, g, h, node, 2 ** d, cfg.n_bins)
         feat, thr, _ = best_splits(hist, cfg)
         feats.append(_padded(feat, max_nodes))
         thrs.append(_padded(thr, max_nodes))
-        p = node.long()
-        xv = xb.gather(1, feat.long()[p][:, None])[:, 0]
-        node = node * 2 + (xv > thr[p]).to(torch.int32)
+        node = boost._route(xb, node, feat, thr)  # right iff bin > threshold
     leaf_gh = _hist.segment_sum(torch.stack([g, h], -1), node, 2 ** cfg.depth)
-    leaf = _leaf_weights(cfg, leaf_gh)
+    leaf = _leaf_weights(cfg, combine_leaf(leaf_gh))
     return _append_tree(state, feats, thrs, leaf, state.margin + leaf[node.long()])
 
 
 def train_round_fused(state: TrainState, xb3: torch.Tensor, y: torch.Tensor,
-                      cfg: GBDTConfig) -> TrainState:
+                      cfg: GBDTConfig,
+                      combine: Callable[[torch.Tensor], torch.Tensor] = _identity,
+                      ) -> TrainState:
     """One boosting round through the fused row passes of ``ops.boost``:
     ``hist_level0``, then per level ``best_splits`` and ``hist_level``
     (route + histogram in one pass), leaf masses off the last histogram
     (``split_child_masses``), and ``route_level`` + ``margin += leaf[node]``
     or, with ``cfg.fused_final``, ``route_margin_level``.  ``xb3`` is the
-    pre-blocked bin matrix from ``ops.boost.block_rows``."""
+    pre-blocked bin matrix from ``ops.boost.block_rows``.  ``combine`` is
+    the histogram allreduce hook, one call per level (the leaf masses come
+    off the last combined histogram, so there is no leaf collective)."""
     n = y.shape[0]
     block = xb3.shape[1]
     max_nodes = 2 ** (cfg.depth - 1)
@@ -254,8 +283,8 @@ def train_round_fused(state: TrainState, xb3: torch.Tensor, y: torch.Tensor,
         raise ValueError(
             f"train_round_fused: {n} rows block into {g3.shape[0]} blocks of "
             f"{block}, but xb3 has {xb3.shape[0]} blocks")
-    hist = boost.hist_level0(xb3, g3, h3, n_bins=cfg.n_bins, mxu_i8=cfg.mxu_i8,
-                             r_split=cfg.r_split)
+    hist = combine(boost.hist_level0(xb3, g3, h3, n_bins=cfg.n_bins,
+                                     mxu_i8=cfg.mxu_i8, r_split=cfg.r_split))
     feat, thr, _ = best_splits(hist, cfg)
     feats, thrs = [_padded(feat, max_nodes)], [_padded(thr, max_nodes)]
     node3 = torch.zeros(g3.shape, dtype=torch.int32, device=g3.device)
@@ -263,6 +292,7 @@ def train_round_fused(state: TrainState, xb3: torch.Tensor, y: torch.Tensor,
         hist, node3 = boost.hist_level(xb3, node3, g3, h3, feat, thr, depth=d,
                                        n_bins=cfg.n_bins, mxu_i8=cfg.mxu_i8,
                                        r_split=cfg.r_split)
+        hist = combine(hist)
         feat, thr, _ = best_splits(hist, cfg)
         feats.append(_padded(feat, max_nodes))
         thrs.append(_padded(thr, max_nodes))
@@ -276,6 +306,77 @@ def train_round_fused(state: TrainState, xb3: torch.Tensor, y: torch.Tensor,
         node3 = boost.route_level(xb3, node3, feat, thr, depth=cfg.depth)
         margin = state.margin + leaf[boost.unblock_rows(node3, n).long()]
     return _append_tree(state, feats, thrs, leaf, margin)
+
+
+# -- data-parallel rounds ------------------------------------------------------------
+
+
+def _all_reduce(a: torch.Tensor, group) -> torch.Tensor:
+    dist.all_reduce(a, op=dist.ReduceOp.SUM, group=group)
+    return a
+
+
+def train_round_dp(state: TrainState, xb: torch.Tensor, y: torch.Tensor,
+                   cfg: GBDTConfig, dp_group=None, fp_group=None) -> TrainState:
+    """train_round across processes: this process holds a shard of the
+    rows, and each level's histogram is summed with one ``all_reduce`` over
+    ``dp_group``, plus one for the leaf masses.
+
+    JAX's mesh axes become process groups: ``dp_axis`` is ``dp_group``
+    (None: the default group, every process), and ``fp_axis`` is
+    ``fp_group``, whose members hold the same rows.  With ``fp_group`` each
+    member histograms only its ``F // fp_size`` feature slice (the compute
+    splits), then the slices are summed over ``dp_group`` and gathered
+    along the feature axis over ``fp_group``; the leaf masses are summed
+    over ``dp_group`` only.  ``dp_group`` must then be given: the default
+    group would add the fp copies too."""
+    if fp_group is None:
+        hist_fn = lambda xb_, g, h, node, nn, nb: _all_reduce(
+            _hist.node_histograms(xb_, g, h, node, nn, nb, mxu_i8=cfg.mxu_i8),
+            dp_group)
+    else:
+        if dp_group is None:
+            raise ValueError("train_round_dp with fp_group needs its dp_group")
+        fp_size = dist.get_world_size(fp_group)
+        fp_idx = dist.get_rank(fp_group)
+        f_local = cfg.n_features // fp_size
+        x_slice = xb[:, fp_idx * f_local:(fp_idx + 1) * f_local].contiguous()
+
+        def hist_fn(xb_, g, h, node, nn, nb):
+            sl = _all_reduce(_hist.node_histograms(x_slice, g, h, node, nn, nb,
+                                                   mxu_i8=cfg.mxu_i8), dp_group)
+            parts = [torch.empty_like(sl) for _ in range(fp_size)]
+            dist.all_gather(parts, sl, group=fp_group)
+            return torch.cat(parts, 1)
+
+    combine_leaf = lambda gh: _all_reduce(gh, dp_group)
+    return train_round(state, xb, y, cfg, hist_fn, combine_leaf)
+
+
+def train_round_dp_fused(state: TrainState, xb3: torch.Tensor, y: torch.Tensor,
+                         cfg: GBDTConfig, dp_group=None,
+                         wire_i8: bool = False) -> TrainState:
+    """train_round_fused across processes: this process holds a shard of
+    the row blocks (``xb3``, and ``y``/margin by rows), and each level's
+    histogram is summed exactly with one ``all_reduce`` over ``dp_group``
+    (the leaf masses ride the last one)."""
+    if wire_i8:
+        raise NotImplementedError(
+            "train_round_dp_fused(wire_i8=True): the quantized int8-wire ring "
+            "is not ported yet (ROADMAP.md Queue 1 item 6, compressed device "
+            "paths)")
+    return train_round_fused(state, xb3, y, cfg,
+                             combine=lambda a: _all_reduce(a, dp_group))
+
+
+def elastic_shard(X: np.ndarray, y: np.ndarray, world: int,
+                  rank: int) -> tuple[np.ndarray, np.ndarray]:
+    """This rank's rows of the full dataset under the dense elastic
+    partition (``elastic.shard_slice``): after a world resize every rank
+    re-cuts with the new ``(world, rank)``, and the shards' histogram sums
+    keep covering every row."""
+    sl = elastic.shard_slice(len(X), world, rank)
+    return X[sl], y[sl]
 
 
 # -- prediction ----------------------------------------------------------------------
@@ -306,10 +407,19 @@ def predict_proba(forest: Forest, xb: torch.Tensor, cfg: GBDTConfig) -> torch.Te
 
 class GBDT:
     """Numpy-in, numpy-out trainer on one device: the fused kernels on CUDA,
-    the exact reference round on the CPU."""
+    the exact reference round on the CPU.
 
-    def __init__(self, device="cuda", **hyper):
+    ``engine_allreduce``: optional host allreduce hook ``np.ndarray ->
+    np.ndarray`` (e.g. the native TCP engine's), the rabit-classic
+    deployment where each process trains on its own shard and only
+    histograms cross the wire.  With it, ``fit`` runs ``train_round`` and
+    each level's histogram and the leaf masses leave the device, cross the
+    hook and come back: depth + 1 calls per tree."""
+
+    def __init__(self, engine_allreduce: Callable[[np.ndarray], np.ndarray]
+                 | None = None, device="cuda", **hyper):
         self.device = _device(device)
+        self._engine_allreduce = engine_allreduce
         self._hyper = hyper
         self.cfg: GBDTConfig | None = None
         self.forest: Forest | None = None
@@ -327,7 +437,13 @@ class GBDT:
         xb = self._bins(X)
         yt = torch.as_tensor(np.asarray(y, np.float32), device=self.device)
         state = warm_state or init_state(self.cfg, X.shape[0], self.device)
-        if self.device.type == "cuda":
+        if self._engine_allreduce is not None:
+            hook = self._cross_hook
+            hist_fn = lambda xb_, g, h, node, nn, nb: hook(_hist.node_histograms(
+                xb_, g, h, node, nn, nb, mxu_i8=self.cfg.mxu_i8))
+            for _ in range(self.cfg.n_trees):
+                state = train_round(state, xb, yt, self.cfg, hist_fn, hook)
+        elif self.device.type == "cuda":
             xb3, _ = boost.block_rows(xb)
             for _ in range(self.cfg.n_trees):
                 state = train_round_fused(state, xb3, yt, self.cfg)
@@ -337,6 +453,19 @@ class GBDT:
         self.forest = state.forest
         self._state = state
         return self
+
+    def _cross_hook(self, a: torch.Tensor) -> torch.Tensor:
+        """``a`` through the host hook, as f32 on this model's device."""
+        out = np.asarray(self._engine_allreduce(a.cpu().numpy()))
+        return torch.as_tensor(out, dtype=torch.float32, device=self.device)
+
+    def fit_shard(self, X: np.ndarray, y: np.ndarray, world: int, rank: int,
+                  warm_state: TrainState | None = None):
+        """Elastic-deployment fit: train on this rank's dense shard of the
+        full dataset (``elastic_shard``).  After a world resize, call again
+        with the new ``(world, rank)`` and the recovered ``warm_state``."""
+        Xs, ys = elastic_shard(X, y, world, rank)
+        return self.fit(Xs, ys, warm_state=warm_state)
 
     def predict_margin(self, X: np.ndarray) -> np.ndarray:
         if self.forest is None:

@@ -9,6 +9,7 @@ The counterpart of ``rabit_tpu/ops/boost.py``:
 * ``route_level``        -- route rows to their leaves (final pass).
 * ``route_margin_level`` -- route to the leaves and add ``leaf[node]`` to
   the margin (the fused final pass).
+* ``leaf_fit``           -- route to the leaves and sum (g, h) per leaf.
 
 Each wrapper takes pre-blocked ``(nb, R, .)`` tensors (``block_rows``),
 as the JAX wrappers do.  On a CUDA tensor it launches its kernel from
@@ -36,6 +37,7 @@ launches: collections.Counter = collections.Counter()
 
 _TINY = 1.1754944e-38   # smallest normal f32: the i8 scale's floor
 _MAX_BINS = 256         # the histogram kernel's threads own one bin each
+_MAX_GROUP = 255        # nodes a histogram block holds: ids staged as bytes
 _SMEM_LIMIT = 232448    # shared memory one H100 block may use (bytes)
 _SMEM_PER_SM = 233472   # an H100 SM's shared memory; a block reserves 1 KB
 _SMS = 132              # H100 SXM multiprocessors: sizes the grid from shapes
@@ -179,6 +181,23 @@ def route_margin_level_plain(xb3, node3, margin3, feat, thr, leaf, *,
     return margin3 + leaf[node3.long()], node3
 
 
+def leaf_fit_plain(xb3, node3, g3, h3, feat, thr, *, depth: int):
+    """Plain leaf fit, row block by row block in block order: the hi/lo-bf16
+    planes of the leaf gradient matrix summed over the block in f32, hi + lo,
+    added into the total."""
+    nb = xb3.shape[0]
+    n_leaves = 2 ** depth
+    total = torch.zeros(2 * n_leaves, device=xb3.device)
+    node_out = torch.empty_like(node3)
+    for i in range(nb):
+        node = _route(xb3[i], node3[i, :, 0], feat, thr)
+        node_out[i, :, 0] = node
+        L = _gradient_matrix(node, g3[i, :, 0], h3[i, :, 0], n_nodes=n_leaves)
+        l2, decode = _encode_bf16(L)
+        total += decode(l2.sum(0))
+    return torch.stack([total[:n_leaves], total[n_leaves:]], -1), node_out
+
+
 # -- kernel wrappers ---------------------------------------------------------------
 
 
@@ -224,8 +243,8 @@ def _lib(name: str):
     lib = _build.lib(name)
     P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     if name == "hist":
-        lib.hist_level.argtypes = [P] * 10 + [I] * 8 + [P]
-        lib.hist_level.restype = I
+        lib.hist_build.argtypes = [I] + [P] * 10 + [LL] + [I] * 8 + [P]
+        lib.hist_build.restype = I
         lib.hist_smem_bytes.argtypes = [I] * 5
         lib.hist_smem_bytes.restype = LL
     else:
@@ -233,54 +252,102 @@ def _lib(name: str):
         lib.route_level.restype = I
         lib.route_margin_level.argtypes = [P] * 8 + [LL, I, I, I, P]
         lib.route_margin_level.restype = I
+        lib.leaf_fit.argtypes = [P] * 9 + [I] * 6 + [P]
+        lib.leaf_fit.restype = I
+        lib.leaf_smem_bytes.argtypes = [I] * 3
+        lib.leaf_smem_bytes.restype = LL
     _bound[name] = lib
     return lib
 
 
-def _hist_chunks(nb: int, F: int, smem: int) -> int:
-    """Row-block chunks of the histogram grid (F x chunks blocks): at most
-    two full waves of the blocks that fit on the card's SMs at this
-    shared-memory size (at most 4 a SM, the kernel's launch bound), so no
-    third wave runs nearly empty; and no empty chunk."""
+def _hist_chunks(nb: int, cols: int, smem: int) -> int:
+    """Row-block chunks of the histogram grid (``cols`` = features x node
+    groups blocks per chunk): at most two full waves of the blocks that fit
+    on the card's SMs at this shared-memory size (at most 4 a SM, the
+    kernel's launch bound), so no third wave runs nearly empty; and no empty
+    chunk."""
     per_sm = max(1, min(4, _SMEM_PER_SM // (smem + 1024)))
-    target = max(1, min(nb, 2 * _SMS * per_sm // F))
+    target = max(1, min(nb, 2 * _SMS * per_sm // cols))
     per = -(-nb // target)
     return -(-nb // per)
 
 
+def _hist_groups(lib, i8: bool, n_nodes: int, n_bins: int, R: int,
+                 n_prev: int):
+    """Nodes per block of the histogram grid: the most whose accumulators
+    fit in one block's shared memory beside the staged rows and split
+    tables (at most ``_MAX_GROUP``), spread evenly over the fewest groups.
+    Returns (group_nodes, n_groups, smem bytes)."""
+    smem = lambda k: lib.hist_smem_bytes(int(i8), k, n_bins, R, n_prev)
+    if smem(1) > _SMEM_LIMIT:
+        raise ValueError(f"one node x {n_bins} bins at row block {R} with "
+                         f"{n_prev}-entry split tables needs {smem(1)} B of "
+                         f"shared memory, over {_SMEM_LIMIT}")
+    lo, hi = 1, min(n_nodes, _MAX_GROUP)
+    while lo < hi:  # the largest group that fits
+        mid = (lo + hi + 1) // 2
+        lo, hi = (mid, hi) if smem(mid) <= _SMEM_LIMIT else (lo, mid - 1)
+    n_groups = -(-n_nodes // lo)
+    group = -(-n_nodes // n_groups)
+    return group, n_groups, smem(group)
+
+
+_MODE = {"root": 0, "route": 1, "nodes": 2}  # csrc/hist.cu hist_build modes
+
+
+def hist_launch(mode: str, xb, node, g, h, feat, thr, node_out, *,
+                n_rows: int, block: int, n_nodes: int, n_bins: int, i8: bool,
+                name: str) -> torch.Tensor:
+    """Launch csrc/hist.cu on checked, contiguous CUDA tensors: xb holds
+    ``n_rows`` rows of F bins in row blocks of ``block`` rows (pre-blocked
+    or not: the same bytes), the last one possibly short in the "nodes"
+    mode.  Returns the [n_nodes, F, n_bins, 2] histogram and counts the
+    launch under ``name``."""
+    F = xb.shape[-1]
+    if n_bins > _MAX_BINS or block % 256 or block > 65536:
+        raise ValueError(f"histogram kernel needs n_bins <= {_MAX_BINS} and a "
+                         f"row block that is a multiple of 256 up to 65536 "
+                         f"(got {n_bins}, {block})")
+    if mode != "nodes" and n_rows % block:
+        raise ValueError(f"{mode} mode takes whole row blocks ({n_rows} rows, "
+                         f"block {block})")
+    dev = xb.device
+    if n_rows == 0 or F == 0:
+        return torch.zeros((n_nodes, F, n_bins, 2), device=dev)
+    out = torch.empty((n_nodes, F, n_bins, 2), device=dev)
+    lib = _lib("hist")
+    n_prev = 0 if feat is None else feat.shape[0]
+    group, n_groups, smem = _hist_groups(lib, i8, n_nodes, n_bins, block, n_prev)
+    nb = -(-n_rows // block)
+    n_chunks = _hist_chunks(nb, F * n_groups, smem)
+    scale = torch.empty(nb, device=dev) if i8 else None
+    partial = torch.empty((n_chunks, n_nodes, F, n_bins, 2), device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.hist_build(_MODE[mode], _ptr(xb), _ptr(node), _ptr(g), _ptr(h),
+                            _ptr(feat), _ptr(thr), _ptr(node_out), _ptr(scale),
+                            _ptr(partial), _ptr(out), n_rows, block, F, n_bins,
+                            n_nodes, n_prev, group, n_chunks, int(i8), stream)
+    _check(rc, name)
+    launches[name] += 1
+    return out
+
+
 def _hist_cuda(xb3, node3, g3, h3, feat, thr, *, n_nodes, n_bins, i8, name):
     nb, R, F = xb3.shape
-    n_prev = 0 if node3 is None else n_nodes // 2
     _expect(xb3, "xb3", (nb, R, F), torch.int32)
     _expect(g3, "g3", (nb, R, 1), torch.float32)
     _expect(h3, "h3", (nb, R, 1), torch.float32)
+    node_out = None
     if node3 is not None:
+        n_prev = n_nodes // 2
         _expect(node3, "node3", (nb, R, 1), torch.int32)
         _expect(feat, "feat", (n_prev,), torch.int32)
         _expect(thr, "thr", (n_prev,), torch.int32)
-    if n_bins > _MAX_BINS or R % 256 or R > 65536:
-        raise ValueError(f"histogram kernel needs n_bins <= {_MAX_BINS} and a "
-                         f"row block that is a multiple of 256 up to 65536 "
-                         f"(got {n_bins}, {R})")
-    lib = _lib("hist")
-    smem = lib.hist_smem_bytes(int(i8), n_nodes, n_bins, R, n_prev)
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"{n_nodes} nodes x {n_bins} bins need {smem} B of "
-                         f"shared memory per block, over {_SMEM_LIMIT}")
-    n_chunks = _hist_chunks(nb, F, smem)
-    dev = xb3.device
-    scale = torch.empty(nb, device=dev) if i8 else None
-    partial = torch.empty((n_chunks, n_nodes, F, n_bins, 2), device=dev)
-    out = torch.empty((n_nodes, F, n_bins, 2), device=dev)
-    node_out = None if node3 is None else torch.empty_like(node3)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.hist_level(_ptr(xb3), _ptr(node3), _ptr(g3), _ptr(h3),
-                            _ptr(feat), _ptr(thr), _ptr(node_out), _ptr(scale),
-                            _ptr(partial), _ptr(out), nb, R, F, n_bins,
-                            n_nodes, n_prev, n_chunks, int(i8), stream)
-    _check(rc, name)
-    launches[name] += 1
+        node_out = torch.empty_like(node3)
+    out = hist_launch("root" if node3 is None else "route", xb3, node3, g3, h3,
+                      feat, thr, node_out, n_rows=nb * R, block=R,
+                      n_nodes=n_nodes, n_bins=n_bins, i8=i8, name=name)
     return out, node_out
 
 
@@ -373,3 +440,47 @@ def route_margin_level(xb3, node3, margin3, feat, thr, leaf, *, depth: int):
     _check(rc, "route_margin_level")
     launches["route_margin_level"] += 1
     return margin_out, node_out
+
+
+def leaf_fit(xb3, node3, g3, h3, feat, thr, *, depth: int):
+    """Route rows to their leaves and sum (g, h) per leaf in the hi/lo-bf16
+    planes; returns ([2**depth, 2], leaf_node3).  ``feat``/``thr`` are the
+    level-(depth-1) split tables.  No training round calls it: the rounds
+    read leaf masses off the last histogram (``split_child_masses``).
+
+    Replaces rabit_tpu/ops/boost.py leaf_fit (_leaf_kernel).  Bound on an
+    H100 by device memory: one bin per row, node, g and h in, leaf id out;
+    design in csrc/route.cu."""
+    if not _on_cuda(xb3, node3, g3, h3, feat, thr):
+        return leaf_fit_plain(xb3, node3, g3, h3, feat, thr, depth=depth)
+    nb, R, F = xb3.shape
+    n_leaves = 2 ** depth
+    _route_checks(xb3, node3, feat, thr, depth)
+    _expect(g3, "g3", (nb, R, 1), torch.float32)
+    _expect(h3, "h3", (nb, R, 1), torch.float32)
+    if R % 256:
+        raise ValueError(f"leaf_fit needs a row block that is a multiple of "
+                         f"256 (got {R})")
+    lib = _lib("route")
+    acc_warps = next((w for w in (8, 4, 2, 1)
+                      if lib.leaf_smem_bytes(R, n_leaves, w) <= _SMEM_LIMIT), 0)
+    if not acc_warps:
+        raise ValueError(f"leaf_fit: {n_leaves} leaves at row block {R} need "
+                         f"{lib.leaf_smem_bytes(R, n_leaves, 1)} B of shared "
+                         f"memory, over {_SMEM_LIMIT}")
+    dev = xb3.device
+    node_out = torch.empty_like(node3)
+    if nb == 0:
+        return torch.zeros((n_leaves, 2), device=dev), node_out
+    out = torch.empty((n_leaves, 2), device=dev)
+    per = -(-nb // min(nb, 2 * _SMS))  # chunks from the shapes alone
+    n_chunks = -(-nb // per)
+    partial = torch.empty((n_chunks, n_leaves, 2), device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.leaf_fit(_ptr(xb3), _ptr(node3), _ptr(g3), _ptr(h3), _ptr(feat),
+                          _ptr(thr), _ptr(node_out), _ptr(partial), _ptr(out),
+                          nb, R, F, n_leaves, acc_warps, n_chunks, stream)
+    _check(rc, "leaf_fit")
+    launches["leaf_fit"] += 1
+    return out, node_out

@@ -7,9 +7,11 @@ there on its own:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -m gpu
 
 The plain versions themselves are held against the JAX package on the CPU
-in test_torch_boost.py and test_torch_gbdt.py.  Tolerances: histograms
-rtol=1e-5, atol=1e-5 (the kernel sums in another order); node ids and
-margins exact.
+in test_torch_boost.py, test_torch_gbdt.py, test_torch_hist.py and
+test_torch_dp.py.  Tolerances: histograms and leaf masses rtol=1e-5,
+atol=1e-5 against the plain twins (the kernel sums in another order); node
+ids and margins exact; rounds on the card against the CPU's exact-f32
+round as tests/test_gbdt.py holds the fused rounds.
 """
 
 import numpy as np
@@ -109,3 +111,188 @@ def test_fused_round_on_card_matches_cpu(cuda, mxu_i8, fused_final):
     np.testing.assert_array_equal(got.feature, ref.feature)
     np.testing.assert_array_equal(got.threshold, ref.threshold)
     np.testing.assert_allclose(got.leaf, ref.leaf, rtol=1e-4, atol=1e-5)
+
+
+def _node_inputs(seed, n, n_nodes, n_bins, device):
+    rng = np.random.RandomState(seed)
+    t = lambda a: torch.as_tensor(a, device=device)
+    return (t(rng.randint(0, n_bins, size=(n, F)).astype(np.int32)),
+            t(rng.randn(n).astype(np.float32)), t(rng.rand(n).astype(np.float32)),
+            t(rng.randint(0, n_nodes, size=n).astype(np.int32)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mxu_i8", [False, True])
+def test_node_histograms_kernel_matches_plain(cuda, mxu_i8):
+    """Given node ids, a short last row block (600 = 2 x 256 + 88), node
+    counts from one to several groups of the grid (64 and 128 nodes of 256
+    bins need more than one block's shared memory), and foreign ids."""
+    from rabit_tpu_torch.ops import hist
+
+    for seed, n_nodes, n_bins in ((1, 1, B), (2, 7, B), (3, 64, 256), (4, 128, 256)):
+        xb, g, h, node = _node_inputs(seed, N, n_nodes, n_bins, cuda)
+        node[::13] = n_nodes  # out of range: adds nothing
+        boost.launches.clear()
+        got = hist.node_histograms_kernel(xb, g, h, node, n_nodes, n_bins,
+                                          block_rows=BLOCK, mxu_i8=mxu_i8)
+        assert boost.launches["node_histograms_kernel"] == 1
+        ref = hist.node_histograms_kernel_plain(xb, g, h, node, n_nodes, n_bins,
+                                                block_rows=BLOCK, mxu_i8=mxu_i8)
+        torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mxu_i8", [False, True])
+def test_node_histograms_kernel_is_deterministic(cuda, mxu_i8):
+    from rabit_tpu_torch.ops import hist
+
+    xb, g, h, node = _node_inputs(5, 5000, 8, 256, cuda)
+    a = hist.node_histograms_kernel(xb, g, h, node, 8, 256, mxu_i8=mxu_i8)
+    b = hist.node_histograms_kernel(xb, g, h, node, 8, 256, mxu_i8=mxu_i8)
+    assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("depth", [1, 3, 6])
+def test_leaf_fit_matches_plain(cuda, depth):
+    c = _inputs(50 + depth, depth, cuda)
+    args = [c[k] for k in ("xb3", "node3", "g3", "h3", "feat", "thr")]
+    boost.launches.clear()
+    gk, nk = boost.leaf_fit(*args, depth=depth)
+    assert boost.launches["leaf_fit"] == 1
+    gp, npl = boost.leaf_fit_plain(*args, depth=depth)
+    assert torch.equal(nk, npl)
+    assert torch.equal(nk, boost.route_level(*args[:2], *args[4:], depth=depth))
+    torch.testing.assert_close(gk, gp, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_hist_level_deeper_than_six_matches_plain(cuda):
+    """Levels of 64 and 128 nodes at 256 bins: more than one node group."""
+    rng = np.random.RandomState(60)
+    blk = lambda a: boost.block_rows(torch.as_tensor(a, device=cuda), BLOCK)[0]
+    xb3 = blk(rng.randint(0, 256, size=(N, F)).astype(np.int32))
+    g3 = blk(rng.randn(N).astype(np.float32))
+    h3 = blk(rng.rand(N).astype(np.float32))
+    for d in (6, 7):
+        n_prev = 2 ** (d - 1)
+        t = lambda a: torch.as_tensor(a, device=cuda)
+        node3 = t(rng.randint(0, n_prev, size=tuple(g3.shape)).astype(np.int32))
+        feat = t(rng.randint(0, F, size=n_prev).astype(np.int32))
+        thr = t(rng.randint(0, 256, size=n_prev).astype(np.int32))
+        for mxu_i8 in (False, True):
+            args = (xb3, node3, g3, h3, feat, thr)
+            got, gn = boost.hist_level(*args, depth=d, n_bins=256, mxu_i8=mxu_i8)
+            ref, rn = boost.hist_level_plain(*args, depth=d, n_bins=256,
+                                             mxu_i8=mxu_i8)
+            assert torch.equal(gn, rn)
+            torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5)
+
+
+def _kernel_splits(hk, hp, cfg):
+    """Split tables from the kernel's histogram.  Where one differs from
+    the best split of the plain histogram, the two are a near tie there:
+    gains within 1e-4 of the larger (the sums run in another order)."""
+    fk, tk, _ = gbdt.best_splits(hk, cfg)
+    fp, tp, _ = gbdt.best_splits(hp, cfg)
+    gains = gbdt.split_gains(hp, cfg)
+    n_bins = hk.shape[2]
+    for nd in torch.nonzero((fk != fp) | (tk != tp)).flatten().tolist():
+        a = float(gains[nd, int(fk[nd]) * n_bins + int(tk[nd])])
+        b = float(gains[nd, int(fp[nd]) * n_bins + int(tp[nd])])
+        assert abs(a - b) <= 1e-4 * max(abs(a), abs(b)), (nd, a, b)
+    return fk, tk
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mxu_i8", [False, True])
+def test_depth8_fused_round_on_card_matches_plain(cuda, mxu_i8):
+    """A depth-8 fused round (levels of up to 128 nodes x 256 bins: several
+    node groups) on the card, teacher-forced: each level's histogram and
+    node ids match the plain path's on the same inputs, a differing split
+    is a near tie, and train_round_fused grows the teacher-forced tree."""
+    rng = np.random.RandomState(8)
+    n, n_bins, depth = 4000, 256, 8
+    xb = rng.randint(0, n_bins, size=(n, F)).astype(np.int32)
+    y = (xb[:, 0] + rng.randint(0, 64, size=n) > 160).astype(np.float32)
+    cfg = gbdt.GBDTConfig(n_features=F, n_trees=1, depth=depth, n_bins=n_bins,
+                          mxu_i8=mxu_i8, min_child_weight=0.5)
+    xb3, _ = boost.block_rows(torch.as_tensor(xb, device=cuda), BLOCK)
+    yt = torch.as_tensor(y, device=cuda)
+    state = gbdt.init_state(cfg, n, cuda)
+    g, h = gbdt.gradients(cfg, state.margin, yt)
+    g3, _ = boost.block_rows(g, BLOCK)
+    h3, _ = boost.block_rows(h, BLOCK)
+    kw = dict(n_bins=n_bins, mxu_i8=mxu_i8)
+    hk = boost.hist_level0(xb3, g3, h3, **kw)
+    hp = boost.hist_level0_plain(xb3, g3, h3, **kw)
+    torch.testing.assert_close(hk, hp, rtol=1e-5, atol=1e-5)
+    feat, thr = _kernel_splits(hk, hp, cfg)
+    feats, thrs = [feat], [thr]
+    node3 = torch.zeros(g3.shape, dtype=torch.int32, device=cuda)
+    for d in range(1, depth):
+        args = (xb3, node3, g3, h3, feat, thr)
+        hk, nk = boost.hist_level(*args, depth=d, **kw)
+        hp, npl = boost.hist_level_plain(*args, depth=d, **kw)
+        assert torch.equal(nk, npl)
+        torch.testing.assert_close(hk, hp, rtol=1e-5, atol=1e-5)
+        feat, thr = _kernel_splits(hk, hp, cfg)
+        feats.append(feat)
+        thrs.append(thr)
+        node3 = nk
+    s = gbdt.train_round_fused(state, xb3, yt, cfg)
+    for d in range(depth):
+        assert torch.equal(s.forest.feature[0, d, :2 ** d], feats[d])
+        assert torch.equal(s.forest.threshold[0, d, :2 ** d], thrs[d])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mxu_i8", [False, True])
+def test_train_round_on_card_matches_cpu(cuda, mxu_i8):
+    """The hook-based round on the card (the histogram kernel, the one-hot
+    leaf sums) grows the CPU's exact-f32 round's trees; leaves within the
+    encodings' tolerance (tests/test_gbdt.py's fused-round gates)."""
+    rng = np.random.RandomState(3)
+    xb = rng.randint(0, B, size=(N, F)).astype(np.int32)
+    y = rng.randint(0, 2, size=N).astype(np.float32)
+    cfg = gbdt.GBDTConfig(n_features=F, n_trees=3, depth=3, n_bins=B,
+                          mxu_i8=mxu_i8)
+    states = {}
+    boost.launches.clear()
+    for dev in ("cpu", cuda):
+        s = gbdt.init_state(cfg, N, dev)
+        for _ in range(cfg.n_trees):
+            s = gbdt.train_round(s, torch.as_tensor(xb, device=dev),
+                                 torch.as_tensor(y, device=dev), cfg)
+        states[str(dev)] = gbdt.forest_to_numpy(s.forest)
+    assert dict(boost.launches) == {"node_histograms_kernel": 3 * 3}
+    got, ref = states["cuda"], states["cpu"]
+    np.testing.assert_array_equal(got.feature, ref.feature)
+    np.testing.assert_array_equal(got.threshold, ref.threshold)
+    tol = dict(rtol=5e-3, atol=5e-3) if mxu_i8 else dict(rtol=1e-3, atol=1e-5)
+    np.testing.assert_allclose(got.leaf, ref.leaf, **tol)
+
+
+@pytest.mark.gpu
+def test_gbdt_engine_hook_on_card(cuda):
+    """GBDT(engine_allreduce=...) on the card: depth + 1 hook calls per tree,
+    histograms from the kernel, the CPU hook run's forest."""
+    rng = np.random.RandomState(0)
+    X = rng.randn(N, F).astype(np.float32)
+    y = (X[:, 0] * X[:, 1] > 0).astype(np.float32)
+    calls = []
+
+    def hook(a):
+        calls.append(a.shape)
+        return a
+
+    hyper = dict(n_trees=2, depth=3, n_bins=B)
+    boost.launches.clear()
+    gm = gbdt.GBDT(engine_allreduce=hook, device=cuda, **hyper).fit(X, y)
+    assert len(calls) == 2 * (3 + 1)
+    assert boost.launches["node_histograms_kernel"] == 2 * 3
+    cm = gbdt.GBDT(engine_allreduce=lambda a: a, device="cpu", **hyper).fit(X, y)
+    got, ref = gbdt.forest_to_numpy(gm.forest), gbdt.forest_to_numpy(cm.forest)
+    np.testing.assert_array_equal(got.feature, ref.feature)
+    np.testing.assert_array_equal(got.threshold, ref.threshold)
+    np.testing.assert_allclose(got.leaf, ref.leaf, rtol=1e-3, atol=1e-5)

@@ -191,7 +191,7 @@ def test_scatter_histogram_matches_jax():
 def test_hist_dispatcher_refuses_other_devices():
     meta = torch.empty((4, F), dtype=torch.int32, device="meta")
     v = torch.empty(4, device="meta")
-    with pytest.raises(NotImplementedError, match="_hist_kernel"):
+    with pytest.raises(NotImplementedError, match="no histogram for device meta"):
         thist.node_histograms(meta, v, v, v.int(), 1, B)
 
 
@@ -218,7 +218,11 @@ def test_port_imports_no_jax():
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'rabit_tpu' or m.startswith('rabit_tpu.')]\n"
-        "assert 'rabit_tpu_torch.models.gbdt' in sys.modules\n"
+        "for m in ('rabit_tpu_torch.models.gbdt', 'rabit_tpu_torch.ops.hist',\n"
+        "          'rabit_tpu_torch.elastic', 'torch.distributed'):\n"
+        "    assert m in sys.modules, m\n"
+        "from rabit_tpu_torch.models import gbdt\n"
+        "assert callable(gbdt.train_round_dp) and callable(gbdt.train_round_dp_fused)\n"
         "print(bad)\n"
     )
     root = pathlib.Path(__file__).resolve().parents[1]
