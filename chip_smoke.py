@@ -11,10 +11,11 @@ Phases, each of which exits non-zero when it fails:
 3. kernels -- each kernel against its plain PyTorch version on the same
               inputs at the headline size (1M rows x 28 features x 256
               bins, bench.py's generator, seed 0), both histogram
-              encodings: hist_level at every depth of a depth-6 tree and at
-              64 and 128 nodes (more than one node group), the histogram
-              for given node ids at the node ids of a real round's levels
-              (the last row block short), and leaf_fit.
+              encodings: hist_level at every depth of a depth-8 tree (up to
+              128 nodes), the histogram for given node ids at the node ids
+              of a real round's levels d = 0..7 (the last row block
+              short), the histogram path's helpers (hist_prep,
+              hist_partition: exactly), and leaf_fit.
 4. main    -- the fused boosting round (train_round_fused) at that size,
               for bf16 and i8 and both final passes: 1 warm-up and 3 timed
               rounds, launch counts per kernel, and every level held
@@ -33,12 +34,16 @@ Phases, each of which exits non-zero when it fails:
               (rows split by elastic_shard): identical forests on both
               ranks, the single-process round's splits but for printed near
               ties.
-8. report  -- a {"kernels": [...]} line with each kernel's time, launches,
-              bound, plain-version time and library-call time.
+8. report  -- per-level times of the histogram kernels (d = 0..7, bf16
+              and i8) and of the helpers, and a {"kernels": [...]} line
+              with each kernel's time, launches, bound, plain-version time
+              and library-call time.
 
 Launches are counted per path (phases 4-7), each run with the counts set to
 0 just before it and read just after; the phase-3 comparisons and the
-phase-8 timings do not count.  The last line is {"ok": true, "device":
+phase-8 timings do not count.  The histogram kernels count in
+boost.launches, their helpers (one hist_prep and one hist_partition a
+histogram) in boost.helper_launches.  The last line is {"ok": true, "device":
 {...}}.  The script imports no JAX.
 """
 
@@ -48,6 +53,7 @@ import argparse
 import json
 import multiprocessing
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -72,6 +78,11 @@ REPLACES = {
     "route_margin_level": "rabit_tpu/ops/boost.py:260",
     "node_histograms_kernel": "rabit_tpu/ops/hist.py:157",
     "leaf_fit": "rabit_tpu/ops/boost.py:413",
+    # the histogram path's helpers: the routing, i8 block scale and encoding
+    # that the TPU kernels do inside _level_kernel (and _level0_kernel,
+    # _hist_kernel), split out on the card
+    "hist_prep": "rabit_tpu/ops/boost.py:374",
+    "hist_partition": "rabit_tpu/ops/boost.py:374",
 }
 SOURCE = {
     "hist_level0": "rabit_tpu_torch/csrc/hist.cu",
@@ -80,7 +91,11 @@ SOURCE = {
     "route_margin_level": "rabit_tpu_torch/csrc/route.cu",
     "node_histograms_kernel": "rabit_tpu_torch/csrc/hist.cu",
     "leaf_fit": "rabit_tpu_torch/csrc/route.cu",
+    "hist_prep": "rabit_tpu_torch/csrc/hist.cu",
+    "hist_partition": "rabit_tpu_torch/csrc/hist.cu",
 }
+HELPERS = ("hist_prep", "hist_partition")
+HIST_KERNELS = ("hist_level0", "hist_level", "node_histograms_kernel")
 
 
 class PhaseFailed(Exception):
@@ -120,6 +135,21 @@ def cuda_ms(torch, fn, reps: int) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def ptxas_summary(log: str) -> list[str]:
+    """One line per kernel of nvcc's -Xptxas -v report: the kernel's name
+    and template arguments, registers, shared memory and spills."""
+    out, name, spills = [], None, ""
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '.*?\d([a-z][a-z_]*_kernel)(I\w+?EE)?", line)
+        if m:
+            name, spills = m.group(1) + (m.group(2) or ""), ""
+        elif "spill" in line:
+            spills = line.strip()
+        elif "Used" in line and name:
+            out.append(f"{name}: {line.split(':', 1)[1].strip()}; {spills}")
+    return out
 
 
 def hist_err(got, ref) -> float:
@@ -197,17 +227,31 @@ class Smoke:
         xv = self.xb.gather(1, feat.long()[p][:, None])[:, 0]
         return node * 2 + (xv > thr[p]).to(self.torch.int32)
 
+    def clear_counts(self):
+        self.sync()
+        self.boost.launches.clear()
+        self.boost.helper_launches.clear()
+
+    def read_counts(self, n_hist: int):
+        """The kernels' launch counts since clear_counts, added to the
+        report's launches; the helpers must have run once a histogram."""
+        self.sync()
+        counts = dict(self.boost.launches)
+        helpers = dict(self.boost.helper_launches)
+        want = {k: n_hist for k in HELPERS} if n_hist else {}
+        require(helpers == want, f"helper launches {helpers}, expected {want}")
+        for k, v in {**counts, **helpers}.items():
+            self.launches[k] += v
+        return counts
+
     def path(self, fn):
         """Run one path with every launch count set to 0 just before it and
         read just after; adds them to the report's launches."""
-        self.sync()
-        self.boost.launches.clear()
+        self.clear_counts()
         out = fn()
         self.sync()
-        counts = dict(self.boost.launches)
-        for k, v in counts.items():
-            self.launches[k] += v
-        return out, counts
+        n_hist = sum(v for k, v in self.boost.launches.items() if k in HIST_KERNELS)
+        return out, self.read_counts(n_hist)
 
     # -- phase 3 ------------------------------------------------------------------
     def level_inputs(self, d: int):
@@ -268,8 +312,39 @@ class Smoke:
         print(f"  route_level: node ids equal; route_margin_level: node ids "
               f"equal, max |d margin| {merr:.3e}")
 
+    def check_helpers(self):
+        """hist_prep and hist_partition against their plain twins, exactly,
+        at a route level (d = 5, 32 nodes) and at a real round's node ids
+        (d = 5, the last row block short), both encodings."""
+        boost, torch = self.boost, self.torch
+        node3, feat, thr = self.level_inputs(5)
+        cpu = lambda a: None if a is None else a.cpu()
+        n_block = self.xb3.shape[0] * self.xb3.shape[1]
+        cases = (("route", self.xb3, node3, self.g3, self.h3, feat, thr, n_block),
+                 ("nodes", self.xb, self.levels[5][0], self.g, self.h, None, None,
+                  self.n_rows))
+        for mode, xb, node, g, h, ft, th, n in cases:
+            for i8 in (False, True):
+                kw = dict(n_rows=n, block=1024, n_nodes=32, i8=i8)
+                key, counts, scale = boost.hist_prep(mode, xb, node, g, h, ft, th, **kw)
+                part = boost.hist_partition(key, g, h, counts, scale, **kw)
+                rk, rc, rs = boost.hist_prep_plain(mode, *map(cpu, (xb, node, g, h, ft, th)),
+                                                   **kw)
+                rp = boost.hist_partition_plain(rk, g.cpu(), h.cpu(), rc, rs, **kw)
+                n_listed, n_chunks = int(rp.node_base[-1]), int(rp.node_chunk0[-1])
+                same = (torch.equal(key.cpu().reshape(-1), rk) and torch.equal(counts.cpu(), rc)
+                        and (scale is None or torch.equal(scale.cpu(), rs))
+                        and torch.equal(part.node_base.cpu(), rp.node_base)
+                        and torch.equal(part.node_chunk0.cpu(), rp.node_chunk0)
+                        and torch.equal(part.chunk_begin[:n_chunks].cpu(), rp.chunk_begin)
+                        and torch.equal(part.perm[:n_listed].cpu(), rp.perm)
+                        and torch.equal(part.planes[:n_listed].cpu(), rp.planes))
+                print(f"  hist_prep + hist_partition {mode} d=5 {'i8' if i8 else 'bf16'}: "
+                      f"{n_listed} rows in {n_chunks} chunks, equal to the plain twins: {same}")
+                require(same, f"the histogram helpers ({mode}) disagree with their twins")
+
     def check_deep_levels(self):
-        """hist_level at 64 and 128 nodes: more than one node group."""
+        """hist_level at 64 and 128 nodes (d = 6, 7)."""
         boost = self.boost
         for d in (DEPTH, DEPTH + 1):
             node3, feat, thr = self.level_inputs(d)
@@ -288,12 +363,13 @@ class Smoke:
 
     def real_levels(self):
         """The node ids, histograms and split tables of a real round's
-        levels (train_round's loop on the card, bf16, seeded margin)."""
+        levels d = 0..DEEP-1 (train_round's loop on the card, bf16, seeded
+        margin)."""
         torch, gbdt = self.torch, self.gbdt
-        cfg = gbdt.GBDTConfig(n_features=N_FEATURES, depth=DEPTH, n_bins=N_BINS)
+        cfg = gbdt.GBDTConfig(n_features=N_FEATURES, depth=DEEP, n_bins=N_BINS)
         node = torch.zeros(self.n_rows, dtype=torch.int32, device=self.dev)
         levels = []
-        for d in range(DEPTH):
+        for d in range(DEEP):
             hist = self.hist.node_histograms_kernel(self.xb, self.g, self.h, node,
                                                     2 ** d, N_BINS)
             feat, thr, _ = gbdt.best_splits(hist, cfg)
@@ -303,7 +379,7 @@ class Smoke:
 
     def check_node_kernel(self):
         """The histogram for given node ids at a real round's node ids,
-        d = 0..5 (1-32 nodes); the last row block is short."""
+        d = 0..7 (1-128 nodes); the last row block is short."""
         hist = self.hist
         self.levels = self.real_levels()
         for i8 in (False, True):
@@ -322,7 +398,7 @@ class Smoke:
     def leaf_inputs(self):
         """leaf_fit's inputs from the real round: the last level's node ids
         (blocked) and split tables."""
-        node, hist, feat, thr = self.levels[-1]
+        node, hist, feat, thr = self.levels[DEPTH - 1]
         node3, _ = self.boost.block_rows(node)
         return (self.xb3, node3, self.g3, self.h3, feat, thr), hist
 
@@ -399,18 +475,15 @@ class Smoke:
         state = gbdt.init_state(cfg, self.n_rows, self.dev)
         state = gbdt.train_round_fused(state, self.xb3, self.y, cfg)  # warm-up
         warm = state
-        self.sync()
-        boost.launches.clear()
+        self.clear_counts()
         t0 = time.perf_counter()
         for _ in range(3):
             state = gbdt.train_round_fused(state, self.xb3, self.y, cfg)
         self.sync()
         ms = (time.perf_counter() - t0) * 1e3 / 3
-        counts = dict(boost.launches)
+        counts = self.read_counts(3 * DEPTH)
         want = {"hist_level0": 3, "hist_level": 3 * (DEPTH - 1), final: 3}
         require(counts == want, f"launch counts {counts}, expected {want}")
-        for k, v in counts.items():
-            self.launches[k] += v
         require(bool(torch.isfinite(state.margin).all()), "non-finite margin")
         # the same round (from the warm state), level by level
         feats, thrs = self.teacher_forced(warm, cfg)
@@ -431,12 +504,12 @@ class Smoke:
         X = self.xb.cpu().numpy().astype(np.float32)
         y = self.y.cpu().numpy()
         model = gbdt.GBDT(device=self.dev, n_trees=3, depth=DEPTH, n_bins=N_BINS)
-        boost.launches.clear()
+        self.clear_counts()
         t0 = time.perf_counter()
         model.fit(X, y)
         self.sync()
         fit_s = time.perf_counter() - t0
-        counts = dict(boost.launches)
+        counts = self.read_counts(3 * DEPTH)
         want = {"hist_level0": 3, "hist_level": 3 * (DEPTH - 1), "route_level": 3}
         require(counts == want, f"GBDT.fit launch counts {counts}, expected {want}")
         margin = model.predict_margin(X)
@@ -701,42 +774,43 @@ class Smoke:
             out = torch.zeros(n_seg * N_FEATURES * N_BINS, 2, device=self.dev)
             return cuda_ms(torch, lambda: out.zero_().index_add_(0, seg, gh), 5)
 
-        # hist_level0 (bf16, the default encoding)
-        self.ms["hist_level0"] = cuda_ms(
-            torch, lambda: boost.hist_level0(xb3, g3, h3, n_bins=N_BINS), 20)
-        self.plain_ms["hist_level0"] = cuda_ms(
-            torch, lambda: boost.hist_level0_plain(xb3, g3, h3, n_bins=N_BINS), 1)
-        self.library_ms["hist_level0"] = library(torch.zeros(rows, device=self.dev,
-                                                             dtype=torch.int32))
-        b0 = xb3.numel() * 4 + 2 * rows * 4 + hist_bytes(1)
-        self.bound["hist_level0"] = (b0, 2.0 * rows * N_FEATURES)
-        # hist_level: mean over the five levels of a depth-6 tree
-        ms, pms, lms, byts, ops = [], [], [], [], []
-        for d in range(1, DEPTH):
-            node3, feat, thr = self.level_inputs(d)
-            run = lambda: boost.hist_level(xb3, node3, g3, h3, feat, thr, depth=d,
-                                           n_bins=N_BINS)
-            ms.append(cuda_ms(torch, run, 10))
-            pms.append(cuda_ms(torch, lambda: boost.hist_level_plain(
-                xb3, node3, g3, h3, feat, thr, depth=d, n_bins=N_BINS), 1))
-            lms.append(library(run()[1]))
-            byts.append(xb3.numel() * 4 + 4 * rows * 4 + hist_bytes(2 ** d))
-            ops.append(2.0 * rows * N_FEATURES)
-        i8_ms = [cuda_ms(torch, lambda: boost.hist_level0(
-            xb3, g3, h3, n_bins=N_BINS, mxu_i8=True), 20)]
-        for d in range(1, DEPTH):
-            node3, feat, thr = self.level_inputs(d)
-            i8_ms.append(cuda_ms(torch, lambda: boost.hist_level(
-                xb3, node3, g3, h3, feat, thr, depth=d, n_bins=N_BINS,
-                mxu_i8=True), 10))
-        print("  i8 histogram ms, level 0 then d=1..5: "
-              + ", ".join(f"{t:.4f}" for t in i8_ms))
-        self.ms["hist_level"] = sum(ms) / len(ms)
+        # hist_level0 / hist_level per level d = 0..7 (d = 0: the root), bf16
+        # and i8; the report's hist_level is the bf16 mean over d = 1..5 (a
+        # depth-6 tree's levels), with its index_add_ and plain times
+        per = {"bf16": [], "i8": []}
+        lms, pms, byts = [], [], []
+        for d in range(DEEP):
+            if d == 0:
+                node3 = feat = thr = None
+                run = lambda i8: boost.hist_level0(xb3, g3, h3, n_bins=N_BINS, mxu_i8=i8)
+            else:
+                node3, feat, thr = self.level_inputs(d)
+                run = lambda i8: boost.hist_level(xb3, node3, g3, h3, feat, thr, depth=d,
+                                                  n_bins=N_BINS, mxu_i8=i8)
+            for i8 in (False, True):
+                per["i8" if i8 else "bf16"].append(cuda_ms(torch, lambda: run(i8), 10))
+            if d == 0:
+                lms.append(library(torch.zeros(rows, device=self.dev, dtype=torch.int32)))
+                self.plain_ms["hist_level0"] = cuda_ms(
+                    torch, lambda: boost.hist_level0_plain(xb3, g3, h3, n_bins=N_BINS), 1)
+                byts.append(xb3.numel() * 4 + 2 * rows * 4 + hist_bytes(1))
+            elif d < DEPTH:
+                lms.append(library(run(False)[1]))
+                pms.append(cuda_ms(torch, lambda: boost.hist_level_plain(
+                    xb3, node3, g3, h3, feat, thr, depth=d, n_bins=N_BINS), 1))
+                byts.append(xb3.numel() * 4 + 4 * rows * 4 + hist_bytes(2 ** d))
+        for mode, t in per.items():
+            print(f"  {mode} histogram ms by level, hist_level0 then hist_level d=1..7: "
+                  + ", ".join(f"{x:.4f}" for x in t))
+        self.ms["hist_level0"] = per["bf16"][0]
+        self.library_ms["hist_level0"] = lms[0]
+        self.bound["hist_level0"] = (byts[0], 2.0 * rows * N_FEATURES)
+        self.ms["hist_level"] = sum(per["bf16"][1:DEPTH]) / (DEPTH - 1)
         self.plain_ms["hist_level"] = sum(pms) / len(pms)
-        self.library_ms["hist_level"] = sum(lms) / len(lms)
-        self.bound["hist_level"] = (sum(byts) / len(byts), sum(ops) / len(ops))
-        print("  bf16 hist_level ms by level d=1..5: "
-              + ", ".join(f"{t:.4f}" for t in ms))
+        self.library_ms["hist_level"] = sum(lms[1:]) / len(lms[1:])
+        self.bound["hist_level"] = (sum(byts[1:]) / len(byts[1:]), 2.0 * rows * N_FEATURES)
+        print("  index_add_ ms by level d=0..5: " + ", ".join(f"{x:.4f}" for x in lms))
+        self.measure_helpers()
         # final passes at depth 6.  A row's split bin is one 32-byte sector of
         # its feature row: the least the card can read for it.
         node3, feat, thr = self.level_inputs(DEPTH)
@@ -755,32 +829,27 @@ class Smoke:
                 xb3, node3, m3, feat, thr, leaf, depth=DEPTH), 5)
         self.library_ms["route_margin_level"] = None
         self.bound["route_margin_level"] = (rows * (32 + 4 + 4 + 4 + 4), 3.0 * rows)
-        # hist_level past depth 6 (more than one node group): times only
-        for d in (DEPTH, DEPTH + 1):
-            node3, feat, thr = self.level_inputs(d)
-            t = [cuda_ms(torch, lambda: boost.hist_level(
-                xb3, node3, g3, h3, feat, thr, depth=d, n_bins=N_BINS,
-                mxu_i8=i8), 5) for i8 in (False, True)]
-            print(f"  hist_level d={d} ({2 ** d} nodes) ms bf16 {t[0]:.4f}, i8 {t[1]:.4f}")
-        # node_histograms_kernel at the real round's node ids, d = 0..5 (bf16)
+        # node_histograms_kernel at the real round's node ids, d = 0..7, bf16
+        # and i8; the report's figure is the bf16 mean over d = 0..5
         n = self.n_rows
-        ms, pms, lms, byts = [], [], [], []
+        per = {"bf16": [], "i8": []}
+        pms, lms, byts = [], [], []
         for d, (node, _, _, _) in enumerate(self.levels):
             args = (self.xb, self.g, self.h, node, 2 ** d, N_BINS)
-            ms.append(cuda_ms(torch, lambda: self.hist.node_histograms_kernel(*args), 10))
-            pms.append(cuda_ms(torch, lambda: self.hist.node_histograms_kernel_plain(
-                *args), 1))
-            lms.append(library(boost.block_rows(node)[0].reshape(-1)))
-            byts.append(n * N_FEATURES * 4 + 3 * n * 4 + hist_bytes(2 ** d))
-        print("  bf16 node_histograms_kernel ms by level d=0..5: "
-              + ", ".join(f"{t:.4f}" for t in ms))
-        i8_ms = [cuda_ms(torch, lambda: self.hist.node_histograms_kernel(
-            self.xb, self.g, self.h, node, 2 ** d, N_BINS, mxu_i8=True), 10)
-            for d, (node, _, _, _) in enumerate(self.levels)]
-        print("  i8 node_histograms_kernel ms by level d=0..5: "
-              + ", ".join(f"{t:.4f}" for t in i8_ms))
+            for i8 in (False, True):
+                per["i8" if i8 else "bf16"].append(cuda_ms(
+                    torch, lambda: self.hist.node_histograms_kernel(*args, mxu_i8=i8), 10))
+            if d < DEPTH:
+                pms.append(cuda_ms(torch, lambda: self.hist.node_histograms_kernel_plain(
+                    *args), 1))
+                lms.append(library(boost.block_rows(node)[0].reshape(-1)))
+                byts.append(n * N_FEATURES * 4 + 3 * n * 4 + hist_bytes(2 ** d))
+        for mode, t in per.items():
+            print(f"  {mode} node_histograms_kernel ms by level d=0..7: "
+                  + ", ".join(f"{x:.4f}" for x in t))
+        print("  index_add_ ms by level d=0..5: " + ", ".join(f"{x:.4f}" for x in lms))
         k = "node_histograms_kernel"
-        self.ms[k] = sum(ms) / len(ms)
+        self.ms[k] = sum(per["bf16"][:DEPTH]) / DEPTH
         self.plain_ms[k] = sum(pms) / len(pms)
         self.library_ms[k] = sum(lms) / len(lms)
         self.bound[k] = (sum(byts) / len(byts), 2.0 * n * N_FEATURES)
@@ -797,6 +866,47 @@ class Smoke:
             torch, lambda: out.zero_().index_add_(0, leaf_ids, gh2), 50)
         self.bound["leaf_fit"] = (rows * (32 + 4 + 4 + 4 + 4) + 2 ** DEPTH * 8,
                                   4.0 * rows)
+
+    def measure_helpers(self):
+        """hist_prep and hist_partition alone, per level of the fused
+        round's route mode (d = 1..7, seeded node ids, bf16), and their
+        plain twins; the report's figures are the means over d = 1..5.
+        Bounds: prep reads the node id, one 32-byte sector of the row's bins
+        and writes node' (4 + 32 + 4 bytes a row); partition reads node',
+        g and h and writes perm and the planes (4 + 8 + 4 + 8 bytes a
+        row).  Neither has a single PyTorch call that computes it."""
+        torch, boost = self.torch, self.boost
+        xb3, g3, h3 = self.xb3, self.g3, self.h3
+        rows = xb3.shape[0] * xb3.shape[1]
+        t = {k: [] for k in ("prep", "partition", "prep_plain", "partition_plain",
+                             "argsort")}
+        for d in range(1, DEEP):
+            node3, feat, thr = self.level_inputs(d)
+            kw = dict(n_rows=rows, block=xb3.shape[1], n_nodes=2 ** d, i8=False)
+            prep = lambda: boost.hist_prep("route", xb3, node3, g3, h3, feat, thr, **kw)
+            key, counts, scale = prep()
+            t["prep"].append(cuda_ms(torch, prep, 20))
+            t["partition"].append(cuda_ms(torch, lambda: boost.hist_partition(
+                key, g3, h3, counts, scale, **kw), 20))
+            if d < DEPTH:
+                t["prep_plain"].append(cuda_ms(torch, lambda: boost.hist_prep_plain(
+                    "route", xb3, node3, g3, h3, feat, thr, **kw), 3))
+                t["partition_plain"].append(cuda_ms(torch, lambda: boost.hist_partition_plain(
+                    key, g3, h3, counts, scale, **kw), 3))
+                t["argsort"].append(cuda_ms(torch, lambda: torch.argsort(
+                    key.reshape(-1), stable=True), 20))
+        for k in ("prep", "partition"):
+            print(f"  hist_{k} ms by level d=1..7 (route, bf16): "
+                  + ", ".join(f"{x:.4f}" for x in t[k]))
+        print("  torch.argsort(stable) of the node ids, ms d=1..5 (the partition's "
+              "order alone): " + ", ".join(f"{x:.4f}" for x in t["argsort"]))
+        mean = lambda v: sum(v[:DEPTH - 1]) / (DEPTH - 1)
+        for k, per_row in (("prep", 4 + 32 + 4), ("partition", 4 + 8 + 4 + 8)):
+            name = "hist_" + k
+            self.ms[name] = mean(t[k])
+            self.plain_ms[name] = mean(t[k + "_plain"])
+            self.library_ms[name] = None
+            self.bound[name] = (rows * per_row, 2.0 * rows)
 
     def kernels_line(self):
         out = []
@@ -846,7 +956,9 @@ def main() -> int:
         t0 = time.perf_counter()
         _build.build_all()
         for src, log in _build.ptxas_log.items():
-            print(f"[build] csrc/{src}.cu:\n{log.strip()}")
+            print(f"[build] csrc/{src}.cu, -Xptxas -v:")
+            for line in ptxas_summary(log):
+                print("  " + line)
         print(f"[build] {time.perf_counter() - t0:.1f} s", flush=True)
 
         phase = "kernels"
@@ -855,6 +967,7 @@ def main() -> int:
         smoke.check_kernels()
         smoke.check_deep_levels()
         smoke.check_node_kernel()
+        smoke.check_helpers()
         smoke.check_leaf_fit()
 
         phase = "main"

@@ -11,6 +11,13 @@ The counterpart of ``rabit_tpu/ops/boost.py``:
   the margin (the fused final pass).
 * ``leaf_fit``           -- route to the leaves and sum (g, h) per leaf.
 
+The three histogram kernels (these two and ``ops.hist``'s
+``node_histograms_kernel``) share one path on the card (``hist_launch``):
+``hist_prep`` routes once and counts rows per node, ``hist_partition``
+lists the rows by node with their encoded gradients, and
+``hist_accumulate`` histograms that list in feature tiles.  The helpers'
+launches are counted in ``helper_launches``; each has a plain twin.
+
 Each wrapper takes pre-blocked ``(nb, R, .)`` tensors (``block_rows``),
 as the JAX wrappers do.  On a CUDA tensor it launches its kernel from
 ``csrc/`` (built at first use by ``rabit_tpu_torch._build``) and counts the
@@ -29,17 +36,24 @@ from __future__ import annotations
 
 import collections
 import ctypes
+from typing import NamedTuple
 
 import torch
 
 # Kernel name -> launches, counted where each wrapper launches its kernel.
 launches: collections.Counter = collections.Counter()
+# The histogram path's helper kernels (hist_prep, hist_partition) -> launches,
+# apart from ``launches``, which counts the histogram kernels themselves.
+helper_launches: collections.Counter = collections.Counter()
 
 _TINY = 1.1754944e-38   # smallest normal f32: the i8 scale's floor
-_MAX_BINS = 256         # the histogram kernel's threads own one bin each
-_MAX_GROUP = 255        # nodes a histogram block holds: ids staged as bytes
+_MAX_BINS = 256         # the histogram kernel's accumulators hold 256 bins
+_MAX_NODES = 4096       # the partition's shared memory: per-warp node counters
+_MAX_BLOCK = 8192       # (9 x 4096 ints) and a row block's slots (2 x 8192)
+_CHUNK_ROWS = 4096      # rows of the partitioned order a histogram block takes
+                        # (about): a constant, so the sum order depends on the
+                        # shapes and the data alone
 _SMEM_LIMIT = 232448    # shared memory one H100 block may use (bytes)
-_SMEM_PER_SM = 233472   # an H100 SM's shared memory; a block reserves 1 KB
 _SMS = 132              # H100 SXM multiprocessors: sizes the grid from shapes
                         # alone, so the summation order never depends on the card
 
@@ -198,6 +212,164 @@ def leaf_fit_plain(xb3, node3, g3, h3, feat, thr, *, depth: int):
     return torch.stack([total[:n_leaves], total[n_leaves:]], -1), node_out
 
 
+# -- plain versions of the histogram path's helper kernels -----------------------
+
+
+class Partition(NamedTuple):
+    """The rows of a histogram pass in node order (csrc/hist.cu partition).
+
+    ``perm`` lists the counted rows (id in [0, n_nodes), below n_rows),
+    node by node, each node's rows in row order (None at the root, where
+    the order is the identity); ``planes[k]`` holds the encoded (g, h) of
+    the k-th listed row: [.., 4] bfloat16 (g hi, g lo, h hi, h lo) or int8
+    (g a, g b, h a, h b).  ``node_base[m]`` is node m's first position
+    (``node_base[n_nodes]``: the rows listed); ``node_chunk0[m]`` its first
+    chunk (``node_chunk0[n_nodes]``: the chunks); chunk c covers positions
+    [chunk_begin[c], chunk_begin[c + 1]) (the last one up to the rows
+    listed).  On the card the tensors are sized from the shapes: entries
+    past the counts are undefined."""
+    perm: torch.Tensor | None
+    planes: torch.Tensor
+    chunk_begin: torch.Tensor
+    node_chunk0: torch.Tensor
+    node_base: torch.Tensor
+
+
+def hist_prep_plain(mode: str, xb, node, g, h, feat, thr, *, n_rows: int,
+                    block: int, n_nodes: int, i8: bool):
+    """Plain twin of csrc/hist.cu prep.  ``xb`` holds ``n_rows`` rows of F
+    bins in row blocks of ``block`` rows (blocked or not; the last block may
+    be short).  Returns (key, counts, scale): each row's node id ([n_rows]
+    int32: routed one level down in the "route" mode, the ids given in
+    "nodes", None at the root, where it is 0), the rows per (row block,
+    node) ([nb, n_nodes] int32; a row counts when its id is in [0,
+    n_nodes)) and the i8 scale per row block (max |g|, |h| over its counted
+    rows, floored at the smallest normal f32; None in bf16)."""
+    F = xb.shape[-1]
+    dev = xb.device
+    nb = -(-n_rows // block)
+    key = None
+    if mode == "route":
+        key = _route(xb.reshape(-1, F)[:n_rows], node.reshape(-1)[:n_rows],
+                     feat, thr)
+    elif mode == "nodes":
+        key = node.reshape(-1)[:n_rows]
+    k = torch.zeros(n_rows, dtype=torch.long, device=dev) if key is None else key.long()
+    ok = (k >= 0) & (k < n_nodes)
+    blk = torch.arange(n_rows, device=dev) // block
+    counts = torch.bincount((blk * n_nodes + k)[ok], minlength=nb * n_nodes)
+    scale = None
+    if i8:
+        gv, hv = g.reshape(-1)[:n_rows], h.reshape(-1)[:n_rows]
+        v = torch.where(ok, torch.maximum(gv.abs(), hv.abs()), gv.new_zeros(()))
+        scale = gv.new_zeros(nb).scatter_reduce_(0, blk, v, "amax").clamp_min(_TINY)
+    return key, counts.to(torch.int32).reshape(nb, n_nodes), scale
+
+
+def _planes(gv, hv, inv):
+    """Encoded (g, h) per row: bf16 hi/lo (``inv`` None) or the i8 planes
+    at the rows' 1/scale, as in ``_encode_bf16`` / ``_encode_i8``."""
+    if inv is None:
+        out = []
+        for v in (gv, hv):
+            hi = v.to(torch.bfloat16)
+            out += [hi, (v - hi.float()).to(torch.bfloat16)]
+        return torch.stack(out, 1)
+    out = []
+    for v in (gv, hv):
+        x = v * inv
+        a = torch.round(x * 64.0)
+        out += [a, torch.round((x - a * (1.0 / 64.0)) * 8192.0)]
+    return torch.stack(out, 1).to(torch.int8)
+
+
+def chunk_table_plain(counts, chunk_rows: int):
+    """The chunk table of csrc/hist.cu partition from the (row block, node)
+    counts: (chunk_begin, node_chunk0, node_base), int32.  A run of a node's
+    rows in one row block opens a chunk when it holds a row whose position
+    inside the node's segment is a multiple of ``chunk_rows``; chunks are
+    numbered node by node, runs in row-block order."""
+    c = counts.long()                                  # [nb, n_nodes]
+    s = c.cumsum(0) - c                                # start inside the node
+    head = (c > 0) & ((s + chunk_rows - 1) // chunk_rows * chunk_rows < s + c)
+    zero = c.new_zeros(1)
+    node_base = torch.cat([zero, c.sum(0).cumsum(0)])
+    node_chunk0 = torch.cat([zero, head.sum(0).cumsum(0)])
+    m, b = head.T.nonzero(as_tuple=True)               # node-major order
+    chunk_begin = node_base[m] + s[b, m]
+    return (chunk_begin.to(torch.int32), node_chunk0.to(torch.int32),
+            node_base.to(torch.int32))
+
+
+def hist_partition_plain(key, g, h, counts, scale, *, n_rows: int, block: int,
+                         n_nodes: int, i8: bool, chunk_rows: int = _CHUNK_ROWS
+                         ) -> Partition:
+    """Plain twin of csrc/hist.cu partition: a stable sort of the counted
+    rows by node id (``key`` None: the root, every row node 0), their
+    encoded planes, and the chunk table (``chunk_table_plain``)."""
+    dev = g.device
+    k = (torch.zeros(n_rows, dtype=torch.long, device=dev) if key is None
+         else key.reshape(-1)[:n_rows].long())
+    ok = (k >= 0) & (k < n_nodes)
+    rows = torch.argsort(torch.where(ok, k, n_nodes), stable=True)
+    rows = rows[:int(ok.sum())]
+    inv = 1.0 / scale[rows // block] if i8 else None
+    planes = _planes(g.reshape(-1)[rows], h.reshape(-1)[rows], inv)
+    chunk_begin, node_chunk0, node_base = chunk_table_plain(counts, chunk_rows)
+    perm = None if key is None else rows.to(torch.int32)
+    return Partition(perm, planes, chunk_begin, node_chunk0, node_base)
+
+
+def _int_sums(bins, vals, n_bins: int):
+    """sum_k [bins[k, f] == b] * vals[k, p] -> [F, n_bins, P], exact int64."""
+    F = bins.shape[1]
+    idx = (torch.arange(F, device=bins.device) * n_bins + bins.long()).reshape(-1)
+    v = vals.long()[:, None, :].expand(-1, F, -1).reshape(-1, vals.shape[1])
+    out = torch.zeros(F * n_bins, vals.shape[1], dtype=torch.long, device=bins.device)
+    return out.index_add_(0, idx, v).reshape(F, n_bins, -1)
+
+
+def hist_accumulate_plain(xb, part: Partition, scale, *, block: int,
+                          n_nodes: int, n_bins: int, i8: bool) -> torch.Tensor:
+    """Plain twin of csrc/hist.cu tile_hist + sum_chunks: chunk by chunk,
+    the chunk's rows in the partitioned order.  bf16: the four planes
+    summed in f32 (in the matmul's order, not the kernel's), hi + lo; i8:
+    the planes' exact sums per row-block run, decoded at the block's scale
+    into an f32 total in run order, as the kernel does.  Each node's chunk
+    partials are added in f32 in chunk order.  [n_nodes, F, n_bins, 2]."""
+    F = xb.shape[-1]
+    xb2 = xb.reshape(-1, F)
+    n_chunks, n_listed = int(part.node_chunk0[n_nodes]), int(part.node_base[n_nodes])
+    bounds = part.chunk_begin[:n_chunks].tolist() + [n_listed]
+    rows_all = (torch.arange(n_listed, device=xb.device) if part.perm is None
+                else part.perm[:n_listed].long())
+    partial = []
+    for c in range(n_chunks):
+        sl = slice(bounds[c], bounds[c + 1])
+        rows, planes = rows_all[sl], part.planes[sl]
+        bins = xb2[rows]
+        if not i8:
+            onehot = bins[:, :, None] == torch.arange(n_bins, device=bins.device)
+            acc = torch.einsum("kfb,kp->fbp", onehot.float(), planes.float())
+            partial.append(torch.stack([acc[..., 0] + acc[..., 1],
+                                        acc[..., 2] + acc[..., 3]], -1))
+            continue
+        total = xb.new_zeros((F, n_bins, 2), dtype=torch.float32)
+        blk = rows // block
+        for b in torch.unique_consecutive(blk).tolist():
+            sel = blk == b
+            ab = _int_sums(bins[sel], planes[sel], n_bins).float()
+            dec = ab[..., 0::2] * (1.0 / 64.0) + ab[..., 1::2] * (1.0 / 8192.0)
+            total = total + dec * scale[b]
+        partial.append(total)
+    out = xb.new_zeros((n_nodes, F, n_bins, 2), dtype=torch.float32)
+    c0 = part.node_chunk0.tolist()
+    for m in range(n_nodes):
+        for c in range(c0[m], c0[m + 1]):
+            out[m] = partial[c] if c == c0[m] else out[m] + partial[c]
+    return out
+
+
 # -- kernel wrappers ---------------------------------------------------------------
 
 
@@ -243,10 +415,15 @@ def _lib(name: str):
     lib = _build.lib(name)
     P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     if name == "hist":
-        lib.hist_build.argtypes = [I] + [P] * 10 + [LL] + [I] * 8 + [P]
-        lib.hist_build.restype = I
-        lib.hist_smem_bytes.argtypes = [I] * 5
-        lib.hist_smem_bytes.restype = LL
+        lib.hist_prep.argtypes = [I] + [P] * 9 + [LL] + [I] * 5 + [P]
+        lib.hist_partition.argtypes = [P] * 14 + [LL] + [I] * 4 + [P]
+        lib.hist_accumulate.argtypes = [P] * 9 + [I] * 7 + [P]
+        lib.hist_build.argtypes = [I] + [P] * 9 + [LL] + [I] * 8 + [P]
+        for fn in (lib.hist_prep, lib.hist_partition, lib.hist_accumulate,
+                   lib.hist_build):
+            fn.restype = I
+        lib.hist_workspace_bytes.argtypes = [LL] + [I] * 6
+        lib.hist_workspace_bytes.restype = LL
     else:
         lib.route_level.argtypes = [P] * 5 + [LL, I, I, P]
         lib.route_level.restype = I
@@ -260,77 +437,166 @@ def _lib(name: str):
     return lib
 
 
-def _hist_chunks(nb: int, cols: int, smem: int) -> int:
-    """Row-block chunks of the histogram grid (``cols`` = features x node
-    groups blocks per chunk): at most two full waves of the blocks that fit
-    on the card's SMs at this shared-memory size (at most 4 a SM, the
-    kernel's launch bound), so no third wave runs nearly empty; and no empty
-    chunk."""
-    per_sm = max(1, min(4, _SMEM_PER_SM // (smem + 1024)))
-    target = max(1, min(nb, 2 * _SMS * per_sm // cols))
-    per = -(-nb // target)
-    return -(-nb // per)
+_MODE = {"root": 0, "route": 1, "nodes": 2}  # csrc/hist.cu hist_prep modes
 
 
-def _hist_groups(lib, i8: bool, n_nodes: int, n_bins: int, R: int,
-                 n_prev: int):
-    """Nodes per block of the histogram grid: the most whose accumulators
-    fit in one block's shared memory beside the staged rows and split
-    tables (at most ``_MAX_GROUP``), spread evenly over the fewest groups.
-    Returns (group_nodes, n_groups, smem bytes)."""
-    smem = lambda k: lib.hist_smem_bytes(int(i8), k, n_bins, R, n_prev)
-    if smem(1) > _SMEM_LIMIT:
-        raise ValueError(f"one node x {n_bins} bins at row block {R} with "
-                         f"{n_prev}-entry split tables needs {smem(1)} B of "
-                         f"shared memory, over {_SMEM_LIMIT}")
-    lo, hi = 1, min(n_nodes, _MAX_GROUP)
-    while lo < hi:  # the largest group that fits
-        mid = (lo + hi + 1) // 2
-        lo, hi = (mid, hi) if smem(mid) <= _SMEM_LIMIT else (lo, mid - 1)
-    n_groups = -(-n_nodes // lo)
-    group = -(-n_nodes // n_groups)
-    return group, n_groups, smem(group)
+def _stream(dev):
+    return torch.cuda.current_stream(dev).cuda_stream
 
 
-_MODE = {"root": 0, "route": 1, "nodes": 2}  # csrc/hist.cu hist_build modes
+def hist_prep(mode: str, xb, node, g, h, feat, thr, *, n_rows: int,
+              block: int, n_nodes: int, i8: bool):
+    """The histogram path's pre-pass: route once, count the rows per (row
+    block, node), take the i8 block scales.  Returns (key, counts, scale)
+    as ``hist_prep_plain``; in the "route" mode ``key`` is the new node ids
+    shaped like ``node``.
+
+    Part of the ports of rabit_tpu/ops/boost.py hist_level0 / hist_level
+    and rabit_tpu/ops/hist.py node_histograms_pallas (their in-kernel
+    routing and block scale).  Bound on an H100 by device memory (the node
+    id and one 32-byte sector of each row's bins read, g and h too in i8;
+    node' and the counts written); one block per row block, design in
+    csrc/hist.cu."""
+    if not _on_cuda(xb, g, h):
+        key, counts, scale = hist_prep_plain(
+            mode, xb, node, g, h, feat, thr, n_rows=n_rows, block=block,
+            n_nodes=n_nodes, i8=i8)
+        if mode == "route":
+            key = key.reshape(node.shape)
+        return key, counts, scale
+    dev = xb.device
+    nb = -(-n_rows // block)
+    counts = torch.empty((nb, n_nodes), dtype=torch.int32, device=dev)
+    scale = torch.empty(nb, device=dev) if i8 else None
+    key = (torch.empty_like(node) if mode == "route" else
+           node if mode == "nodes" else None)
+    n_prev = 0 if feat is None else feat.shape[0]
+    with torch.cuda.device(dev):
+        rc = _lib("hist").hist_prep(
+            _MODE[mode], _ptr(xb), _ptr(node), _ptr(g), _ptr(h), _ptr(feat),
+            _ptr(thr), _ptr(key) if mode == "route" else None, _ptr(counts),
+            _ptr(scale), n_rows, block, xb.shape[-1], n_nodes, n_prev, int(i8),
+            _stream(dev))
+    _check(rc, "hist_prep")
+    helper_launches["hist_prep"] += 1
+    return key, counts, scale
 
 
-def hist_launch(mode: str, xb, node, g, h, feat, thr, node_out, *,
-                n_rows: int, block: int, n_nodes: int, n_bins: int, i8: bool,
-                name: str) -> torch.Tensor:
-    """Launch csrc/hist.cu on checked, contiguous CUDA tensors: xb holds
-    ``n_rows`` rows of F bins in row blocks of ``block`` rows (pre-blocked
-    or not: the same bytes), the last one possibly short in the "nodes"
-    mode.  Returns the [n_nodes, F, n_bins, 2] histogram and counts the
-    launch under ``name``."""
+def hist_partition(key, g, h, counts, scale, *, n_rows: int, block: int,
+                   n_nodes: int, i8: bool, chunk_rows: int = _CHUNK_ROWS
+                   ) -> Partition:
+    """The histogram path's partition: the counted rows stably by node, with
+    their encoded planes, and the chunk table; ``key`` None is the root
+    (the identity order).  See ``Partition`` and ``hist_partition_plain``.
+
+    Part of the same ports as ``hist_prep`` (the TPU kernels encode in
+    VMEM and need no partition: their histogram stays resident).  Bound on
+    an H100 by device memory (key, g, h read, perm and planes written);
+    three kernels (a counts scan per node, a scan over nodes, a scatter
+    per row block), design in csrc/hist.cu.  Sized from the shapes: no
+    value is read back to the host."""
+    if not _on_cuda(g, h, counts):
+        return hist_partition_plain(key, g, h, counts, scale, n_rows=n_rows,
+                                    block=block, n_nodes=n_nodes, i8=i8,
+                                    chunk_rows=chunk_rows)
+    if block > _MAX_BLOCK or n_nodes > _MAX_NODES:
+        raise ValueError(f"hist_partition takes at most {_MAX_NODES} nodes and "
+                         f"row blocks of at most {_MAX_BLOCK} (got {n_nodes}, {block})")
+    dev = g.device
+    nb = counts.shape[0]
+    i32 = dict(dtype=torch.int32, device=dev)
+    runs = torch.empty((2, nb, n_nodes), **i32)          # rel, hid
+    nodes = torch.empty((4, n_nodes + 1), **i32)  # total, heads, base, chunk0
+    chunk_begin = torch.empty(-(-n_rows // chunk_rows) + n_nodes, **i32)
+    perm = None if key is None else torch.empty(n_rows, **i32)
+    planes = torch.empty((n_rows, 4), device=dev,
+                         dtype=torch.int8 if i8 else torch.bfloat16)
+    with torch.cuda.device(dev):
+        rc = _lib("hist").hist_partition(
+            _ptr(key), _ptr(g), _ptr(h), _ptr(scale), _ptr(counts),
+            _ptr(runs[0]), _ptr(runs[1]), _ptr(nodes[0]), _ptr(nodes[1]),
+            _ptr(nodes[2]), _ptr(nodes[3]), _ptr(chunk_begin), _ptr(perm),
+            _ptr(planes), n_rows, block, n_nodes, chunk_rows, int(i8),
+            _stream(dev))
+    _check(rc, "hist_partition")
+    helper_launches["hist_partition"] += 1
+    return Partition(perm, planes, chunk_begin, nodes[3], nodes[2])
+
+
+def hist_accumulate(xb, part: Partition, scale, *, block: int, n_nodes: int,
+                    n_bins: int, i8: bool, name: str) -> torch.Tensor:
+    """The histogram over a partition: [n_nodes, F, n_bins, 2], counted in
+    ``launches`` under ``name`` (the kernel whose port this pass is)."""
+    if not _on_cuda(xb, part.planes):
+        return hist_accumulate_plain(xb, part, scale, block=block,
+                                     n_nodes=n_nodes, n_bins=n_bins, i8=i8)
+    dev = xb.device
     F = xb.shape[-1]
-    if n_bins > _MAX_BINS or block % 256 or block > 65536:
-        raise ValueError(f"histogram kernel needs n_bins <= {_MAX_BINS} and a "
-                         f"row block that is a multiple of 256 up to 65536 "
-                         f"(got {n_bins}, {block})")
+    max_chunks = part.chunk_begin.shape[0]
+    partial = torch.empty((max_chunks, F, n_bins, 2), device=dev)
+    out = torch.empty((n_nodes, F, n_bins, 2), device=dev)
+    vec = F % 4 == 0 and xb.data_ptr() % 16 == 0  # one 16-byte copy a tile row
+    with torch.cuda.device(dev):
+        rc = _lib("hist").hist_accumulate(
+            _ptr(xb), _ptr(part.perm), _ptr(part.planes), _ptr(scale),
+            _ptr(part.chunk_begin), _ptr(part.node_base), _ptr(part.node_chunk0),
+            _ptr(partial), _ptr(out), block, F, n_bins, n_nodes, max_chunks,
+            int(vec), int(i8), _stream(dev))
+    _check(rc, name)
+    launches[name] += 1
+    return out
+
+
+def hist_launch(mode: str, xb, node, g, h, feat, thr, *, n_rows: int,
+                block: int, n_nodes: int, n_bins: int, i8: bool, name: str):
+    """The histogram path: ``hist_prep``, ``hist_partition`` (no perm at the
+    root) and ``hist_accumulate``.  xb holds ``n_rows`` rows of F bins in
+    row blocks of ``block`` rows (pre-blocked or not: the same bytes), the
+    last one possibly short in the "nodes" mode.  Returns the [n_nodes, F,
+    n_bins, 2] histogram and, in the "route" mode, the new node ids (shaped
+    like ``node``; else None).  On CUDA tensors (checked, contiguous) the
+    three run as one C call into one workspace (csrc/hist.cu hist_build),
+    which keeps the host's share of a launch small; on CPU tensors their
+    plain twins run."""
+    F = xb.shape[-1]
+    if n_bins > _MAX_BINS or block % 256 or block > _MAX_BLOCK or n_nodes > _MAX_NODES:
+        raise ValueError(f"histogram kernel needs n_bins <= {_MAX_BINS}, at "
+                         f"most {_MAX_NODES} nodes and a row block that is a "
+                         f"multiple of 256 up to {_MAX_BLOCK} (got {n_bins}, "
+                         f"{n_nodes}, {block})")
     if mode != "nodes" and n_rows % block:
         raise ValueError(f"{mode} mode takes whole row blocks ({n_rows} rows, "
                          f"block {block})")
     dev = xb.device
     if n_rows == 0 or F == 0:
-        return torch.zeros((n_nodes, F, n_bins, 2), device=dev)
-    out = torch.empty((n_nodes, F, n_bins, 2), device=dev)
+        node_out = torch.empty_like(node) if mode == "route" else None
+        return torch.zeros((n_nodes, F, n_bins, 2), device=dev), node_out
+    if not _on_cuda(xb, g, h):
+        kw = dict(n_rows=n_rows, block=block, n_nodes=n_nodes, i8=i8)
+        key, counts, scale = hist_prep(mode, xb, node, g, h, feat, thr, **kw)
+        part = hist_partition(None if mode == "root" else key, g, h, counts,
+                              scale, **kw)
+        out = hist_accumulate(xb, part, scale, block=block, n_nodes=n_nodes,
+                              n_bins=n_bins, i8=i8, name=name)
+        return out, key if mode == "route" else None
     lib = _lib("hist")
-    n_prev = 0 if feat is None else feat.shape[0]
-    group, n_groups, smem = _hist_groups(lib, i8, n_nodes, n_bins, block, n_prev)
-    nb = -(-n_rows // block)
-    n_chunks = _hist_chunks(nb, F * n_groups, smem)
-    scale = torch.empty(nb, device=dev) if i8 else None
-    partial = torch.empty((n_chunks, n_nodes, F, n_bins, 2), device=dev)
+    node_out = torch.empty_like(node) if mode == "route" else None
+    out = torch.empty((n_nodes, F, n_bins, 2), device=dev)
+    ws = torch.empty(lib.hist_workspace_bytes(n_rows, block, F, n_bins, n_nodes,
+                                              _CHUNK_ROWS, int(i8)),
+                     dtype=torch.uint8, device=dev)
+    vec = F % 4 == 0 and xb.data_ptr() % 16 == 0  # one 16-byte copy a tile row
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.hist_build(_MODE[mode], _ptr(xb), _ptr(node), _ptr(g), _ptr(h),
-                            _ptr(feat), _ptr(thr), _ptr(node_out), _ptr(scale),
-                            _ptr(partial), _ptr(out), n_rows, block, F, n_bins,
-                            n_nodes, n_prev, group, n_chunks, int(i8), stream)
+        rc = lib.hist_build(
+            _MODE[mode], _ptr(xb), _ptr(node), _ptr(g), _ptr(h), _ptr(feat),
+            _ptr(thr), _ptr(node_out), _ptr(ws), _ptr(out), n_rows, block, F,
+            n_bins, n_nodes, 0 if feat is None else feat.shape[0], _CHUNK_ROWS,
+            int(vec), int(i8), _stream(dev))
     _check(rc, name)
+    helper_launches["hist_prep"] += 1
+    helper_launches["hist_partition"] += 1
     launches[name] += 1
-    return out
+    return out, node_out
 
 
 def _hist_cuda(xb3, node3, g3, h3, feat, thr, *, n_nodes, n_bins, i8, name):
@@ -338,17 +604,14 @@ def _hist_cuda(xb3, node3, g3, h3, feat, thr, *, n_nodes, n_bins, i8, name):
     _expect(xb3, "xb3", (nb, R, F), torch.int32)
     _expect(g3, "g3", (nb, R, 1), torch.float32)
     _expect(h3, "h3", (nb, R, 1), torch.float32)
-    node_out = None
     if node3 is not None:
         n_prev = n_nodes // 2
         _expect(node3, "node3", (nb, R, 1), torch.int32)
         _expect(feat, "feat", (n_prev,), torch.int32)
         _expect(thr, "thr", (n_prev,), torch.int32)
-        node_out = torch.empty_like(node3)
-    out = hist_launch("root" if node3 is None else "route", xb3, node3, g3, h3,
-                      feat, thr, node_out, n_rows=nb * R, block=R,
-                      n_nodes=n_nodes, n_bins=n_bins, i8=i8, name=name)
-    return out, node_out
+    return hist_launch("root" if node3 is None else "route", xb3, node3, g3, h3,
+                       feat, thr, n_rows=nb * R, block=R, n_nodes=n_nodes,
+                       n_bins=n_bins, i8=i8, name=name)
 
 
 def hist_level0(xb3, g3, h3, *, n_bins: int, mxu_i8: bool = False,
@@ -357,8 +620,10 @@ def hist_level0(xb3, g3, h3, *, n_bins: int, mxu_i8: bool = False,
     version's sub-contractions (the kernel's result does not depend on it).
 
     Replaces rabit_tpu/ops/boost.py hist_level0 (_level0_kernel).  Bound on
-    an H100 by device memory (xb, g, h read once); csrc/hist.cu says how its
-    design keeps the sum in a fixed order without atomics."""
+    an H100 by device memory (xb, g, h read once).  On the card: the
+    encoding pre-pass, then the feature-tile histogram over the rows in
+    their own order (one segment, no partition); csrc/hist.cu says how the
+    sum keeps a fixed order without atomics."""
     _check_r_split(xb3.shape[1], r_split)
     if not _on_cuda(xb3, g3, h3):
         return hist_level0_plain(xb3, g3, h3, n_bins=n_bins, mxu_i8=mxu_i8,
@@ -374,8 +639,11 @@ def hist_level(xb3, node3, g3, h3, feat, thr, *, depth: int, n_bins: int,
     [2**(depth-1)].  ``r_split``: see hist_level0.
 
     Replaces rabit_tpu/ops/boost.py hist_level (_level_kernel).  Bound on an
-    H100 by device memory (xb, node, g, h read once, node' written once);
-    design in csrc/hist.cu."""
+    H100 by device memory (xb, node, g, h read once, node' written once).
+    On the card the rows are routed once (``hist_prep``), partitioned by
+    their new node (``hist_partition``) and histogrammed chunk by chunk in
+    feature tiles (``hist_accumulate``), whatever the depth; design in
+    csrc/hist.cu."""
     _check_r_split(xb3.shape[1], r_split)
     if not _on_cuda(xb3, node3, g3, h3, feat, thr):
         return hist_level_plain(xb3, node3, g3, h3, feat, thr, depth=depth,

@@ -155,8 +155,10 @@ def node_histograms_kernel(xb, g, h, node, n_nodes: int, n_bins: int,
     short.
 
     Replaces rabit_tpu/ops/hist.py node_histograms_pallas (_hist_kernel).
-    Bound on an H100 by device memory (xb, node, g, h read once); design in
-    csrc/hist.cu."""
+    Bound on an H100 by device memory (xb, node, g, h read once).  On the
+    card the rows are partitioned by node id (ids outside [0, n_nodes) are
+    left out) and histogrammed chunk by chunk in feature tiles
+    (``ops.boost.hist_launch``); design in csrc/hist.cu."""
     if not boost._on_cuda(xb, g, h, node):
         return node_histograms_kernel_plain(xb, g, h, node, n_nodes, n_bins,
                                             block_rows, mxu_i8)
@@ -165,10 +167,9 @@ def node_histograms_kernel(xb, g, h, node, n_nodes: int, n_bins: int,
     boost._expect(g, "g", (n,), torch.float32)
     boost._expect(h, "h", (n,), torch.float32)
     boost._expect(node, "node", (n,), torch.int32)
-    return boost.hist_launch("nodes", xb, node, g, h, None, None, None,
-                             n_rows=n, block=block_rows, n_nodes=n_nodes,
-                             n_bins=n_bins, i8=mxu_i8,
-                             name="node_histograms_kernel")
+    return boost.hist_launch("nodes", xb, node, g, h, None, None, n_rows=n,
+                             block=block_rows, n_nodes=n_nodes, n_bins=n_bins,
+                             i8=mxu_i8, name="node_histograms_kernel")[0]
 
 
 # -- dispatchers ---------------------------------------------------------------------

@@ -168,7 +168,8 @@ def test_leaf_fit_matches_plain(cuda, depth):
 
 @pytest.mark.gpu
 def test_hist_level_deeper_than_six_matches_plain(cuda):
-    """Levels of 64 and 128 nodes at 256 bins: more than one node group."""
+    """Levels of 64 and 128 nodes at 256 bins (more nodes than PR 2's
+    shared-memory accumulators held)."""
     rng = np.random.RandomState(60)
     blk = lambda a: boost.block_rows(torch.as_tensor(a, device=cuda), BLOCK)[0]
     xb3 = blk(rng.randint(0, 256, size=(N, F)).astype(np.int32))
@@ -207,8 +208,8 @@ def _kernel_splits(hk, hp, cfg):
 @pytest.mark.gpu
 @pytest.mark.parametrize("mxu_i8", [False, True])
 def test_depth8_fused_round_on_card_matches_plain(cuda, mxu_i8):
-    """A depth-8 fused round (levels of up to 128 nodes x 256 bins: several
-    node groups) on the card, teacher-forced: each level's histogram and
+    """A depth-8 fused round (levels of up to 128 nodes x 256 bins) on the
+    card, teacher-forced: each level's histogram and
     node ids match the plain path's on the same inputs, a differing split
     is a near tie, and train_round_fused grows the teacher-forced tree."""
     rng = np.random.RandomState(8)
@@ -296,3 +297,150 @@ def test_gbdt_engine_hook_on_card(cuda):
     np.testing.assert_array_equal(got.feature, ref.feature)
     np.testing.assert_array_equal(got.threshold, ref.threshold)
     np.testing.assert_allclose(got.leaf, ref.leaf, rtol=1e-3, atol=1e-5)
+
+
+def _edge_nodes(name, n, n_nodes, rng):
+    """Node ids of the edge cases: 90% of rows on one node, empty nodes,
+    foreign ids (outside [0, n_nodes))."""
+    node = rng.randint(0, n_nodes, size=n)
+    if name == "skewed":
+        node = np.where(rng.rand(n) < 0.9, n_nodes // 2, node)
+    elif name == "empty":
+        node = np.where(node % 3 == 1, 0, node)
+    elif name == "foreign":
+        node[::7] = n_nodes
+        node[3::11] = -1
+    return node.astype(np.int32)
+
+
+EDGE = [("skewed", 8), ("empty", 16), ("foreign", 8), ("uniform", 64), ("uniform", 128)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mxu_i8", [False, True])
+def test_partition_kernels_match_plain(cuda, mxu_i8):
+    """hist_prep, hist_partition and hist_accumulate against their plain
+    twins, exactly: node ids, counts, scales, the stable order, the planes,
+    the chunk table, and the histogram over the partition (i8 exactly,
+    bf16 within tolerance); a short last row block, skewed and empty
+    nodes, foreign ids, 64 and 128 nodes."""
+    rng = np.random.RandomState(80)
+    n, n_bins = 5000, 256  # 5000 = 19 x 256 + 136
+    for name, n_nodes in EDGE:
+        t = lambda a: torch.as_tensor(a, device=cuda)
+        xb = t(rng.randint(0, n_bins, size=(n, F)).astype(np.int32))
+        g, h = t(rng.randn(n).astype(np.float32)), t(rng.rand(n).astype(np.float32))
+        node = t(_edge_nodes(name, n, n_nodes, rng))
+        kw = dict(n_rows=n, block=BLOCK, n_nodes=n_nodes, i8=mxu_i8)
+        boost.helper_launches.clear()
+        key, counts, scale = boost.hist_prep("nodes", xb, node, g, h, None, None, **kw)
+        part = boost.hist_partition(key, g, h, counts, scale, chunk_rows=700, **kw)
+        assert dict(boost.helper_launches) == {"hist_prep": 1, "hist_partition": 1}
+        cpu = lambda a: None if a is None else a.cpu()
+        rk, rc, rs = boost.hist_prep_plain("nodes", *map(cpu, (xb, node, g, h)),
+                                           None, None, **kw)
+        rp = boost.hist_partition_plain(rk, g.cpu(), h.cpu(), rc, rs,
+                                        chunk_rows=700, **kw)
+        assert torch.equal(counts.cpu(), rc)
+        assert (scale is None and rs is None) or torch.equal(scale.cpu(), rs)
+        n_listed, n_chunks = int(rp.node_base[-1]), int(rp.node_chunk0[-1])
+        assert torch.equal(part.node_base.cpu(), rp.node_base)
+        assert torch.equal(part.node_chunk0.cpu(), rp.node_chunk0)
+        assert torch.equal(part.chunk_begin[:n_chunks].cpu(), rp.chunk_begin)
+        assert torch.equal(part.perm[:n_listed].cpu(), rp.perm)
+        assert torch.equal(part.planes[:n_listed].cpu(), rp.planes)
+        # the histogram over the partition against its plain twin: bit for
+        # bit in i8 (exact sums, decoded in the same order), within the
+        # histogram tolerance in bf16 (f32 sums in another order)
+        kw2 = dict(block=BLOCK, n_nodes=n_nodes, n_bins=n_bins, i8=mxu_i8)
+        got = boost.hist_accumulate(xb, part, scale, name="node_histograms_kernel", **kw2)
+        ref = boost.hist_accumulate_plain(xb.cpu(), rp, rs, **kw2)
+        if mxu_i8:
+            assert torch.equal(got.cpu(), ref)
+        else:
+            torch.testing.assert_close(got.cpu(), ref, rtol=1e-5, atol=1e-5)
+    # the route mode: node ids one level down, written once
+    c = _inputs(81, 4, cuda)
+    args = [c[k] for k in ("xb3", "node3", "g3", "h3", "feat", "thr")]
+    kw = dict(n_rows=c["g3"].numel(), block=BLOCK, n_nodes=16, i8=mxu_i8)
+    key, counts, scale = boost.hist_prep("route", args[0], args[1], args[2], args[3],
+                                         args[4], args[5], **kw)
+    rk, rc, rs = boost.hist_prep_plain("route", *[a.cpu() for a in args], **kw)
+    assert torch.equal(key.cpu().reshape(-1), rk) and torch.equal(counts.cpu(), rc)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mxu_i8", [False, True])
+def test_node_histograms_kernel_edge_cases_match_plain(cuda, mxu_i8):
+    """The partitioned kernel on skewed and empty nodes, foreign ids, a
+    short last row block, and 64 and 128 nodes (256 bins), against its
+    plain twin."""
+    from rabit_tpu_torch.ops import hist
+
+    rng = np.random.RandomState(82)
+    n = 5000
+    for name, n_nodes in EDGE:
+        t = lambda a: torch.as_tensor(a, device=cuda)
+        xb = t(rng.randint(0, 256, size=(n, F)).astype(np.int32))
+        g, h = t(rng.randn(n).astype(np.float32)), t(rng.rand(n).astype(np.float32))
+        node = t(_edge_nodes(name, n, n_nodes, rng))
+        got = hist.node_histograms_kernel(xb, g, h, node, n_nodes, 256,
+                                          block_rows=BLOCK, mxu_i8=mxu_i8)
+        ref = hist.node_histograms_kernel_plain(xb, g, h, node, n_nodes, 256,
+                                                block_rows=BLOCK, mxu_i8=mxu_i8)
+        torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mxu_i8", [False, True])
+def test_hist_level_skewed_matches_plain(cuda, mxu_i8):
+    """Route mode with 90% of the rows on one parent, d = 1..7, and a
+    feature count whose tile slice is not 16-byte aligned (F = 5) beside
+    one whose slice is (F = 8)."""
+    rng = np.random.RandomState(83)
+    n = 4096
+    for n_feat in (5, 8):
+        blk = lambda a: boost.block_rows(torch.as_tensor(a, device=cuda), BLOCK)[0]
+        xb3 = blk(rng.randint(0, 256, size=(n, n_feat)).astype(np.int32))
+        g3 = blk(rng.randn(n).astype(np.float32))
+        h3 = blk(rng.rand(n).astype(np.float32))
+        for d in range(1, 8):
+            n_prev = 2 ** (d - 1)
+            t = lambda a: torch.as_tensor(a, device=cuda)
+            node = np.where(rng.rand(n) < 0.9, 0, rng.randint(0, n_prev, size=n))
+            node3 = blk(node.astype(np.int32))
+            feat = t(rng.randint(0, n_feat, size=n_prev).astype(np.int32))
+            thr = t(rng.randint(0, 256, size=n_prev).astype(np.int32))
+            args = (xb3, node3, g3, h3, feat, thr)
+            got, gn = boost.hist_level(*args, depth=d, n_bins=256, mxu_i8=mxu_i8)
+            ref, rn = boost.hist_level_plain(*args, depth=d, n_bins=256, mxu_i8=mxu_i8)
+            assert torch.equal(gn, rn)
+            torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mxu_i8", [False, True])
+def test_hist_kernels_bitwise_on_repeat_at_1m_rows(cuda, mxu_i8):
+    """hist_level (d = 5, 7) and node_histograms_kernel (d = 5) at 1M rows x
+    28 features x 256 bins: bitwise the same on repeat."""
+    from rabit_tpu_torch.ops import hist
+
+    rng = np.random.RandomState(84)
+    n, n_feat = 1 << 20, 28
+    t = lambda a: torch.as_tensor(a, device=cuda)
+    xb = t(rng.randint(0, 256, size=(n, n_feat)).astype(np.int32))
+    g, h = t(rng.randn(n).astype(np.float32)), t(rng.rand(n).astype(np.float32))
+    xb3, g3, h3 = (boost.block_rows(a)[0] for a in (xb, g, h))
+    for d in (5, 7):
+        n_prev = 2 ** (d - 1)
+        node3 = boost.block_rows(t(rng.randint(0, n_prev, size=n).astype(np.int32)))[0]
+        feat = t(rng.randint(0, n_feat, size=n_prev).astype(np.int32))
+        thr = t(rng.randint(0, 256, size=n_prev).astype(np.int32))
+        args = (xb3, node3, g3, h3, feat, thr)
+        a, na = boost.hist_level(*args, depth=d, n_bins=256, mxu_i8=mxu_i8)
+        b, nb_ = boost.hist_level(*args, depth=d, n_bins=256, mxu_i8=mxu_i8)
+        assert torch.equal(a, b) and torch.equal(na, nb_)
+    node = t(rng.randint(0, 32, size=n).astype(np.int32))
+    a = hist.node_histograms_kernel(xb, g, h, node, 32, 256, mxu_i8=mxu_i8)
+    b = hist.node_histograms_kernel(xb, g, h, node, 32, 256, mxu_i8=mxu_i8)
+    assert torch.equal(a, b)
