@@ -15,7 +15,9 @@ Phases, each of which exits non-zero when it fails:
               128 nodes), the histogram for given node ids at the node ids
               of a real round's levels d = 0..7 (the last row block
               short), the histogram path's helpers (hist_prep,
-              hist_partition: exactly), and leaf_fit.
+              hist_partition: exactly), leaf_fit, and the final passes
+              (route_level, route_margin_level) bit for bit at depths 1,
+              6, 8 and 13 (4096 parents).
 4. main    -- the fused boosting round (train_round_fused) at that size,
               for bf16 and i8 and both final passes: 1 warm-up and 3 timed
               rounds, launch counts per kernel, and every level held
@@ -36,8 +38,10 @@ Phases, each of which exits non-zero when it fails:
               ties.
 8. report  -- per-level times of the histogram kernels (d = 0..7, bf16
               and i8) and of the helpers, and a {"kernels": [...]} line
-              with each kernel's time, launches, bound, plain-version time
-              and library-call time.
+              with each kernel's time (CUDA events over back-to-back
+              calls, "ms"; and the device time of the kernels a call
+              launches, from torch.profiler, "device_ms"), launches,
+              bound, plain-version time and library-call time.
 
 Launches are counted per path (phases 4-7), each run with the counts set to
 0 just before it and read just after; the phase-3 comparisons and the
@@ -50,6 +54,7 @@ histogram) in boost.helper_launches.  The last line is {"ok": true, "device":
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import multiprocessing
 import os
@@ -67,7 +72,6 @@ DEPTH = 6
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 F32_OPS_PER_S = 67e12       # H100 SXM f32 outside the tensor cores
 HIST_RTOL = 1e-5            # histograms: rtol, and atol = 1e-5 * max |bin|
-MARGIN_RTOL = 1e-6
 GAIN_TIE = 1e-4             # a differing split must be this close in gain
 DEEP = 8                    # the deep round's depth: levels of 64 and 128 nodes
 DP_RANKS = 2                # processes of the gloo phase, on the one card
@@ -135,6 +139,29 @@ def cuda_ms(torch, fn, reps: int) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def device_ms(torch, fn, reps: int, kernel: str = "") -> float:
+    """Device time per call of ``fn``: every kernel, copy and fill it puts
+    on the card (those whose name holds ``kernel``), from torch.profiler
+    over ``reps`` calls after one warm-up call.  Host time between launches
+    is not in it, as it is in cuda_ms."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)
+             for e in prof.key_averages()
+             if e.device_type.name == "CUDA" and kernel in e.key)
+    require(us > 0, "torch.profiler saw no device time")
+    return us / reps / 1e3
+
+
+ROUTE_DEPTHS = (1, DEPTH, DEEP, 13)  # 13: the deepest final pass the fused round reaches
 
 
 def ptxas_summary(log: str) -> list[str]:
@@ -214,6 +241,7 @@ class Smoke:
         self.plain_ms = {}
         self.library_ms = {}
         self.bound = {}
+        self.device_fns = {k: [] for k in REPLACES}  # calls whose mean is device_ms
         self.launches = {k: 0 for k in REPLACES}
 
     def sync(self):
@@ -294,23 +322,34 @@ class Smoke:
                         f"hist_level d={d} {mode} disagrees with its plain version")
                 self.err["hist_level"] = max(self.err["hist_level"],
                                              float((got - ref).abs().max()))
-        node3, feat, thr = self.level_inputs(DEPTH)
-        gen = torch.Generator(device=self.dev).manual_seed(7)
-        leaf = torch.randn(2 ** DEPTH, generator=gen, device=self.dev)
-        nk = boost.route_level(xb3, node3, feat, thr, depth=DEPTH)
-        npl = boost.route_level_plain(xb3, node3, feat, thr, depth=DEPTH)
-        require(bool(torch.equal(nk, npl)), "route_level node ids differ")
-        mk, nk2 = boost.route_margin_level(xb3, node3, self.margin3, feat, thr,
-                                           leaf, depth=DEPTH)
-        mp, np2 = boost.route_margin_level_plain(xb3, node3, self.margin3, feat,
-                                                 thr, leaf, depth=DEPTH)
-        require(bool(torch.equal(nk2, np2)), "route_margin_level node ids differ")
-        merr = float((mk - mp).abs().max())
-        require(bool(torch.allclose(mk, mp, rtol=MARGIN_RTOL, atol=0.0)),
-                f"route_margin_level margins differ by {merr}")
-        self.err["route_margin_level"] = merr
-        print(f"  route_level: node ids equal; route_margin_level: node ids "
-              f"equal, max |d margin| {merr:.3e}")
+        self.check_route()
+
+    def check_route(self):
+        """The final passes against their plain versions, bit for bit
+        (integer routing and one f32 add a row), at each of ROUTE_DEPTHS."""
+        torch, boost, xb3 = self.torch, self.boost, self.xb3
+        for d in ROUTE_DEPTHS:
+            node3, feat, thr = self.level_inputs(d)
+            gen = torch.Generator(device=self.dev).manual_seed(7)
+            leaf = torch.randn(2 ** d, generator=gen, device=self.dev)
+            nk = boost.route_level(xb3, node3, feat, thr, depth=d)
+            npl = boost.route_level_plain(xb3, node3, feat, thr, depth=d)
+            nerr = float((nk - npl).abs().max())
+            self.err["route_level"] = max(self.err["route_level"], nerr)
+            require(bool(torch.equal(nk, npl)), f"route_level d={d}: node ids differ")
+            mk, nk2 = boost.route_margin_level(xb3, node3, self.margin3, feat, thr,
+                                               leaf, depth=d)
+            mp, np2 = boost.route_margin_level_plain(xb3, node3, self.margin3, feat,
+                                                     thr, leaf, depth=d)
+            merr = float((mk - mp).abs().max())
+            self.err["route_margin_level"] = max(
+                self.err["route_margin_level"], merr, float((nk2 - np2).abs().max()))
+            require(bool(torch.equal(nk2, np2)),
+                    f"route_margin_level d={d}: node ids differ")
+            require(bool(torch.equal(mk.view(torch.int32), mp.view(torch.int32))),
+                    f"route_margin_level d={d}: margins differ (max |d| {merr})")
+            print(f"  route_level, route_margin_level d={d} ({2 ** (d - 1)} parents): "
+                  "node ids and margins equal to the plain versions bit for bit")
 
     def check_helpers(self):
         """hist_prep and hist_partition against their plain twins, exactly,
@@ -789,6 +828,11 @@ class Smoke:
                                                   n_bins=N_BINS, mxu_i8=i8)
             for i8 in (False, True):
                 per["i8" if i8 else "bf16"].append(cuda_ms(torch, lambda: run(i8), 10))
+            if d < DEPTH:  # the levels the report's figure averages, bf16
+                self.device_fns["hist_level0" if d == 0 else "hist_level"].append(
+                    functools.partial(run, False) if d == 0 else functools.partial(
+                        boost.hist_level, xb3, node3, g3, h3, feat, thr, depth=d,
+                        n_bins=N_BINS))
             if d == 0:
                 lms.append(library(torch.zeros(rows, device=self.dev, dtype=torch.int32)))
                 self.plain_ms["hist_level0"] = cuda_ms(
@@ -815,15 +859,18 @@ class Smoke:
         # its feature row: the least the card can read for it.
         node3, feat, thr = self.level_inputs(DEPTH)
         leaf = torch.randn(2 ** DEPTH, device=self.dev)
-        self.ms["route_level"] = cuda_ms(torch, lambda: boost.route_level(
-            xb3, node3, feat, thr, depth=DEPTH), 50)
+        route = functools.partial(boost.route_level, xb3, node3, feat, thr, depth=DEPTH)
+        self.ms["route_level"] = cuda_ms(torch, route, 50)
+        self.device_fns["route_level"].append(route)
         self.plain_ms["route_level"] = cuda_ms(torch, lambda: boost.route_level_plain(
             xb3, node3, feat, thr, depth=DEPTH), 5)
         self.library_ms["route_level"] = None
         self.bound["route_level"] = (rows * (32 + 4 + 4), 2.0 * rows)
         m3 = self.margin3
-        self.ms["route_margin_level"] = cuda_ms(torch, lambda: boost.route_margin_level(
-            xb3, node3, m3, feat, thr, leaf, depth=DEPTH), 50)
+        route = functools.partial(boost.route_margin_level, xb3, node3, m3, feat, thr,
+                                  leaf, depth=DEPTH)
+        self.ms["route_margin_level"] = cuda_ms(torch, route, 50)
+        self.device_fns["route_margin_level"].append(route)
         self.plain_ms["route_margin_level"] = cuda_ms(
             torch, lambda: boost.route_margin_level_plain(
                 xb3, node3, m3, feat, thr, leaf, depth=DEPTH), 5)
@@ -840,6 +887,8 @@ class Smoke:
                 per["i8" if i8 else "bf16"].append(cuda_ms(
                     torch, lambda: self.hist.node_histograms_kernel(*args, mxu_i8=i8), 10))
             if d < DEPTH:
+                self.device_fns["node_histograms_kernel"].append(
+                    functools.partial(self.hist.node_histograms_kernel, *args))
                 pms.append(cuda_ms(torch, lambda: self.hist.node_histograms_kernel_plain(
                     *args), 1))
                 lms.append(library(boost.block_rows(node)[0].reshape(-1)))
@@ -856,7 +905,9 @@ class Smoke:
         # leaf_fit at the real round's last level; the yardstick is one
         # index_add_ of the rows' (g, h) into the 2**depth leaves
         largs, _ = self.leaf_inputs()
-        self.ms["leaf_fit"] = cuda_ms(torch, lambda: boost.leaf_fit(*largs, depth=DEPTH), 50)
+        leaf_fit = functools.partial(boost.leaf_fit, *largs, depth=DEPTH)
+        self.ms["leaf_fit"] = cuda_ms(torch, leaf_fit, 50)
+        self.device_fns["leaf_fit"].append(leaf_fit)
         self.plain_ms["leaf_fit"] = cuda_ms(
             torch, lambda: boost.leaf_fit_plain(*largs, depth=DEPTH), 1)
         leaf_ids = boost.leaf_fit(*largs, depth=DEPTH)[1].reshape(-1).long()
@@ -866,6 +917,9 @@ class Smoke:
             torch, lambda: out.zero_().index_add_(0, leaf_ids, gh2), 50)
         self.bound["leaf_fit"] = (rows * (32 + 4 + 4 + 4 + 4) + 2 ** DEPTH * 8,
                                   4.0 * rows)
+        # device times last: the profiler is attached to no event timing
+        self.device_ms = {k: sum(device_ms(torch, fn, 10) for fn in fns) / len(fns)
+                          for k, fns in self.device_fns.items()}
 
     def measure_helpers(self):
         """hist_prep and hist_partition alone, per level of the fused
@@ -889,6 +943,10 @@ class Smoke:
             t["partition"].append(cuda_ms(torch, lambda: boost.hist_partition(
                 key, g3, h3, counts, scale, **kw), 20))
             if d < DEPTH:
+                self.device_fns["hist_prep"].append(functools.partial(
+                    boost.hist_prep, "route", xb3, node3, g3, h3, feat, thr, **kw))
+                self.device_fns["hist_partition"].append(functools.partial(
+                    boost.hist_partition, key, g3, h3, counts, scale, **kw))
                 t["prep_plain"].append(cuda_ms(torch, lambda: boost.hist_prep_plain(
                     "route", xb3, node3, g3, h3, feat, thr, **kw), 3))
                 t["partition_plain"].append(cuda_ms(torch, lambda: boost.hist_partition_plain(
@@ -917,6 +975,7 @@ class Smoke:
                 "name": k, "route": "cuda", "source": SOURCE[k],
                 "replaces": REPLACES[k], "launches": self.launches[k],
                 "max_abs_err": self.err[k], "ms": self.ms[k],
+                "device_ms": self.device_ms[k],
                 "plain_ms": self.plain_ms[k], "bound_ms": max(t_bytes, t_ops),
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                 "library_ms": self.library_ms[k],

@@ -8,16 +8,39 @@
 // Bound on an H100: device memory.  Per row the pass reads its node id, one
 // bin of its feature row (the split feature of its node: one 32-byte sector
 // of the 4*F-byte row) and, with the margin, one float; it writes the leaf
-// id (and the new margin).  No arithmetic to speak of.
+// id (and the new margin).  No arithmetic to speak of.  The card moves 64
+// bytes for that sector, not 32: a row's bin costs as much at a 64-byte
+// row as at a 112-byte one and twice what it costs at a 32-byte one
+// (tools/torch_route_levels.py --strides), so 1M rows x (64 + 8) bytes is
+// the floor of route_level at the headline size.
 //
-// Design: four rows a thread, consecutive threads on consecutive rows so
-// the node/margin loads and stores coalesce, each row's loads issued with
-// the others' so that their latencies overlap.  The split tables (2^(depth-1)
-// entries each) and the leaf table (2^depth) are copied into shared memory
-// once per block and read by direct lookup: the TPU kernel's lane-masked
-// reductions (no gathers on the TPU) and its (8, p_pad) padded tables have
-// no use here.  Integer routing and one float add: the result is exact and
-// equals the plain version bit for bit.
+// route_kernel (route_level, route_margin_level).  A row costs two
+// device-memory round trips in series: its node id, then the bin that its
+// node's split feature picks from its bin row.  The design keeps as many of
+// those chains in flight as the card holds and puts nothing in front of
+// them:
+//
+// * No staging.  The split tables (2^(depth-1) entries each) and the leaf
+//   table (2^depth) are read where they lie, through the read-only path
+//   (__ldg): after an SM's first reads its L1 holds them, and no barrier
+//   stands before a row's first load.  The tables' size sets no limit on
+//   the launch, so every depth routes.
+// * A warp's loads cover 32 consecutive rows, node ids and bins alike, so
+//   the bins' 64-byte fetches of neighbouring rows go out together (lanes
+//   on rows 4 apart, as 16-byte node loads of four rows a thread would
+//   put them, spread a warp's gathers four times wider).
+// * kRows rows a thread, their loads issued before the first is used, in
+//   one tile of kThreads * kRows consecutive rows a block: at the headline
+//   size (1M rows) every block is resident at once (at most 32 registers a
+//   thread, 8 blocks an SM), so every row's chain is in flight from the
+//   start and no second wave waits.
+// * Node ids and bins are read with an evict-first hint (ld.global.cs):
+//   each is read once.
+//
+// Integer routing and one __fadd_rn a row: the result is exact and equals
+// the plain version bit for bit.
+
+#include <climits>
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -25,57 +48,43 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kRows = 4;  // rows a thread routes per pass
+constexpr int kRows = 4;                   // rows a thread stages per pass
+constexpr int kRouteTile = kThreads * kRows;  // route_kernel: rows a block
 
 template <bool MARGIN>
-__global__ void route_kernel(const int* __restrict__ xb,
-                             const int* __restrict__ node_in,
-                             const float* __restrict__ margin_in,
-                             const int* __restrict__ feat,
-                             const int* __restrict__ thr,
-                             const float* __restrict__ leaf,
-                             float* __restrict__ margin_out,
-                             int* __restrict__ node_out,
-                             long long n_rows, int n_feat, int n_prev,
-                             int n_leaves) {
-  extern __shared__ int tables[];
-  int* ft = tables;
-  int* tt = tables + n_prev;
-  float* lt = reinterpret_cast<float*>(tables + 2 * n_prev);
-  for (int i = threadIdx.x; i < n_prev; i += blockDim.x) {
-    ft[i] = feat[i];
-    tt[i] = thr[i];
-  }
-  if (MARGIN) {
-    for (int i = threadIdx.x; i < n_leaves; i += blockDim.x) lt[i] = leaf[i];
-  }
-  __syncthreads();
-  // Four rows a thread per pass, their loads issued together.
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long r0 = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       r0 < n_rows; r0 += kRows * stride) {
-    int p[kRows], x[kRows];
-    float m[kRows];
+__global__ void __launch_bounds__(kThreads, 32 / kRows)
+route_kernel(const int* __restrict__ xb, const int* __restrict__ node_in,
+             const float* __restrict__ margin_in, const int* __restrict__ feat,
+             const int* __restrict__ thr, const float* __restrict__ leaf,
+             float* __restrict__ margin_out, int* __restrict__ node_out,
+             long long n_rows, int n_feat) {
+  // Row u of a thread: r0 + u * kThreads.
+  const long long r0 = (long long)blockIdx.x * kRouteTile + threadIdx.x;
+  int p[kRows], x[kRows], t[kRows];
+  float m[kRows];
 #pragma unroll
-    for (int u = 0; u < kRows; ++u) {
-      const long long r = r0 + u * stride;
-      if (r < n_rows) {
-        p[u] = node_in[r];
-        if (MARGIN) m[u] = margin_in[r];
-      }
+  for (int u = 0; u < kRows; ++u) {
+    const long long r = r0 + u * kThreads;
+    if (r < n_rows) {
+      p[u] = __ldcs(node_in + r);
+      if (MARGIN) m[u] = __ldcs(margin_in + r);
     }
+  }
 #pragma unroll
-    for (int u = 0; u < kRows; ++u) {
-      const long long r = r0 + u * stride;
-      if (r < n_rows) x[u] = xb[r * n_feat + ft[p[u]]];
+  for (int u = 0; u < kRows; ++u) {
+    const long long r = r0 + u * kThreads;
+    if (r < n_rows) {
+      t[u] = __ldg(thr + p[u]);
+      x[u] = __ldcs(xb + r * n_feat + __ldg(feat + p[u]));
     }
+  }
 #pragma unroll
-    for (int u = 0; u < kRows; ++u) {
-      const long long r = r0 + u * stride;
-      if (r >= n_rows) continue;
-      const int node = 2 * p[u] + (x[u] > tt[p[u]] ? 1 : 0);
+  for (int u = 0; u < kRows; ++u) {
+    const long long r = r0 + u * kThreads;
+    if (r < n_rows) {
+      const int node = 2 * p[u] + (x[u] > t[u] ? 1 : 0);
       node_out[r] = node;
-      if (MARGIN) margin_out[r] = __fadd_rn(m[u], lt[node]);
+      if (MARGIN) margin_out[r] = __fadd_rn(m[u], __ldg(leaf + node));
     }
   }
 }
@@ -235,9 +244,18 @@ __global__ void leaf_sum_chunks_kernel(const float* __restrict__ partial,
   out[i] = s;
 }
 
-int grid_for(long long n_rows) {
-  const long long blocks = (n_rows + kRows * kThreads - 1) / (kRows * kThreads);
-  return (int)(blocks < (1 << 30) ? blocks : (1 << 30));
+template <bool MARGIN>
+int launch_route(const int* xb, const int* node_in, const float* margin_in,
+                 const int* feat, const int* thr, const float* leaf,
+                 float* margin_out, int* node_out, long long n_rows, int n_feat,
+                 cudaStream_t stream) {
+  if (n_rows == 0) return 0;
+  const long long blocks = (n_rows + kRouteTile - 1) / kRouteTile;
+  if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
+  route_kernel<MARGIN><<<(int)blocks, kThreads, 0, stream>>>(
+      xb, node_in, margin_in, feat, thr, leaf, margin_out, node_out, n_rows,
+      n_feat);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -245,31 +263,21 @@ int grid_for(long long n_rows) {
 extern "C" {
 
 // node_out[r] = 2*node_in[r] + [xb[r, feat[p]] > thr[p]], p = node_in[r].
+// xb [n_rows, n_feat] i32; node ids in [0, len(feat)).
 int route_level(const int* xb, const int* node_in, const int* feat,
                 const int* thr, int* node_out, long long n_rows, int n_feat,
-                int n_prev, void* stream) {
-  if (n_rows == 0) return 0;
-  size_t smem = (size_t)2 * n_prev * sizeof(int);
-  route_kernel<false><<<grid_for(n_rows), kThreads, smem,
-                        (cudaStream_t)stream>>>(
-      xb, node_in, nullptr, feat, thr, nullptr, nullptr, node_out, n_rows,
-      n_feat, n_prev, 0);
-  return (int)cudaGetLastError();
+                void* stream) {
+  return launch_route<false>(xb, node_in, nullptr, feat, thr, nullptr, nullptr,
+                             node_out, n_rows, n_feat, (cudaStream_t)stream);
 }
 
 // route_level, then margin_out[r] = margin_in[r] + leaf[node_out[r]].
 int route_margin_level(const int* xb, const int* node_in,
                        const float* margin_in, const int* feat, const int* thr,
                        const float* leaf, float* margin_out, int* node_out,
-                       long long n_rows, int n_feat, int n_prev, int n_leaves,
-                       void* stream) {
-  if (n_rows == 0) return 0;
-  size_t smem = (size_t)(2 * n_prev + n_leaves) * sizeof(int);
-  route_kernel<true><<<grid_for(n_rows), kThreads, smem,
-                       (cudaStream_t)stream>>>(
-      xb, node_in, margin_in, feat, thr, leaf, margin_out, node_out, n_rows,
-      n_feat, n_prev, n_leaves);
-  return (int)cudaGetLastError();
+                       long long n_rows, int n_feat, void* stream) {
+  return launch_route<true>(xb, node_in, margin_in, feat, thr, leaf, margin_out,
+                            node_out, n_rows, n_feat, (cudaStream_t)stream);
 }
 
 // Shared memory of one leaf_fit block (bytes).

@@ -54,6 +54,7 @@ _CHUNK_ROWS = 4096      # rows of the partitioned order a histogram block takes
                         # (about): a constant, so the sum order depends on the
                         # shapes and the data alone
 _SMEM_LIMIT = 232448    # shared memory one H100 block may use (bytes)
+_MAX_ROUTE_DEPTH = 31   # route kernels: leaf ids 2*node + 1 stay below 2**31
 _SMS = 132              # H100 SXM multiprocessors: sizes the grid from shapes
                         # alone, so the summation order never depends on the card
 
@@ -379,7 +380,14 @@ def _ptr(t: torch.Tensor | None):
 
 def _on_cuda(*ts: torch.Tensor) -> bool:
     """True for CUDA tensors (all on one card), False for CPU tensors;
-    anything else raises."""
+    anything else raises.  It runs before every launch, so tensors on one
+    card cost one cheap test each."""
+    idx = ts[0].get_device()
+    for t in ts:
+        if not t.is_cuda or t.get_device() != idx:
+            break
+    else:
+        return True
     dev = ts[0].device
     for t in ts:
         if t.device != dev:
@@ -391,8 +399,20 @@ def _on_cuda(*ts: torch.Tensor) -> bool:
     return True
 
 
-def _expect(t: torch.Tensor, name: str, shape, dtype) -> None:
-    if tuple(t.shape) != tuple(shape) or t.dtype != dtype:
+def _launch_on(idx: int, fn, *args) -> int:
+    """Call a C entry point with card ``idx``'s current stream, making the
+    card current only where it is not: entering ``torch.cuda.device`` and
+    asking for the stream object cost more host time than a route kernel
+    takes on the card."""
+    stream = torch._C._cuda_getCurrentRawStream(idx)
+    if idx == torch.cuda.current_device():
+        return fn(*args, stream)
+    with torch.cuda.device(idx):
+        return fn(*args, stream)
+
+
+def _expect(t: torch.Tensor, name: str, shape: tuple, dtype) -> None:
+    if t.shape != shape or t.dtype != dtype:
         raise ValueError(f"{name}: expected {tuple(shape)} {dtype}, "
                          f"got {tuple(t.shape)} {t.dtype}")
     if not t.is_contiguous():
@@ -425,9 +445,9 @@ def _lib(name: str):
         lib.hist_workspace_bytes.argtypes = [LL] + [I] * 6
         lib.hist_workspace_bytes.restype = LL
     else:
-        lib.route_level.argtypes = [P] * 5 + [LL, I, I, P]
+        lib.route_level.argtypes = [P] * 5 + [LL, I, P]
         lib.route_level.restype = I
-        lib.route_margin_level.argtypes = [P] * 8 + [LL, I, I, I, P]
+        lib.route_margin_level.argtypes = [P] * 8 + [LL, I, P]
         lib.route_margin_level.restype = I
         lib.leaf_fit.argtypes = [P] * 9 + [I] * 6 + [P]
         lib.leaf_fit.restype = I
@@ -438,10 +458,6 @@ def _lib(name: str):
 
 
 _MODE = {"root": 0, "route": 1, "nodes": 2}  # csrc/hist.cu hist_prep modes
-
-
-def _stream(dev):
-    return torch.cuda.current_stream(dev).cuda_stream
 
 
 def hist_prep(mode: str, xb, node, g, h, feat, thr, *, n_rows: int,
@@ -471,12 +487,11 @@ def hist_prep(mode: str, xb, node, g, h, feat, thr, *, n_rows: int,
     key = (torch.empty_like(node) if mode == "route" else
            node if mode == "nodes" else None)
     n_prev = 0 if feat is None else feat.shape[0]
-    with torch.cuda.device(dev):
-        rc = _lib("hist").hist_prep(
-            _MODE[mode], _ptr(xb), _ptr(node), _ptr(g), _ptr(h), _ptr(feat),
-            _ptr(thr), _ptr(key) if mode == "route" else None, _ptr(counts),
-            _ptr(scale), n_rows, block, xb.shape[-1], n_nodes, n_prev, int(i8),
-            _stream(dev))
+    rc = _launch_on(
+        dev.index, _lib("hist").hist_prep, _MODE[mode], _ptr(xb), _ptr(node),
+        _ptr(g), _ptr(h), _ptr(feat), _ptr(thr),
+        _ptr(key) if mode == "route" else None, _ptr(counts), _ptr(scale),
+        n_rows, block, xb.shape[-1], n_nodes, n_prev, int(i8))
     _check(rc, "hist_prep")
     helper_launches["hist_prep"] += 1
     return key, counts, scale
@@ -511,13 +526,12 @@ def hist_partition(key, g, h, counts, scale, *, n_rows: int, block: int,
     perm = None if key is None else torch.empty(n_rows, **i32)
     planes = torch.empty((n_rows, 4), device=dev,
                          dtype=torch.int8 if i8 else torch.bfloat16)
-    with torch.cuda.device(dev):
-        rc = _lib("hist").hist_partition(
-            _ptr(key), _ptr(g), _ptr(h), _ptr(scale), _ptr(counts),
-            _ptr(runs[0]), _ptr(runs[1]), _ptr(nodes[0]), _ptr(nodes[1]),
-            _ptr(nodes[2]), _ptr(nodes[3]), _ptr(chunk_begin), _ptr(perm),
-            _ptr(planes), n_rows, block, n_nodes, chunk_rows, int(i8),
-            _stream(dev))
+    rc = _launch_on(
+        dev.index, _lib("hist").hist_partition, _ptr(key), _ptr(g), _ptr(h),
+        _ptr(scale), _ptr(counts), _ptr(runs[0]), _ptr(runs[1]),
+        _ptr(nodes[0]), _ptr(nodes[1]), _ptr(nodes[2]), _ptr(nodes[3]),
+        _ptr(chunk_begin), _ptr(perm), _ptr(planes), n_rows, block, n_nodes,
+        chunk_rows, int(i8))
     _check(rc, "hist_partition")
     helper_launches["hist_partition"] += 1
     return Partition(perm, planes, chunk_begin, nodes[3], nodes[2])
@@ -536,12 +550,11 @@ def hist_accumulate(xb, part: Partition, scale, *, block: int, n_nodes: int,
     partial = torch.empty((max_chunks, F, n_bins, 2), device=dev)
     out = torch.empty((n_nodes, F, n_bins, 2), device=dev)
     vec = F % 4 == 0 and xb.data_ptr() % 16 == 0  # one 16-byte copy a tile row
-    with torch.cuda.device(dev):
-        rc = _lib("hist").hist_accumulate(
-            _ptr(xb), _ptr(part.perm), _ptr(part.planes), _ptr(scale),
-            _ptr(part.chunk_begin), _ptr(part.node_base), _ptr(part.node_chunk0),
-            _ptr(partial), _ptr(out), block, F, n_bins, n_nodes, max_chunks,
-            int(vec), int(i8), _stream(dev))
+    rc = _launch_on(
+        dev.index, _lib("hist").hist_accumulate, _ptr(xb), _ptr(part.perm),
+        _ptr(part.planes), _ptr(scale), _ptr(part.chunk_begin),
+        _ptr(part.node_base), _ptr(part.node_chunk0), _ptr(partial), _ptr(out),
+        block, F, n_bins, n_nodes, max_chunks, int(vec), int(i8))
     _check(rc, name)
     launches[name] += 1
     return out
@@ -586,12 +599,11 @@ def hist_launch(mode: str, xb, node, g, h, feat, thr, *, n_rows: int,
                                               _CHUNK_ROWS, int(i8)),
                      dtype=torch.uint8, device=dev)
     vec = F % 4 == 0 and xb.data_ptr() % 16 == 0  # one 16-byte copy a tile row
-    with torch.cuda.device(dev):
-        rc = lib.hist_build(
-            _MODE[mode], _ptr(xb), _ptr(node), _ptr(g), _ptr(h), _ptr(feat),
-            _ptr(thr), _ptr(node_out), _ptr(ws), _ptr(out), n_rows, block, F,
-            n_bins, n_nodes, 0 if feat is None else feat.shape[0], _CHUNK_ROWS,
-            int(vec), int(i8), _stream(dev))
+    rc = _launch_on(
+        dev.index, lib.hist_build, _MODE[mode], _ptr(xb), _ptr(node), _ptr(g),
+        _ptr(h), _ptr(feat), _ptr(thr), _ptr(node_out), _ptr(ws), _ptr(out),
+        n_rows, block, F, n_bins, n_nodes, 0 if feat is None else feat.shape[0],
+        _CHUNK_ROWS, int(vec), int(i8))
     _check(rc, name)
     helper_launches["hist_prep"] += 1
     helper_launches["hist_partition"] += 1
@@ -652,14 +664,24 @@ def hist_level(xb3, node3, g3, h3, feat, thr, *, depth: int, n_bins: int,
                       n_bins=n_bins, i8=mxu_i8, name="hist_level")
 
 
-def _route_checks(xb3, node3, feat, thr, depth):
+def _route_checks(xb3, node3, feat, thr, depth, margin3=None, leaf=None):
+    """(rows, F) of a final pass; raises on a depth, shape, dtype or layout
+    that the route kernels do not take."""
+    if not 1 <= depth <= _MAX_ROUTE_DEPTH:
+        raise ValueError(f"depth={depth}: the route kernels take depths 1 to "
+                         f"{_MAX_ROUTE_DEPTH} (int32 leaf ids)")
     nb, R, F = xb3.shape
-    n_prev = 2 ** (depth - 1)
+    if F < 1:
+        raise ValueError("xb3 holds no feature to route on")
+    n_prev = 1 << (depth - 1)
     _expect(xb3, "xb3", (nb, R, F), torch.int32)
     _expect(node3, "node3", (nb, R, 1), torch.int32)
     _expect(feat, "feat", (n_prev,), torch.int32)
     _expect(thr, "thr", (n_prev,), torch.int32)
-    return nb * R, F, n_prev
+    if margin3 is not None:
+        _expect(margin3, "margin3", (nb, R, 1), torch.float32)
+        _expect(leaf, "leaf", (2 * n_prev,), torch.float32)
+    return nb * R, F
 
 
 def route_level(xb3, node3, feat, thr, *, depth: int) -> torch.Tensor:
@@ -671,13 +693,11 @@ def route_level(xb3, node3, feat, thr, *, depth: int) -> torch.Tensor:
     csrc/route.cu."""
     if not _on_cuda(xb3, node3, feat, thr):
         return route_level_plain(xb3, node3, feat, thr, depth=depth)
-    n_rows, F, n_prev = _route_checks(xb3, node3, feat, thr, depth)
-    lib = _lib("route")
+    n_rows, F = _route_checks(xb3, node3, feat, thr, depth)
     node_out = torch.empty_like(node3)
-    with torch.cuda.device(xb3.device):
-        stream = torch.cuda.current_stream(xb3.device).cuda_stream
-        rc = lib.route_level(_ptr(xb3), _ptr(node3), _ptr(feat), _ptr(thr),
-                             _ptr(node_out), n_rows, F, n_prev, stream)
+    rc = _launch_on(xb3.get_device(), _lib("route").route_level, xb3.data_ptr(),
+                    node3.data_ptr(), feat.data_ptr(), thr.data_ptr(),
+                    node_out.data_ptr(), n_rows, F)
     _check(rc, "route_level")
     launches["route_level"] += 1
     return node_out
@@ -693,18 +713,13 @@ def route_margin_level(xb3, node3, margin3, feat, thr, leaf, *, depth: int):
     if not _on_cuda(xb3, node3, margin3, feat, thr, leaf):
         return route_margin_level_plain(xb3, node3, margin3, feat, thr, leaf,
                                         depth=depth)
-    n_rows, F, n_prev = _route_checks(xb3, node3, feat, thr, depth)
-    _expect(margin3, "margin3", tuple(node3.shape), torch.float32)
-    _expect(leaf, "leaf", (2 ** depth,), torch.float32)
-    lib = _lib("route")
+    n_rows, F = _route_checks(xb3, node3, feat, thr, depth, margin3, leaf)
     node_out = torch.empty_like(node3)
     margin_out = torch.empty_like(margin3)
-    with torch.cuda.device(xb3.device):
-        stream = torch.cuda.current_stream(xb3.device).cuda_stream
-        rc = lib.route_margin_level(
-            _ptr(xb3), _ptr(node3), _ptr(margin3), _ptr(feat), _ptr(thr),
-            _ptr(leaf), _ptr(margin_out), _ptr(node_out), n_rows, F, n_prev,
-            2 ** depth, stream)
+    rc = _launch_on(xb3.get_device(), _lib("route").route_margin_level,
+                    xb3.data_ptr(), node3.data_ptr(), margin3.data_ptr(),
+                    feat.data_ptr(), thr.data_ptr(), leaf.data_ptr(),
+                    margin_out.data_ptr(), node_out.data_ptr(), n_rows, F)
     _check(rc, "route_margin_level")
     launches["route_margin_level"] += 1
     return margin_out, node_out
@@ -744,11 +759,10 @@ def leaf_fit(xb3, node3, g3, h3, feat, thr, *, depth: int):
     per = -(-nb // min(nb, 2 * _SMS))  # chunks from the shapes alone
     n_chunks = -(-nb // per)
     partial = torch.empty((n_chunks, n_leaves, 2), device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.leaf_fit(_ptr(xb3), _ptr(node3), _ptr(g3), _ptr(h3), _ptr(feat),
-                          _ptr(thr), _ptr(node_out), _ptr(partial), _ptr(out),
-                          nb, R, F, n_leaves, acc_warps, n_chunks, stream)
+    rc = _launch_on(dev.index, lib.leaf_fit, _ptr(xb3), _ptr(node3), _ptr(g3),
+                    _ptr(h3), _ptr(feat), _ptr(thr), _ptr(node_out),
+                    _ptr(partial), _ptr(out), nb, R, F, n_leaves, acc_warps,
+                    n_chunks)
     _check(rc, "leaf_fit")
     launches["leaf_fit"] += 1
     return out, node_out

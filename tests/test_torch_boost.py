@@ -80,7 +80,7 @@ def test_r_split_must_divide_the_block():
         tboost.hist_level0(targs[0], targs[2], targs[3], n_bins=B, r_split=0)
 
 
-@pytest.mark.parametrize("depth", [1, 3])
+@pytest.mark.parametrize("depth", [1, 3, 13])
 def test_route_level_matches_jax(depth):
     x = _inputs(5, depth)
     ref = jboost.route_level(*(jnp.asarray(x[k]) for k in ("xb3", "node3", "feat", "thr")),
@@ -90,7 +90,7 @@ def test_route_level_matches_jax(depth):
     np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
 
 
-@pytest.mark.parametrize("depth", [1, 3])
+@pytest.mark.parametrize("depth", [1, 3, 13])
 def test_route_margin_level_matches_jax(depth):
     keys = ("xb3", "node3", "margin3", "feat", "thr", "leaf")
     x = _inputs(6, depth)
@@ -99,6 +99,45 @@ def test_route_margin_level_matches_jax(depth):
     got_m, got_n = tboost.route_margin_level(*(_t(x[k]) for k in keys), depth=depth)
     np.testing.assert_array_equal(got_n.numpy(), np.asarray(ref_n))
     np.testing.assert_array_equal(got_m.numpy(), np.asarray(ref_m))
+
+
+def _bad_route_inputs(case):
+    x = {k: _t(v) for k, v in _inputs(7, 3).items()}
+    if case == "feat":
+        x["feat"] = x["feat"][:2]
+    elif case == "node3":
+        x["node3"] = x["node3"].float()
+    elif case == "xb3":
+        x["xb3"] = x["xb3"].transpose(0, 1).contiguous().transpose(0, 1)
+    elif case == "no feature":
+        x["xb3"] = x["xb3"][..., :0]
+    elif case == "margin3":
+        x["margin3"] = x["margin3"].double()
+    elif case == "leaf":
+        x["leaf"] = x["leaf"][:4]
+    return x
+
+
+@pytest.mark.parametrize("case,depth,match", [
+    ("feat", 3, "feat: expected"), ("node3", 3, "node3: expected"),
+    ("xb3", 3, "xb3 must be contiguous"), ("no feature", 3, "no feature"),
+    ("margin3", 3, "margin3: expected"), ("leaf", 3, "leaf: expected"),
+    ("none", 0, "depths 1 to 31"), ("none", 32, "depths 1 to 31")])
+def test_route_checks_refuse_what_the_kernels_do_not_take(case, depth, match):
+    """The checks the route wrappers run before a launch (on CPU tensors
+    here: they read only shapes, dtypes and layout)."""
+    x = _bad_route_inputs(case)
+    with pytest.raises(ValueError, match=match):
+        tboost._route_checks(x["xb3"], x["node3"], x["feat"], x["thr"], depth,
+                             x["margin3"], x["leaf"])
+
+
+def test_route_checks_pass_good_inputs():
+    x = _bad_route_inputs("none")
+    nb, R, F = x["xb3"].shape
+    assert tboost._route_checks(x["xb3"], x["node3"], x["feat"], x["thr"], 3,
+                                x["margin3"], x["leaf"]) == (nb * R, F)
+    assert tboost._route_checks(x["xb3"], x["node3"], x["feat"], x["thr"], 3) == (nb * R, F)
 
 
 def test_block_rows_pads_like_jax():

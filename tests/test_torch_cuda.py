@@ -86,6 +86,112 @@ def test_route_kernels_match_plain(cuda):
     assert torch.equal(gn, rn) and torch.equal(gm, rm)
 
 
+def _route_inputs(seed, depth, nb, R, n_feat, device):
+    """Final-pass inputs: node ids over all 2**(depth-1) parents, 256 bins."""
+    rng = np.random.RandomState(seed)
+    n_prev = 2 ** (depth - 1)
+    t = lambda a: torch.as_tensor(a, device=device)
+    return dict(
+        xb3=t(rng.randint(0, 256, size=(nb, R, n_feat)).astype(np.int32)),
+        node3=t(rng.randint(0, n_prev, size=(nb, R, 1)).astype(np.int32)),
+        margin3=t(rng.randn(nb, R, 1).astype(np.float32)),
+        feat=t(rng.randint(0, n_feat, size=n_prev).astype(np.int32)),
+        thr=t(rng.randint(0, 256, size=n_prev).astype(np.int32)),
+        leaf=t(rng.randn(2 * n_prev).astype(np.float32)))
+
+
+def _check_route_kernels(c, depth):
+    """Both route kernels, bit for bit against their plain versions."""
+    keys = ("xb3", "node3", "margin3", "feat", "thr", "leaf")
+    boost.launches.clear()
+    got = boost.route_level(c["xb3"], c["node3"], c["feat"], c["thr"], depth=depth)
+    gm, gn = boost.route_margin_level(*(c[k] for k in keys), depth=depth)
+    assert dict(boost.launches) == {"route_level": 1, "route_margin_level": 1}
+    ref = boost.route_level_plain(c["xb3"], c["node3"], c["feat"], c["thr"],
+                                  depth=depth)
+    rm, rn = boost.route_margin_level_plain(*(c[k] for k in keys), depth=depth)
+    assert torch.equal(got, ref) and torch.equal(gn, rn)
+    assert torch.equal(gm.view(torch.int32), rm.view(torch.int32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("depth", [1, 6, 8, 13, 16])
+def test_route_kernels_match_plain_at_depth(cuda, depth):
+    """Up to depth 16 (32,768 parents): the split and leaf tables are read
+    from device memory, so no depth overflows a block's shared memory
+    (tables staged there refused depth 13 with the margin)."""
+    _check_route_kernels(_route_inputs(70 + depth, depth, 7, 1024, 28, cuda), depth)
+
+
+@pytest.mark.gpu
+def test_route_kernels_refuse_depths_past_int32_leaf_ids(cuda):
+    c = _route_inputs(71, 1, 1, 256, 5, cuda)
+    keys = ("xb3", "node3", "margin3", "feat", "thr", "leaf")
+    with pytest.raises(ValueError, match="depths 1 to 31"):
+        boost.route_level(c["xb3"], c["node3"], c["feat"], c["thr"], depth=32)
+    with pytest.raises(ValueError, match="depths 1 to 31"):
+        boost.route_margin_level(*(c[k] for k in keys), depth=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_feat", [1, 3, 28, 33])
+@pytest.mark.parametrize("nb", [1, 2, 3])
+def test_route_kernels_odd_shapes_match_plain(cuda, nb, n_feat):
+    """nb x 333 rows (n_rows % 4 = 1, 2, 3: the last tile partly empty),
+    odd feature counts, and node/margin tensors whose data start 4 bytes
+    past a 16-byte boundary."""
+    c = _route_inputs(90 + nb, 6, nb, 333, n_feat, cuda)
+    _check_route_kernels(c, 6)
+    for k in ("node3", "margin3"):
+        buf = torch.empty(c[k].numel() + 1, dtype=c[k].dtype, device=cuda)
+        shifted = buf[1:].view(c[k].shape)
+        shifted.copy_(c[k])
+        assert shifted.data_ptr() % 16 == 4
+        c[k] = shifted
+    _check_route_kernels(c, 6)
+
+
+@pytest.mark.gpu
+def test_route_kernels_bitwise_on_repeat(cuda):
+    c = _route_inputs(95, 8, 300, 1024, 28, cuda)
+    keys = ("xb3", "node3", "margin3", "feat", "thr", "leaf")
+    first = boost.route_margin_level(*(c[k] for k in keys), depth=8)
+    nodes = boost.route_level(c["xb3"], c["node3"], c["feat"], c["thr"], depth=8)
+    for _ in range(3):
+        m, n = boost.route_margin_level(*(c[k] for k in keys), depth=8)
+        assert torch.equal(m.view(torch.int32), first[0].view(torch.int32))
+        assert torch.equal(n, first[1])
+        assert torch.equal(boost.route_level(c["xb3"], c["node3"], c["feat"],
+                                             c["thr"], depth=8), nodes)
+
+
+@pytest.mark.gpu
+def test_depth13_fused_final_round_on_card_matches_cpu(cuda):
+    """A depth-13 fused_final round (a last histogram of 4096 nodes, then
+    route_margin_level over 4096 parents) on the card against the same
+    round on the CPU.  One round from a zero margin: g = +-0.5 and h = 0.25
+    sum exactly in any order, so the trees are equal."""
+    rng = np.random.RandomState(13)
+    n, n_feat, n_bins = 3000, 3, 8
+    xb = rng.randint(0, n_bins, size=(n, n_feat)).astype(np.int32)
+    y = rng.randint(0, 2, size=n).astype(np.float32)
+    cfg = gbdt.GBDTConfig(n_features=n_feat, n_trees=1, depth=13, n_bins=n_bins,
+                          fused_final=True)
+    states = {}
+    boost.launches.clear()
+    for dev in ("cpu", cuda):
+        xb3, _ = boost.block_rows(torch.as_tensor(xb, device=dev), BLOCK)
+        s = gbdt.init_state(cfg, n, dev)
+        states[str(dev)] = gbdt.train_round_fused(s, xb3, torch.as_tensor(y, device=dev),
+                                                  cfg)
+    assert dict(boost.launches) == {"hist_level0": 1, "hist_level": 12,
+                                    "route_margin_level": 1}
+    got, ref = states["cuda"], states["cpu"]
+    for a, b in zip(gbdt.forest_to_numpy(got.forest), gbdt.forest_to_numpy(ref.forest)):
+        np.testing.assert_array_equal(a, b)
+    np.testing.assert_array_equal(got.margin.cpu().numpy(), ref.margin.numpy())
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("fused_final", [False, True])
 @pytest.mark.parametrize("mxu_i8", [False, True])
