@@ -15,16 +15,23 @@ Phases, each of which exits non-zero when it fails:
               128 nodes), the histogram for given node ids at the node ids
               of a real round's levels d = 0..7 (the last row block
               short), the histogram path's helpers (hist_prep,
-              hist_partition: exactly), leaf_fit, and the final passes
-              (route_level, route_margin_level) bit for bit at depths 1,
-              6, 8 and 13 (4096 parents).
+              hist_partition: exactly), leaf_fit on the real round's last
+              level and at depths 1, 6, 8, 13 and 16 (leaf ids exactly,
+              bitwise on repeat; masses past depth 12 against an f64 sum
+              over all rows, and the plain version on the first 70 row
+              blocks), the final passes (route_level, route_margin_level)
+              bit for bit at depths 1, 6, 8 and 13 (4096 parents), and the
+              histogram path past 4096 nodes (the sorting partition): the
+              partition exactly at 8192 and 16384 nodes over all rows, the
+              histogram on the first 70 row blocks.
 4. main    -- the fused boosting round (train_round_fused) at that size,
               for bf16 and i8 and both final passes: 1 warm-up and 3 timed
               rounds, launch counts per kernel, and every level held
               teacher-forced against the plain versions.  Then GBDT.fit /
               predict as a user calls them, the fused round on a small
-              input against the CPU reference round, and one depth-8 fused
-              round per encoding, teacher-forced.
+              input against the CPU reference round, and one depth-8 and one
+              depth-14 fused round per encoding, teacher-forced (levels of
+              8192 nodes on the first 70 row blocks).
 5. hook    -- the hook-based round: GBDT(engine_allreduce=...).fit (depth
               + 1 hook calls per tree), train_round's ms/round in bf16 and
               i8 (1 warm-up, 3 timed), every level teacher-forced.
@@ -74,6 +81,12 @@ F32_OPS_PER_S = 67e12       # H100 SXM f32 outside the tensor cores
 HIST_RTOL = 1e-5            # histograms: rtol, and atol = 1e-5 * max |bin|
 GAIN_TIE = 1e-4             # a differing split must be this close in gain
 DEEP = 8                    # the deep round's depth: levels of 64 and 128 nodes
+DEEPEST = 14                # the deepest round: a last histogram of 8192 nodes
+FULL_PLAIN_DEPTH = 13       # levels below this: whole plain histograms; deeper: a subset
+SUBSET_BLOCKS = 70          # row blocks of the plain histogram / leaf fit past that
+                            # (more than 2 x leaf_fit's merge groups of 32 blocks)
+LEAF_DEPTHS = (1, DEPTH, DEEP, 13, 16)  # accumulators to 8; sort and compact records at 13, 16
+LARGE_NODES = (8192, 16384)  # histogram levels past the shared-memory partition
 DP_RANKS = 2                # processes of the gloo phase, on the one card
 REPLACES = {
     "hist_level0": "rabit_tpu/ops/boost.py:341",
@@ -141,11 +154,11 @@ def cuda_ms(torch, fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def device_ms(torch, fn, reps: int, kernel: str = "") -> float:
-    """Device time per call of ``fn``: every kernel, copy and fill it puts
-    on the card (those whose name holds ``kernel``), from torch.profiler
-    over ``reps`` calls after one warm-up call.  Host time between launches
-    is not in it, as it is in cuda_ms."""
+def kernel_ms(torch, fn, reps: int, kernel: str = "", skip: str | None = None) -> dict:
+    """Device time per call of ``fn``, kernel by kernel: every kernel, copy
+    and fill it puts on the card whose name holds ``kernel`` and not
+    ``skip``, from torch.profiler over ``reps`` calls after one warm-up
+    call.  Host time between launches is not in it, as it is in cuda_ms."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -154,11 +167,20 @@ def device_ms(torch, fn, reps: int, kernel: str = "") -> float:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    us = sum(getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)
-             for e in prof.key_averages()
-             if e.device_type.name == "CUDA" and kernel in e.key)
-    require(us > 0, "torch.profiler saw no device time")
-    return us / reps / 1e3
+    out = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)
+        if (us > 0 and e.device_type.name == "CUDA" and kernel in e.key
+                and (skip is None or skip not in e.key)):
+            out[e.key] = us / reps / 1e3
+    return out
+
+
+def device_ms(torch, fn, reps: int, kernel: str = "", skip: str | None = None) -> float:
+    """Device time per call of ``fn``: the sum of ``kernel_ms``."""
+    ms = sum(kernel_ms(torch, fn, reps, kernel, skip).values())
+    require(ms > 0, "torch.profiler saw no device time")
+    return ms
 
 
 ROUTE_DEPTHS = (1, DEPTH, DEEP, 13)  # 13: the deepest final pass the fused round reaches
@@ -442,15 +464,127 @@ class Smoke:
         return (self.xb3, node3, self.g3, self.h3, feat, thr), hist
 
     def check_leaf_fit(self):
+        """leaf_fit on the real round's last level, then on seeded node ids
+        at each of LEAF_DEPTHS: leaf ids exactly (all rows), masses within
+        the histogram tolerance, bitwise the same on repeat.  At depth 13
+        and past, the plain version's one-hot (R x 2**(depth+1) a block) is
+        too slow for every row block: it runs on the first SUBSET_BLOCKS
+        row blocks (a second kernel call on those), and the full call's
+        masses are held against an f64 sum of the rows' hi/lo planes per
+        leaf (``leaf_masses_f64``) over all rows, its leaf ids against
+        route_level_plain."""
+        torch, boost = self.torch, self.boost
         args, _ = self.leaf_inputs()
-        gk, nk = self.boost.leaf_fit(*args, depth=DEPTH)
-        gp, npl = self.boost.leaf_fit_plain(*args, depth=DEPTH)
+        gk, nk = boost.leaf_fit(*args, depth=DEPTH)
+        gp, npl = boost.leaf_fit_plain(*args, depth=DEPTH)
         e = hist_err(gk, gp)
-        same = bool(self.torch.equal(nk, npl))
-        print(f"  leaf_fit: max |d| {float((gk - gp).abs().max()):.3e} (err/limit "
-              f"{e:.3f}), leaf ids equal: {same}")
+        same = bool(torch.equal(nk, npl))
+        print(f"  leaf_fit (real round, d={DEPTH}): max |d| {float((gk - gp).abs().max()):.3e}"
+              f" (err/limit {e:.3f}), leaf ids equal: {same}")
         require(same and e <= 1.0, "leaf_fit disagrees with its plain version")
         self.err["leaf_fit"] = float((gk - gp).abs().max())
+        for d in LEAF_DEPTHS:
+            node3, feat, thr = self.level_inputs(d)
+            full = (self.xb3, node3, self.g3, self.h3, feat, thr)
+            gk, nk = boost.leaf_fit(*full, depth=d)
+            again, n2 = boost.leaf_fit(*full, depth=d)
+            repeat = bool(torch.equal(again.view(torch.int32), gk.view(torch.int32))
+                          and torch.equal(n2, nk))
+            leaf3 = boost.route_level_plain(self.xb3, node3, feat, thr, depth=d)
+            same = bool(torch.equal(nk, leaf3))
+            if d >= FULL_PLAIN_DEPTH:
+                ref = self.leaf_masses_f64(leaf3, d)
+                e = hist_err(gk.double(), ref)
+                print(f"  leaf_fit d={d} ({2 ** d} leaves): masses on all rows against the "
+                      f"f64 sum max |d| {float((gk.double() - ref).abs().max()):.3e} "
+                      f"(err/limit {e:.3f})")
+                require(e <= 1.0, f"leaf_fit d={d} disagrees with the f64 sum over all rows")
+                full = tuple(a[:SUBSET_BLOCKS] if a.ndim == 3 else a for a in full)
+                gk, _ = boost.leaf_fit(*full, depth=d)
+            gp, _ = boost.leaf_fit_plain(*full, depth=d)
+            e = hist_err(gk, gp)
+            where = ("all rows" if d < FULL_PLAIN_DEPTH
+                     else f"the first {SUBSET_BLOCKS} row blocks")
+            print(f"  leaf_fit d={d} ({2 ** d} leaves): masses on {where} max |d| "
+                  f"{float((gk - gp).abs().max()):.3e} (err/limit {e:.3f}); leaf ids "
+                  f"equal: {same}; bitwise on repeat: {repeat}")
+            require(same and repeat and e <= 1.0,
+                    f"leaf_fit d={d} disagrees with its plain version")
+            self.err["leaf_fit"] = max(self.err["leaf_fit"], float((gk - gp).abs().max()))
+
+    def leaf_masses_f64(self, leaf3, depth: int):
+        """[2**depth, 2] f64: per leaf the sum over all rows of g's and h's
+        hi + lo bf16 planes (hi = bf16(v), lo = bf16(v - hi)), by index_add_
+        in f64: independent of the kernel's order, and exact to f64."""
+        torch = self.torch
+
+        def planes(v):
+            hi = v.reshape(-1).to(torch.bfloat16).float()
+            return hi.double() + (v.reshape(-1) - hi).to(torch.bfloat16).double()
+
+        vals = torch.stack([planes(self.g3), planes(self.h3)], -1)
+        out = torch.zeros((2 ** depth, 2), dtype=torch.float64, device=self.dev)
+        return out.index_add_(0, leaf3.reshape(-1).long(), vals)
+
+    def check_large_hist(self):
+        """The histogram path past 4096 nodes (the sorting partition): at
+        8192 and 16384 nodes of the route mode (d = 13, 14) and 8192 given
+        node ids, the partition equals hist_partition_plain exactly over all
+        rows; the histogram matches its plain version on the first
+        SUBSET_BLOCKS row blocks (the plain one-hot at 8192 nodes is too
+        slow for all of them), both encodings."""
+        torch, boost = self.torch, self.boost
+        R = self.xb3.shape[1]
+        cases = [("route", n) for n in LARGE_NODES] + [("nodes", LARGE_NODES[0])]
+        for mode, n_nodes in cases:
+            d = n_nodes.bit_length() - 1
+            if mode == "route":
+                node3, feat, thr = self.level_inputs(d)
+                xb, node, g, h, n = self.xb3, node3, self.g3, self.h3, self.xb3.numel() // N_FEATURES
+            else:
+                gen = torch.Generator(device=self.dev).manual_seed(200)
+                node = torch.randint(0, n_nodes, (self.n_rows,), generator=gen,
+                                     device=self.dev, dtype=torch.int32)
+                xb, g, h, n, feat, thr = self.xb, self.g, self.h, self.n_rows, None, None
+            for i8 in (False, True):
+                enc = "i8" if i8 else "bf16"
+                kw = dict(n_rows=n, block=R, n_nodes=n_nodes, i8=i8)
+                key, counts, scale = boost.hist_prep(mode, xb, node, g, h, feat, thr, **kw)
+                part = boost.hist_partition(key, g, h, counts, scale, **kw)
+                rk, rc, rs = boost.hist_prep_plain(mode, xb, node, g, h, feat, thr, **kw)
+                rp = boost.hist_partition_plain(rk, g, h, rc, rs, **kw)
+                n_listed, n_chunks = int(rp.node_base[-1]), int(rp.node_chunk0[-1])
+                same = (torch.equal(key.reshape(-1), rk.reshape(-1))
+                        and torch.equal(counts, rc)
+                        and (scale is None or torch.equal(scale, rs))
+                        and torch.equal(part.node_base, rp.node_base)
+                        and torch.equal(part.node_chunk0, rp.node_chunk0)
+                        and torch.equal(part.chunk_begin[:n_chunks], rp.chunk_begin)
+                        and torch.equal(part.perm[:n_listed], rp.perm)
+                        and torch.equal(part.planes[:n_listed], rp.planes))
+                del key, counts, scale, part, rk, rc, rs, rp
+                sub = SUBSET_BLOCKS * R
+                if mode == "route":
+                    a = (self.xb3[:SUBSET_BLOCKS], node3[:SUBSET_BLOCKS],
+                         self.g3[:SUBSET_BLOCKS], self.h3[:SUBSET_BLOCKS], feat, thr)
+                    got, nk = boost.hist_level(*a, depth=d, n_bins=N_BINS, mxu_i8=i8)
+                    ref, npl = boost.hist_level_plain(*a, depth=d, n_bins=N_BINS, mxu_i8=i8)
+                    same = same and bool(torch.equal(nk, npl))
+                    name = "hist_level"
+                else:
+                    a = (self.xb[:sub], self.g[:sub], self.h[:sub], node[:sub], n_nodes, N_BINS)
+                    got = self.hist.node_histograms_kernel(*a, mxu_i8=i8)
+                    ref = self.hist.node_histograms_kernel_plain(*a, mxu_i8=i8)
+                    name = "node_histograms_kernel"
+                e = hist_err(got, ref)
+                print(f"  {mode} {n_nodes} nodes {enc}: partition of {n_listed} rows in "
+                      f"{n_chunks} chunks equal to the plain twins: {same}; histogram on "
+                      f"the first {SUBSET_BLOCKS} row blocks max |d| "
+                      f"{float((got - ref).abs().max()):.3e} (err/limit {e:.3f})")
+                require(same and e <= 1.0, f"{mode} {n_nodes} nodes {enc}: the histogram "
+                        "path disagrees with its plain twins")
+                self.err[name] = max(self.err[name], float((got - ref).abs().max()))
+                del got, ref
 
     # -- phase 4 ------------------------------------------------------------------
     def near_ties(self, hist, feat, thr, cfg, where: str, what: str):
@@ -478,7 +612,10 @@ class Smoke:
     def teacher_forced(self, state, cfg):
         """One fused round level by level, each kernel held against its plain
         version on the kernel path's inputs; returns the kernel path's
-        split tables."""
+        split tables.  Levels of 8192 nodes and more (d >= FULL_PLAIN_DEPTH)
+        hold the histogram on the first SUBSET_BLOCKS row blocks, the node
+        ids over all rows, and take the splits off the kernel's
+        histogram."""
         boost, gbdt, torch = self.boost, self.gbdt, self.torch
         g, h = gbdt.gradients(cfg, state.margin, self.y)
         g3, _ = boost.block_rows(g)
@@ -493,11 +630,21 @@ class Smoke:
         for d in range(1, cfg.depth):
             hk, nk = boost.hist_level(self.xb3, node3, g3, h3, feat, thr,
                                       depth=d, **kw)
-            hp, npl = boost.hist_level_plain(self.xb3, node3, g3, h3, feat, thr,
-                                             depth=d, **kw)
-            require(bool(torch.equal(nk, npl)), f"level {d} node ids differ")
-            require(hist_err(hk, hp) <= 1.0, f"level {d} histogram disagrees")
-            feat, thr = self.compare_splits(hk, hp, cfg, f"level {d}")
+            if d < FULL_PLAIN_DEPTH:
+                hp, npl = boost.hist_level_plain(self.xb3, node3, g3, h3, feat, thr,
+                                                 depth=d, **kw)
+                require(bool(torch.equal(nk, npl)), f"level {d} node ids differ")
+                require(hist_err(hk, hp) <= 1.0, f"level {d} histogram disagrees")
+                feat, thr = self.compare_splits(hk, hp, cfg, f"level {d}")
+            else:
+                npl = boost.route_level_plain(self.xb3, node3, feat, thr, depth=d)
+                require(bool(torch.equal(nk, npl)), f"level {d} node ids differ")
+                a = [t[:SUBSET_BLOCKS] for t in (self.xb3, node3, g3, h3)] + [feat, thr]
+                hs, _ = boost.hist_level(*a, depth=d, **kw)
+                hp, _ = boost.hist_level_plain(*a, depth=d, **kw)
+                require(hist_err(hs, hp) <= 1.0, f"level {d} histogram disagrees "
+                        f"on the first {SUBSET_BLOCKS} row blocks")
+                feat, thr, _ = self.gbdt.best_splits(hk, cfg)
             feats.append(feat)
             thrs.append(thr)
             node3 = nk
@@ -590,26 +737,27 @@ class Smoke:
                     "small input: leaves differ from the reference")
         print("  small input: fused round on the card grows the CPU reference's trees")
 
-    def deep_round(self, i8: bool):
-        """One depth-8 fused round (levels of 64 and 128 nodes), teacher-forced
-        against the plain versions."""
+    def deep_round(self, i8: bool, depth: int = DEEP):
+        """One deep fused round (depth 8: levels of 64 and 128 nodes; depth
+        14: up to 8192 nodes, the sorting partition), teacher-forced against
+        the plain versions (past depth 13 on a subset: see teacher_forced)."""
         torch, gbdt = self.torch, self.gbdt
-        cfg = gbdt.GBDTConfig(n_features=N_FEATURES, n_trees=1, depth=DEEP,
+        cfg = gbdt.GBDTConfig(n_features=N_FEATURES, n_trees=1, depth=depth,
                               n_bins=N_BINS, mxu_i8=i8)
         start = gbdt.init_state(cfg, self.n_rows, self.dev)
         t0 = time.perf_counter()
         state, counts = self.path(
             lambda: gbdt.train_round_fused(start, self.xb3, self.y, cfg))
         ms = (time.perf_counter() - t0) * 1e3
-        want = {"hist_level0": 1, "hist_level": DEEP - 1, "route_level": 1}
-        require(counts == want, f"depth-{DEEP} launch counts {counts}, expected {want}")
+        want = {"hist_level0": 1, "hist_level": depth - 1, "route_level": 1}
+        require(counts == want, f"depth-{depth} launch counts {counts}, expected {want}")
         feats, thrs = self.teacher_forced(start, cfg)
-        for d in range(DEEP):
+        for d in range(depth):
             n = 2 ** d
             require(bool(torch.equal(state.forest.feature[0, d, :n], feats[d])) and
                     bool(torch.equal(state.forest.threshold[0, d, :n], thrs[d])),
-                    f"depth-{DEEP} round differs from the teacher-forced tree at level {d}")
-        print(f"  depth-{DEEP} fused round {'i8' if i8 else 'bf16'}: {ms:.3f} ms "
+                    f"depth-{depth} round differs from the teacher-forced tree at level {d}")
+        print(f"  depth-{depth} fused round {'i8' if i8 else 'bf16'}: {ms:.3f} ms "
               f"(one round, cold), launches {counts}, every level matches the plain path")
 
     # -- phase 5 ------------------------------------------------------------------
@@ -1028,6 +1176,7 @@ def main() -> int:
         smoke.check_node_kernel()
         smoke.check_helpers()
         smoke.check_leaf_fit()
+        smoke.check_large_hist()
 
         phase = "main"
         round_ms = {}
@@ -1039,6 +1188,8 @@ def main() -> int:
         smoke.small_reference()
         for i8 in (False, True):
             smoke.deep_round(i8)
+        for i8 in (False, True):
+            smoke.deep_round(i8, DEEPEST)
         print("[main] ms/round " + json.dumps(round_ms), flush=True)
 
         phase = "hook"

@@ -4,7 +4,8 @@ Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into its own
 shared library with a plain C interface (no PyTorch headers, so a build
 takes seconds).  Libraries land in ``rabit_tpu_torch/_build/`` under a name
 that carries a hash of the source and the flags, so an edited source is
-rebuilt and an unchanged one is loaded as it is.  ``build_all`` starts one
+rebuilt and an unchanged one is loaded as it is (the hash covers the
+shared ``csrc/*.cuh`` headers too).  ``build_all`` starts one
 ``nvcc`` per source, all at once.
 
 Nothing here runs at import: the CPU test suite imports every module of
@@ -49,6 +50,7 @@ def _nvcc() -> str:
 
 def _target(name: str) -> Path:
     src = (SRC_DIR / f"{name}.cu").read_bytes()
+    src += b"".join(p.read_bytes() for p in sorted(SRC_DIR.glob("*.cuh")))  # included headers
     key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{key}.so"
 

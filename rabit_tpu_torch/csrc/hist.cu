@@ -38,6 +38,9 @@
 //    the row (route mode, node' written out), count the block's rows per
 //    node, and take the block's i8 scale.  A counted row lies below n_rows
 //    and has its id in [0, n_nodes); only counted rows enter the scale.
+//    Up to kMaxNodes nodes the counts can gather in shared memory; on the
+//    "large" path (any node count; the wrapper takes it past 256 nodes,
+//    where it is the faster) warp leaders add them to device memory.
 // 2. partition: scan_nodes (one block per node) scans the counts over the
 //    row blocks, giving each (row block, node) run its start inside the
 //    node's segment, and marks the runs that open a chunk: the first run
@@ -48,7 +51,12 @@
 //    __match_any_sync), places them in shared memory in output order and
 //    writes each node's run out contiguously: the row index to perm and
 //    the encoded planes beside it (4 x bf16 in 8 bytes, or 2 x 2 int8 in
-//    4 bytes); it also writes the chunk table.  Each node's rows then lie
+//    4 bytes); it also writes the chunk table.  Its per-warp node counters
+//    cap it at kMaxNodes nodes; on the large path scatter_sort ranks the
+//    block's rows by a block-local stable radix sort of their node ids
+//    (block_sort.cuh), whose shared memory grows with R alone, and gives
+//    the same partition.  counts, rel and hid stay [nb, n_nodes] in device
+//    memory: 4 bytes a (row block, node) each.  Each node's rows then lie
 //    contiguous and in row order; every chunk lies inside one node, starts
 //    on a row-block run and holds about C rows, so a node with 90% of the
 //    rows spreads over many blocks.  There are at most ceil(n_rows / C) +
@@ -90,14 +98,14 @@
 // cannot contract them into FMAs, which would round differently from the
 // reference.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <type_traits>
 
+#include "block_sort.cuh"
+
 namespace {
 
-constexpr unsigned kFull = 0xffffffffu;
 constexpr int kThreads = 256;        // prep and scatter blocks
 constexpr int kWarps = kThreads / 32;
 constexpr int kScanThreads = 1024;   // scan blocks
@@ -106,7 +114,7 @@ constexpr int kMaxTile = 4;          // features of a tile_hist block, a warp ea
 constexpr int kStageRows = 128;      // rows a stage holds
 constexpr int kStages = 3;
 constexpr int kBins = 256;           // accumulator rows: n_bins <= 256
-constexpr int kMaxNodes = 4096;      // scatter's shared memory: per-warp node
+constexpr int kMaxNodes = 4096;      // scatter_kernel's shared memory: per-warp node
 constexpr int kMaxBlock = 8192;      // counters and a row block's slots (208 KB)
 constexpr float kTiny = 1.1754944e-38f;  // smallest normal f32
 enum Mode { kRoot = 0, kRoute = 1, kNodes = 2 };
@@ -125,47 +133,21 @@ __device__ inline unsigned int encode_i8(float v, float inv) {
   return ((unsigned int)(int)a & 0xffu) | (((unsigned int)(int)b & 0xffu) << 8);
 }
 
-__device__ inline unsigned int encode_bf16(float v) {
-  // hi | lo << 16 as bfloat16 bits.
-  const __nv_bfloat16 hi = __float2bfloat16_rn(v);
-  const __nv_bfloat16 lo = __float2bfloat16_rn(__fsub_rn(v, __bfloat162float(hi)));
-  return (unsigned int)__bfloat16_as_ushort(hi) |
-         ((unsigned int)__bfloat16_as_ushort(lo) << 16);
-}
-
-// Exclusive prefix sum of v over the block's threads (a multiple of 32, at
-// most 1024); total gets the block's sum.  ws holds 32 ints.
-__device__ inline int block_scan(int v, int* ws, int& total) {
-  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5, nw = blockDim.x >> 5;
-  int x = v;
-  for (int o = 1; o < 32; o <<= 1) {
-    const int y = __shfl_up_sync(kFull, x, o);
-    if (lane >= o) x += y;
-  }
-  if (lane == 31) ws[w] = x;
-  __syncthreads();
-  if (w == 0) {
-    int s = lane < nw ? ws[lane] : 0;
-    for (int o = 1; o < 32; o <<= 1) {
-      const int y = __shfl_up_sync(kFull, s, o);
-      if (lane >= o) s += y;
-    }
-    if (lane < nw) ws[lane] = s;
-  }
-  __syncthreads();
-  const int off = w ? ws[w - 1] : 0;
-  total = ws[nw - 1];
-  __syncthreads();  // ws is free for the next call
-  return off + x - v;
-}
+using blk::block_scan;
+using blk::encode_bf16;
+using blk::kFull;
 
 // -- 1. prep --------------------------------------------------------------------
 
 // counts[blk, m]: the block's counted rows of node m; node_out (route);
 // scale[blk] (i8): max(|g|, |h|) over the block's counted rows, floored at
-// the smallest normal f32.  Dynamic shared memory: (n_nodes + 2 * n_prev)
-// ints.
-template <bool I8, int MODE>
+// the smallest normal f32.  LARGE false (at most kMaxNodes nodes): the
+// counts are taken in shared memory and the split tables staged there:
+// dynamic shared memory (n_nodes + 2 * n_prev) ints.  LARGE (any node
+// count): the tables are read where they lie, through L1, and each warp's
+// leader for a node adds to counts in device memory (zeroed first; integer
+// atomics, exact in any order): no shared memory grows with the nodes.
+template <bool I8, int MODE, bool LARGE>
 __global__ void __launch_bounds__(kThreads)
 prep_kernel(const int* __restrict__ xb, const int* __restrict__ node_in,
             const float* __restrict__ g, const float* __restrict__ h,
@@ -179,12 +161,16 @@ prep_kernel(const int* __restrict__ xb, const int* __restrict__ node_in,
   int* tt = ft + n_prev;
   __shared__ float red[kWarps];
   const int tid = threadIdx.x, lane = tid & 31;
-  for (int i = tid; i < n_nodes; i += kThreads) cnt[i] = 0;
-  for (int i = tid; i < n_prev; i += kThreads) {
-    ft[i] = feat[i];
-    tt[i] = thr[i];
+  if constexpr (!LARGE) {
+    for (int i = tid; i < n_nodes; i += kThreads) cnt[i] = 0;
+    for (int i = tid; i < n_prev; i += kThreads) {
+      ft[i] = feat[i];
+      tt[i] = thr[i];
+    }
+    __syncthreads();
   }
-  __syncthreads();
+  auto split_feat = [&](int p) { return LARGE ? __ldg(feat + p) : ft[p]; };
+  auto split_thr = [&](int p) { return LARGE ? __ldg(thr + p) : tt[p]; };
   const long long base = (long long)blockIdx.x * R;
   const int valid = (int)min((long long)R, n_rows - base);
   float m = 0.0f;
@@ -208,12 +194,13 @@ prep_kernel(const int* __restrict__ xb, const int* __restrict__ node_in,
     if (MODE == kRoute) {
 #pragma unroll
       for (int u = 0; u < 4; ++u)
-        if (r0 + u * kThreads < valid) x[u] = xb[(base + r0 + u * kThreads) * F + ft[key[u]]];
+        if (r0 + u * kThreads < valid)
+          x[u] = xb[(base + r0 + u * kThreads) * F + split_feat(key[u])];
 #pragma unroll
       for (int u = 0; u < 4; ++u) {
         const int r = r0 + u * kThreads;
         if (r < valid) {
-          key[u] = 2 * key[u] + (x[u] > tt[key[u]] ? 1 : 0);
+          key[u] = 2 * key[u] + (x[u] > split_thr(key[u]) ? 1 : 0);
           node_out[base + r] = key[u];
         }
       }
@@ -223,13 +210,21 @@ prep_kernel(const int* __restrict__ xb, const int* __restrict__ node_in,
       const bool counted = (unsigned int)key[u] < (unsigned int)n_nodes;
       const int k = counted ? key[u] : -1;
       const unsigned int peers = __match_any_sync(kFull, k);
-      if (counted && lane == __ffs(peers) - 1) atomicAdd(&cnt[k], __popc(peers));
+      if (counted && lane == __ffs(peers) - 1) {
+        if constexpr (LARGE) {
+          atomicAdd(&counts[(long long)blockIdx.x * n_nodes + k], __popc(peers));
+        } else {
+          atomicAdd(&cnt[k], __popc(peers));
+        }
+      }
       if (I8 && counted) m = fmaxf(m, fmaxf(fabsf(gv[u]), fabsf(hv[u])));
     }
   }
   __syncthreads();
-  for (int i = tid; i < n_nodes; i += kThreads)
-    counts[(long long)blockIdx.x * n_nodes + i] = cnt[i];
+  if constexpr (!LARGE) {
+    for (int i = tid; i < n_nodes; i += kThreads)
+      counts[(long long)blockIdx.x * n_nodes + i] = cnt[i];
+  }
   if (I8) {
     for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(kFull, m, o));
     if (lane == 0) red[tid >> 5] = m;
@@ -391,6 +386,69 @@ scatter_kernel(const int* __restrict__ key_in, const float* __restrict__ g,
   }
 }
 
+// Shared memory of a scatter_sort_kernel block: two key and two slot
+// buffers of R entries (csrc/block_sort.cuh) and the digit counters.
+__host__ __device__ inline size_t scatter_sort_smem_bytes(int R) {
+  return (size_t)R * (4 + 4 + 2 + 2) + (size_t)blk::rank_counters(blk::kDigits) * 4;
+}
+
+// scatter_kernel's outputs for any node count, with shared memory bounded
+// by the row block: the block's counted rows are sorted by node (a stable
+// LSD radix sort over the node ids' `bits` bits, block_sort.cuh), so each
+// node's rows form a run in row order.  A row's place is node_base[m] +
+// rel[blk, m] + its rank in the run, whose start a binary search over the
+// sorted ids finds; the run's first row writes the chunk_begin entry.
+// Consecutive threads take consecutive sorted rows, so a node's run goes
+// out as consecutive addresses, as in scatter_kernel.  Dynamic shared
+// memory: scatter_sort_smem_bytes(R).
+template <bool I8>
+__global__ void __launch_bounds__(kThreads)
+scatter_sort_kernel(const int* __restrict__ key_in, const float* __restrict__ g,
+                    const float* __restrict__ h, const float* __restrict__ scale,
+                    const int* __restrict__ rel, const int* __restrict__ hid,
+                    const int* __restrict__ node_base,
+                    const int* __restrict__ node_chunk0, int* __restrict__ chunk_begin,
+                    int* __restrict__ perm, unsigned int* __restrict__ planes,
+                    long long n_rows, int R, int n_nodes, int bits) {
+  extern __shared__ __align__(16) unsigned char ssm[];
+  const blk::SortBufs sb{reinterpret_cast<int*>(ssm),
+                         reinterpret_cast<int*>(ssm + (size_t)R * 4),
+                         reinterpret_cast<unsigned short*>(ssm + (size_t)R * 8),
+                         reinterpret_cast<unsigned short*>(ssm + (size_t)R * 10)};
+  int* wc = reinterpret_cast<int*>(ssm + (size_t)R * 12);
+  __shared__ int ws[32];
+  const int tid = threadIdx.x;
+  const long long base = (long long)blockIdx.x * R;
+  const int valid = (int)min((long long)R, n_rows - base);
+  for (int r = tid; r < R; r += kThreads) {
+    int k = r < valid ? key_in[base + r] : -1;
+    sb.kb[r] = (unsigned int)k < (unsigned int)n_nodes ? k : -1;
+  }
+  __syncthreads();
+  const int* keys;
+  const unsigned short* slots;
+  const int kept = blk::sort_slots(R, bits, sb, wc, ws, keys, slots);
+  const float inv = I8 ? __fdiv_rn(1.0f, scale[blockIdx.x]) : 0.0f;
+  const long long blk_nodes = (long long)blockIdx.x * n_nodes;
+  for (int j = tid; j < kept; j += kThreads) {
+    const int m = keys[j], r = slots[j];
+    const int start = blk::lower_bound(keys, kept, m);
+    const int p0 = node_base[m] + rel[blk_nodes + m];
+    if (j == start) {
+      const int hd = hid[blk_nodes + m];
+      if (hd >= 0) chunk_begin[node_chunk0[m] + hd] = p0;
+    }
+    const int pos = p0 + (j - start);
+    const float gv = g[base + r], hv = h[base + r];
+    perm[pos] = (int)(base + r);
+    if (I8) {
+      planes[pos] = encode_i8(gv, inv) | (encode_i8(hv, inv) << 16);
+    } else {
+      reinterpret_cast<uint2*>(planes)[pos] = make_uint2(encode_bf16(gv), encode_bf16(hv));
+    }
+  }
+}
+
 // -- 3. tile_hist ---------------------------------------------------------------------
 
 __device__ inline void cp_async16(void* dst, const void* src) {
@@ -477,12 +535,15 @@ tile_hist_kernel(const int* __restrict__ xb, const int* __restrict__ perm,
   int* sblk = reinterpret_cast<int*>(tsm + L.sblk);
   float* ssc = reinterpret_cast<float*>(tsm + L.ssc);
 
-  const int c = blockIdx.y;
+  // Block x: feature tile x % n_tiles of chunk x / n_tiles (feature tiles
+  // of one chunk launch together, as a grid of (tiles, chunks) would).
+  const int n_tiles = (F + T - 1) / T;
+  const int c = blockIdx.x / n_tiles;
   const int n_chunks = node_chunk0[n_nodes];
   if (c >= n_chunks) return;  // the grid holds the most chunks the shapes allow
   const int begin = chunk_begin[c];
   const int end = c + 1 < n_chunks ? chunk_begin[c + 1] : node_base[n_nodes];
-  const int f0 = blockIdx.x * T;
+  const int f0 = (blockIdx.x % n_tiles) * T;
   const int tw = min(T, F - f0);
   const int nt = blockDim.x;
   const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
@@ -687,32 +748,42 @@ tile_hist_kernel(const int* __restrict__ xb, const int* __restrict__ perm,
 
 // out[m, i] = partial[c0, i] + partial[c0 + 1, i] + ... over node m's
 // chunks, in chunk order; 0 for a node with none.  size = F * n_bins * 2.
+// Node m = blockIdx.y, + gridDim.y past the grid's 65,535 rows.
 __global__ void sum_chunks_kernel(const float* __restrict__ partial,
                                   const int* __restrict__ node_chunk0,
-                                  float* __restrict__ out, int size) {
-  const int m = blockIdx.y;
+                                  float* __restrict__ out, int size, int n_nodes) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= size) return;
-  const int c0 = node_chunk0[m], c1 = node_chunk0[m + 1];
-  float s = 0.0f;
-  if (c0 < c1) {
-    s = partial[(long long)c0 * size + i];
+  for (int m = blockIdx.y; m < n_nodes; m += gridDim.y) {
+    const int c0 = node_chunk0[m], c1 = node_chunk0[m + 1];
+    float s = 0.0f;
+    if (c0 < c1) {
+      s = partial[(long long)c0 * size + i];
 #pragma unroll 8
-    for (int c = c0 + 1; c < c1; ++c) s = __fadd_rn(s, partial[(long long)c * size + i]);
+      for (int c = c0 + 1; c < c1; ++c) s = __fadd_rn(s, partial[(long long)c * size + i]);
+    }
+    out[(long long)m * size + i] = s;
   }
-  out[(long long)m * size + i] = s;
 }
 
 template <bool I8, int MODE>
 int launch_prep(const int* xb, const int* node_in, const float* g,
                 const float* h, const int* feat, const int* thr, int* node_out,
                 int* counts, float* scale, long long n_rows, int R, int F,
-                int n_nodes, int n_prev, cudaStream_t s) {
+                int n_nodes, int n_prev, bool large, cudaStream_t s) {
   const int nb = (int)((n_rows + R - 1) / R);
+  if (large) {
+    const cudaError_t e = cudaMemsetAsync(counts, 0, (size_t)nb * n_nodes * sizeof(int), s);
+    if (e != cudaSuccess) return (int)e;
+    prep_kernel<I8, MODE, true><<<nb, kThreads, 0, s>>>(
+        xb, node_in, g, h, feat, thr, node_out, counts, scale, n_rows, R, F, n_nodes, n_prev);
+    return (int)cudaGetLastError();
+  }
+  if (n_nodes > kMaxNodes) return (int)cudaErrorInvalidValue;
   // At most kMaxNodes + 2 * kMaxNodes / 2 ints: under the 48 KB default.
   const size_t smem = (size_t)(n_nodes + 2 * n_prev) * sizeof(int);
-  prep_kernel<I8, MODE><<<nb, kThreads, smem, s>>>(xb, node_in, g, h, feat, thr, node_out,
-                                  counts, scale, n_rows, R, F, n_nodes, n_prev);
+  prep_kernel<I8, MODE, false><<<nb, kThreads, smem, s>>>(
+      xb, node_in, g, h, feat, thr, node_out, counts, scale, n_rows, R, F, n_nodes, n_prev);
   return (int)cudaGetLastError();
 }
 
@@ -729,16 +800,12 @@ struct TileArgs {
 template <bool I8, bool PERM, bool VEC>
 int launch_tile(const TileArgs& a, cudaStream_t s) {
   const TileLayout L = tile_layout(a.F, I8);
-  static size_t raised = 48 * 1024;  // the dynamic shared memory allowed so far
-  if (L.bytes > raised) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        tile_hist_kernel<I8, PERM, VEC>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L.bytes);
-    if (e != cudaSuccess) return (int)e;
-    raised = L.bytes;
-  }
-  const dim3 grid((a.F + L.T - 1) / L.T, a.max_chunks);
-  tile_hist_kernel<I8, PERM, VEC><<<grid, 32 * L.T, L.bytes, s>>>(
+  static blk::SmemLimit lim;
+  const cudaError_t e = blk::allow_smem((const void*)tile_hist_kernel<I8, PERM, VEC>, L.bytes, lim);
+  if (e != cudaSuccess) return (int)e;
+  const long long grid = (long long)((a.F + L.T - 1) / L.T) * a.max_chunks;
+  if (grid > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  tile_hist_kernel<I8, PERM, VEC><<<(unsigned int)grid, 32 * L.T, L.bytes, s>>>(
       a.xb, a.perm, a.planes, a.scale, a.chunk_begin, a.node_base,
       a.node_chunk0, a.partial, a.R, a.F, a.n_bins, a.n_nodes);
   return (int)cudaGetLastError();
@@ -755,10 +822,11 @@ template <int MODE>
 int launch_prep_enc(int i8, const int* xb, const int* node_in, const float* g,
                     const float* h, const int* feat, const int* thr,
                     int* node_out, int* counts, float* scale, long long n_rows,
-                    int R, int F, int n_nodes, int n_prev, cudaStream_t s) {
+                    int R, int F, int n_nodes, int n_prev, bool large,
+                    cudaStream_t s) {
   return (i8 ? launch_prep<true, MODE> : launch_prep<false, MODE>)(
       xb, node_in, g, h, feat, thr, node_out, counts, scale, n_rows, R, F,
-      n_nodes, n_prev, s);
+      n_nodes, n_prev, large, s);
 }
 
 }  // namespace
@@ -770,20 +838,22 @@ extern "C" {
 // g, h [n_rows] f32; node_in [n_rows] i32 (route: the parent ids, nodes:
 // the ids; root: null); route only: feat/thr [n_prev] i32 and node_out
 // [n_rows] i32.  counts [nb, n_nodes] i32; scale [nb] f32 (i8, else null).
+// large: the path for any node count (else at most kMaxNodes).
 int hist_prep(int mode, const int* xb, const int* node_in, const float* g,
               const float* h, const int* feat, const int* thr, int* node_out,
               int* counts, float* scale, long long n_rows, int R, int F,
-              int n_nodes, int n_prev, int i8, void* stream) {
+              int n_nodes, int n_prev, int i8, int large, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (mode == kRoute)
     return launch_prep_enc<kRoute>(i8, xb, node_in, g, h, feat, thr, node_out,
-                                   counts, scale, n_rows, R, F, n_nodes, n_prev, s);
+                                   counts, scale, n_rows, R, F, n_nodes, n_prev,
+                                   large != 0, s);
   if (mode == kNodes)
     return launch_prep_enc<kNodes>(i8, xb, node_in, g, h, nullptr, nullptr,
                                    nullptr, counts, scale, n_rows, R, F,
-                                   n_nodes, 0, s);
+                                   n_nodes, 0, large != 0, s);
   return launch_prep_enc<kRoot>(i8, xb, nullptr, g, h, nullptr, nullptr, nullptr,
-                                counts, scale, n_rows, R, F, 1, 0, s);
+                                counts, scale, n_rows, R, F, 1, 0, false, s);
 }
 
 // 2. key [n_rows] i32 (the node ids prep counted; null: root, and perm
@@ -791,13 +861,14 @@ int hist_prep(int mode, const int* xb, const int* node_in, const float* g,
 // and node_total/node_heads [n_nodes] i32 are scratch;
 // node_base/node_chunk0 [n_nodes + 1] i32; chunk_begin [ceil(n_rows / C) +
 // n_nodes] i32; perm [n_rows] i32; planes [n_rows] x (8 bytes bf16, 4
-// bytes i8).
+// bytes i8).  large: scatter_sort_kernel, for any node count (else
+// scatter_kernel, at most kMaxNodes); both give the same partition.
 int hist_partition(const int* key, const float* g, const float* h,
                    const float* scale, const int* counts, int* rel, int* hid,
                    int* node_total, int* node_heads, int* node_base,
                    int* node_chunk0, int* chunk_begin, int* perm,
                    void* planes, long long n_rows, int R, int n_nodes,
-                   int chunk_rows, int i8, void* stream) {
+                   int chunk_rows, int i8, int large, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   const int nb = (int)((n_rows + R - 1) / R);
   scan_nodes_kernel<<<n_nodes, kScanThreads, 0, s>>>(counts, rel, hid, node_total,
@@ -809,16 +880,25 @@ int hist_partition(const int* key, const float* g, const float* h,
                                               node_base, node_chunk0, n_nodes);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
+  if (large && key != nullptr) {  // (the root has one node)
+    const size_t smem = scatter_sort_smem_bytes(R);
+    auto kern = i8 ? scatter_sort_kernel<true> : scatter_sort_kernel<false>;
+    static blk::SmemLimit lim[2];
+    e = blk::allow_smem((const void*)kern, smem, lim[i8 != 0]);
+    if (e != cudaSuccess) return (int)e;
+    const int bits = n_nodes > 1 ? 32 - __builtin_clz((unsigned int)(n_nodes - 1)) : 0;
+    kern<<<nb, kThreads, smem, s>>>(key, g, h, scale, rel, hid, node_base, node_chunk0,
+                                    chunk_begin, perm, (unsigned int*)planes, n_rows, R,
+                                    n_nodes, bits);
+    return (int)cudaGetLastError();
+  }
+  if (n_nodes > kMaxNodes) return (int)cudaErrorInvalidValue;
   const size_t smem = ((size_t)(kWarps + 1) * n_nodes + 2 * (size_t)R) * sizeof(int);
   auto kern = i8 ? scatter_kernel<true> : scatter_kernel<false>;
-  static bool raised[2] = {false, false};  // the attribute, once a kernel
-  if (!raised[i8 != 0]) {
-    e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)(((kWarps + 1) * kMaxNodes + 2 * kMaxBlock) * sizeof(int)));
-    if (e != cudaSuccess) return (int)e;
-    raised[i8 != 0] = true;
-  }
+  static blk::SmemLimit lim[2];  // raised to the most any call takes
+  e = blk::allow_smem((const void*)kern,
+                      ((kWarps + 1) * kMaxNodes + 2 * kMaxBlock) * sizeof(int), lim[i8 != 0]);
+  if (e != cudaSuccess) return (int)e;
   kern<<<nb, kThreads, smem, s>>>(key, g, h, scale, rel, hid, node_base,
                                   node_chunk0, chunk_begin, perm,
                                   (unsigned int*)planes, n_rows, R, n_nodes);
@@ -842,8 +922,8 @@ int hist_accumulate(const int* xb, const int* perm, const void* planes,
                     : launch_tile_enc<false>(a, vec != 0, s);
   if (rc != 0) return rc;
   const int size = F * n_bins * 2;
-  sum_chunks_kernel<<<dim3((size + 127) / 128, n_nodes), 128, 0, s>>>(
-      partial, node_chunk0, out, size);
+  sum_chunks_kernel<<<dim3((size + 127) / 128, n_nodes < 65535 ? n_nodes : 65535), 128, 0,
+                      s>>>(partial, node_chunk0, out, size, n_nodes);
   return (int)cudaGetLastError();
 }
 
@@ -901,21 +981,21 @@ long long hist_workspace_bytes(long long n_rows, int R, int F, int n_bins,
 int hist_build(int mode, const int* xb, const int* node_in, const float* g,
                const float* h, const int* feat, const int* thr, int* node_out,
                void* ws, float* out, long long n_rows, int R, int F, int n_bins,
-               int n_nodes, int n_prev, int chunk_rows, int vec, int i8,
+               int n_nodes, int n_prev, int chunk_rows, int vec, int i8, int large,
                void* stream) {
   const Workspace w = workspace(n_rows, R, F, n_bins, n_nodes, chunk_rows, i8 != 0);
   char* base = (char*)ws;
   auto I = [&](size_t off) { return (int*)(base + off); };
   float* scale = i8 ? (float*)(base + w.scale) : nullptr;
   int rc = hist_prep(mode, xb, node_in, g, h, feat, thr, node_out, I(w.counts),
-                     scale, n_rows, R, F, n_nodes, n_prev, i8, stream);
+                     scale, n_rows, R, F, n_nodes, n_prev, i8, large, stream);
   if (rc != 0) return rc;
   const int* key = mode == kRoute ? node_out : mode == kNodes ? node_in : nullptr;
   int* perm = key != nullptr ? I(w.perm) : nullptr;
   rc = hist_partition(key, g, h, scale, I(w.counts), I(w.rel), I(w.hid),
                       I(w.node_total), I(w.node_heads), I(w.node_base),
                       I(w.node_chunk0), I(w.chunk_begin), perm, base + w.planes,
-                      n_rows, R, n_nodes, chunk_rows, i8, stream);
+                      n_rows, R, n_nodes, chunk_rows, i8, large, stream);
   if (rc != 0) return rc;
   const int max_chunks = (int)((n_rows + chunk_rows - 1) / chunk_rows + n_nodes);
   return hist_accumulate(xb, perm, base + w.planes, scale, I(w.chunk_begin),

@@ -48,15 +48,15 @@ helper_launches: collections.Counter = collections.Counter()
 
 _TINY = 1.1754944e-38   # smallest normal f32: the i8 scale's floor
 _MAX_BINS = 256         # the histogram kernel's accumulators hold 256 bins
-_MAX_NODES = 4096       # the partition's shared memory: per-warp node counters
-_MAX_BLOCK = 8192       # (9 x 4096 ints) and a row block's slots (2 x 8192)
+_SORT_NODES = 256       # past this many nodes the partition takes its sorting
+                        # path (faster there, slower below: PERF.md §6); the
+                        # shared-memory path holds at most 4096
+_MAX_BLOCK = 8192       # the partition's row block: its slots in shared memory
 _CHUNK_ROWS = 4096      # rows of the partitioned order a histogram block takes
                         # (about): a constant, so the sum order depends on the
                         # shapes and the data alone
 _SMEM_LIMIT = 232448    # shared memory one H100 block may use (bytes)
 _MAX_ROUTE_DEPTH = 31   # route kernels: leaf ids 2*node + 1 stay below 2**31
-_SMS = 132              # H100 SXM multiprocessors: sizes the grid from shapes
-                        # alone, so the summation order never depends on the card
 
 
 def _round_up(x: int, m: int) -> int:
@@ -435,10 +435,10 @@ def _lib(name: str):
     lib = _build.lib(name)
     P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     if name == "hist":
-        lib.hist_prep.argtypes = [I] + [P] * 9 + [LL] + [I] * 5 + [P]
-        lib.hist_partition.argtypes = [P] * 14 + [LL] + [I] * 4 + [P]
+        lib.hist_prep.argtypes = [I] + [P] * 9 + [LL] + [I] * 6 + [P]
+        lib.hist_partition.argtypes = [P] * 14 + [LL] + [I] * 5 + [P]
         lib.hist_accumulate.argtypes = [P] * 9 + [I] * 7 + [P]
-        lib.hist_build.argtypes = [I] + [P] * 9 + [LL] + [I] * 8 + [P]
+        lib.hist_build.argtypes = [I] + [P] * 9 + [LL] + [I] * 9 + [P]
         for fn in (lib.hist_prep, lib.hist_partition, lib.hist_accumulate,
                    lib.hist_build):
             fn.restype = I
@@ -449,15 +449,24 @@ def _lib(name: str):
         lib.route_level.restype = I
         lib.route_margin_level.argtypes = [P] * 8 + [LL, I, P]
         lib.route_margin_level.restype = I
-        lib.leaf_fit.argtypes = [P] * 9 + [I] * 6 + [P]
+        lib.leaf_fit.argtypes = [P] * 9 + [I] * 4 + [P]
         lib.leaf_fit.restype = I
-        lib.leaf_smem_bytes.argtypes = [I] * 3
+        lib.leaf_smem_bytes.argtypes = [I] * 2
         lib.leaf_smem_bytes.restype = LL
+        lib.leaf_workspace_bytes.argtypes = [I] * 3
+        lib.leaf_workspace_bytes.restype = LL
     _bound[name] = lib
     return lib
 
 
 _MODE = {"root": 0, "route": 1, "nodes": 2}  # csrc/hist.cu hist_prep modes
+
+
+def _large(n_nodes: int) -> int:
+    """The partition path, from the shapes alone: shared-memory counters up
+    to _SORT_NODES nodes, the sorting path past that (the two give the same
+    partition)."""
+    return int(n_nodes > _SORT_NODES)
 
 
 def hist_prep(mode: str, xb, node, g, h, feat, thr, *, n_rows: int,
@@ -491,15 +500,14 @@ def hist_prep(mode: str, xb, node, g, h, feat, thr, *, n_rows: int,
         dev.index, _lib("hist").hist_prep, _MODE[mode], _ptr(xb), _ptr(node),
         _ptr(g), _ptr(h), _ptr(feat), _ptr(thr),
         _ptr(key) if mode == "route" else None, _ptr(counts), _ptr(scale),
-        n_rows, block, xb.shape[-1], n_nodes, n_prev, int(i8))
+        n_rows, block, xb.shape[-1], n_nodes, n_prev, int(i8), _large(n_nodes))
     _check(rc, "hist_prep")
     helper_launches["hist_prep"] += 1
     return key, counts, scale
 
 
 def hist_partition(key, g, h, counts, scale, *, n_rows: int, block: int,
-                   n_nodes: int, i8: bool, chunk_rows: int = _CHUNK_ROWS
-                   ) -> Partition:
+                   n_nodes: int, i8: bool, chunk_rows: int = _CHUNK_ROWS) -> Partition:
     """The histogram path's partition: the counted rows stably by node, with
     their encoded planes, and the chunk table; ``key`` None is the root
     (the identity order).  See ``Partition`` and ``hist_partition_plain``.
@@ -514,9 +522,9 @@ def hist_partition(key, g, h, counts, scale, *, n_rows: int, block: int,
         return hist_partition_plain(key, g, h, counts, scale, n_rows=n_rows,
                                     block=block, n_nodes=n_nodes, i8=i8,
                                     chunk_rows=chunk_rows)
-    if block > _MAX_BLOCK or n_nodes > _MAX_NODES:
-        raise ValueError(f"hist_partition takes at most {_MAX_NODES} nodes and "
-                         f"row blocks of at most {_MAX_BLOCK} (got {n_nodes}, {block})")
+    if block % 256 or block > _MAX_BLOCK:
+        raise ValueError(f"hist_partition takes row blocks that are a multiple of "
+                         f"256 up to {_MAX_BLOCK} (got {block})")
     dev = g.device
     nb = counts.shape[0]
     i32 = dict(dtype=torch.int32, device=dev)
@@ -531,7 +539,7 @@ def hist_partition(key, g, h, counts, scale, *, n_rows: int, block: int,
         _ptr(scale), _ptr(counts), _ptr(runs[0]), _ptr(runs[1]),
         _ptr(nodes[0]), _ptr(nodes[1]), _ptr(nodes[2]), _ptr(nodes[3]),
         _ptr(chunk_begin), _ptr(perm), _ptr(planes), n_rows, block, n_nodes,
-        chunk_rows, int(i8))
+        chunk_rows, int(i8), _large(n_nodes))
     _check(rc, "hist_partition")
     helper_launches["hist_partition"] += 1
     return Partition(perm, planes, chunk_begin, nodes[3], nodes[2])
@@ -570,13 +578,13 @@ def hist_launch(mode: str, xb, node, g, h, feat, thr, *, n_rows: int,
     like ``node``; else None).  On CUDA tensors (checked, contiguous) the
     three run as one C call into one workspace (csrc/hist.cu hist_build),
     which keeps the host's share of a launch small; on CPU tensors their
-    plain twins run."""
+    plain twins run.  Any node count whose histogram and scratch fit in the
+    card's memory."""
     F = xb.shape[-1]
-    if n_bins > _MAX_BINS or block % 256 or block > _MAX_BLOCK or n_nodes > _MAX_NODES:
-        raise ValueError(f"histogram kernel needs n_bins <= {_MAX_BINS}, at "
-                         f"most {_MAX_NODES} nodes and a row block that is a "
-                         f"multiple of 256 up to {_MAX_BLOCK} (got {n_bins}, "
-                         f"{n_nodes}, {block})")
+    if n_bins > _MAX_BINS or block % 256 or block > _MAX_BLOCK:
+        raise ValueError(f"histogram kernel needs n_bins <= {_MAX_BINS} and a "
+                         f"row block that is a multiple of 256 up to {_MAX_BLOCK} "
+                         f"(got {n_bins}, {block})")
     if mode != "nodes" and n_rows % block:
         raise ValueError(f"{mode} mode takes whole row blocks ({n_rows} rows, "
                          f"block {block})")
@@ -603,7 +611,7 @@ def hist_launch(mode: str, xb, node, g, h, feat, thr, *, n_rows: int,
         dev.index, lib.hist_build, _MODE[mode], _ptr(xb), _ptr(node), _ptr(g),
         _ptr(h), _ptr(feat), _ptr(thr), _ptr(node_out), _ptr(ws), _ptr(out),
         n_rows, block, F, n_bins, n_nodes, 0 if feat is None else feat.shape[0],
-        _CHUNK_ROWS, int(vec), int(i8))
+        _CHUNK_ROWS, int(vec), int(i8), _large(n_nodes))
     _check(rc, name)
     helper_launches["hist_prep"] += 1
     helper_launches["hist_partition"] += 1
@@ -732,8 +740,15 @@ def leaf_fit(xb3, node3, g3, h3, feat, thr, *, depth: int):
     read leaf masses off the last histogram (``split_child_masses``).
 
     Replaces rabit_tpu/ops/boost.py leaf_fit (_leaf_kernel).  Bound on an
-    H100 by device memory: one bin per row, node, g and h in, leaf id out;
-    design in csrc/route.cu."""
+    H100 by device memory: one bin per row, node, g and h in, leaf id out.
+    On the card one block per row block sums its rows per leaf (per-warp
+    accumulators up to depth 8, a stable sort by leaf deeper); the row
+    blocks' sums are merged per leaf through a dense [nb, 2**depth] partial
+    while that takes at most 2R entries a row block, else through compact
+    records sorted by leaf (both give the same sums; chosen from the shapes
+    in csrc/route.cu).  Shared memory grows with the row block alone, so
+    every depth of the route kernels is taken whose output and scratch fit
+    in the card's memory; design in csrc/route.cu."""
     if not _on_cuda(xb3, node3, g3, h3, feat, thr):
         return leaf_fit_plain(xb3, node3, g3, h3, feat, thr, depth=depth)
     nb, R, F = xb3.shape
@@ -745,24 +760,20 @@ def leaf_fit(xb3, node3, g3, h3, feat, thr, *, depth: int):
         raise ValueError(f"leaf_fit needs a row block that is a multiple of "
                          f"256 (got {R})")
     lib = _lib("route")
-    acc_warps = next((w for w in (8, 4, 2, 1)
-                      if lib.leaf_smem_bytes(R, n_leaves, w) <= _SMEM_LIMIT), 0)
-    if not acc_warps:
-        raise ValueError(f"leaf_fit: {n_leaves} leaves at row block {R} need "
-                         f"{lib.leaf_smem_bytes(R, n_leaves, 1)} B of shared "
+    smem = lib.leaf_smem_bytes(R, depth)
+    if smem > _SMEM_LIMIT:
+        raise ValueError(f"leaf_fit: a row block of {R} needs {smem} B of shared "
                          f"memory, over {_SMEM_LIMIT}")
     dev = xb3.device
     node_out = torch.empty_like(node3)
     if nb == 0:
         return torch.zeros((n_leaves, 2), device=dev), node_out
     out = torch.empty((n_leaves, 2), device=dev)
-    per = -(-nb // min(nb, 2 * _SMS))  # chunks from the shapes alone
-    n_chunks = -(-nb // per)
-    partial = torch.empty((n_chunks, n_leaves, 2), device=dev)
+    ws = torch.empty(lib.leaf_workspace_bytes(nb, R, depth),
+                     dtype=torch.uint8, device=dev)
     rc = _launch_on(dev.index, lib.leaf_fit, _ptr(xb3), _ptr(node3), _ptr(g3),
-                    _ptr(h3), _ptr(feat), _ptr(thr), _ptr(node_out),
-                    _ptr(partial), _ptr(out), nb, R, F, n_leaves, acc_warps,
-                    n_chunks)
+                    _ptr(h3), _ptr(feat), _ptr(thr), _ptr(node_out), _ptr(ws),
+                    _ptr(out), nb, R, F, depth)
     _check(rc, "leaf_fit")
     launches["leaf_fit"] += 1
     return out, node_out

@@ -56,7 +56,7 @@ def test_hist_level0_matches_jax(mxu_i8, r_split):
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize("d,r_split", [(1, 1), (2, 1), (2, 2), (3, 1)])
+@pytest.mark.parametrize("d,r_split", [(1, 1), (2, 1), (2, 2), (3, 1), (13, 1)])
 @pytest.mark.parametrize("mxu_i8", [False, True])
 def test_hist_level_matches_jax(mxu_i8, d, r_split):
     x = _inputs(11 + d, d)

@@ -259,8 +259,11 @@ def test_node_histograms_kernel_is_deterministic(cuda, mxu_i8):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("depth", [1, 3, 6])
+@pytest.mark.parametrize("depth", [1, 3, 6, 8, 13, 16])
 def test_leaf_fit_matches_plain(cuda, depth):
+    """Depths 1-8 take the dense partial, 13 and 16 the compact records
+    (2**depth > 2 x 256); the leaf ids exactly, the masses within the
+    tolerance, and bitwise the same on repeat."""
     c = _inputs(50 + depth, depth, cuda)
     args = [c[k] for k in ("xb3", "node3", "g3", "h3", "feat", "thr")]
     boost.launches.clear()
@@ -270,6 +273,36 @@ def test_leaf_fit_matches_plain(cuda, depth):
     assert torch.equal(nk, npl)
     assert torch.equal(nk, boost.route_level(*args[:2], *args[4:], depth=depth))
     torch.testing.assert_close(gk, gp, rtol=1e-5, atol=1e-5)
+    again, n2 = boost.leaf_fit(*args, depth=depth)
+    assert torch.equal(again.view(torch.int32), gk.view(torch.int32)) and torch.equal(n2, nk)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("R", [256, 1024])
+@pytest.mark.parametrize("depth", [2, 6, 9, 12, 13])
+def test_leaf_fit_across_merge_groups_matches_plain(cuda, depth, R):
+    """70 row blocks, so both merges add three groups of 32 row blocks;
+    skewed leaves (60% of the rows on one parent, so runs span many
+    threads).  Every path: the accumulators (depths 2, 6), the sort into
+    the dense partial (9) and into the compact records (12, 13: 2**depth >
+    2R).  Leaf ids exactly, masses within the tolerance, bitwise the same
+    on repeat."""
+    rng = np.random.RandomState(depth + R)
+    nb, n_prev = 70, 2 ** (depth - 1)
+    t = lambda a: torch.as_tensor(a, device=cuda)
+    node = np.where(rng.rand(nb, R, 1) < 0.6, n_prev // 3, rng.randint(0, n_prev, (nb, R, 1)))
+    args = (t(rng.randint(0, 256, size=(nb, R, 7)).astype(np.int32)),
+            t(node.astype(np.int32)),
+            t(rng.randn(nb, R, 1).astype(np.float32)),
+            t(rng.rand(nb, R, 1).astype(np.float32)),
+            t(rng.randint(0, 7, size=n_prev).astype(np.int32)),
+            t(rng.randint(0, 256, size=n_prev).astype(np.int32)))
+    gk, nk = boost.leaf_fit(*args, depth=depth)
+    gp, npl = boost.leaf_fit_plain(*args, depth=depth)
+    assert torch.equal(nk, npl)
+    torch.testing.assert_close(gk, gp, rtol=1e-5, atol=1e-5)
+    again, n2 = boost.leaf_fit(*args, depth=depth)
+    assert torch.equal(again.view(torch.int32), gk.view(torch.int32)) and torch.equal(n2, nk)
 
 
 @pytest.mark.gpu
@@ -419,7 +452,9 @@ def _edge_nodes(name, n, n_nodes, rng):
     return node.astype(np.int32)
 
 
-EDGE = [("skewed", 8), ("empty", 16), ("foreign", 8), ("uniform", 64), ("uniform", 128)]
+EDGE = [("skewed", 8), ("empty", 16), ("foreign", 8), ("uniform", 64), ("uniform", 128),
+        ("empty", 1024),  # past 256 nodes: the sorting partition
+        ("uniform", 8192), ("skewed", 16384)]  # past the shared-memory path's 4096
 
 
 @pytest.mark.gpu
@@ -429,7 +464,7 @@ def test_partition_kernels_match_plain(cuda, mxu_i8):
     twins, exactly: node ids, counts, scales, the stable order, the planes,
     the chunk table, and the histogram over the partition (i8 exactly,
     bf16 within tolerance); a short last row block, skewed and empty
-    nodes, foreign ids, 64 and 128 nodes."""
+    nodes, foreign ids, 64, 128, 1024, 8192 and 16384 nodes."""
     rng = np.random.RandomState(80)
     n, n_bins = 5000, 256  # 5000 = 19 x 256 + 136
     for name, n_nodes in EDGE:
@@ -550,3 +585,117 @@ def test_hist_kernels_bitwise_on_repeat_at_1m_rows(cuda, mxu_i8):
     a = hist.node_histograms_kernel(xb, g, h, node, 32, 256, mxu_i8=mxu_i8)
     b = hist.node_histograms_kernel(xb, g, h, node, 32, 256, mxu_i8=mxu_i8)
     assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mxu_i8", [False, True])
+@pytest.mark.parametrize("mode,n_nodes", [("nodes", 2), ("nodes", 64), ("route", 64),
+                                          ("nodes", 4096)])
+def test_sorting_partition_path_is_bitwise_the_shared_memory_path(cuda, monkeypatch, mode,
+                                                                  n_nodes, mxu_i8):
+    """Up to 256 nodes the wrapper takes the shared-memory path (which
+    holds up to 4096), past that the sorting path; each, forced where the
+    other runs (by moving ``_SORT_NODES``), gives the same counts,
+    partition and histogram bit for bit."""
+    rng = np.random.RandomState(n_nodes)
+    n = 5000 if mode == "nodes" else 20 * BLOCK
+    t = lambda a: torch.as_tensor(a, device=cuda)
+    xb = t(rng.randint(0, 256, size=(n, F)).astype(np.int32))
+    g, h = t(rng.randn(n).astype(np.float32)), t(rng.rand(n).astype(np.float32))
+    if mode == "nodes":
+        node, feat, thr = t(_edge_nodes("foreign", n, n_nodes, rng)), None, None
+    else:
+        n_prev = n_nodes // 2
+        node = t(rng.randint(0, n_prev, size=n).astype(np.int32))
+        feat = t(rng.randint(0, F, size=n_prev).astype(np.int32))
+        thr = t(rng.randint(0, 256, size=n_prev).astype(np.int32))
+    kw = dict(n_rows=n, block=BLOCK, n_nodes=n_nodes, i8=mxu_i8)
+    outs = []
+    for sort_nodes in (4096, 0):  # the shared-memory path, then the sorting one
+        monkeypatch.setattr(boost, "_SORT_NODES", sort_nodes)
+        key, counts, scale = boost.hist_prep(mode, xb, node, g, h, feat, thr, **kw)
+        part = boost.hist_partition(key, g, h, counts, scale, chunk_rows=700, **kw)
+        hist, node_out = boost.hist_launch(mode, xb, node, g, h, feat, thr, n_bins=256,
+                                           name="node_histograms_kernel", **kw)
+        n_listed, n_chunks = int(part.node_base[-1]), int(part.node_chunk0[-1])
+        outs.append([counts, part.node_base, part.node_chunk0,
+                     part.chunk_begin[:n_chunks], part.perm[:n_listed],
+                     part.planes[:n_listed], hist.view(torch.int32)]
+                    + ([key, node_out] if mode == "route" else [])
+                    + ([scale] if mxu_i8 else []))
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+
+
+def _zero_margin_round(depth, fused_final, mxu_i8, dev, entry):
+    """One round from a zero margin (g = +-0.5 and h = 0.25 sum exactly in
+    any order, in bf16 and i8 alike, so the trees and leaves are exact)."""
+    rng = np.random.RandomState(depth)
+    n, n_feat, n_bins = 3000, 3, 8
+    xb = torch.as_tensor(rng.randint(0, n_bins, size=(n, n_feat)).astype(np.int32), device=dev)
+    y = torch.as_tensor(rng.randint(0, 2, size=n).astype(np.float32), device=dev)
+    cfg = gbdt.GBDTConfig(n_features=n_feat, n_trees=1, depth=depth, n_bins=n_bins,
+                          mxu_i8=mxu_i8, fused_final=fused_final)
+    s = gbdt.init_state(cfg, n, dev)
+    if entry == "fused":
+        return gbdt.train_round_fused(s, boost.block_rows(xb, BLOCK)[0], y, cfg)
+    if entry == "hook":
+        return gbdt.train_round(s, xb, y, cfg)
+    return gbdt.train_round_dp(s, xb, y, cfg)
+
+
+def _assert_same_round(got, ref):
+    for a, b in zip(gbdt.forest_to_numpy(got.forest), gbdt.forest_to_numpy(ref.forest)):
+        np.testing.assert_array_equal(a, b)
+    np.testing.assert_array_equal(got.margin.cpu().numpy(), ref.margin.cpu().numpy())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fused_final", [False, True])
+@pytest.mark.parametrize("mxu_i8", [False, True])
+@pytest.mark.parametrize("depth", [14, 15])
+def test_deep_fused_round_on_card_matches_cpu(cuda, depth, mxu_i8, fused_final):
+    """Depth 14 and 15: last histograms of 8192 and 16384 nodes (the
+    sorting partition), then the final pass; the card's round equals the
+    CPU's."""
+    boost.launches.clear()
+    got = _zero_margin_round(depth, fused_final, mxu_i8, cuda, "fused")
+    final = "route_margin_level" if fused_final else "route_level"
+    assert dict(boost.launches) == {"hist_level0": 1, "hist_level": depth - 1, final: 1}
+    _assert_same_round(got, _zero_margin_round(depth, fused_final, mxu_i8, "cpu", "fused"))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("entry", ["hook", "dp"])
+@pytest.mark.parametrize("depth", [14, 15])
+def test_deep_hook_and_dp_rounds_on_card_match_cpu(cuda, depth, entry, tmp_path):
+    """train_round and train_round_dp (an NCCL group of one) at depth 14
+    and 15 on the card against train_round on the CPU."""
+    import torch.distributed as dist
+
+    if entry == "dp":
+        dist.init_process_group("nccl", store=dist.FileStore(str(tmp_path / "store"), 1),
+                                rank=0, world_size=1)
+    try:
+        boost.launches.clear()
+        got = _zero_margin_round(depth, False, False, cuda, entry)
+        assert dict(boost.launches) == {"node_histograms_kernel": depth}
+    finally:
+        if entry == "dp":
+            dist.destroy_process_group()
+    _assert_same_round(got, _zero_margin_round(depth, False, False, "cpu", "hook"))
+
+
+@pytest.mark.gpu
+def test_node_histograms_kernel_past_the_grid_row_limit(cuda):
+    """70,000 nodes: more than a grid's 65,535 rows, which once held the
+    node-per-row sum of the chunk partials and the chunk-per-row feature
+    tiles; against the plain twin."""
+    from rabit_tpu_torch.ops import hist
+
+    n, n_nodes = 3000, 70000
+    xb, g, h, node = _node_inputs(86, n, n_nodes, B, cuda)
+    node[:1000] = n_nodes - 1  # one node far up holds a third of the rows
+    got = hist.node_histograms_kernel(xb, g, h, node, n_nodes, B, block_rows=BLOCK)
+    ref = hist.node_histograms_kernel_plain(xb, g, h, node, n_nodes, B, block_rows=BLOCK)
+    torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5)

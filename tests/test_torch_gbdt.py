@@ -74,6 +74,50 @@ def test_train_round_fused_matches_jax(mxu_i8, fused_final):
     np.testing.assert_allclose(s.margin.numpy(), ref.margin, **_tol(mxu_i8))
 
 
+def _depth14_data():
+    rng = np.random.RandomState(14)
+    n, n_feat = 512, 3
+    xb = rng.randint(0, B, size=(n, n_feat)).astype(np.int32)
+    y = rng.randint(0, 2, size=n).astype(np.float32)
+    return xb, y
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_depth14():
+    """JAX's exact-f32 train_round at depth 14 from a zero margin (cached:
+    five cases compare against it)."""
+    xb, y = _depth14_data()
+    cfg = jgbdt.GBDTConfig(n_features=xb.shape[1], n_trees=1, depth=14, n_bins=B)
+    step = jax.jit(functools.partial(jgbdt.train_round, cfg=cfg))
+    s = step(jgbdt.init_state(cfg, xb.shape[0]), jnp.asarray(xb), jnp.asarray(y))
+    return jax.tree.map(np.asarray, s)
+
+
+@pytest.mark.parametrize("fused,mxu_i8,fused_final", [
+    (False, False, False), (True, False, False), (True, True, False),
+    (True, False, True), (True, True, True)],
+    ids=["exact", "fused-bf16", "fused-i8", "fused_final-bf16", "fused_final-i8"])
+def test_depth14_round_matches_jax(fused, mxu_i8, fused_final):
+    """A depth-14 round (a last histogram of 8192 nodes, more than the
+    card's shared-memory partition holds) on the CPU, the port's fused
+    round in both encodings and both final passes and its exact
+    train_round, against JAX's exact train_round.  One round from a zero
+    margin: g = +-0.5 and h = 0.25 are exact in both encodings and sum
+    exactly in any order, so the forest and the margin are equal."""
+    xb, y = _depth14_data()
+    n, n_feat = xb.shape
+    cfg = tgbdt.GBDTConfig(n_features=n_feat, n_trees=1, depth=14, n_bins=B,
+                           mxu_i8=mxu_i8, fused_final=fused_final)
+    xt, yt = torch.as_tensor(xb), torch.as_tensor(y)
+    s0 = tgbdt.init_state(cfg, n, "cpu")
+    got = (tgbdt.train_round_fused(s0, tboost.block_rows(xt, BLOCK)[0], yt, cfg)
+           if fused else tgbdt.train_round(s0, xt, yt, cfg))
+    ref = _jax_depth14()
+    for a, b in zip(tgbdt.forest_to_numpy(got.forest), ref.forest):
+        np.testing.assert_array_equal(a, np.asarray(b))
+    np.testing.assert_array_equal(got.margin.numpy(), ref.margin)
+
+
 def test_train_round_matches_jax():
     xb, y = _data(7)
     cfg_j = jgbdt.GBDTConfig(n_features=F, n_trees=3, depth=3, n_bins=B)

@@ -137,7 +137,7 @@ def test_dispatchers_refuse_unknown_impl_and_device():
                                                     device="meta"), 2)
 
 
-@pytest.mark.parametrize("depth", [1, 2, 3])
+@pytest.mark.parametrize("depth", [1, 2, 3, 8, 13])
 def test_leaf_fit_plain_matches_jax(depth):
     rng = np.random.RandomState(30 + depth)
     n, R = 600, 256

@@ -26,7 +26,8 @@ F, B, R, C = 5, 16, 256, 300   # 300-row chunks: several a node, cut mid-node
 def _case(name, seed=0):
     """Seeded rows for the "nodes" mode: (n, n_nodes, xb, g, h, node)."""
     rng = np.random.RandomState(seed + len(name))
-    n, n_nodes = {"nodes64": (1500, 64), "nodes128": (2000, 128)}.get(name, (1500, 6))
+    n, n_nodes = {"nodes64": (1500, 64), "nodes128": (2000, 128),
+                  "nodes8192": (1500, 8192)}.get(name, (1500, 6))
     node = rng.randint(0, n_nodes, size=n)
     if name == "skewed":       # one node holds about 90% of the rows
         node = np.where(rng.rand(n) < 0.9, 2, node)
@@ -46,7 +47,7 @@ def _case(name, seed=0):
 
 
 CASES = ["uniform", "skewed", "empty", "foreign", "aligned", "outlier", "nodes64",
-         "nodes128"]
+         "nodes128", "nodes8192"]  # 8192: past the card's shared-memory partition
 
 
 def _partition(name, i8):
@@ -204,10 +205,23 @@ def test_chunk_table_plain_on_hand_made_counts():
     assert begin.tolist() == [0, 3, 9]
 
 
-def test_hist_launch_refuses_too_many_nodes():
-    t = torch.zeros((256, F), dtype=torch.int32)
-    v = torch.zeros(256)
-    with pytest.raises(ValueError, match="at most 4096 nodes"):
-        boost.hist_launch("nodes", t, torch.zeros(256, dtype=torch.int32), v, v,
-                          None, None, n_rows=256, block=256, n_nodes=8192,
-                          n_bins=B, i8=False, name="node_histograms_kernel")
+@pytest.mark.parametrize("mxu_i8", [False, True])
+@pytest.mark.parametrize("n_nodes", [8192, 16384])
+def test_hist_launch_past_4096_nodes_matches_pallas(n_nodes, mxu_i8):
+    """More nodes than the card's shared-memory partition holds (the card
+    takes its sorting path there): hist_launch on CPU tensors equals the
+    Pallas kernel in the interpreter at 8192 and 16384 nodes."""
+    rng = np.random.RandomState(n_nodes)
+    n = 512
+    xb = rng.randint(0, B, size=(n, F)).astype(np.int32)
+    g, h = rng.randn(n).astype(np.float32), rng.rand(n).astype(np.float32)
+    node = rng.randint(0, n_nodes, size=n).astype(np.int32)
+    node[::5] = rng.randint(0, 4, size=len(node[::5]))  # a few nodes hold several rows
+    ref = jhist.node_histograms_pallas(*map(jnp.asarray, (xb, g, h, node)),
+                                       n_nodes, B, block_rows=R, interpret=True,
+                                       mxu_i8=mxu_i8)
+    got, node_out = boost.hist_launch("nodes", *map(torch.as_tensor, (xb, node, g, h)),
+                                      None, None, n_rows=n, block=R, n_nodes=n_nodes,
+                                      n_bins=B, i8=mxu_i8, name="node_histograms_kernel")
+    assert node_out is None and got.shape == (n_nodes, F, B, 2)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-5, atol=1e-5)

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Time the port's final row passes (route_level, route_margin_level) on one
-CUDA card.
+"""Time the port's final row passes (route_level, route_margin_level,
+leaf_fit) on one CUDA card.
 
     python3 tools/torch_route_levels.py [--rows N] [--depths 6 8] [--reps 50]
+        [--leaf-depths 6 8 13 16] [--profile]
         [--strides 1 4 8 16 28 32 64] [--stride-rows N] [--tree DIR]
 
 On chip_smoke.py's data (bench.py's generator, seed 0; 1M rows x 28
@@ -18,6 +19,15 @@ features x 256 bins by default) with its seeded node ids and split tables
 * ``event_us``: the CUDA-event mean over back-to-back calls
   (``chip_smoke.cuda_ms``, as its report takes it: about the larger of the
   two above).
+
+``--leaf-depths`` times ``leaf_fit`` the same way (all its kernels and
+fills: ``device_us`` is everything one call puts on the card) on the real
+round's last level of a depth-6 tree (``Smoke.leaf_inputs``, what
+chip_smoke.py reports) and on seeded node ids at each depth given, beside
+its floor: a row's 64-byte bin fetch and 16 bytes of node id, g, h in and
+leaf id out at 3.35 TB/s.  ``--profile`` adds each of its kernels' and
+fills' device time a call (``chip_smoke.kernel_ms``).  Leave
+``--depths`` empty to time ``leaf_fit`` alone.
 
 ``--strides`` routes ``--stride-rows`` rows whose bin rows are S int32 wide
 (one bin read a row, as in the round) and prints the cold device time per
@@ -42,10 +52,12 @@ import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
-from chip_smoke import (HBM_BYTES_PER_S, N_BINS, Smoke, cuda_ms,  # noqa: E402
-                        device_ms, nvidia_smi)
+from chip_smoke import (DEPTH, HBM_BYTES_PER_S, N_BINS, Smoke, cuda_ms,  # noqa: E402
+                        device_ms, kernel_ms, nvidia_smi)
 
-KERNEL = "route_kernel"  # the profiler's name of both kernels
+KERNEL = "route_kernel"  # the profiler's name of both route kernels
+FLUSH = "reduce"         # the L2 flush's kernel (no kernel of leaf_fit's has the word)
+LEAF_FLOOR_BYTES = 64 + 16  # a row's bin fetch; node id, g, h in, leaf id out
 
 
 def host_us(torch, fn, reps: int, windows: int = 11) -> float:
@@ -94,6 +106,43 @@ def levels(torch, smoke, args, flush) -> dict:
     return out
 
 
+def leaf_levels(torch, smoke, args, flush) -> dict:
+    """leaf_fit on the real round's last level and at each --leaf-depths."""
+    boost = smoke.boost
+    rows = smoke.xb3.shape[0] * smoke.xb3.shape[1]
+    floor_us = rows * LEAF_FLOOR_BYTES / HBM_BYTES_PER_S * 1e6
+    smoke.levels = smoke.real_levels()
+    cases = {f"real d={DEPTH}": (smoke.leaf_inputs()[0], DEPTH)}
+    for d in args.leaf_depths:
+        node3, feat, thr = smoke.level_inputs(d)
+        cases[f"d={d}"] = ((smoke.xb3, node3, smoke.g3, smoke.h3, feat, thr), d)
+    out = {}
+    for name, (largs, d) in cases.items():
+        fn = lambda: boost.leaf_fit(*largs, depth=d)
+        try:
+            fn()
+        except ValueError as e:  # a depth an older tree refuses
+            out[name] = {"refused": str(e)}
+            print(f"leaf_fit {name}: refused ({e})", flush=True)
+            continue
+        r = {"warm_device_us": device_ms(torch, fn, args.reps, skip=FLUSH) * 1e3,
+             "cold_device_us": device_ms(torch, lambda: (flush(), fn()), args.reps,
+                                         skip=FLUSH) * 1e3,
+             "host_us": host_us(torch, fn, args.reps),
+             "event_us": cuda_ms(torch, fn, args.reps) * 1e3,
+             "floor_us": floor_us}
+        out[name] = r
+        print(f"leaf_fit {name}: device {r['warm_device_us']:.2f} us warm, "
+              f"{r['cold_device_us']:.2f} us cold; host {r['host_us']:.2f} us a call; "
+              f"event mean {r['event_us']:.2f} us; floor {floor_us:.2f} us", flush=True)
+        if args.profile:
+            r["kernels_us"] = {k: v * 1e3 for k, v in
+                               kernel_ms(torch, fn, args.reps, skip=FLUSH).items()}
+            print("    " + "; ".join(f"{k[:48]} {v:.2f}" for k, v in sorted(
+                r["kernels_us"].items(), key=lambda kv: -kv[1])), flush=True)
+    return out
+
+
 def strides(torch, boost, args, flush) -> dict:
     """Cold device time of route_level at several bin-row widths."""
     out = {}
@@ -125,6 +174,10 @@ def main() -> int:
     ap.add_argument("--rows", type=int, default=1_000_000)
     ap.add_argument("--depths", type=int, nargs="*", default=[6, 8])
     ap.add_argument("--reps", type=int, default=50)
+    ap.add_argument("--leaf-depths", type=int, nargs="*", default=None,
+                    help="also time leaf_fit: the real round's last level and these depths")
+    ap.add_argument("--profile", action="store_true",
+                    help="with --leaf-depths: each leaf_fit kernel's device time a call")
     ap.add_argument("--strides", type=int, nargs="*", default=[])
     ap.add_argument("--stride-rows", type=int, default=8 << 20)
     ap.add_argument("--tree", default=ROOT,
@@ -147,6 +200,8 @@ def main() -> int:
     flush = lambda: big.max()  # reads 256 MB: the L2 holds none of the inputs
     smoke = Smoke(torch, boost, hist, gbdt, args.rows)
     report = {"card": card, "tree": tree, "levels": levels(torch, smoke, args, flush)}
+    if args.leaf_depths is not None:
+        report["leaf_fit"] = leaf_levels(torch, smoke, args, flush)
     if args.strides:
         report["strides"] = strides(torch, boost, args, flush)
     print(json.dumps(report))
