@@ -23,7 +23,14 @@ Phases, each of which exits non-zero when it fails:
               bit for bit at depths 1, 6, 8 and 13 (4096 parents), and the
               histogram path past 4096 nodes (the sorting partition): the
               partition exactly at 8192 and 16384 nodes over all rows, the
-              histogram on the first 70 row blocks.
+              histogram on the first 70 row blocks.  Then the three
+              histogram kernels and leaf_fit at row blocks of 128 rows (on
+              the first 70 x 1024 rows: the plain versions loop over the
+              blocks) and 16384 rows (all rows; leaf_fit at depth 13 on
+              five blocks), the i8 block scales exactly, and the histogram
+              kernels at 512 bins (all rows) and 4096 bins (the first 70
+              row blocks: the plain one-hot grows with the bins), bitwise
+              on repeat.
 4. main    -- the fused boosting round (train_round_fused) at that size,
               for bf16 and i8 and both final passes: 1 warm-up and 3 timed
               rounds, launch counts per kernel, and every level held
@@ -31,10 +38,12 @@ Phases, each of which exits non-zero when it fails:
               predict as a user calls them, the fused round on a small
               input against the CPU reference round, and one depth-8 and one
               depth-14 fused round per encoding, teacher-forced (levels of
-              8192 nodes on the first 70 row blocks).
+              8192 nodes on the first 70 row blocks).  The four fused
+              rounds again on data of 512 bins.
 5. hook    -- the hook-based round: GBDT(engine_allreduce=...).fit (depth
               + 1 hook calls per tree), train_round's ms/round in bf16 and
-              i8 (1 warm-up, 3 timed), every level teacher-forced.
+              i8 (1 warm-up, 3 timed), every level teacher-forced, at 256
+              and 512 bins.
 6. leaf    -- leaf_fit on a real round's last level: its leaf ids equal
               route_level's, its leaf masses split_child_masses'.
 7. dp      -- train_round_dp and train_round_dp_fused on an NCCL group of
@@ -43,16 +52,28 @@ Phases, each of which exits non-zero when it fails:
               (rows split by elastic_shard): identical forests on both
               ranks, the single-process round's splits but for printed near
               ties.
-8. report  -- per-level times of the histogram kernels (d = 0..7, bf16
+8. engine  -- the engine matrix of tests/workers/torch_basic_worker.py
+              (every dtype x op against numpy_reduce, broadcast, allgather,
+              prepare_fun, checkpoints) through the port's api and
+              TorchEngine: in this process on NCCL at world 1, arrays
+              staged on the card, then on two processes over gloo; the
+              time of a 64-node histogram's SUM.
+9. hybrid  -- train_round_hybrid on two processes sharing the card, each a
+              worker whose local group is an NCCL group of one, the hop
+              TorchEngine over gloo: identical forests, depth + 1 hops a
+              tree, the first two trees phase 7's but for printed near
+              ties, every tree teacher-forced; ms/round.
+10. report -- per-level times of the histogram kernels (d = 0..7, bf16
               and i8) and of the helpers, and a {"kernels": [...]} line
               with each kernel's time (CUDA events over back-to-back
               calls, "ms"; and the device time of the kernels a call
               launches, from torch.profiler, "device_ms"), launches,
               bound, plain-version time and library-call time.
 
-Launches are counted per path (phases 4-7), each run with the counts set to
-0 just before it and read just after; the phase-3 comparisons and the
-phase-8 timings do not count.  The histogram kernels count in
+Launches are counted per path (phases 4-7, and 9 in its processes), each
+run with the counts set to 0 just before it and read just after; the
+phase-3 comparisons and the phase-10 timings do not count.  Each phase
+prints its wall time.  The histogram kernels count in
 boost.launches, their helpers (one hist_prep and one hist_partition a
 histogram) in boost.helper_launches.  The last line is {"ok": true, "device":
 {...}}.  The script imports no JAX.
@@ -66,6 +87,7 @@ import json
 import multiprocessing
 import os
 import re
+import socket
 import subprocess
 import sys
 import tempfile
@@ -87,6 +109,7 @@ SUBSET_BLOCKS = 70          # row blocks of the plain histogram / leaf fit past 
                             # (more than 2 x leaf_fit's merge groups of 32 blocks)
 LEAF_DEPTHS = (1, DEPTH, DEEP, 13, 16)  # accumulators to 8; sort and compact records at 13, 16
 LARGE_NODES = (8192, 16384)  # histogram levels past the shared-memory partition
+WIDE_BINS = (512, 4096)     # past one 256-bin window of the tile kernel
 DP_RANKS = 2                # processes of the gloo phase, on the one card
 REPLACES = {
     "hist_level0": "rabit_tpu/ops/boost.py:341",
@@ -124,11 +147,12 @@ def require(cond: bool, msg: str) -> None:
         raise PhaseFailed(msg)
 
 
-def make_data(n_rows, seed=0):
-    """bench.py's Higgs-shaped generator: pre-binned features and labels."""
+def make_data(n_rows, seed=0, n_bins=N_BINS):
+    """bench.py's Higgs-shaped generator: pre-binned features and labels
+    (at another bin count the same labels' shape, bins scaled)."""
     rng = np.random.RandomState(seed)
-    xb = rng.randint(0, N_BINS, size=(n_rows, N_FEATURES), dtype=np.int32)
-    logits = (xb[:, 0] > 128).astype(np.float32) + 0.01 * xb[:, 1]
+    xb = rng.randint(0, n_bins, size=(n_rows, N_FEATURES), dtype=np.int32)
+    logits = (xb[:, 0] > n_bins // 2).astype(np.float32) + 0.01 * xb[:, 1] * (N_BINS / n_bins)
     y = (logits + rng.randn(n_rows) > 1.5).astype(np.float32)
     return xb, y
 
@@ -209,6 +233,132 @@ def hist_err(got, ref) -> float:
     return float(((got - ref).abs() / lim.clamp_min(1e-30)).max())
 
 
+def free_port() -> int:
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def run_ranks(target, world: int, *args) -> list[dict]:
+    """``world`` spawned processes ``target(rank, world, tmp, *args)``; each
+    writes rank{rank}.npz into the temp dir tmp.  Returns them in rank
+    order; fails unless every process exits 0."""
+    ctx = multiprocessing.get_context("spawn")
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = [ctx.Process(target=target, args=(r, world, tmp, *args))
+                 for r in range(world)]
+        for p in procs:
+            p.start()
+        try:
+            for p in procs:
+                p.join(timeout=600)
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.terminate()
+                    p.join()
+        codes = [p.exitcode for p in procs]
+        require(codes == [0] * world, f"{target.__name__} processes exited {codes}")
+        return [dict(np.load(os.path.join(tmp, f"rank{r}.npz"))) for r in range(world)]
+
+
+def basic_worker():
+    """tests/workers/torch_basic_worker.py, whose run_matrix is the engine
+    matrix (each result against numpy_reduce of the ranks' inputs)."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "workers",
+                        "torch_basic_worker.py")
+    spec = importlib.util.spec_from_file_location("torch_basic_worker", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def engine_args(device: str, port: int, world: int, rank: int) -> list[str]:
+    return ["rabit_engine=torch", f"rabit_torch_device={device}",
+            "rabit_torch_master_addr=127.0.0.1", f"rabit_torch_master_port={port}",
+            f"rabit_torch_world_size={world}", f"rabit_torch_rank={rank}"]
+
+
+def engine_matrix(api, worker) -> dict:
+    """The engine matrix on the engine api runs, then the mean ms of an f32
+    SUM the size of a depth-6 level's histogram (64 nodes x 28 x 256 x 2),
+    host staging included."""
+    t0 = time.perf_counter()
+    try:
+        worker.run_matrix(256)
+    except worker.CheckFailed as e:
+        raise PhaseFailed(str(e)) from e
+    matrix_s = time.perf_counter() - t0
+    a = np.ones(64 * N_FEATURES * N_BINS * 2, np.float32)
+    api.allreduce(a, api.SUM)
+    t0 = time.perf_counter()
+    for _ in range(10):
+        api.allreduce(a, api.SUM)
+    return {"matrix_s": matrix_s, "hop_ms": (time.perf_counter() - t0) * 1e2}
+
+
+def _engine_rank(rank: int, world: int, tmp: str, port: int) -> None:
+    """One process of the engine phase's gloo world: the matrix through
+    TorchEngine with host arrays."""
+    from rabit_tpu_torch import api
+
+    api.init(engine_args("cpu", port, world, rank))
+    try:
+        np.savez(os.path.join(tmp, f"rank{rank}.npz"), **engine_matrix(api, basic_worker()))
+    finally:
+        api.finalize()
+
+
+def _hybrid_rank(rank: int, world: int, tmp: str, port: int, n_rows: int,
+                 n_trees: int) -> None:
+    """One worker of the hybrid phase: its local group an NCCL group of one
+    (this process, on the card), the hop between workers the port's
+    TorchEngine over gloo; train_round_hybrid on this rank's elastic shard.
+    Writes the forest, the launches, the hops and each round's ms."""
+    import torch
+    import torch.distributed as dist
+
+    from rabit_tpu_torch import api
+    from rabit_tpu_torch.models import gbdt
+    from rabit_tpu_torch.ops import boost
+
+    torch.cuda.set_device(0)
+    api.init(engine_args("cpu", port, world, rank))
+    try:
+        local = [dist.new_group([r], backend="nccl") for r in range(world)][rank]
+        xb, y = make_data(n_rows, seed=0)
+        xs, ys = gbdt.elastic_shard(xb, y, world, rank)
+        xs, ys = torch.as_tensor(xs, device="cuda"), torch.as_tensor(ys, device="cuda")
+        cfg = gbdt.GBDTConfig(n_features=N_FEATURES, n_trees=n_trees, depth=DEPTH,
+                              n_bins=N_BINS)
+        hops = []
+
+        def hop(a):
+            hops.append(a.shape)
+            return api.allreduce(a, api.SUM)
+
+        state = gbdt.init_state(cfg, len(ys), "cuda")
+        boost.launches.clear()
+        ms = []
+        for _ in range(n_trees):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state = gbdt.train_round_hybrid(state, xs, ys, cfg, local, hop)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        forest = gbdt.forest_to_numpy(state.forest)
+        np.savez(os.path.join(tmp, f"rank{rank}.npz"), feature=forest.feature,
+                 threshold=forest.threshold, leaf=forest.leaf,
+                 launches=boost.launches["node_histograms_kernel"], hops=len(hops),
+                 ms=np.array(ms))
+    finally:
+        api.finalize()
+
+
 def _dp_rank(rank: int, world: int, tmp: str, n_rows: int, n_trees: int) -> None:
     """One process of the gloo phase: train_round_dp with CUDA tensors on
     this rank's elastic shard; writes its forest and launch counts."""
@@ -240,11 +390,13 @@ def _dp_rank(rank: int, world: int, tmp: str, n_rows: int, n_trees: int) -> None
 
 
 class Smoke:
-    def __init__(self, torch, boost, hist, gbdt, n_rows: int, device="cuda"):
+    def __init__(self, torch, boost, hist, gbdt, n_rows: int, device="cuda",
+                 n_bins: int = N_BINS):
         self.torch, self.boost, self.hist, self.gbdt = torch, boost, hist, gbdt
         self.dev = torch.device(device)
         self.n_rows = n_rows
-        xb, y = make_data(n_rows, seed=0)
+        self.n_bins = n_bins
+        xb, y = make_data(n_rows, seed=0, n_bins=n_bins)
         self.xb = torch.as_tensor(xb, device=self.dev)
         self.y = torch.as_tensor(y, device=self.dev)
         self.xb3, _ = boost.block_rows(self.xb)
@@ -312,7 +464,7 @@ class Smoke:
                               device=self.dev, dtype=torch.int32)
         feat = torch.randint(0, N_FEATURES, (n_prev,), generator=gen,
                              device=self.dev, dtype=torch.int32)
-        thr = torch.randint(0, N_BINS, (n_prev,), generator=gen,
+        thr = torch.randint(0, self.n_bins, (n_prev,), generator=gen,
                             device=self.dev, dtype=torch.int32)
         return node3, feat, thr
 
@@ -321,8 +473,8 @@ class Smoke:
         xb3, g3, h3 = self.xb3, self.g3, self.h3
         for i8 in (False, True):
             mode = "i8" if i8 else "bf16"
-            got = boost.hist_level0(xb3, g3, h3, n_bins=N_BINS, mxu_i8=i8)
-            ref = boost.hist_level0_plain(xb3, g3, h3, n_bins=N_BINS, mxu_i8=i8)
+            got = boost.hist_level0(xb3, g3, h3, n_bins=self.n_bins, mxu_i8=i8)
+            ref = boost.hist_level0_plain(xb3, g3, h3, n_bins=self.n_bins, mxu_i8=i8)
             e = hist_err(got, ref)
             print(f"  hist_level0 {mode}: max |d| {float((got - ref).abs().max()):.3e}"
                   f" (err/limit {e:.3f})")
@@ -332,9 +484,9 @@ class Smoke:
             for d in range(1, DEPTH):
                 node3, feat, thr = self.level_inputs(d)
                 got, nk = boost.hist_level(xb3, node3, g3, h3, feat, thr, depth=d,
-                                           n_bins=N_BINS, mxu_i8=i8)
+                                           n_bins=self.n_bins, mxu_i8=i8)
                 ref, npl = boost.hist_level_plain(xb3, node3, g3, h3, feat, thr,
-                                                  depth=d, n_bins=N_BINS, mxu_i8=i8)
+                                                  depth=d, n_bins=self.n_bins, mxu_i8=i8)
                 e = hist_err(got, ref)
                 same = bool(torch.equal(nk, npl))
                 print(f"  hist_level d={d} {mode}: max |d| "
@@ -411,8 +563,8 @@ class Smoke:
             node3, feat, thr = self.level_inputs(d)
             for i8 in (False, True):
                 args = (self.xb3, node3, self.g3, self.h3, feat, thr)
-                got, nk = boost.hist_level(*args, depth=d, n_bins=N_BINS, mxu_i8=i8)
-                ref, npl = boost.hist_level_plain(*args, depth=d, n_bins=N_BINS,
+                got, nk = boost.hist_level(*args, depth=d, n_bins=self.n_bins, mxu_i8=i8)
+                ref, npl = boost.hist_level_plain(*args, depth=d, n_bins=self.n_bins,
                                                   mxu_i8=i8)
                 e = hist_err(got, ref)
                 same = bool(self.torch.equal(nk, npl))
@@ -427,12 +579,12 @@ class Smoke:
         levels d = 0..DEEP-1 (train_round's loop on the card, bf16, seeded
         margin)."""
         torch, gbdt = self.torch, self.gbdt
-        cfg = gbdt.GBDTConfig(n_features=N_FEATURES, depth=DEEP, n_bins=N_BINS)
+        cfg = gbdt.GBDTConfig(n_features=N_FEATURES, depth=DEEP, n_bins=self.n_bins)
         node = torch.zeros(self.n_rows, dtype=torch.int32, device=self.dev)
         levels = []
         for d in range(DEEP):
             hist = self.hist.node_histograms_kernel(self.xb, self.g, self.h, node,
-                                                    2 ** d, N_BINS)
+                                                    2 ** d, self.n_bins)
             feat, thr, _ = gbdt.best_splits(hist, cfg)
             levels.append((node, hist, feat, thr))
             node = self.route(node, feat, thr)
@@ -445,7 +597,7 @@ class Smoke:
         self.levels = self.real_levels()
         for i8 in (False, True):
             for d, (node, _, _, _) in enumerate(self.levels):
-                args = (self.xb, self.g, self.h, node, 2 ** d, N_BINS)
+                args = (self.xb, self.g, self.h, node, 2 ** d, self.n_bins)
                 got = hist.node_histograms_kernel(*args, mxu_i8=i8)
                 ref = hist.node_histograms_kernel_plain(*args, mxu_i8=i8)
                 e = hist_err(got, ref)
@@ -540,7 +692,8 @@ class Smoke:
             d = n_nodes.bit_length() - 1
             if mode == "route":
                 node3, feat, thr = self.level_inputs(d)
-                xb, node, g, h, n = self.xb3, node3, self.g3, self.h3, self.xb3.numel() // N_FEATURES
+                xb, node, g, h = self.xb3, node3, self.g3, self.h3
+                n = self.xb3.numel() // N_FEATURES
             else:
                 gen = torch.Generator(device=self.dev).manual_seed(200)
                 node = torch.randint(0, n_nodes, (self.n_rows,), generator=gen,
@@ -567,12 +720,13 @@ class Smoke:
                 if mode == "route":
                     a = (self.xb3[:SUBSET_BLOCKS], node3[:SUBSET_BLOCKS],
                          self.g3[:SUBSET_BLOCKS], self.h3[:SUBSET_BLOCKS], feat, thr)
-                    got, nk = boost.hist_level(*a, depth=d, n_bins=N_BINS, mxu_i8=i8)
-                    ref, npl = boost.hist_level_plain(*a, depth=d, n_bins=N_BINS, mxu_i8=i8)
+                    got, nk = boost.hist_level(*a, depth=d, n_bins=self.n_bins, mxu_i8=i8)
+                    ref, npl = boost.hist_level_plain(*a, depth=d, n_bins=self.n_bins, mxu_i8=i8)
                     same = same and bool(torch.equal(nk, npl))
                     name = "hist_level"
                 else:
-                    a = (self.xb[:sub], self.g[:sub], self.h[:sub], node[:sub], n_nodes, N_BINS)
+                    a = (self.xb[:sub], self.g[:sub], self.h[:sub], node[:sub], n_nodes,
+                         self.n_bins)
                     got = self.hist.node_histograms_kernel(*a, mxu_i8=i8)
                     ref = self.hist.node_histograms_kernel_plain(*a, mxu_i8=i8)
                     name = "node_histograms_kernel"
@@ -586,6 +740,125 @@ class Smoke:
                 self.err[name] = max(self.err[name], float((got - ref).abs().max()))
                 del got, ref
 
+    def check_equal_hist(self, name, run, plain, what: str):
+        """One histogram call on the card (``run``, called twice: bitwise
+        the same) against its plain version; returns the card's result."""
+        got, again, ref = run(), run(), plain()
+        if isinstance(got, tuple):  # hist_level: (histogram, node ids)
+            require(bool(self.torch.equal(got[1], again[1]) and
+                         self.torch.equal(got[1], ref[1])), f"{what}: node ids differ")
+            got, again, ref = got[0], again[0], ref[0]
+        e = hist_err(got, ref)
+        repeat = bool(self.torch.equal(got.view(self.torch.int32), again.view(self.torch.int32)))
+        print(f"  {what}: max |d| {float((got - ref).abs().max()):.3e} (err/limit {e:.3f}),"
+              f" bitwise on repeat: {repeat}")
+        require(e <= 1.0 and repeat, f"{what} disagrees with its plain version")
+        self.err[name] = max(self.err[name], float((got - ref).abs().max()))
+
+    def check_wide_bins(self):
+        """This instance's bins past 256 (the tile kernel's windows of 256
+        bins): hist_level0, hist_level (d = 3, seeded) and
+        node_histograms_kernel (8 seeded nodes, one in 13 ids foreign) in
+        both encodings against their plain versions, over all rows up to
+        512 bins and on the first SUBSET_BLOCKS row blocks past that (the
+        plain one-hot grows with the bins), where the kernels also run once
+        over all rows."""
+        torch, boost, hist = self.torch, self.boost, self.hist
+        nb = self.xb3.shape[0] if self.n_bins <= 512 else SUBSET_BLOCKS
+        rows = nb * self.xb3.shape[1]
+        node3, feat, thr = self.level_inputs(3)
+        gen = torch.Generator(device=self.dev).manual_seed(300)
+        node = torch.randint(0, 8, (self.n_rows,), generator=gen, device=self.dev,
+                             dtype=torch.int32)
+        node[::13] = 8
+        where = "all rows" if nb == self.xb3.shape[0] else f"the first {nb} row blocks"
+        a3 = (self.xb3[:nb], node3[:nb], self.g3[:nb], self.h3[:nb], feat, thr)
+        n = min(rows, self.n_rows)
+        a1 = (self.xb[:n], self.g[:n], self.h[:n], node[:n], 8, self.n_bins)
+        for i8 in (False, True):
+            enc = "i8" if i8 else "bf16"
+            kw = dict(n_bins=self.n_bins, mxu_i8=i8)
+            self.check_equal_hist(
+                "hist_level0", lambda: boost.hist_level0(a3[0], a3[2], a3[3], **kw),
+                lambda: boost.hist_level0_plain(a3[0], a3[2], a3[3], **kw),
+                f"hist_level0 {self.n_bins} bins {enc}, {where}")
+            self.check_equal_hist(
+                "hist_level", lambda: boost.hist_level(*a3, depth=3, **kw),
+                lambda: boost.hist_level_plain(*a3, depth=3, **kw),
+                f"hist_level d=3 {self.n_bins} bins {enc}, {where}")
+            self.check_equal_hist(
+                "node_histograms_kernel", lambda: hist.node_histograms_kernel(*a1, mxu_i8=i8),
+                lambda: hist.node_histograms_kernel_plain(*a1, mxu_i8=i8),
+                f"node_histograms_kernel 8 nodes {self.n_bins} bins {enc}, {where}")
+            if nb < self.xb3.shape[0]:
+                full = boost.hist_level(self.xb3, node3, self.g3, self.h3, feat, thr,
+                                        depth=3, **kw)[0]
+                require(bool(torch.isfinite(full).all()), "non-finite histogram")
+
+    def check_row_blocks(self):
+        """Row blocks of 128 and 16384 rows (the headline data reblocked):
+        the three histogram kernels (root, route d = 3, 8 given node ids)
+        and leaf_fit (d = 6 and 13) in both encodings against their plain
+        versions, the i8 block scales and the counts exactly.  At 128 rows
+        on the first SUBSET_BLOCKS x 1024 rows (the plain versions loop
+        over 7813 blocks otherwise); at 16384 rows over all rows, but for
+        leaf_fit at d = 13 (a [16384, 16384] one-hot a block) on the first
+        five blocks."""
+        torch, boost, hist = self.torch, self.boost, self.hist
+        sub = SUBSET_BLOCKS * 1024
+        for R, n in ((128, sub), (16384, self.n_rows)):
+            xb3, _ = boost.block_rows(self.xb[:n], R)
+            g3, _ = boost.block_rows(self.g[:n], R)
+            h3, _ = boost.block_rows(self.h[:n], R)
+            gen = torch.Generator(device=self.dev).manual_seed(R)
+            node3 = torch.randint(0, 4, g3.shape, generator=gen, device=self.dev,
+                                  dtype=torch.int32)
+            _, feat, thr = self.level_inputs(3)
+            node = torch.randint(0, 9, (n,), generator=gen, device=self.dev,
+                                 dtype=torch.int32)  # 8: foreign
+            rows = xb3.shape[0] * R
+            for i8 in (False, True):
+                enc = "i8" if i8 else "bf16"
+                kw = dict(n_bins=self.n_bins, mxu_i8=i8)
+                self.check_equal_hist(
+                    "hist_level0", lambda: boost.hist_level0(xb3, g3, h3, **kw),
+                    lambda: boost.hist_level0_plain(xb3, g3, h3, **kw),
+                    f"hist_level0 R={R} {enc}, {rows} rows")
+                a = (xb3, node3, g3, h3, feat, thr)
+                self.check_equal_hist(
+                    "hist_level", lambda: boost.hist_level(*a, depth=3, **kw),
+                    lambda: boost.hist_level_plain(*a, depth=3, **kw),
+                    f"hist_level d=3 R={R} {enc}, {rows} rows")
+                a1 = (self.xb[:n], self.g[:n], self.h[:n], node, 8, self.n_bins)
+                self.check_equal_hist(
+                    "node_histograms_kernel",
+                    lambda: hist.node_histograms_kernel(*a1, block_rows=R, mxu_i8=i8),
+                    lambda: hist.node_histograms_kernel_plain(*a1, block_rows=R, mxu_i8=i8),
+                    f"node_histograms_kernel R={R} {enc}, {n} rows (last block short)")
+                pk = dict(n_rows=n, block=R, n_nodes=8, i8=i8)
+                args = (self.xb[:n], node, self.g[:n], self.h[:n], None, None)
+                _, counts, scale = boost.hist_prep("nodes", *args, **pk)
+                _, rc, rs = boost.hist_prep_plain("nodes", *args, **pk)
+                require(bool(torch.equal(counts, rc)) and
+                        (scale is None or bool(torch.equal(scale, rs))),
+                        f"hist_prep R={R} {enc}: counts or block scales differ")
+            print(f"  hist_prep R={R}: counts and i8 block scales equal to the plain twin's")
+            for d in (DEPTH, 13):
+                nbl = xb3.shape[0] if d < FULL_PLAIN_DEPTH or R < 1024 else 5
+                gen = torch.Generator(device=self.dev).manual_seed(d)
+                n_prev = 2 ** (d - 1)
+                la = (xb3[:nbl],
+                      torch.randint(0, n_prev, (nbl, R, 1), generator=gen, device=self.dev,
+                                    dtype=torch.int32), g3[:nbl], h3[:nbl],
+                      torch.randint(0, N_FEATURES, (n_prev,), generator=gen, device=self.dev,
+                                    dtype=torch.int32),
+                      torch.randint(0, self.n_bins, (n_prev,), generator=gen,
+                                    device=self.dev, dtype=torch.int32))
+                self.check_equal_hist(
+                    "leaf_fit", lambda: boost.leaf_fit(*la, depth=d),
+                    lambda: boost.leaf_fit_plain(*la, depth=d),
+                    f"leaf_fit d={d} R={R}, {nbl * R} rows")
+
     # -- phase 4 ------------------------------------------------------------------
     def near_ties(self, hist, feat, thr, cfg, where: str, what: str):
         """Split tables ``feat``/``thr`` against the best splits of ``hist``:
@@ -594,8 +867,8 @@ class Smoke:
         fp, tp, _ = gbdt.best_splits(hist, cfg)
         gains = gbdt.split_gains(hist, cfg)
         for nd in torch.nonzero((feat != fp) | (thr != tp)).flatten().tolist():
-            a = float(gains[nd, int(feat[nd]) * N_BINS + int(thr[nd])])
-            b = float(gains[nd, int(fp[nd]) * N_BINS + int(tp[nd])])
+            a = float(gains[nd, int(feat[nd]) * self.n_bins + int(thr[nd])])
+            b = float(gains[nd, int(fp[nd]) * self.n_bins + int(tp[nd])])
             gap = abs(a - b) / max(abs(a), abs(b), 1e-30)
             print(f"    {where} node {nd}: {what} split ({int(feat[nd])},{int(thr[nd])})"
                   f" vs plain ({int(fp[nd])},{int(tp[nd])}), gains {a:.7g} / {b:.7g}")
@@ -620,7 +893,7 @@ class Smoke:
         g, h = gbdt.gradients(cfg, state.margin, self.y)
         g3, _ = boost.block_rows(g)
         h3, _ = boost.block_rows(h)
-        kw = dict(n_bins=N_BINS, mxu_i8=cfg.mxu_i8)
+        kw = dict(n_bins=self.n_bins, mxu_i8=cfg.mxu_i8)
         hk = boost.hist_level0(self.xb3, g3, h3, **kw)
         hp = boost.hist_level0_plain(self.xb3, g3, h3, **kw)
         require(hist_err(hk, hp) <= 1.0, "level 0 histogram disagrees")
@@ -656,7 +929,7 @@ class Smoke:
     def main_path(self, i8: bool, fused_final: bool):
         torch, boost, gbdt = self.torch, self.boost, self.gbdt
         cfg = gbdt.GBDTConfig(n_features=N_FEATURES, n_trees=4, depth=DEPTH,
-                              n_bins=N_BINS, mxu_i8=i8, fused_final=fused_final)
+                              n_bins=self.n_bins, mxu_i8=i8, fused_final=fused_final)
         final = "route_margin_level" if fused_final else "route_level"
         state = gbdt.init_state(cfg, self.n_rows, self.dev)
         state = gbdt.train_round_fused(state, self.xb3, self.y, cfg)  # warm-up
@@ -680,7 +953,8 @@ class Smoke:
                     bool(torch.equal(state.forest.threshold[t, d, :n], thrs[d])),
                     f"teacher-forced tree differs from train_round_fused at level {d}")
         mode = ("i8" if i8 else "bf16") + (" fused_final" if fused_final else "")
-        print(f"  main path {mode}: {ms:.3f} ms/round (3 rounds after 1 warm-up),"
+        print(f"  main path {mode}, {self.n_bins} bins: {ms:.3f} ms/round (3 rounds after 1 "
+              "warm-up),"
               f" launches {counts}")
         return ms
 
@@ -689,7 +963,7 @@ class Smoke:
         gbdt, boost, torch = self.gbdt, self.boost, self.torch
         X = self.xb.cpu().numpy().astype(np.float32)
         y = self.y.cpu().numpy()
-        model = gbdt.GBDT(device=self.dev, n_trees=3, depth=DEPTH, n_bins=N_BINS)
+        model = gbdt.GBDT(device=self.dev, n_trees=3, depth=DEPTH, n_bins=self.n_bins)
         self.clear_counts()
         t0 = time.perf_counter()
         model.fit(X, y)
@@ -743,7 +1017,7 @@ class Smoke:
         the plain versions (past depth 13 on a subset: see teacher_forced)."""
         torch, gbdt = self.torch, self.gbdt
         cfg = gbdt.GBDTConfig(n_features=N_FEATURES, n_trees=1, depth=depth,
-                              n_bins=N_BINS, mxu_i8=i8)
+                              n_bins=self.n_bins, mxu_i8=i8)
         start = gbdt.init_state(cfg, self.n_rows, self.dev)
         t0 = time.perf_counter()
         state, counts = self.path(
@@ -770,7 +1044,7 @@ class Smoke:
         node = torch.zeros(self.n_rows, dtype=torch.int32, device=self.dev)
         feats, thrs = [], []
         for d in range(cfg.depth):
-            args = (self.xb, g, h, node, 2 ** d, N_BINS)
+            args = (self.xb, g, h, node, 2 ** d, self.n_bins)
             hk = hist.node_histograms_kernel(*args, mxu_i8=cfg.mxu_i8)
             hp = hist.node_histograms_kernel_plain(*args, mxu_i8=cfg.mxu_i8)
             require(hist_err(hk, hp) <= 1.0, f"hook level {d} histogram disagrees")
@@ -781,8 +1055,7 @@ class Smoke:
         return feats, thrs
 
     def hook_path(self):
-        """GBDT(engine_allreduce=...) as a user calls it, then train_round's
-        ms/round per encoding, every level teacher-forced."""
+        """GBDT(engine_allreduce=...) as a user calls it."""
         torch, gbdt = self.torch, self.gbdt
         X = self.xb.cpu().numpy().astype(np.float32)
         y = self.y.cpu().numpy()
@@ -793,7 +1066,7 @@ class Smoke:
             return a
 
         model = gbdt.GBDT(engine_allreduce=engine_allreduce, device=self.dev,
-                          n_trees=3, depth=DEPTH, n_bins=N_BINS)
+                          n_trees=3, depth=DEPTH, n_bins=self.n_bins)
         t0 = time.perf_counter()
         _, counts = self.path(lambda: model.fit(X, y))
         fit_s = time.perf_counter() - t0
@@ -806,10 +1079,15 @@ class Smoke:
               f" {len(calls)} hook calls; launches {counts}; train accuracy {acc:.4f}")
         require(acc > float(max(y.mean(), 1 - y.mean())),
                 "the hooked forest does not beat the majority class")
+
+    def hook_rounds(self):
+        """train_round's ms/round in bf16 and i8 (1 warm-up, 3 timed), every
+        level teacher-forced."""
+        torch, gbdt = self.torch, self.gbdt
         round_ms = {}
         for i8 in (False, True):
             cfg = gbdt.GBDTConfig(n_features=N_FEATURES, n_trees=4, depth=DEPTH,
-                                  n_bins=N_BINS, mxu_i8=i8)
+                                  n_bins=self.n_bins, mxu_i8=i8)
             state = gbdt.init_state(cfg, self.n_rows, self.dev)
             state = gbdt.train_round(state, self.xb, self.y, cfg)  # warm-up
             warm = state
@@ -835,7 +1113,7 @@ class Smoke:
                         f"teacher-forced tree differs from train_round at level {d}")
             mode = "i8" if i8 else "bf16"
             round_ms[mode] = ms
-            print(f"  train_round {mode}: {ms:.3f} ms/round (3 rounds after 1 "
+            print(f"  train_round {mode}, {self.n_bins} bins: {ms:.3f} ms/round (3 rounds after 1 "
                   f"warm-up), launches {counts}")
         return round_ms
 
@@ -863,7 +1141,7 @@ class Smoke:
 
         torch, gbdt = self.torch, self.gbdt
         cfg = gbdt.GBDTConfig(n_features=N_FEATURES, n_trees=2, depth=DEPTH,
-                              n_bins=N_BINS)
+                              n_bins=self.n_bins)
         start = gbdt.init_state(cfg, self.n_rows, self.dev)
         with tempfile.TemporaryDirectory() as tmp:
             dist.init_process_group("nccl", store=dist.FileStore(
@@ -891,38 +1169,36 @@ class Smoke:
         """DP_RANKS processes on the one card over gloo with CUDA tensors;
         their forests against each other and against the single-process
         round, teacher-forced on the ranks' tables."""
-        torch, gbdt = self.torch, self.gbdt
-        ctx = multiprocessing.get_context("spawn")
-        with tempfile.TemporaryDirectory() as tmp:
-            procs = [ctx.Process(target=_dp_rank,
-                                 args=(r, DP_RANKS, tmp, self.n_rows, n_trees))
-                     for r in range(DP_RANKS)]
-            t0 = time.perf_counter()
-            for p in procs:
-                p.start()
-            try:
-                for p in procs:
-                    p.join(timeout=600)
-            finally:
-                for p in procs:
-                    if p.is_alive():
-                        p.terminate()
-                        p.join()
-            codes = [p.exitcode for p in procs]
-            require(codes == [0] * DP_RANKS, f"gloo ranks exited {codes}")
-            runs = [dict(np.load(os.path.join(tmp, f"rank{r}.npz")))
-                    for r in range(DP_RANKS)]
+        t0 = time.perf_counter()
+        runs = run_ranks(_dp_rank, DP_RANKS, self.n_rows, n_trees)
         wall = time.perf_counter() - t0
+        launches = self.check_ranks(runs, n_trees, "gloo")
+        self.dp_forest = runs[0]
+        self.check_forest(runs[0], n_trees, "gloo")
+        print(f"  gloo, {DP_RANKS} ranks on one card ({wall:.1f} s incl. start-up): "
+              f"identical forests; launches per rank {launches}; the single-process "
+              "round's splits at every level")
+
+    def check_ranks(self, runs, n_trees: int, what: str):
+        """The ranks' forests identical, depth launches a tree each."""
         for run in runs[1:]:
             require(all(np.array_equal(run[k], runs[0][k])
                         for k in ("feature", "threshold", "leaf")),
-                    "the gloo ranks' forests differ")
+                    f"the {what} ranks' forests differ")
         launches = [int(run["launches"]) for run in runs]
         require(all(n == n_trees * DEPTH for n in launches),
-                f"gloo ranks' node_histograms_kernel launches {launches}")
+                f"{what} ranks' node_histograms_kernel launches {launches}")
+        return launches
+
+    def check_forest(self, run, n_trees: int, what: str):
+        """A forest grown across processes against the single-process round,
+        teacher-forced on its own tables: a split may differ from the
+        single-process histogram's best only at a printed near tie, the
+        leaves are the single-process sums."""
+        torch, gbdt = self.torch, self.gbdt
         cfg = gbdt.GBDTConfig(n_features=N_FEATURES, n_trees=n_trees, depth=DEPTH,
-                              n_bins=N_BINS)
-        forest = [torch.as_tensor(runs[0][k], device=self.dev)
+                              n_bins=self.n_bins)
+        forest = [torch.as_tensor(run[k], device=self.dev)
                   for k in ("feature", "threshold", "leaf")]
         margin = torch.zeros(self.n_rows, device=self.dev)
         for t in range(n_trees):
@@ -930,35 +1206,84 @@ class Smoke:
             node = torch.zeros(self.n_rows, dtype=torch.int32, device=self.dev)
             for d in range(DEPTH):
                 n = 2 ** d
-                hist = self.hist.node_histograms_kernel(self.xb, g, h, node, n, N_BINS)
+                hist = self.hist.node_histograms_kernel(self.xb, g, h, node, n, self.n_bins)
                 feat, thr = forest[0][t, d, :n], forest[1][t, d, :n]
-                self.near_ties(hist, feat, thr, cfg, f"gloo tree {t} level {d}", "ranks'")
+                self.near_ties(hist, feat, thr, cfg, f"{what} tree {t} level {d}", "ranks'")
                 node = self.route(node, feat, thr)
             leaf_gh = self.hist.segment_sum(torch.stack([g, h], -1), node, 2 ** DEPTH)
             leaf = -cfg.learning_rate * leaf_gh[:, 0] / (leaf_gh[:, 1] + cfg.reg_lambda)
             require(bool(torch.allclose(forest[2][t], leaf, rtol=1e-4, atol=1e-6)),
-                    f"gloo tree {t}: leaves differ from the single-process sums")
+                    f"{what} tree {t}: leaves differ from the single-process sums")
             margin = margin + forest[2][t][node.long()]
-        print(f"  gloo, {DP_RANKS} ranks on one card ({wall:.1f} s incl. start-up): "
-              f"identical forests; launches per rank {launches}; the single-process "
-              "round's splits at every level")
 
     # -- phase 8 ------------------------------------------------------------------
+    def engine_phase(self):
+        """The engine matrix through the port's api: in this process on
+        NCCL at world 1 (arrays staged on the card), then DP_RANKS
+        processes over gloo.  Returns each setting's times."""
+        import torch.distributed as dist
+
+        from rabit_tpu_torch import api
+
+        out = {}
+        api.init(engine_args("cuda", free_port(), 1, 0))
+        try:
+            require(dist.get_backend() == "nccl", "the engine did not start NCCL")
+            out["nccl_world1"] = engine_matrix(api, basic_worker())
+        finally:
+            api.finalize()
+        require(not dist.is_initialized(), "finalize left the process group up")
+        t0 = time.perf_counter()
+        runs = run_ranks(_engine_rank, DP_RANKS, free_port())
+        out[f"gloo_world{DP_RANKS}"] = {k: float(runs[0][k]) for k in runs[0]}
+        out[f"gloo_world{DP_RANKS}"]["wall_s"] = time.perf_counter() - t0
+        for k, v in out.items():
+            print(f"  engine matrix, {k}: every dtype x op equal to numpy_reduce, broadcast,"
+                  f" allgather, prepare_fun, checkpoints; {v['matrix_s']:.2f} s; a 64-node"
+                  f" histogram's SUM {v['hop_ms']:.3f} ms")
+        return out
+
+    # -- phase 9 ------------------------------------------------------------------
+    def hybrid_phase(self, n_trees: int = 3):
+        """Two workers on the card, each one process whose local group is an
+        NCCL group of one, the hop the port's TorchEngine over gloo: the
+        ranks' forests identical, depth + 1 hops a tree, the first two trees
+        train_round_dp's (phase 7) but for printed near ties, every tree
+        teacher-forced against the single-process round.  Returns ms/round
+        (rank 0, rounds after the first)."""
+        t0 = time.perf_counter()
+        runs = run_ranks(_hybrid_rank, DP_RANKS, free_port(), self.n_rows, n_trees)
+        wall = time.perf_counter() - t0
+        launches = self.check_ranks(runs, n_trees, "hybrid")
+        hops = [int(run["hops"]) for run in runs]
+        require(hops == [n_trees * (DEPTH + 1)] * DP_RANKS,
+                f"engine hops {hops}, expected {n_trees * (DEPTH + 1)} a rank")
+        same = all(np.array_equal(runs[0][k][:2], self.dp_forest[k])
+                   for k in ("feature", "threshold", "leaf"))
+        self.check_forest(runs[0], n_trees, "hybrid")
+        ms = runs[0]["ms"].tolist()
+        print(f"  hybrid, {DP_RANKS} workers on one card ({wall:.1f} s incl. start-up): "
+              f"identical forests; launches per rank {launches}; hops per rank {hops}; "
+              f"first two trees bitwise train_round_dp's: {same}; the single-process "
+              "round's splits at every level; ms/round " + ", ".join(f"{x:.3f}" for x in ms))
+        return sum(ms[1:]) / len(ms[1:])
+
+    # -- phase 10 -----------------------------------------------------------------
     def measure(self):
         torch, boost = self.torch, self.boost
         xb3, g3, h3 = self.xb3, self.g3, self.h3
         rows = xb3.shape[0] * xb3.shape[1]
-        hist_bytes = lambda nodes: nodes * N_FEATURES * N_BINS * 2 * 4
+        hist_bytes = lambda nodes: nodes * N_FEATURES * self.n_bins * 2 * 4
         flat_x = xb3.reshape(rows, N_FEATURES).long()
         feat_ids = torch.arange(N_FEATURES, device=self.dev)
         gh = torch.stack([g3.reshape(-1, 1).expand(rows, N_FEATURES),
                           h3.reshape(-1, 1).expand(rows, N_FEATURES)], -1).reshape(-1, 2)
 
         def library(node):  # one index_add_ builds the same histogram
-            seg = ((node.reshape(-1, 1).long() * N_FEATURES + feat_ids) * N_BINS
+            seg = ((node.reshape(-1, 1).long() * N_FEATURES + feat_ids) * self.n_bins
                    + flat_x).reshape(-1)
             n_seg = int(node.max()) + 1 if node.numel() else 1
-            out = torch.zeros(n_seg * N_FEATURES * N_BINS, 2, device=self.dev)
+            out = torch.zeros(n_seg * N_FEATURES * self.n_bins, 2, device=self.dev)
             return cuda_ms(torch, lambda: out.zero_().index_add_(0, seg, gh), 5)
 
         # hist_level0 / hist_level per level d = 0..7 (d = 0: the root), bf16
@@ -969,27 +1294,27 @@ class Smoke:
         for d in range(DEEP):
             if d == 0:
                 node3 = feat = thr = None
-                run = lambda i8: boost.hist_level0(xb3, g3, h3, n_bins=N_BINS, mxu_i8=i8)
+                run = lambda i8: boost.hist_level0(xb3, g3, h3, n_bins=self.n_bins, mxu_i8=i8)
             else:
                 node3, feat, thr = self.level_inputs(d)
                 run = lambda i8: boost.hist_level(xb3, node3, g3, h3, feat, thr, depth=d,
-                                                  n_bins=N_BINS, mxu_i8=i8)
+                                                  n_bins=self.n_bins, mxu_i8=i8)
             for i8 in (False, True):
                 per["i8" if i8 else "bf16"].append(cuda_ms(torch, lambda: run(i8), 10))
             if d < DEPTH:  # the levels the report's figure averages, bf16
                 self.device_fns["hist_level0" if d == 0 else "hist_level"].append(
                     functools.partial(run, False) if d == 0 else functools.partial(
                         boost.hist_level, xb3, node3, g3, h3, feat, thr, depth=d,
-                        n_bins=N_BINS))
+                        n_bins=self.n_bins))
             if d == 0:
                 lms.append(library(torch.zeros(rows, device=self.dev, dtype=torch.int32)))
                 self.plain_ms["hist_level0"] = cuda_ms(
-                    torch, lambda: boost.hist_level0_plain(xb3, g3, h3, n_bins=N_BINS), 1)
+                    torch, lambda: boost.hist_level0_plain(xb3, g3, h3, n_bins=self.n_bins), 1)
                 byts.append(xb3.numel() * 4 + 2 * rows * 4 + hist_bytes(1))
             elif d < DEPTH:
                 lms.append(library(run(False)[1]))
                 pms.append(cuda_ms(torch, lambda: boost.hist_level_plain(
-                    xb3, node3, g3, h3, feat, thr, depth=d, n_bins=N_BINS), 1))
+                    xb3, node3, g3, h3, feat, thr, depth=d, n_bins=self.n_bins), 1))
                 byts.append(xb3.numel() * 4 + 4 * rows * 4 + hist_bytes(2 ** d))
         for mode, t in per.items():
             print(f"  {mode} histogram ms by level, hist_level0 then hist_level d=1..7: "
@@ -1030,7 +1355,7 @@ class Smoke:
         per = {"bf16": [], "i8": []}
         pms, lms, byts = [], [], []
         for d, (node, _, _, _) in enumerate(self.levels):
-            args = (self.xb, self.g, self.h, node, 2 ** d, N_BINS)
+            args = (self.xb, self.g, self.h, node, 2 ** d, self.n_bins)
             for i8 in (False, True):
                 per["i8" if i8 else "bf16"].append(cuda_ms(
                     torch, lambda: self.hist.node_histograms_kernel(*args, mxu_i8=i8), 10))
@@ -1153,13 +1478,20 @@ def main() -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False  # the plain versions' matmuls
     torch.backends.cudnn.allow_tf32 = False
-    phase = "device"
+    phase, t_phase = "device", time.perf_counter()
+
+    def next_phase(name: str) -> str:  # prints the phase that ends and its wall time
+        nonlocal t_phase
+        print(f"[{phase}] took {time.perf_counter() - t_phase:.1f} s", flush=True)
+        t_phase = time.perf_counter()
+        return name
+
     try:
         name, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
         smi = nvidia_smi()
         print(f"[device] {name} x{count}; nvidia-smi: {smi}", flush=True)
 
-        phase = "build"
+        phase = next_phase("build")
         t0 = time.perf_counter()
         _build.build_all()
         for src, log in _build.ptxas_log.items():
@@ -1168,7 +1500,7 @@ def main() -> int:
                 print("  " + line)
         print(f"[build] {time.perf_counter() - t0:.1f} s", flush=True)
 
-        phase = "kernels"
+        phase = next_phase("kernels")
         smoke = Smoke(torch, boost, hist, gbdt, args.rows)
         print(f"[kernels] {args.rows} rows x {N_FEATURES} features x {N_BINS} bins")
         smoke.check_kernels()
@@ -1177,13 +1509,20 @@ def main() -> int:
         smoke.check_helpers()
         smoke.check_leaf_fit()
         smoke.check_large_hist()
+        smoke.check_row_blocks()
+        for n_bins in WIDE_BINS:
+            print(f"[kernels] {n_bins} bins")
+            Smoke(torch, boost, hist, gbdt, args.rows, n_bins=n_bins).check_wide_bins()
 
-        phase = "main"
+        phase = next_phase("main")
+        wide = Smoke(torch, boost, hist, gbdt, args.rows, n_bins=WIDE_BINS[0])
         round_ms = {}
-        for i8 in (False, True):
-            for fused_final in (False, True):
-                key = ("i8" if i8 else "bf16") + ("+fused_final" if fused_final else "")
-                round_ms[key] = smoke.main_path(i8, fused_final)
+        for s in (smoke, wide):
+            for i8 in (False, True):
+                for fused_final in (False, True):
+                    key = (("i8" if i8 else "bf16") + ("+fused_final" if fused_final else "")
+                           + ("" if s is smoke else f" {s.n_bins} bins"))
+                    round_ms[key] = s.main_path(i8, fused_final)
         smoke.user_entry()
         smoke.small_reference()
         for i8 in (False, True):
@@ -1192,20 +1531,31 @@ def main() -> int:
             smoke.deep_round(i8, DEEPEST)
         print("[main] ms/round " + json.dumps(round_ms), flush=True)
 
-        phase = "hook"
-        hook_ms = smoke.hook_path()
+        phase = next_phase("hook")
+        smoke.hook_path()
+        hook_ms = smoke.hook_rounds()
+        hook_ms.update({f"{k} {wide.n_bins} bins": v for k, v in wide.hook_rounds().items()})
         print("[hook] train_round ms/round " + json.dumps(hook_ms), flush=True)
+        for k, v in wide.launches.items():  # the wide data's main paths
+            smoke.launches[k] += v
 
-        phase = "leaf"
+        phase = next_phase("leaf")
         smoke.leaf_path()
 
-        phase = "dp"
+        phase = next_phase("dp")
         smoke.dp_single()
         smoke.dp_two_ranks()
         print("[dp] done", flush=True)
 
-        phase = "report"
+        phase = next_phase("engine")
+        smoke.engine_phase()
+
+        phase = next_phase("hybrid")
+        print(f"[hybrid] train_round_hybrid {smoke.hybrid_phase():.3f} ms/round", flush=True)
+
+        phase = next_phase("report")
         smoke.measure()
+        next_phase("")
         print(json.dumps(smoke.kernels_line()))
     except PhaseFailed as e:
         print(f"FAIL [{phase}]: {e}", file=sys.stderr)

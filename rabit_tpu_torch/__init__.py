@@ -1,9 +1,13 @@
 """PyTorch/CUDA port of rabit_tpu's GBDT training rounds for NVIDIA H100s.
 
 ``models.gbdt`` holds the trainer (``GBDT``, ``train_round_fused``, the
-hook-based ``train_round`` and the data-parallel rounds); ``ops.boost``
-the fused row passes and ``ops.hist`` the histograms for given node ids,
-whose CUDA sources live in ``csrc/`` and are built at first use by
-``_build``; ``elastic`` the dense row partition across ranks.  The package
-imports torch and numpy only.
+hook-based ``train_round``, the data-parallel rounds and the hybrid round
+``train_round_hybrid``, whose workers cross a fault-tolerant host engine);
+``ops.boost`` the fused row passes and ``ops.hist`` the histograms for given
+node ids, whose CUDA sources live in ``csrc/`` and are built at first use
+by ``_build``; ``elastic`` the dense row partition across ranks.  ``api``
+is the module-level collective API (init, allreduce, broadcast, allgather,
+checkpoints) over an engine of ``engine``: ``engine.torch_dist``'s
+``TorchEngine`` (torch.distributed, NCCL or gloo) or the solo engine,
+configured by ``config``.  The package imports torch and numpy only.
 """

@@ -52,10 +52,12 @@
 //    writes each node's run out contiguously: the row index to perm and
 //    the encoded planes beside it (4 x bf16 in 8 bytes, or 2 x 2 int8 in
 //    4 bytes); it also writes the chunk table.  Its per-warp node counters
-//    cap it at kMaxNodes nodes; on the large path scatter_sort ranks the
-//    block's rows by a block-local stable radix sort of their node ids
-//    (block_sort.cuh), whose shared memory grows with R alone, and gives
-//    the same partition.  counts, rel and hid stay [nb, n_nodes] in device
+//    and a row block's slots must fit in shared memory ((8 n_nodes + 2 R)
+//    ints); on the large path scatter_sort ranks the block's rows by a
+//    block-local stable radix sort of their node ids (block_sort.cuh),
+//    whose shared memory grows with R alone (12 B a row), and gives the
+//    same partition.  Either takes row blocks of any multiple of 128 rows
+//    up to 16384.  counts, rel and hid stay [nb, n_nodes] in device
 //    memory: 4 bytes a (row block, node) each.  Each node's rows then lie
 //    contiguous and in row order; every chunk lies inside one node, starts
 //    on a row-block run and holds about C rows, so a node with 90% of the
@@ -63,10 +65,15 @@
 //    n_nodes chunks: grids and buffers are sized from the shapes, blocks
 //    past the chunk count exit, and nothing is read back to the host.  In
 //    root mode the partition is the identity: no perm is written.
-// 3. tile_hist (grid: feature tile x chunk): a block of T = min(F, 4)
-//    warps owns T features of one chunk, one warp each, and keeps only
-//    their accumulators (T x 256 bins x 16 bytes, + f32 totals in i8),
-//    whatever the depth.  It stages the chunk's rows through a ring of
+// 3. tile_hist (grid: feature tile x bin window x chunk): a block of T =
+//    min(F, 4) warps owns T features of one chunk, one warp each, and keeps
+//    only their accumulators for one window of 256 bins (T x 256 bins x 16
+//    bytes, + f32 totals in i8), whatever the depth and the bin count.  Up
+//    to 256 bins there is one window; past that each window's blocks stage
+//    the chunk's rows again and skip the rows whose bin lies outside their
+//    window (as they skip bins out of range), so a window's sums run in the
+//    same order as with one window, and the rows' bytes are read once a
+//    window.  It stages the chunk's rows through a ring of
 //    kStages stages of 128 rows with cp.async: per row the 16-byte slice of
 //    its feature tile (4-byte copies where the slice is not 16-byte
 //    aligned) and its planes, so the next stages' loads overlap this one's
@@ -113,9 +120,9 @@ constexpr int kMaxTile = 4;          // features of a tile_hist block, a warp ea
                                      // (wider tiles ran slower on the card)
 constexpr int kStageRows = 128;      // rows a stage holds
 constexpr int kStages = 3;
-constexpr int kBins = 256;           // accumulator rows: n_bins <= 256
-constexpr int kMaxNodes = 4096;      // scatter_kernel's shared memory: per-warp node
-constexpr int kMaxBlock = 8192;      // counters and a row block's slots (208 KB)
+constexpr int kBins = 256;           // accumulator rows a warp: one window of bins
+constexpr int kMaxNodes = 4096;      // prep's shared-memory counts and split tables
+constexpr size_t kSmemMax = 232448;  // shared memory one H100 block may use
 constexpr float kTiny = 1.1754944e-38f;  // smallest normal f32
 enum Mode { kRoot = 0, kRoute = 1, kNodes = 2 };
 
@@ -174,8 +181,9 @@ prep_kernel(const int* __restrict__ xb, const int* __restrict__ node_in,
   const long long base = (long long)blockIdx.x * R;
   const int valid = (int)min((long long)R, n_rows - base);
   float m = 0.0f;
-  // R is a multiple of 256, so every thread makes the same number of
-  // passes and the warp-wide match below sees every lane.
+  // R is a multiple of 32 (the wrappers take multiples of 128), so the
+  // lanes of a warp make the same passes and the warp-wide match below sees
+  // every lane; at R = 128 the last four warps make none.
   for (int r0 = tid; r0 < R; r0 += 4 * kThreads) {
     int key[4], x[4];
     float gv[4], hv[4];
@@ -303,7 +311,9 @@ scan_base_kernel(const int* __restrict__ node_total,
 // The block's rows are first placed in shared memory in their output
 // order (node by node), then written out in that order, so a node's run of
 // rows goes out as consecutive addresses.  Dynamic shared memory:
-// (kWarps + 1) * n_nodes + 2 * R ints (scatter_smem_bytes).
+// (kWarps + 1) * n_nodes + 2 * R ints.  Each warp walks whole warp steps of
+// its segment of the rows (R / 8 rounded up to 32: at R = 128 the last four
+// warps hold no row).
 template <bool I8>
 __global__ void __launch_bounds__(kThreads)
 scatter_kernel(const int* __restrict__ key_in, const float* __restrict__ g,
@@ -321,7 +331,7 @@ scatter_kernel(const int* __restrict__ key_in, const float* __restrict__ g,
   const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
   const long long base = (long long)blockIdx.x * R;
   const int valid = (int)min((long long)R, n_rows - base);
-  const int seg = R / kWarps;  // a multiple of 32: whole warp steps
+  const int seg = (R / kWarps + 31) & ~31;  // whole warp steps; rows past R add nothing
   int* mine = wcnt + w * n_nodes;
   for (int i = tid; i < kWarps * n_nodes; i += kThreads) wcnt[i] = 0;
   __syncthreads();
@@ -386,10 +396,17 @@ scatter_kernel(const int* __restrict__ key_in, const float* __restrict__ g,
   }
 }
 
+// Slots the block sort ranks for a row block of R rows: R rounded up to a
+// multiple of 256 (the sort's warps walk whole warp steps; the extra slots
+// hold no row).
+__host__ __device__ inline int sort_slots_of(int R) { return (R + 255) & ~255; }
+
 // Shared memory of a scatter_sort_kernel block: two key and two slot
-// buffers of R entries (csrc/block_sort.cuh) and the digit counters.
+// buffers of sort_slots_of(R) entries (csrc/block_sort.cuh) and the digit
+// counters: 204 KB at R = 16384.
 __host__ __device__ inline size_t scatter_sort_smem_bytes(int R) {
-  return (size_t)R * (4 + 4 + 2 + 2) + (size_t)blk::rank_counters(blk::kDigits) * 4;
+  return (size_t)sort_slots_of(R) * (4 + 4 + 2 + 2) +
+         (size_t)blk::rank_counters(blk::kDigits) * 4;
 }
 
 // scatter_kernel's outputs for any node count, with shared memory bounded
@@ -411,23 +428,24 @@ scatter_sort_kernel(const int* __restrict__ key_in, const float* __restrict__ g,
                     int* __restrict__ perm, unsigned int* __restrict__ planes,
                     long long n_rows, int R, int n_nodes, int bits) {
   extern __shared__ __align__(16) unsigned char ssm[];
+  const int S = sort_slots_of(R);
   const blk::SortBufs sb{reinterpret_cast<int*>(ssm),
-                         reinterpret_cast<int*>(ssm + (size_t)R * 4),
-                         reinterpret_cast<unsigned short*>(ssm + (size_t)R * 8),
-                         reinterpret_cast<unsigned short*>(ssm + (size_t)R * 10)};
-  int* wc = reinterpret_cast<int*>(ssm + (size_t)R * 12);
+                         reinterpret_cast<int*>(ssm + (size_t)S * 4),
+                         reinterpret_cast<unsigned short*>(ssm + (size_t)S * 8),
+                         reinterpret_cast<unsigned short*>(ssm + (size_t)S * 10)};
+  int* wc = reinterpret_cast<int*>(ssm + (size_t)S * 12);
   __shared__ int ws[32];
   const int tid = threadIdx.x;
   const long long base = (long long)blockIdx.x * R;
   const int valid = (int)min((long long)R, n_rows - base);
-  for (int r = tid; r < R; r += kThreads) {
+  for (int r = tid; r < S; r += kThreads) {
     int k = r < valid ? key_in[base + r] : -1;
     sb.kb[r] = (unsigned int)k < (unsigned int)n_nodes ? k : -1;
   }
   __syncthreads();
   const int* keys;
   const unsigned short* slots;
-  const int kept = blk::sort_slots(R, bits, sb, wc, ws, keys, slots);
+  const int kept = blk::sort_slots(S, bits, sb, wc, ws, keys, slots);
   const float inv = I8 ? __fdiv_rn(1.0f, scale[blockIdx.x]) : 0.0f;
   const long long blk_nodes = (long long)blockIdx.x * n_nodes;
   for (int j = tid; j < kept; j += kThreads) {
@@ -535,15 +553,20 @@ tile_hist_kernel(const int* __restrict__ xb, const int* __restrict__ perm,
   int* sblk = reinterpret_cast<int*>(tsm + L.sblk);
   float* ssc = reinterpret_cast<float*>(tsm + L.ssc);
 
-  // Block x: feature tile x % n_tiles of chunk x / n_tiles (feature tiles
-  // of one chunk launch together, as a grid of (tiles, chunks) would).
+  // Block x: feature tile x % n_tiles, bin window x / n_tiles % n_win, of
+  // chunk x / (n_tiles * n_win) (the blocks of one chunk launch together,
+  // as a grid of (tiles, windows, chunks) would).  The window holds the
+  // bins [w0, w0 + width).
   const int n_tiles = (F + T - 1) / T;
-  const int c = blockIdx.x / n_tiles;
+  const int n_win = (n_bins + kBins - 1) / kBins;
+  const int c = blockIdx.x / (n_tiles * n_win);
   const int n_chunks = node_chunk0[n_nodes];
   if (c >= n_chunks) return;  // the grid holds the most chunks the shapes allow
   const int begin = chunk_begin[c];
   const int end = c + 1 < n_chunks ? chunk_begin[c + 1] : node_base[n_nodes];
   const int f0 = (blockIdx.x % n_tiles) * T;
+  const int w0 = (int)(blockIdx.x / n_tiles % n_win) * kBins;
+  const int width = min(kBins, n_bins - w0);
   const int tw = min(T, F - f0);
   const int nt = blockDim.x;
   const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
@@ -648,8 +671,8 @@ tile_hist_kernel(const int* __restrict__ xb, const int* __restrict__ perm,
     for (int s0 = 0; s0 < rows; s0 += 32) {
       const int s = base + s0 + lane;
       const bool in = s0 + lane < rows;
-      int bin = in ? xs[s * T4 + w] : -1;
-      if ((unsigned int)bin >= (unsigned int)n_bins) bin = -1;
+      int bin = in ? xs[s * T4 + w] - w0 : -1;  // the bin inside the window
+      if ((unsigned int)bin >= (unsigned int)width) bin = -1;
       if constexpr (!I8) {
         // The lanes that share this lane's bin (what __match_any_sync
         // gives, at a fraction of its cost): the lowest of them adds their
@@ -733,8 +756,8 @@ tile_hist_kernel(const int* __restrict__ xb, const int* __restrict__ perm,
     if (cur_blk >= 0) flush();
   }
   __syncwarp();
-  float2* out = reinterpret_cast<float2*>(partial) + ((long long)c * F + f) * n_bins;
-  for (int b = lane; b < n_bins; b += 32) {
+  float2* out = reinterpret_cast<float2*>(partial) + ((long long)c * F + f) * n_bins + w0;
+  for (int b = lane; b < width; b += 32) {
     if constexpr (I8) {
       out[b] = total[b];
     } else {
@@ -803,7 +826,8 @@ int launch_tile(const TileArgs& a, cudaStream_t s) {
   static blk::SmemLimit lim;
   const cudaError_t e = blk::allow_smem((const void*)tile_hist_kernel<I8, PERM, VEC>, L.bytes, lim);
   if (e != cudaSuccess) return (int)e;
-  const long long grid = (long long)((a.F + L.T - 1) / L.T) * a.max_chunks;
+  const long long n_win = (a.n_bins + kBins - 1) / kBins;
+  const long long grid = (long long)((a.F + L.T - 1) / L.T) * n_win * a.max_chunks;
   if (grid > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   tile_hist_kernel<I8, PERM, VEC><<<(unsigned int)grid, 32 * L.T, L.bytes, s>>>(
       a.xb, a.perm, a.planes, a.scale, a.chunk_begin, a.node_base,
@@ -834,7 +858,7 @@ int launch_prep_enc(int i8, const int* xb, const int* node_in, const float* g,
 extern "C" {
 
 // 1. mode 0 (root), 1 (route) or 2 (nodes).  xb [n_rows, F] i32 in row
-// blocks of R rows (R a multiple of 256; the last block may be short);
+// blocks of R rows (R a multiple of 128; the last block may be short);
 // g, h [n_rows] f32; node_in [n_rows] i32 (route: the parent ids, nodes:
 // the ids; root: null); route only: feat/thr [n_prev] i32 and node_out
 // [n_rows] i32.  counts [nb, n_nodes] i32; scale [nb] f32 (i8, else null).
@@ -862,7 +886,8 @@ int hist_prep(int mode, const int* xb, const int* node_in, const float* g,
 // node_base/node_chunk0 [n_nodes + 1] i32; chunk_begin [ceil(n_rows / C) +
 // n_nodes] i32; perm [n_rows] i32; planes [n_rows] x (8 bytes bf16, 4
 // bytes i8).  large: scatter_sort_kernel, for any node count (else
-// scatter_kernel, at most kMaxNodes); both give the same partition.
+// scatter_kernel, while its shared memory fits); both give the same
+// partition.
 int hist_partition(const int* key, const float* g, const float* h,
                    const float* scale, const int* counts, int* rel, int* hid,
                    int* node_total, int* node_heads, int* node_base,
@@ -892,12 +917,11 @@ int hist_partition(const int* key, const float* g, const float* h,
                                     n_nodes, bits);
     return (int)cudaGetLastError();
   }
-  if (n_nodes > kMaxNodes) return (int)cudaErrorInvalidValue;
   const size_t smem = ((size_t)(kWarps + 1) * n_nodes + 2 * (size_t)R) * sizeof(int);
+  if (smem > kSmemMax) return (int)cudaErrorInvalidValue;
   auto kern = i8 ? scatter_kernel<true> : scatter_kernel<false>;
-  static blk::SmemLimit lim[2];  // raised to the most any call takes
-  e = blk::allow_smem((const void*)kern,
-                      ((kWarps + 1) * kMaxNodes + 2 * kMaxBlock) * sizeof(int), lim[i8 != 0]);
+  static blk::SmemLimit lim[2];
+  e = blk::allow_smem((const void*)kern, smem, lim[i8 != 0]);
   if (e != cudaSuccess) return (int)e;
   kern<<<nb, kThreads, smem, s>>>(key, g, h, scale, rel, hid, node_base,
                                   node_chunk0, chunk_begin, perm,

@@ -115,7 +115,9 @@ route_kernel(const int* __restrict__ xb, const int* __restrict__ node_in,
 // * leaf_sort_kernel, deeper: the block's rows are sorted by leaf, stably
 //   (csrc/block_sort.cuh: LSD passes of 8 bits, ceil(depth / 8) of them),
 //   so each leaf's rows form a run.  Shared memory R x (8 + 2 x 4 + 2 x 2)
-//   bytes and 8 x 256 digit counters, at any depth.  Each run is summed:
+//   bytes (R rounded up to a multiple of 256) and 8 x 256 digit counters,
+//   at any depth: past 11008 rows it outgrows the card, and the wrapper
+//   hands the kernel the row block in equal parts that fit.  Each run is summed:
 //   every thread adds its R / 256 consecutive sorted rows in order, and a
 //   segmented scan over the threads (warp shuffles, then the warps in
 //   order) carries a run across threads.
@@ -203,8 +205,10 @@ __device__ inline float4 split_bf16(float g, float h) {
 }
 
 // Up to depth kAccDepth: one block per row block, warp w owning the rows
-// [w * R / 8, (w + 1) * R / 8).  Each step a warp routes 32 consecutive
-// rows (route_kernel's loads, kRows steps in flight); the lanes that share
+// [w * seg, (w + 1) * seg), seg = R / 8 rounded up to whole warp steps
+// (where R is not a multiple of 256 the lanes past R hold no row).  Each
+// step a warp routes 32 consecutive rows (route_kernel's loads, kRows
+// steps in flight); the lanes that share
 // a leaf (one ballot a depth bit) are summed in registers by a pairwise
 // tree over their lanes (group_sum), and the lowest of them adds the sum
 // to the warp's accumulator for that leaf.  Then each leaf's 8 warp sums
@@ -231,20 +235,22 @@ leaf_acc_kernel(const int* __restrict__ xb, const int* __restrict__ node_in,
   for (int i = tid; i < kW * n_leaves; i += kThreads) acc[i] = zero;
   __syncthreads();
   const long long base = (long long)blockIdx.x * R;
-  const int seg = R / kW;  // a multiple of 32
+  const int seg = (R / kW + 31) & ~31;  // whole warp steps
   float4* mine = acc + w * n_leaves;
+  // in(u): this lane's row of step u lies in the warp's segment and the block
+  auto in = [&](int s0, int u) { return s0 + u * 32 < seg && w * seg + s0 + u * 32 + lane < R; };
   for (int s0 = 0; s0 < seg; s0 += ROWS * 32) {
     int p[ROWS], x[ROWS], t[ROWS];
     float gv[ROWS], hv[ROWS];
 #pragma unroll
     for (int u = 0; u < ROWS; ++u) {
       const long long r = base + w * seg + s0 + u * 32 + lane;
-      if (s0 + u * 32 < seg) p[u] = __ldcs(node_in + r);
+      if (in(s0, u)) p[u] = __ldcs(node_in + r);
     }
 #pragma unroll
     for (int u = 0; u < ROWS; ++u) {
       const long long r = base + w * seg + s0 + u * 32 + lane;
-      if (s0 + u * 32 < seg) {
+      if (in(s0, u)) {
         t[u] = __ldg(thr + p[u]);
         x[u] = __ldcs(xb + r * n_feat + __ldg(feat + p[u]));
         gv[u] = __ldcs(g + r);
@@ -253,13 +259,15 @@ leaf_acc_kernel(const int* __restrict__ xb, const int* __restrict__ node_in,
     }
 #pragma unroll
     for (int u = 0; u < ROWS; ++u) {
-      if (s0 + u * 32 >= seg) continue;
+      if (s0 + u * 32 >= seg) continue;  // the whole warp's step
       const long long r = base + w * seg + s0 + u * 32 + lane;
-      const int leaf = 2 * p[u] + (x[u] > t[u] ? 1 : 0);
-      node_out[r] = leaf;
+      const bool ok = in(s0, u);
+      const int leaf = ok ? 2 * p[u] + (x[u] > t[u] ? 1 : 0) : -1;
+      if (ok) node_out[r] = leaf;
       const unsigned int peers = blk::match_digit(leaf, depth);
-      const float4 sum = group_sum(split_bf16(gv[u], hv[u]), peers);
-      if (lane == __ffs(peers) - 1) mine[leaf] = add4(mine[leaf], sum);
+      const float4 sum = group_sum(ok ? split_bf16(gv[u], hv[u]) : make_float4(0.f, 0.f, 0.f, 0.f),
+                                   peers);
+      if (ok && lane == __ffs(peers) - 1) mine[leaf] = add4(mine[leaf], sum);
       __syncwarp();
     }
   }
@@ -277,8 +285,12 @@ struct LeafLayout {
   size_t planes, ka, kb, ia, ib, wc, bytes;
 };
 
+// Slots the block sort ranks for R rows: R rounded up to a multiple of 256.
+__host__ __device__ inline int leaf_slots(int R) { return (R + 255) & ~255; }
+
 __host__ __device__ inline LeafLayout leaf_layout(int R, int depth) {
   LeafLayout L;
+  R = leaf_slots(R);
   size_t at = 0;
   auto take = [&at](size_t bytes) {
     const size_t here = at;
@@ -306,6 +318,7 @@ leaf_sort_kernel(const int* __restrict__ xb, const int* __restrict__ node_in,
                   int4* __restrict__ rec, int R, int n_feat, int depth) {
   extern __shared__ __align__(16) unsigned char smem[];
   const LeafLayout L = leaf_layout(R, depth);
+  const int S = leaf_slots(R);
   uint2* planes = reinterpret_cast<uint2*>(smem + L.planes);
   const blk::SortBufs sb{reinterpret_cast<int*>(smem + L.ka),
                          reinterpret_cast<int*>(smem + L.kb),
@@ -323,6 +336,7 @@ leaf_sort_kernel(const int* __restrict__ xb, const int* __restrict__ node_in,
     for (int i = tid; i < n_leaves; i += kThreads) row[i] = make_float2(0.0f, 0.0f);
   }
   // 1. Route (route_kernel's loads), write the leaf ids, stage keys and planes.
+  for (int r = R + tid; r < S; r += kThreads) sb.kb[r] = -1;  // slots with no row
   for (int r0 = tid; r0 < R; r0 += kRows * kThreads) {
     int p[kRows], x[kRows], t[kRows];
     float gv[kRows], hv[kRows];
@@ -358,8 +372,9 @@ leaf_sort_kernel(const int* __restrict__ xb, const int* __restrict__ node_in,
   // 2. The block's rows by leaf, stably.
   const int* keys;
   const unsigned short* slots;
-  blk::sort_slots(R, depth, sb, wc, ws, keys, slots);
-  // 3. Each run's sum.  Thread tid owns the sorted slots [i0, i0 + E).
+  blk::sort_slots(S, depth, sb, wc, ws, keys, slots);
+  // 3. Each run's sum.  Thread tid owns the sorted slots [i0, i0 + E) below
+  // R (every row is kept: the sorted slots [0, R) hold the rows).
   auto emit = [=](int i, int k, float4 s) {
     const float gs = __fadd_rn(s.x, s.y), hs = __fadd_rn(s.z, s.w);
     if (COMPACT) {
@@ -368,7 +383,7 @@ leaf_sort_kernel(const int* __restrict__ xb, const int* __restrict__ node_in,
       partial[((long long)blockIdx.x << depth) + k] = make_float2(gs, hs);
     }
   };
-  const int E = R / kThreads;
+  const int E = S / kThreads;
   const int i0 = tid * E;
   const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
   float4 acc = zero, lead = zero;
@@ -376,6 +391,7 @@ leaf_sort_kernel(const int* __restrict__ xb, const int* __restrict__ node_in,
   int lead_end = -1;      // where the run carried in from the left ends, if here
   for (int e = 0; e < E; ++e) {
     const int i = i0 + e;
+    if (i >= R) break;
     const int k = keys[i];
     const float4 v = unpack_bf16(planes[slots[i]]);
     if (i == 0 || keys[i - 1] != k) {
@@ -459,21 +475,22 @@ leaf_dense_merge_kernel(const float2* __restrict__ partial, float2* __restrict__
 }
 
 // The compact path's radix passes over records (leaf, block, g, h).  Tile
-// t holds the slots [t * R, t * R + R) of the record list, up to *total
-// records (total null: every slot, holes carry leaf -1).
+// t holds the slots [t * T, t * T + T) of the record list (T: the row block
+// rounded up to a multiple of 256), up to *total records (total null: the
+// list's n_slots slots, holes carry leaf -1).
 
 // counts[d, t] (digit-major): tile t's records whose leaf has digit d at
 // `shift`.
 __global__ void __launch_bounds__(kThreads)
 digit_count_kernel(const int4* __restrict__ rec, const int* __restrict__ total,
-                   int* __restrict__ counts, int R, int shift) {
+                   int* __restrict__ counts, int T, int shift, long long n_slots) {
   __shared__ int cnt[blk::kDigits];
   const int tid = threadIdx.x;
   cnt[tid] = 0;
   __syncthreads();
-  const long long base = (long long)blockIdx.x * R;
-  const long long n = total != nullptr ? *total : LLONG_MAX;
-  for (int i = tid; i < R; i += kThreads) {
+  const long long base = (long long)blockIdx.x * T;
+  const long long n = total != nullptr ? *total : n_slots;
+  for (int i = tid; i < T; i += kThreads) {
     if (base + i >= n) break;
     const int k = rec[base + i].x;
     if (k >= 0) atomicAdd(&cnt[(k >> shift) & (blk::kDigits - 1)], 1);
@@ -504,12 +521,12 @@ digit_scan_kernel(const int* __restrict__ counts, int* __restrict__ rel,
 // Tile t's records to out, stably by their digit at `shift`: a record of
 // digit d goes to (the records of lower digits) + rel[d, t] + its rank
 // among the tile's records of digit d.  *total_out: the records listed.
-// Dynamic shared memory: R ints (the tile's leaf ids).
+// Dynamic shared memory: T ints (the tile's leaf ids).
 __global__ void __launch_bounds__(kThreads)
 digit_scatter_kernel(const int4* __restrict__ in, const int* __restrict__ total_in,
                      const int* __restrict__ rel, const int* __restrict__ tot,
-                     int4* __restrict__ out, int* __restrict__ total_out, int R,
-                     int shift) {
+                     int4* __restrict__ out, int* __restrict__ total_out, int T,
+                     int shift, long long n_slots) {
   extern __shared__ int skey[];
   __shared__ int wc[blk::rank_counters(blk::kDigits)];
   __shared__ int ws[32];
@@ -519,12 +536,12 @@ digit_scatter_kernel(const int4* __restrict__ in, const int* __restrict__ total_
   const int below = blk::block_scan(tot[tid], ws, all);
   off[tid] = below + rel[(long long)tid * gridDim.x + blockIdx.x];
   if (blockIdx.x == 0 && tid == 0) *total_out = all;
-  const long long base = (long long)blockIdx.x * R;
-  const long long n = total_in != nullptr ? *total_in : LLONG_MAX;
-  for (int i = tid; i < R; i += kThreads) skey[i] = base + i < n ? in[base + i].x : -1;
+  const long long base = (long long)blockIdx.x * T;
+  const long long n = total_in != nullptr ? *total_in : n_slots;
+  for (int i = tid; i < T; i += kThreads) skey[i] = base + i < n ? in[base + i].x : -1;
   __syncthreads();
   blk::rank_pass(
-      R, blk::kDigits,
+      T, blk::kDigits,
       [=](int i) { return skey[i] < 0 ? -1 : (skey[i] >> shift) & (blk::kDigits - 1); },
       [=](int i, int p) { out[p] = in[base + i]; }, wc, ws, off);
 }
@@ -705,7 +722,7 @@ long long leaf_workspace_bytes(int nb, int R, int depth) {
 
 // node_out[r] = 2*node_in[r] + [xb[r, feat[p]] > thr[p]] (the leaf id) and
 // out[leaf] = (sum g, sum h) over the leaf's rows in the bf16 hi/lo planes.
-// xb (nb, R, n_feat) i32 (R a multiple of 256); node_in, node_out (nb, R)
+// xb (nb, R, n_feat) i32 (R a multiple of 128); node_in, node_out (nb, R)
 // i32; g, h (nb, R) f32; feat/thr [2**(depth-1)] i32; ws
 // leaf_workspace_bytes; out [2**depth, 2] f32.
 int leaf_fit(const int* xb, const int* node_in, const float* g, const float* h,
@@ -727,8 +744,11 @@ int leaf_fit(const int* xb, const int* node_in, const float* g, const float* h,
                                                                    n_leaves);
     return (int)cudaGetLastError();
   }
+  const int T = leaf_slots(R);  // the radix passes' tile
+  const long long slots = (long long)nb * R;
+  const int n_tiles = (int)((slots + T - 1) / T);
   static blk::SmemLimit lim;
-  e = blk::allow_smem((const void*)digit_scatter_kernel, (size_t)R * 4, lim);
+  e = blk::allow_smem((const void*)digit_scatter_kernel, (size_t)T * 4, lim);
   if (e != cudaSuccess) return (int)e;
   int4* in = (int4*)(base + w.rec_a);
   int4* nxt = (int4*)(base + w.rec_b);
@@ -743,10 +763,10 @@ int leaf_fit(const int* xb, const int* node_in, const float* g, const float* h,
   for (int p = 0; p < blk::sort_passes(depth); ++p) {
     const int shift = p * blk::kDigitBits;
     int* total_out = totals + (p & 1);
-    digit_count_kernel<<<nb, kThreads, 0, s>>>(in, total_in, counts, R, shift);
-    digit_scan_kernel<<<blk::kDigits, 1024, 0, s>>>(counts, rel, tot, nb);
-    digit_scatter_kernel<<<nb, kThreads, (size_t)R * 4, s>>>(in, total_in, rel, tot, nxt,
-                                                             total_out, R, shift);
+    digit_count_kernel<<<n_tiles, kThreads, 0, s>>>(in, total_in, counts, T, shift, slots);
+    digit_scan_kernel<<<blk::kDigits, 1024, 0, s>>>(counts, rel, tot, n_tiles);
+    digit_scatter_kernel<<<n_tiles, kThreads, (size_t)T * 4, s>>>(
+        in, total_in, rel, tot, nxt, total_out, T, shift, slots);
     e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
     int4* t = in;
@@ -758,7 +778,6 @@ int leaf_fit(const int* xb, const int* node_in, const float* g, const float* h,
   if (e == cudaSuccess) e = cudaMemsetAsync(totals + 2, 0, 4, s);
   if (e != cudaSuccess) return (int)e;
   int* heads = (int*)(base + w.heads);
-  const long long slots = (long long)nb * R;
   leaf_heads_kernel<<<(unsigned int)((slots + kThreads - 1) / kThreads), kThreads, 0, s>>>(
       in, total_in, heads, totals + 2);
   const long long most = leaf_heads_max(nb, R, depth);

@@ -1,0 +1,191 @@
+"""torch.distributed engine: the port's counterpart of ``rabit_tpu/engine/xla.py``.
+
+Rank and world are those of torch.distributed's default process group; the
+collectives are its collectives.  With ``rabit_torch_device=cuda`` (the
+default) arrays are staged on this rank's card and cross NCCL; with
+``cpu`` they stay on the host and cross gloo.  ``init`` bootstraps the
+default group from ``MASTER_ADDR`` / ``MASTER_PORT`` / ``WORLD_SIZE`` /
+``RANK`` (or the ``rabit_torch_*`` config keys, which win) over TCP, or
+adopts a group the program has already made; with none of them set the
+engine runs solo.
+
+Exactness.  Every dtype of ``DTYPE_ENUM`` under every op gives the bits
+``numpy_reduce`` gives where the op does not depend on the order of its
+operands (integers under any op, floats under MAX and MIN); a float SUM is
+the backend's sum, the same on every rank.  Neither backend has a bitwise
+OR, and neither takes unsigned 32- or 64-bit integers, so:
+
+* BITOR is lowered to MAX over bit planes (``np.unpackbits``: one byte a
+  bit, 0 or 1), as ``rabit_tpu/engine/xla.py`` lowers it, on both
+  backends, so both give the same bits;
+* uint32 and uint64 cross as int32 and int64 of the same bits: a SUM
+  wraps modulo 2**32 (2**64) in either reading, and for MAX and MIN the
+  sign bit is flipped first, which maps unsigned order onto signed order.
+
+Checkpoints stay in host memory, one copy a process (recovery of a lost
+process is the robust engine's work, which this one does not do).
+"""
+
+from __future__ import annotations
+
+import os
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from rabit_tpu_torch.engine.base import (BITOR, DTYPE_ENUM, MAX, MIN, SUM, Engine,
+                                         HostCheckpoints)
+
+_TORCH_OP = {MAX: dist.ReduceOp.MAX, MIN: dist.ReduceOp.MIN, SUM: dist.ReduceOp.SUM}
+# unsigned dtypes the backends lack -> (the signed dtype of the same bits,
+# its sign bit)
+_SIGNED = {np.dtype("uint32"): (np.dtype("int32"), np.int32(-2 ** 31)),
+           np.dtype("uint64"): (np.dtype("int64"), np.int64(-2 ** 63))}
+_ENV = {"rabit_torch_master_addr": "MASTER_ADDR", "rabit_torch_master_port": "MASTER_PORT",
+        "rabit_torch_world_size": "WORLD_SIZE", "rabit_torch_rank": "RANK"}
+
+
+def bootstrap_settings(config) -> tuple[str, str, str, str]:
+    """(address, port, world size, rank) of the torch.distributed bootstrap,
+    each from its config key or else its environment variable ("" when
+    neither is set)."""
+    return tuple(config.get(key, "") or os.environ.get(env, "")
+                 for key, env in _ENV.items())
+
+
+class TorchEngine(HostCheckpoints, Engine):
+    def __init__(self, config):
+        Engine.__init__(self, config)
+        HostCheckpoints.__init__(self)
+        self._device = torch.device(config.get("rabit_torch_device", "cuda"))
+        if self._device.type not in ("cuda", "cpu"):
+            raise ValueError(f"rabit_torch_device={self._device}: the engine stages "
+                             "arrays on cuda or cpu")
+        self._owns_group = False
+        self._rank, self._world = 0, 1
+        self._stage = None  # where arrays cross the group (None: solo)
+
+    # -- lifecycle -----------------------------------------------------------
+
+    def init(self) -> None:
+        if self._device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("rabit_torch_device=cuda but no CUDA device is "
+                               "available; pass rabit_torch_device=cpu for gloo")
+        settings = bootstrap_settings(self.config)
+        if any(settings) and not all(settings):
+            # A half-set bootstrap must fail loudly: skipping it would leave
+            # this process at world 1 while its peers wait for it.
+            addr, port, world, rank = settings
+            raise RuntimeError(
+                f"incomplete torch.distributed settings: address={addr!r} "
+                f"port={port!r} world_size={world!r} rank={rank!r}; set all of "
+                "MASTER_ADDR / MASTER_PORT / WORLD_SIZE / RANK (or the "
+                "rabit_torch_* config keys), or none")
+        if all(settings) and not dist.is_initialized():
+            addr, port, world, rank = settings
+            backend = "nccl" if self._device.type == "cuda" else "gloo"
+            if backend == "nccl":
+                torch.cuda.set_device(self._card(int(rank)))
+            dist.init_process_group(backend, init_method=f"tcp://{addr}:{port}",
+                                    world_size=int(world), rank=int(rank))
+            self._owns_group = True
+        self.rebuild()
+
+    def shutdown(self) -> None:
+        if self._owns_group and dist.is_initialized():
+            dist.destroy_process_group()
+        self._owns_group = False
+        self.rebuild()
+
+    def rebuild(self) -> None:
+        """Adopt the current world: re-read rank and world from the default
+        process group (none: solo) and drop what was derived from the old
+        one (the staging device, which follows the rank and the backend).
+        The counterpart of XlaEngine.rebuild_mesh; checkpoints are kept."""
+        self._stage = None
+        if dist.is_available() and dist.is_initialized():
+            self._rank, self._world = dist.get_rank(), dist.get_world_size()
+            self._stage = (torch.device("cuda", self._card(self._rank))
+                           if dist.get_backend() == "nccl" else torch.device("cpu"))
+        else:
+            self._rank, self._world = 0, 1
+
+    def _card(self, rank: int) -> int:
+        """This rank's card: the one asked for, else one a rank in turn."""
+        if self._device.index is not None:
+            return self._device.index
+        return rank % torch.cuda.device_count()
+
+    def get_rank(self) -> int:
+        return self._rank
+
+    def get_world_size(self) -> int:
+        return self._world
+
+    # -- collectives ---------------------------------------------------------
+
+    def _all_reduce(self, arr: np.ndarray, op) -> np.ndarray:
+        t = torch.from_numpy(np.array(arr, copy=True)).to(self._stage)
+        dist.all_reduce(t, op=op)
+        return t.cpu().numpy()
+
+    def allreduce(self, data, op, prepare_fun=None, cache_key=None):
+        if prepare_fun is not None:
+            prepare_fun(data)
+        arr = np.ascontiguousarray(data)
+        if arr.dtype not in DTYPE_ENUM:
+            raise TypeError(f"dtype {arr.dtype} not supported")
+        if op not in (MAX, MIN, SUM, BITOR):
+            raise ValueError(f"unknown reduction op {op}")
+        if op == BITOR and arr.dtype.kind == "f":
+            raise TypeError(f"BITOR of {arr.dtype}")
+        if self._stage is None:
+            return data
+        if op == BITOR:
+            planes = self._all_reduce(np.unpackbits(arr.reshape(-1).view(np.uint8)),
+                                      dist.ReduceOp.MAX)
+            return np.packbits(planes).view(arr.dtype).reshape(arr.shape)
+        if arr.dtype in _SIGNED:
+            signed, sign = _SIGNED[arr.dtype]
+            flip = sign if op != SUM else signed.type(0)
+            out = self._all_reduce(arr.view(signed) ^ flip, _TORCH_OP[op]) ^ flip
+            return out.view(arr.dtype).reshape(arr.shape)
+        return self._all_reduce(arr, _TORCH_OP[op]).reshape(arr.shape)
+
+    def allreduce_compressed(self, data, op, codec, prepare_fun=None, cache_key=None):
+        raise NotImplementedError(
+            "TorchEngine.allreduce_compressed: the wire codecs are not ported "
+            "yet (ROADMAP.md Queue 1 item 6, compressed device paths)")
+
+    def broadcast(self, data, root, cache_key=None):
+        if not 0 <= root < self._world:
+            raise ValueError(f"broadcast root {root} out of range for world size "
+                             f"{self._world}")
+        is_root = self._rank == root
+        if is_root and data is None:
+            raise ValueError("root must pass data to broadcast")
+        if self._stage is None:
+            return data
+        # Length, then payload, as the reference binding does.
+        n = torch.tensor([len(data) if is_root else 0], dtype=torch.int64,
+                         device=self._stage)
+        dist.broadcast(n, src=root)
+        size = int(n.item())
+        if size == 0:
+            return b""
+        if is_root:
+            buf = torch.from_numpy(np.frombuffer(data, np.uint8).copy()).to(self._stage)
+        else:
+            buf = torch.empty(size, dtype=torch.uint8, device=self._stage)
+        dist.broadcast(buf, src=root)
+        return bytes(data) if is_root else buf.cpu().numpy().tobytes()
+
+    def allgather(self, data, cache_key=None):
+        if self._stage is None:
+            return data
+        arr = np.ascontiguousarray(data).reshape(-1)
+        t = torch.from_numpy(arr.view(np.uint8).copy()).to(self._stage)
+        parts = [torch.empty_like(t) for _ in range(self._world)]
+        dist.all_gather(parts, t)
+        return np.concatenate([p.cpu().numpy() for p in parts]).view(arr.dtype)

@@ -17,7 +17,9 @@ rounds compute the same trees:
 Across processes (``torch.distributed``; NCCL for CUDA tensors, gloo for
 CPU ones) ``train_round_dp`` and ``train_round_dp_fused`` sum each level's
 histogram with one ``all_reduce``; ``GBDT(engine_allreduce=...)`` is the
-rabit-classic pattern, where a host hook combines numpy histograms.
+rabit-classic pattern, where a host hook combines numpy histograms, and
+``train_round_hybrid`` marries the two: a local ``all_reduce`` over the
+processes of one worker, then one hop a worker through the host hook.
 
 Entry points run on ``"cuda"`` unless the caller passes ``device="cpu"``;
 asking for CUDA where there is no card raises.  A ``Forest`` and a
@@ -367,6 +369,54 @@ def train_round_dp_fused(state: TrainState, xb3: torch.Tensor, y: torch.Tensor,
             "paths)")
     return train_round_fused(state, xb3, y, cfg,
                              combine=lambda a: _all_reduce(a, dp_group))
+
+
+def train_round_hybrid(state: TrainState, xb: torch.Tensor, y: torch.Tensor,
+                       cfg: GBDTConfig, local_group=None,
+                       engine_allreduce: Callable[[np.ndarray], np.ndarray]
+                       | None = None) -> TrainState:
+    """One boosting round of the hybrid deployment: a worker made of the
+    processes of ``local_group`` (a torch.distributed group, e.g. one
+    process a card of a host; None: this process alone), whose histograms
+    are summed on the devices, crossing to the other workers through a
+    fault-tolerant host engine (``engine_allreduce``, ``np.ndarray ->
+    np.ndarray``, e.g. ``lambda a: rabit_tpu.allreduce(a, rabit_tpu.SUM)``;
+    None: solo, no hop).  Each process holds its own rows of the worker's
+    shard.
+
+    Per level, and once for the leaf masses: the process's histogram
+    (``ops.hist.node_histograms``, the kernel on a card), an ``all_reduce``
+    over ``local_group``, then the hop, made once a worker: the group's
+    lowest rank crosses the engine and broadcasts the result over the
+    group.  The leaf masses take the same path, local sum included: each
+    process holds only its rows.  (JAX's counterpart, whose ``mesh`` and
+    ``dp_axis`` this group replaces, sums its leaf masses under ``jit``
+    already over the whole worker.)
+
+    The hop sequence is what lets the robust engine replay a recovering
+    worker byte for byte: every worker makes exactly ``depth + 1`` engine
+    calls a tree, the levels in order and then the leaf masses, even where
+    two levels' histograms are equal.  In eager PyTorch each hop is a plain
+    call made in that order.  A round captured into a CUDA graph or by
+    ``torch.compile`` must keep the hop outside the graph, one call a level
+    in order (as the JAX round keeps its callbacks apart)."""
+    leader = local_group is None or dist.get_rank(local_group) == 0
+
+    def cross(a: torch.Tensor) -> torch.Tensor:
+        if local_group is not None:
+            _all_reduce(a, local_group)
+        if engine_allreduce is None:
+            return a
+        if leader:
+            a = torch.as_tensor(np.asarray(engine_allreduce(a.cpu().numpy()),
+                                           dtype=np.float32), device=a.device)
+        if local_group is not None:
+            dist.broadcast(a, src=dist.get_global_rank(local_group, 0), group=local_group)
+        return a
+
+    hist_fn = lambda xb_, g, h, node, nn, nb: cross(_hist.node_histograms(
+        xb_, g, h, node, nn, nb, mxu_i8=cfg.mxu_i8))
+    return train_round(state, xb, y, cfg, hist_fn, cross)
 
 
 def elastic_shard(X: np.ndarray, y: np.ndarray, world: int,

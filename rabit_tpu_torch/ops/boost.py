@@ -47,11 +47,10 @@ launches: collections.Counter = collections.Counter()
 helper_launches: collections.Counter = collections.Counter()
 
 _TINY = 1.1754944e-38   # smallest normal f32: the i8 scale's floor
-_MAX_BINS = 256         # the histogram kernel's accumulators hold 256 bins
 _SORT_NODES = 256       # past this many nodes the partition takes its sorting
-                        # path (faster there, slower below: PERF.md §6); the
-                        # shared-memory path holds at most 4096
-_MAX_BLOCK = 8192       # the partition's row block: its slots in shared memory
+                        # path (faster there, slower below: PERF.md §6)
+_BLOCK_STEP = 128       # row blocks the kernels take: multiples of 128 ...
+_MAX_BLOCK = 16384      # ... up to 16384 rows, as the JAX kernels take
 _CHUNK_ROWS = 4096      # rows of the partitioned order a histogram block takes
                         # (about): a constant, so the sum order depends on the
                         # shapes and the data alone
@@ -61,6 +60,13 @@ _MAX_ROUTE_DEPTH = 31   # route kernels: leaf ids 2*node + 1 stay below 2**31
 
 def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
+
+
+def _check_block(block: int, what: str) -> None:
+    if block % _BLOCK_STEP or not _BLOCK_STEP <= block <= _MAX_BLOCK:
+        raise ValueError(f"{what} takes row blocks that are a multiple of "
+                         f"{_BLOCK_STEP} from {_BLOCK_STEP} to {_MAX_BLOCK} "
+                         f"rows (got {block})")
 
 
 def _check_r_split(R: int, r_split: int) -> None:
@@ -522,9 +528,7 @@ def hist_partition(key, g, h, counts, scale, *, n_rows: int, block: int,
         return hist_partition_plain(key, g, h, counts, scale, n_rows=n_rows,
                                     block=block, n_nodes=n_nodes, i8=i8,
                                     chunk_rows=chunk_rows)
-    if block % 256 or block > _MAX_BLOCK:
-        raise ValueError(f"hist_partition takes row blocks that are a multiple of "
-                         f"256 up to {_MAX_BLOCK} (got {block})")
+    _check_block(block, "hist_partition")
     dev = g.device
     nb = counts.shape[0]
     i32 = dict(dtype=torch.int32, device=dev)
@@ -578,13 +582,11 @@ def hist_launch(mode: str, xb, node, g, h, feat, thr, *, n_rows: int,
     like ``node``; else None).  On CUDA tensors (checked, contiguous) the
     three run as one C call into one workspace (csrc/hist.cu hist_build),
     which keeps the host's share of a launch small; on CPU tensors their
-    plain twins run.  Any node count whose histogram and scratch fit in the
-    card's memory."""
+    plain twins run.  Any node and bin count whose histogram and scratch
+    fit in the card's memory, and row blocks of any multiple of 128 rows up
+    to 16384."""
     F = xb.shape[-1]
-    if n_bins > _MAX_BINS or block % 256 or block > _MAX_BLOCK:
-        raise ValueError(f"histogram kernel needs n_bins <= {_MAX_BINS} and a "
-                         f"row block that is a multiple of 256 up to {_MAX_BLOCK} "
-                         f"(got {n_bins}, {block})")
+    _check_block(block, "the histogram kernel")
     if mode != "nodes" and n_rows % block:
         raise ValueError(f"{mode} mode takes whole row blocks ({n_rows} rows, "
                          f"block {block})")
@@ -733,6 +735,18 @@ def route_margin_level(xb3, node3, margin3, feat, thr, leaf, *, depth: int):
     return margin_out, node_out
 
 
+def _leaf_part(lib, R: int, depth: int) -> int:
+    """Rows of the parts a leaf_fit kernel block sums: the whole row block,
+    or, where its shared memory would pass the card's, the largest multiple
+    of 128 that divides R and fits (128 rows always do)."""
+    k = R // _BLOCK_STEP
+    for d in range(k, 0, -1):
+        if k % d == 0 and lib.leaf_smem_bytes(_BLOCK_STEP * d, depth) <= _SMEM_LIMIT:
+            return _BLOCK_STEP * d
+    raise ValueError(f"leaf_fit: no part of a {R}-row block fits in "
+                     f"{_SMEM_LIMIT} B of shared memory")
+
+
 def leaf_fit(xb3, node3, g3, h3, feat, thr, *, depth: int):
     """Route rows to their leaves and sum (g, h) per leaf in the hi/lo-bf16
     planes; returns ([2**depth, 2], leaf_node3).  ``feat``/``thr`` are the
@@ -748,7 +762,11 @@ def leaf_fit(xb3, node3, g3, h3, feat, thr, *, depth: int):
     records sorted by leaf (both give the same sums; chosen from the shapes
     in csrc/route.cu).  Shared memory grows with the row block alone, so
     every depth of the route kernels is taken whose output and scratch fit
-    in the card's memory; design in csrc/route.cu."""
+    in the card's memory; design in csrc/route.cu.  Row blocks of any
+    multiple of 128 rows up to 16384; where the sort (depth 9 and deeper)
+    would outgrow a block's shared memory (past 11008 rows), the kernel sums
+    the row block in equal parts and adds them in order, so its masses
+    differ from the plain version's by f32 rounding alone."""
     if not _on_cuda(xb3, node3, g3, h3, feat, thr):
         return leaf_fit_plain(xb3, node3, g3, h3, feat, thr, depth=depth)
     nb, R, F = xb3.shape
@@ -756,14 +774,10 @@ def leaf_fit(xb3, node3, g3, h3, feat, thr, *, depth: int):
     _route_checks(xb3, node3, feat, thr, depth)
     _expect(g3, "g3", (nb, R, 1), torch.float32)
     _expect(h3, "h3", (nb, R, 1), torch.float32)
-    if R % 256:
-        raise ValueError(f"leaf_fit needs a row block that is a multiple of "
-                         f"256 (got {R})")
+    _check_block(R, "leaf_fit")
     lib = _lib("route")
-    smem = lib.leaf_smem_bytes(R, depth)
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"leaf_fit: a row block of {R} needs {smem} B of shared "
-                         f"memory, over {_SMEM_LIMIT}")
+    part = _leaf_part(lib, R, depth)
+    nb, R = nb * (R // part), part
     dev = xb3.device
     node_out = torch.empty_like(node3)
     if nb == 0:

@@ -699,3 +699,194 @@ def test_node_histograms_kernel_past_the_grid_row_limit(cuda):
     got = hist.node_histograms_kernel(xb, g, h, node, n_nodes, B, block_rows=BLOCK)
     ref = hist.node_histograms_kernel_plain(xb, g, h, node, n_nodes, B, block_rows=BLOCK)
     torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5)
+
+
+def _hist_modes(rng, n, n_nodes, n_bins, block, device):
+    """hist_launch's three modes on seeded rows (n a multiple of block for
+    root and route; nodes: foreign ids, and n + 100 rows, a short last
+    block): [(mode, args, kw)]."""
+    t = lambda a: torch.as_tensor(a, device=device)
+    xb = rng.randint(0, n_bins, size=(n + 100, F)).astype(np.int32)
+    g, h = rng.randn(n + 100).astype(np.float32), rng.rand(n + 100).astype(np.float32)
+    node = rng.randint(0, n_nodes, size=n + 100).astype(np.int32)
+    node[::13] = n_nodes  # out of range: adds nothing
+    n_prev = max(1, n_nodes // 2)
+    feat = t(rng.randint(0, F, size=n_prev).astype(np.int32))
+    thr = t(rng.randint(0, n_bins, size=n_prev).astype(np.int32))
+    parent = t(rng.randint(0, n_prev, size=n).astype(np.int32))
+    kw = dict(block=block, n_bins=n_bins, name="node_histograms_kernel")
+    return [("root", (t(xb[:n]), None, t(g[:n]), t(h[:n]), None, None),
+             dict(kw, n_rows=n, n_nodes=1)),
+            ("route", (t(xb[:n]), parent, t(g[:n]), t(h[:n]), feat, thr),
+             dict(kw, n_rows=n, n_nodes=2 * n_prev)),
+            ("nodes", (t(xb), t(node), t(g), t(h), None, None),
+             dict(kw, n_rows=n + 100, n_nodes=n_nodes))]
+
+
+def _check_hist_modes(cases, mxu_i8):
+    """Each mode on the card against its plain twins on the CPU: the node
+    ids, the i8 block scales and the partition exactly, the histogram
+    within the tolerance; bitwise the same on repeat."""
+    cpu = lambda a: None if a is None else a.cpu()
+    for mode, args, kw in cases:
+        boost.launches.clear()
+        got, node_out = boost.hist_launch(mode, *args, i8=mxu_i8, **kw)
+        again, node_again = boost.hist_launch(mode, *args, i8=mxu_i8, **kw)
+        assert boost.launches["node_histograms_kernel"] == 2
+        ref, ref_node = boost.hist_launch(mode, *map(cpu, args), i8=mxu_i8, **kw)
+        torch.testing.assert_close(got.cpu(), ref, rtol=1e-5, atol=1e-5)
+        assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+        if mode == "route":
+            assert torch.equal(node_out.cpu(), ref_node) and torch.equal(node_out, node_again)
+        pk = dict(n_rows=kw["n_rows"], block=kw["block"], n_nodes=kw["n_nodes"], i8=mxu_i8)
+        key, counts, scale = boost.hist_prep(mode, *args, **pk)
+        rk, rc, rs = boost.hist_prep_plain(mode, *map(cpu, args), **pk)
+        assert torch.equal(counts.cpu(), rc)
+        assert scale is None or torch.equal(scale.cpu(), rs)
+        part = boost.hist_partition(key, args[2], args[3], counts, scale, **pk)
+        rp = boost.hist_partition_plain(rk, args[2].cpu(), args[3].cpu(), rc, rs, **pk)
+        n_listed, n_chunks = int(rp.node_base[-1]), int(rp.node_chunk0[-1])
+        assert torch.equal(part.node_chunk0.cpu(), rp.node_chunk0)
+        assert torch.equal(part.chunk_begin[:n_chunks].cpu(), rp.chunk_begin)
+        assert torch.equal(part.planes[:n_listed].cpu(), rp.planes)
+        if mode != "root":
+            assert torch.equal(part.perm[:n_listed].cpu(), rp.perm)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mxu_i8", [False, True])
+@pytest.mark.parametrize("n_bins", [300, 512, 4096])
+def test_hist_kernels_past_256_bins_match_plain(cuda, n_bins, mxu_i8):
+    """More bins than one 256-bin window of the tile kernel: 2, 2 and 16
+    windows, every mode, 8 nodes (the shared-memory partition) and 512
+    (the sorting one), against the plain twins."""
+    rng = np.random.RandomState(n_bins)
+    for n_nodes in (8, 512):
+        _check_hist_modes(_hist_modes(rng, 6 * BLOCK, n_nodes, n_bins, BLOCK, cuda),
+                          mxu_i8)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mxu_i8", [False, True])
+@pytest.mark.parametrize("block", [128, 384, 16384])
+def test_hist_kernels_at_row_blocks_match_plain(cuda, block, mxu_i8):
+    """Row blocks that are not a multiple of 256 (128, 384: the scatter's
+    and the sort's warps past the block hold no row) and of 16384 rows
+    (more than the scatter held before), every mode, both partition paths;
+    the i8 scale is per row block, and the plain twins block alike."""
+    rng = np.random.RandomState(block)
+    n = 2 * block if block > 1024 else 9 * block
+    for n_nodes in (8, 512):
+        _check_hist_modes(_hist_modes(rng, n, n_nodes, 256, block, cuda), mxu_i8)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("R", [128, 384, 16384])
+@pytest.mark.parametrize("depth", [3, 9, 13])
+def test_leaf_fit_at_row_blocks_matches_plain(cuda, depth, R):
+    """leaf_fit at row blocks of 128, 384 and 16384 rows, by the
+    accumulators (depth 3), the sort into the dense partial (9; the dense
+    partial past 2R at 128 rows) and the compact records (13).  At 16384
+    rows and depth >= 9 the sort would outgrow shared memory, and the
+    kernel sums the block in two halves.  Leaf ids exactly, masses within
+    the tolerance, bitwise on repeat."""
+    rng = np.random.RandomState(depth * R)
+    nb, n_prev = (3 if R > 1024 else 40), 2 ** (depth - 1)
+    t = lambda a: torch.as_tensor(a, device=cuda)
+    args = (t(rng.randint(0, 256, size=(nb, R, 7)).astype(np.int32)),
+            t(rng.randint(0, n_prev, size=(nb, R, 1)).astype(np.int32)),
+            t(rng.randn(nb, R, 1).astype(np.float32)),
+            t(rng.rand(nb, R, 1).astype(np.float32)),
+            t(rng.randint(0, 7, size=n_prev).astype(np.int32)),
+            t(rng.randint(0, 256, size=n_prev).astype(np.int32)))
+    gk, nk = boost.leaf_fit(*args, depth=depth)
+    gp, npl = boost.leaf_fit_plain(*args, depth=depth)
+    assert torch.equal(nk, npl)
+    torch.testing.assert_close(gk, gp, rtol=1e-5, atol=1e-5)
+    again, n2 = boost.leaf_fit(*args, depth=depth)
+    assert torch.equal(again.view(torch.int32), gk.view(torch.int32)) and torch.equal(n2, nk)
+
+
+def _rounds_512(entry, mxu_i8, fused_final, dev, tmp_path=None):
+    """Three rounds of one entry point at 512 bins (3000 rows, depth 3)."""
+    rng = np.random.RandomState(512)
+    n, n_bins = 3000, 512
+    X = rng.randn(n, F).astype(np.float32)
+    y = ((X[:, 0] * X[:, 1] + 0.5 * X[:, 2]) > 0).astype(np.float32)
+    hyper = dict(n_trees=3, depth=3, n_bins=n_bins, mxu_i8=mxu_i8, fused_final=fused_final)
+    if entry == "fit":
+        return gbdt.forest_to_numpy(gbdt.GBDT(device=dev, **hyper).fit(X, y).forest)
+    cfg = gbdt.GBDTConfig(n_features=F, **hyper)
+    edges = torch.as_tensor(gbdt.compute_bin_edges(X, n_bins), device=dev)
+    xb = gbdt.quantize(torch.as_tensor(X, device=dev), edges)
+    yt = torch.as_tensor(y, device=dev)
+    s = gbdt.init_state(cfg, n, dev)
+    for _ in range(cfg.n_trees):
+        if entry == "fused":
+            s = gbdt.train_round_fused(s, boost.block_rows(xb)[0], yt, cfg)
+        elif entry == "dp":
+            s = gbdt.train_round_dp(s, xb, yt, cfg)
+        else:
+            s = gbdt.train_round(s, xb, yt, cfg)
+    return gbdt.forest_to_numpy(s.forest)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("entry,mxu_i8,fused_final", [
+    ("fused", False, False), ("fused", True, False), ("fused", False, True),
+    ("fused", True, True), ("hook", False, False), ("hook", True, False),
+    ("dp", False, False), ("fit", False, False)])
+def test_rounds_at_512_bins_on_card_match_cpu(cuda, entry, mxu_i8, fused_final, tmp_path):
+    """train_round_fused, train_round, train_round_dp (an NCCL group of one)
+    and GBDT.fit at n_bins = 512 on the card against the same entry on the
+    CPU (GBDT.fit: the exact train_round there); leaves within the fused
+    rounds' tolerances of tests/test_gbdt.py."""
+    import torch.distributed as dist
+
+    if entry == "dp":
+        dist.init_process_group("nccl", store=dist.FileStore(str(tmp_path / "store"), 1),
+                                rank=0, world_size=1)
+    try:
+        boost.launches.clear()
+        got = _rounds_512(entry, mxu_i8, fused_final, cuda)
+        assert boost.launches, "no kernel launched"
+    finally:
+        if entry == "dp":
+            dist.destroy_process_group()
+    ref = _rounds_512("hook" if entry == "dp" else entry, mxu_i8, fused_final, "cpu")
+    np.testing.assert_array_equal(got.feature, ref.feature)
+    np.testing.assert_array_equal(got.threshold, ref.threshold)
+    tol = dict(rtol=5e-3, atol=5e-3) if mxu_i8 else dict(rtol=1e-3, atol=1e-5)
+    np.testing.assert_allclose(got.leaf, ref.leaf, **tol)
+
+
+@pytest.mark.gpu
+def test_torch_engine_nccl_world_one(cuda):
+    """The engine matrix of tests/workers/torch_basic_worker.py through
+    TorchEngine on NCCL (arrays staged on the card) at world 1, the one
+    world a machine with one card can hold."""
+    import importlib.util
+    import pathlib
+    import socket
+
+    import torch.distributed as dist
+
+    from rabit_tpu_torch import api
+
+    path = pathlib.Path(__file__).parent / "workers" / "torch_basic_worker.py"
+    spec = importlib.util.spec_from_file_location("torch_basic_worker", path)
+    worker = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(worker)
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    api.init(["rabit_engine=torch", "rabit_torch_device=cuda",
+              "rabit_torch_master_addr=127.0.0.1", f"rabit_torch_master_port={port}",
+              "rabit_torch_world_size=1", "rabit_torch_rank=0"])
+    try:
+        assert dist.get_backend() == "nccl" and api.get_engine()._stage.type == "cuda"
+        worker.run_matrix(256)
+    finally:
+        api.finalize()
+    assert not dist.is_initialized()

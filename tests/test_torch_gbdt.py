@@ -263,10 +263,12 @@ def test_port_imports_no_jax():
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'rabit_tpu' or m.startswith('rabit_tpu.')]\n"
         "for m in ('rabit_tpu_torch.models.gbdt', 'rabit_tpu_torch.ops.hist',\n"
-        "          'rabit_tpu_torch.elastic', 'torch.distributed'):\n"
+        "          'rabit_tpu_torch.elastic', 'rabit_tpu_torch.api',\n"
+        "          'rabit_tpu_torch.engine.torch_dist', 'torch.distributed'):\n"
         "    assert m in sys.modules, m\n"
         "from rabit_tpu_torch.models import gbdt\n"
         "assert callable(gbdt.train_round_dp) and callable(gbdt.train_round_dp_fused)\n"
+        "assert callable(gbdt.train_round_hybrid)\n"
         "print(bad)\n"
     )
     root = pathlib.Path(__file__).resolve().parents[1]

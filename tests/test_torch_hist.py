@@ -163,3 +163,23 @@ def test_leaf_fit_plain_matches_jax(depth):
     np.add.at(direct[:, 0], leaf, np.asarray(g3).reshape(-1))
     np.add.at(direct[:, 1], leaf, np.asarray(h3).reshape(-1))
     np.testing.assert_allclose(got_gh.numpy(), direct, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("depth", [3, 9])
+def test_leaf_fit_plain_at_128_row_blocks_matches_jax(depth):
+    """Row blocks of 128 rows (the card's block kernels then leave half
+    their threads without a row): the plain version against JAX's leaf_fit
+    in the interpreter."""
+    rng = np.random.RandomState(128 + depth)
+    nb, R, n_prev = 5, 128, 2 ** (depth - 1)
+    arrs = [rng.randint(0, B, size=(nb, R, F)).astype(np.int32),
+            rng.randint(0, n_prev, size=(nb, R, 1)).astype(np.int32),
+            rng.randn(nb, R, 1).astype(np.float32),
+            rng.rand(nb, R, 1).astype(np.float32),
+            rng.randint(0, F, size=n_prev).astype(np.int32),
+            rng.randint(0, B, size=n_prev).astype(np.int32)]
+    ref_gh, ref_node = jboost.leaf_fit(*map(jnp.asarray, arrs), depth=depth,
+                                       interpret=True)
+    got_gh, got_node = tboost.leaf_fit(*map(torch.as_tensor, arrs), depth=depth)
+    np.testing.assert_array_equal(got_node.numpy(), np.asarray(ref_node))
+    np.testing.assert_allclose(got_gh.numpy(), np.asarray(ref_gh), rtol=1e-5, atol=1e-5)

@@ -225,3 +225,59 @@ def test_hist_launch_past_4096_nodes_matches_pallas(n_nodes, mxu_i8):
                                       n_bins=B, i8=mxu_i8, name="node_histograms_kernel")
     assert node_out is None and got.shape == (n_nodes, F, B, 2)
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("mxu_i8", [False, True])
+@pytest.mark.parametrize("mode", ["root", "route", "nodes"])
+@pytest.mark.parametrize("n_bins,block", [(300, 256), (512, 256), (16, 128), (16, 16384)],
+                         ids=["300bins", "512bins", "block128", "block16384"])
+def test_hist_launch_bins_and_row_blocks_match_pallas(n_bins, block, mode, mxu_i8):
+    """Past 256 bins (the card's tile kernel then takes bin windows) and at
+    row blocks of 128 and 16384 rows: hist_launch on CPU tensors, in every
+    mode, equals the Pallas kernels in the interpreter, which pad the bins
+    to a multiple of 128 and take those blocks.  Two row blocks each, so the
+    i8 scale is taken per block; the nodes mode's last block is short."""
+    rng = np.random.RandomState(n_bins + block)
+    n, n_feat, d = 2 * block if block > 256 else 1024, 3, 2
+    n_prev, n_nodes = 2 ** (d - 1), 2 ** d
+    xb = rng.randint(0, n_bins, size=(n, n_feat)).astype(np.int32)
+    g, h = rng.randn(n).astype(np.float32), rng.rand(n).astype(np.float32)
+    kw = dict(block=block, n_bins=n_bins, i8=mxu_i8, name="hist_level")
+    if mode == "nodes":
+        n -= 100
+        xb, g, h = xb[:n], g[:n], h[:n]
+        node = rng.randint(0, n_nodes + 1, size=n).astype(np.int32)  # n_nodes: foreign
+        ref = jhist.node_histograms_pallas(*map(jnp.asarray, (xb, g, h, node)), n_nodes,
+                                           n_bins, block_rows=block, interpret=True,
+                                           mxu_i8=mxu_i8)
+        got, _ = boost.hist_launch("nodes", *map(torch.as_tensor, (xb, node, g, h)),
+                                   None, None, n_rows=n, n_nodes=n_nodes, **kw)
+    else:
+        blk = lambda a: a.reshape(n // block, block, -1)
+        xb3, g3, h3 = blk(xb), blk(g), blk(h)
+        node3 = rng.randint(0, n_prev, size=g3.shape).astype(np.int32)
+        feat = rng.randint(0, n_feat, size=n_prev).astype(np.int32)
+        thr = rng.randint(0, n_bins, size=n_prev).astype(np.int32)
+        j = [jnp.asarray(a) for a in (xb3, node3, g3, h3, feat, thr)]
+        t = [torch.as_tensor(a) for a in (xb3, node3, g3, h3, feat, thr)]
+        if mode == "root":
+            ref = jboost.hist_level0(j[0], j[2], j[3], n_bins=n_bins, interpret=True,
+                                     mxu_i8=mxu_i8)
+            got, _ = boost.hist_launch("root", t[0], None, t[2], t[3], None, None,
+                                       n_rows=n, n_nodes=1, **kw)
+        else:
+            ref, jnode = jboost.hist_level(*j, depth=d, n_bins=n_bins, interpret=True,
+                                           mxu_i8=mxu_i8)
+            got, node_out = boost.hist_launch("route", *t, n_rows=n, n_nodes=n_nodes, **kw)
+            np.testing.assert_array_equal(node_out.numpy(), np.asarray(jnode))
+    assert got.shape == (1 if mode == "root" else n_nodes, n_feat, n_bins, 2)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("block", [64, 200, 16384 + 128])
+def test_hist_launch_refuses_row_blocks_the_kernels_do_not_take(block):
+    x = torch.zeros((block, F), dtype=torch.int32)
+    v = torch.zeros(block)
+    with pytest.raises(ValueError, match="multiple of 128 from 128 to 16384"):
+        boost.hist_launch("root", x, None, v, v, None, None, n_rows=block, block=block,
+                          n_nodes=1, n_bins=B, i8=False, name="hist_level0")
