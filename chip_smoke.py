@@ -51,28 +51,46 @@ Phases, each of which exits non-zero when it fails:
               two processes on the one card over gloo with CUDA tensors
               (rows split by elastic_shard): identical forests on both
               ranks, the single-process round's splits but for printed near
-              ties.
+              ties; and in the same processes train_round_dp_fused exact and
+              with wire_i8 (the int8-wire histogram ring), in turns, timed:
+              identical forests on both ranks, the wire round's first two
+              trees teacher-forced against the single-process round (near
+              ties printed, leaves within rtol = atol = 1e-3).
 8. engine  -- the engine matrix of tests/workers/torch_basic_worker.py
               (every dtype x op against numpy_reduce, broadcast, allgather,
               prepare_fun, checkpoints) through the port's api and
               TorchEngine: in this process on NCCL at world 1, arrays
               staged on the card, then on two processes over gloo; the
               time of a 64-node histogram's SUM.
-9. hybrid  -- train_round_hybrid on two processes sharing the card, each a
+9. compress -- the wire codecs on the card (each codec's bytes equal
+              numpy's encode, its decode numpy's, on a depth-5 level
+              histogram and on a block with inf, -inf and NaN; device
+              times), ring_allreduce_quantized and the fused ring on an
+              NCCL group of one against the CPU and reference_allreduce,
+              and api.allreduce(codec=...) through TorchEngine on NCCL at
+              world 1 and on two gloo processes sharing the card
+              (rabit_fused_allreduce on and off), each bitwise equal to
+              reference_allreduce and timed beside the exact SUM.
+10. hybrid -- train_round_hybrid on two processes sharing the card, each a
               worker whose local group is an NCCL group of one, the hop
               TorchEngine over gloo: identical forests, depth + 1 hops a
               tree, the first two trees phase 7's but for printed near
               ties, every tree teacher-forced; ms/round.
-10. report -- per-level times of the histogram kernels (d = 0..7, bf16
+11. trace  -- one warm fused and one warm hook-based bf16 round under
+              profile.device_trace (a Chrome trace under --trace-dir): each
+              round's wall time, the device time of the port's kernels, of
+              every other kernel by the top aten op that launched it, and
+              the device's idle time inside the round.
+12. report -- per-level times of the histogram kernels (d = 0..7, bf16
               and i8) and of the helpers, and a {"kernels": [...]} line
               with each kernel's time (CUDA events over back-to-back
               calls, "ms"; and the device time of the kernels a call
               launches, from torch.profiler, "device_ms"), launches,
               bound, plain-version time and library-call time.
 
-Launches are counted per path (phases 4-7, and 9 in its processes), each
-run with the counts set to 0 just before it and read just after; the
-phase-3 comparisons and the phase-10 timings do not count.  Each phase
+Launches are counted per path (phases 4-7 and 11, and 7 and 10 in their
+processes), each run with the counts set to 0 just before it and read just
+after; the phase-3 comparisons and the phase-12 timings do not count.  Each phase
 prints its wall time.  The histogram kernels count in
 boost.launches, their helpers (one hist_prep and one hist_partition a
 histogram) in boost.helper_launches.  The last line is {"ok": true, "device":
@@ -111,6 +129,11 @@ LEAF_DEPTHS = (1, DEPTH, DEEP, 13, 16)  # accumulators to 8; sort and compact re
 LARGE_NODES = (8192, 16384)  # histogram levels past the shared-memory partition
 WIDE_BINS = (512, 4096)     # past one 256-bin window of the tile kernel
 DP_RANKS = 2                # processes of the gloo phase, on the one card
+DP_FUSED_TREES = 4          # trees of the exact and the int8-wire fused dp rounds, each
+WIRE_CHECKED_TREES = 2      # of them held teacher-forced against the single-process round
+CODECS = ("identity", "bf16", "bf16x2", "i8", "i8x2")
+FUSED_CODECS = CODECS[1:]
+LEVEL5 = 2 ** 5 * N_FEATURES * N_BINS * 2  # floats of a depth-5 level histogram
 REPLACES = {
     "hist_level0": "rabit_tpu/ops/boost.py:341",
     "hist_level": "rabit_tpu/ops/boost.py:374",
@@ -176,6 +199,16 @@ def cuda_ms(torch, fn, reps: int) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def _mean_ms(fn, reps: int = 5) -> float:
+    """Mean host ms of ``fn`` after one warm-up call (a host-to-host
+    collective: its result is on the host when it returns)."""
+    fn()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    return (time.perf_counter() - t0) * 1e3 / reps
 
 
 def kernel_ms(torch, fn, reps: int, kernel: str = "", skip: str | None = None) -> dict:
@@ -294,11 +327,7 @@ def engine_matrix(api, worker) -> dict:
         raise PhaseFailed(str(e)) from e
     matrix_s = time.perf_counter() - t0
     a = np.ones(64 * N_FEATURES * N_BINS * 2, np.float32)
-    api.allreduce(a, api.SUM)
-    t0 = time.perf_counter()
-    for _ in range(10):
-        api.allreduce(a, api.SUM)
-    return {"matrix_s": matrix_s, "hop_ms": (time.perf_counter() - t0) * 1e2}
+    return {"matrix_s": matrix_s, "hop_ms": _mean_ms(lambda: api.allreduce(a, api.SUM), 10)}
 
 
 def _engine_rank(rank: int, world: int, tmp: str, port: int) -> None:
@@ -382,9 +411,83 @@ def _dp_rank(rank: int, world: int, tmp: str, n_rows: int, n_trees: int) -> None
         for _ in range(n_trees):
             state = gbdt.train_round_dp(state, xs, ys, cfg)
         forest = gbdt.forest_to_numpy(state.forest)
-        np.savez(os.path.join(tmp, f"rank{rank}.npz"), feature=forest.feature,
-                 threshold=forest.threshold, leaf=forest.leaf,
-                 launches=boost.launches["node_histograms_kernel"])
+        out = dict(feature=forest.feature, threshold=forest.threshold, leaf=forest.leaf,
+                   launches=boost.launches["node_histograms_kernel"])
+        # train_round_dp_fused, exact and over the int8 wire, in turns
+        # (exact, wire, wire, exact, ...), each round timed
+        cfg = gbdt.GBDTConfig(n_features=N_FEATURES, n_trees=DP_FUSED_TREES, depth=DEPTH,
+                              n_bins=N_BINS)
+        xs3, _ = boost.block_rows(xs)
+        from rabit_tpu_torch import parallel
+
+        ring, wired = parallel.ring_allreduce_quantized, []
+
+        def recording_ring(x, group=None, **kw):  # keeps what the wire summed
+            out = ring(x, group, **kw)
+            if len(wired) < WIRE_CHECKED_TREES * DEPTH:
+                wired.append(out)
+            return out
+
+        parallel.ring_allreduce_quantized = recording_ring
+        states = {w: gbdt.init_state(cfg, len(ys), "cuda") for w in (False, True)}
+        ms = {False: [], True: []}
+        boost.launches.clear()
+        for t in range(DP_FUSED_TREES):
+            for wire in ((False, True) if t % 2 == 0 else (True, False)):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                states[wire] = gbdt.train_round_dp_fused(states[wire], xs3, ys, cfg,
+                                                         wire_i8=wire)
+                torch.cuda.synchronize()
+                ms[wire].append((time.perf_counter() - t0) * 1e3)
+        for wire, key in ((False, "exact"), (True, "wire")):
+            forest = gbdt.forest_to_numpy(states[wire].forest)
+            out.update({f"{key}_feature": forest.feature, f"{key}_threshold": forest.threshold,
+                        f"{key}_leaf": forest.leaf, f"{key}_ms": np.array(ms[wire])})
+        out["fused_launches"] = json.dumps(dict(boost.launches))
+        out.update({f"wired_{i}": a.reshape(2 ** (i % DEPTH), N_FEATURES, N_BINS, 2)
+                    .cpu().numpy() for i, a in enumerate(wired)})
+        np.savez(os.path.join(tmp, f"rank{rank}.npz"), **out)
+    finally:
+        dist.destroy_process_group()
+
+
+def _compress_rank(rank: int, world: int, tmp: str) -> None:
+    """One process of the compress phase's gloo world on the card: the
+    port's TorchEngine adopts this program's gloo group with
+    rabit_torch_device=cuda (codec work on the card, hops through host
+    memory), and api.allreduce(codec=...) of a depth-5 level histogram's
+    size runs with rabit_fused_allreduce 1 and 0, each result against
+    reference_allreduce bit for bit, each time beside the exact SUM's."""
+    import torch
+    import torch.distributed as dist
+
+    from rabit_tpu_torch import api, compress
+    from rabit_tpu_torch.parallel import wire_device
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(os.path.join(tmp, "store"), world),
+                            rank=rank, world_size=world)
+    rng = np.random.RandomState(7)
+    parts = [(rng.randn(LEVEL5) * 50).astype(np.float32) for _ in range(world)]
+    out = {"wire": str(wire_device(None, "cuda")), "backend": dist.get_backend()}
+    try:
+        for mode in ("1", "0"):
+            api.init(["rabit_engine=torch", "rabit_torch_device=cuda",
+                      f"rabit_fused_allreduce={mode}"])
+            try:
+                out[f"exact_ms/{mode}"] = _mean_ms(lambda: api.allreduce(parts[rank], api.SUM))
+                for name in FUSED_CODECS:
+                    got = api.allreduce(parts[rank], api.SUM, codec=name)
+                    ref = compress.reference_allreduce(parts, api.SUM, name)
+                    out[f"equal/{mode}/{name}"] = got.tobytes() == ref.tobytes()
+                    out[f"fused/{mode}/{name}"] = api.get_engine().fused_active(
+                        compress.get_codec(name), api.SUM)
+                    out[f"ms/{mode}/{name}"] = _mean_ms(
+                        lambda: api.allreduce(parts[rank], api.SUM, codec=name))
+            finally:
+                api.finalize()
+        np.savez(os.path.join(tmp, f"rank{rank}.npz"), **out)
     finally:
         dist.destroy_process_group()
 
@@ -874,6 +977,90 @@ class Smoke:
                   f" vs plain ({int(fp[nd])},{int(tp[nd])}), gains {a:.7g} / {b:.7g}")
             require(gap < GAIN_TIE, f"{where}: split differs beyond a near tie")
 
+    def wire_level(self, hist, wired, partials, feat, thr, cfg, where: str, exact=None):
+        """One level of a round grown over the int8 wire, against ``hist``,
+        the single-process histogram of the same rows: the histogram the
+        ranks summed on the wire (``wired``) lies within the ring's error
+        of ``hist`` element by element, and the level's split tables are
+        ``hist``'s best splits and, while ``exact`` holds the exact round's
+        tables of the same rows, the exact round's splits.  A differing
+        split is allowed only where the wire's error could turn it, and is
+        printed (``wire_turned``).
+
+        The error: at DP_RANKS = 2, ring_allreduce_quantized (planes 2,
+        blocks of 256) quantizes a rank's partial block once and the
+        owner's summed block once, each off by at most half a step of
+        max|block| / (127 * 254); ``partials`` are the ranks' histograms.
+        The single-process sum adds f32 rounding in another order: the
+        histogram check allows HIST_RTOL for it, the split check the
+        measured |hist - sum(partials)| and two f32 rounding steps."""
+        gbdt, torch = self.gbdt, self.torch
+        blockmax = lambda a: a.reshape(-1, 256).abs().amax(1, keepdim=True)
+        half_steps = (blockmax(hist) + torch.stack([blockmax(p) for p in partials]).amax(0))
+        quant = (0.5 * half_steps / (127 * 254)).expand(-1, 256).reshape(hist.shape)
+        env = quant + HIST_RTOL * (hist.abs() + float(hist.abs().max()))
+        over = float(((wired - hist).abs() / env).max())
+        require(over <= 1.0, f"{where}: the wire's histogram is off by {over:.3f}x its "
+                             "error bound")
+        summed = sum(partials)
+        env = (quant + (hist - summed).abs()
+               + 2.0 ** -22 * (hist.abs() + sum(p.abs() for p in partials)))
+        fp, tp, _ = gbdt.best_splits(hist, cfg)
+        self.wire_turned(hist, env, cfg, (feat, thr), (fp, tp), 0.0, where, "plain best")
+        if exact is not None:
+            # the exact round's own splits are hist's best up to a near tie
+            self.wire_turned(hist, env, cfg, (feat, thr), exact, GAIN_TIE, where,
+                             "exact round")
+        return over
+
+    def wire_turned(self, hist, env, cfg, wire, other, tie: float, where: str, what: str):
+        """Nodes where the wire's split differs from ``other``'s: each must
+        be one the wire's error could turn, and is printed.  Either the two
+        splits' gains on ``hist`` (f64) lie within the sum of their error
+        bounds, plus ``tie`` of the larger gain; or a child of either split
+        has a hessian mass within its error of min_child_weight.  A gain's
+        bound: each child's score g^2/(h + lambda) over the box of (g, h)
+        that the bins' errors ``env`` allow, plus 4 f32 rounding steps of
+        the scores the argmax compared (the parent's score is the same for
+        every split of a node)."""
+        torch = self.torch
+        g, h = hist[..., 0].double(), hist[..., 1].double()
+        eg, eh = env[..., 0].double(), env[..., 1].double()
+        GL, HL, eGL, eHL = (torch.cumsum(a, -1) for a in (g, h, eg, eh))
+        GR, HR, eGR, eHR = (a[..., -1:] - a for a in (GL, HL, eGL, eHL))
+        lam, mcw = cfg.reg_lambda, cfg.min_child_weight
+
+        def score(G, H, eG, eH):
+            s = G * G / (H + lam)
+            hi = (G.abs() + eG) ** 2 / (H - eH + lam).clamp_min(1e-300)
+            lo = (G.abs() - eG).clamp_min(0) ** 2 / (H + eH + lam)
+            err = torch.where(H - eH + lam > 0, torch.maximum(hi - s, s - lo),
+                              torch.full_like(s, torch.inf))
+            return s, err
+
+        (sl, el), (sr, er) = score(GL, HL, eGL, eHL), score(GR, HR, eGR, eHR)
+        parent = GL[..., -1:] ** 2 / (HL[..., -1:] + lam)
+        valid = (HL >= mcw) & (HR >= mcw)
+        gain = torch.where(valid, sl + sr - parent, torch.full_like(sl, -torch.inf))
+        err = el + er + 4 * 2.0 ** -24 * (sl + sr + parent)
+        edge = ((HL - mcw).abs() <= eHL) | ((HR - mcw).abs() <= eHR)
+        gain, err, edge = (a.reshape(a.shape[0], -1) for a in (gain, err, edge))
+        (fw, tw), (fo, to) = wire, other
+        for nd in torch.nonzero((fw != fo) | (tw != to)).flatten().tolist():
+            a = int(fw[nd]) * self.n_bins + int(tw[nd])
+            b = int(fo[nd]) * self.n_bins + int(to[nd])
+            ga, gb = float(gain[nd, a]), float(gain[nd, b])
+            bound = float(err[nd, a] + err[nd, b]) + tie * max(abs(ga), abs(gb))
+            gap = 0.0 if ga == gb else abs(ga - gb)
+            at_mcw = bool(edge[nd, a] | edge[nd, b])
+            print(f"    {where} node {nd}: wire split ({int(fw[nd])},{int(tw[nd])}) vs "
+                  f"{what} ({int(fo[nd])},{int(to[nd])}), gains on the single-process "
+                  f"histogram {ga:.9g} / {gb:.9g}, gap {gap:.3g} against the wire's bound "
+                  f"{bound:.3g}" + (", a child at min_child_weight" if at_mcw else ""))
+            require(gap <= bound or at_mcw,
+                    f"{where}: the wire's split differs from the {what}'s beyond the "
+                    "wire's error")
+
     def compare_splits(self, hk, hp, cfg, where: str):
         """Split tables from the kernel's and the plain histogram; a differing
         split must be a near tie on the plain histogram.  Returns the
@@ -1178,6 +1365,44 @@ class Smoke:
         print(f"  gloo, {DP_RANKS} ranks on one card ({wall:.1f} s incl. start-up): "
               f"identical forests; launches per rank {launches}; the single-process "
               "round's splits at every level")
+        # train_round_dp_fused exact and with wire_i8 (the int8-wire ring)
+        want = {"hist_level0": 2 * DP_FUSED_TREES,
+                "hist_level": 2 * DP_FUSED_TREES * (DEPTH - 1),
+                "route_level": 2 * DP_FUSED_TREES}
+        for run in runs:
+            got = json.loads(str(run["fused_launches"]))
+            require(got == want, f"fused dp launch counts {got}, expected {want}")
+        for key in ("exact", "wire"):
+            for run in runs[1:]:
+                require(all(np.array_equal(run[f"{key}_{k}"], runs[0][f"{key}_{k}"])
+                            for k in ("feature", "threshold", "leaf")),
+                        f"the {key} fused dp ranks' forests differ")
+        wire = {k: runs[0][f"wire_{k}"][:WIRE_CHECKED_TREES]
+                for k in ("feature", "threshold", "leaf")}
+        exact = {k: runs[0][f"exact_{k}"][:WIRE_CHECKED_TREES]
+                 for k in ("feature", "threshold", "leaf")}
+        self.check_forest(exact, WIRE_CHECKED_TREES, "fused dp exact")
+        wired = [runs[0][f"wired_{i}"] for i in range(WIRE_CHECKED_TREES * DEPTH)]
+        worst, split = self.check_forest(wire, WIRE_CHECKED_TREES, "fused dp wire_i8",
+                                         wired, exact)
+        same = ("equal" if split is None else
+                f"equal up to tree {split[0]} level {split[1]}, where the nodes printed "
+                "above differ within the wire's error")
+        leaf_d = float(np.abs(wire["leaf"] - exact["leaf"]).max())
+        ms = {k: runs[0][f"{k}_ms"].tolist() for k in ("exact", "wire")}
+        self.dp_fused_ms = ms
+        print(f"  train_round_dp_fused, {DP_RANKS} gloo ranks (a hop's bytes in host memory: "
+              "gloo stages CUDA tensors there, wire_i8's hops through parallel.wire_device): "
+              "identical forests on both "
+              f"ranks, exact and wire_i8; launches per rank {want}; wire_i8's first "
+              f"{WIRE_CHECKED_TREES} trees: every level's summed histogram within "
+              f"{worst:.3f} of the ring's error bound of the single-process one and its "
+              f"best splits the tables (differences within the wire's error printed); "
+              f"split tables against the exact round's: {same}; leaves max |wire - exact| "
+              f"{leaf_d:.3e}")
+        for k in ("exact", "wire"):
+            print(f"  train_round_dp_fused {k} ms/round (in turns exact, wire, wire, "
+                  f"exact, ...; rank 0): " + ", ".join(f"{x:.3f}" for x in ms[k]))
 
     def check_ranks(self, runs, n_trees: int, what: str):
         """The ranks' forests identical, depth launches a tree each."""
@@ -1190,17 +1415,27 @@ class Smoke:
                 f"{what} ranks' node_histograms_kernel launches {launches}")
         return launches
 
-    def check_forest(self, run, n_trees: int, what: str):
+    def check_forest(self, run, n_trees: int, what: str, wired=None, exact=None):
         """A forest grown across processes against the single-process round,
         teacher-forced on its own tables: a split may differ from the
         single-process histogram's best only at a printed near tie, the
-        leaves are the single-process sums."""
+        leaves are the single-process sums (within rtol 1e-4, atol 1e-6).
+        For a forest grown over the int8 wire, ``wired`` holds the
+        histograms its ranks summed, level by level: each level is held by
+        ``wire_level``, and the leaves within rtol = atol = 1e-3.  ``exact``
+        holds the exact round's forest: ``wire_level`` holds each level's
+        tables to it up to the first level where they differ (past it the
+        two rounds route their rows apart).  Returns the largest histogram
+        error over its bound (0 without ``wired``) and that first level
+        (None where the tables are equal)."""
         torch, gbdt = self.torch, self.gbdt
         cfg = gbdt.GBDTConfig(n_features=N_FEATURES, n_trees=n_trees, depth=DEPTH,
                               n_bins=self.n_bins)
         forest = [torch.as_tensor(run[k], device=self.dev)
                   for k in ("feature", "threshold", "leaf")]
         margin = torch.zeros(self.n_rows, device=self.dev)
+        shards = [slice(lo, hi) for lo, hi in gbdt.elastic.shard_bounds(self.n_rows, DP_RANKS)]
+        worst, split = 0.0, None
         for t in range(n_trees):
             g, h = gbdt.gradients(cfg, margin, self.y)
             node = torch.zeros(self.n_rows, dtype=torch.int32, device=self.dev)
@@ -1208,13 +1443,30 @@ class Smoke:
                 n = 2 ** d
                 hist = self.hist.node_histograms_kernel(self.xb, g, h, node, n, self.n_bins)
                 feat, thr = forest[0][t, d, :n], forest[1][t, d, :n]
-                self.near_ties(hist, feat, thr, cfg, f"{what} tree {t} level {d}", "ranks'")
+                where = f"{what} tree {t} level {d}"
+                if wired is None:
+                    self.near_ties(hist, feat, thr, cfg, where, "ranks'")
+                else:
+                    partials = [self.hist.node_histograms_kernel(
+                        self.xb[rows], g[rows], h[rows], node[rows], n, self.n_bins)
+                        for rows in shards]
+                    q = torch.as_tensor(wired[t * DEPTH + d], device=self.dev)
+                    ref = None
+                    if exact is not None and split is None:
+                        ref = [torch.as_tensor(exact[k][t, d, :n], device=self.dev)
+                               for k in ("feature", "threshold")]
+                        if not (torch.equal(ref[0], feat) and torch.equal(ref[1], thr)):
+                            split = (t, d)
+                    worst = max(worst, self.wire_level(hist, q, partials, feat, thr, cfg,
+                                                       where, ref))
                 node = self.route(node, feat, thr)
             leaf_gh = self.hist.segment_sum(torch.stack([g, h], -1), node, 2 ** DEPTH)
             leaf = -cfg.learning_rate * leaf_gh[:, 0] / (leaf_gh[:, 1] + cfg.reg_lambda)
-            require(bool(torch.allclose(forest[2][t], leaf, rtol=1e-4, atol=1e-6)),
+            rtol, atol = (1e-4, 1e-6) if wired is None else (1e-3, 1e-3)
+            require(bool(torch.allclose(forest[2][t], leaf, rtol=rtol, atol=atol)),
                     f"{what} tree {t}: leaves differ from the single-process sums")
             margin = margin + forest[2][t][node.long()]
+        return (worst, split) if wired is not None else worst
 
     # -- phase 8 ------------------------------------------------------------------
     def engine_phase(self):
@@ -1244,6 +1496,117 @@ class Smoke:
         return out
 
     # -- phase 9 ------------------------------------------------------------------
+    def compress_phase(self):
+        """The wire codecs on the card and the compressed api.allreduce:
+        each codec's torch_encode bytes against numpy's encode, bit for bit,
+        and its torch_decode against numpy's decode, on a depth-5 level
+        histogram of the round (and on a block with an inf, a -inf and a
+        NaN), with their device times; ring_allreduce_quantized and the
+        fused ring on an NCCL group of one against the CPU and
+        reference_allreduce; api.allreduce(codec=...) through TorchEngine on
+        NCCL at world 1 and on DP_RANKS gloo processes with
+        rabit_fused_allreduce on and off, each bitwise equal to
+        reference_allreduce, each timed beside the exact SUM."""
+        import torch.distributed as dist
+
+        from rabit_tpu_torch import api, compress
+        from rabit_tpu_torch.engine import fused
+        from rabit_tpu_torch.parallel import ring_allreduce_quantized, wire_device
+
+        torch = self.torch
+        node3, feat, thr = self.level_inputs(5)
+        hist, _ = self.boost.hist_level(self.xb3, node3, self.g3, self.h3, feat, thr,
+                                        depth=5, n_bins=self.n_bins)
+        x = hist.reshape(-1).contiguous()
+        xs = x.cpu().numpy()
+        n = xs.size
+        require(n == LEVEL5, f"a depth-5 level histogram of {n} floats")
+        bad = (np.random.RandomState(2).randn(1000) * 10).astype(np.float32)
+        bad[1], bad[3], bad[4] = np.inf, np.nan, -np.inf
+        out = {"codecs": {}}
+        for name in CODECS:
+            c = compress.get_codec(name)
+            for arr in (xs, bad):
+                enc = c.encode(arr)
+                got = c.torch_encode(torch.as_tensor(arr, device=self.dev))
+                require(got.cpu().numpy().tobytes() == enc,
+                        f"{name}: torch_encode on the card differs from numpy's encode")
+                dec = c.torch_decode(got, arr.size).cpu().numpy()
+                require(np.array_equal(dec, c.decode(enc, arr.size), equal_nan=True),
+                        f"{name}: torch_decode on the card differs from numpy's decode")
+            packed = c.torch_encode(x)
+            wire = c.wire_len(n)
+            row = {"wire_bytes": wire, "ratio": 4 * n / wire,
+                   "bound_ms": (4 * n + wire) / HBM_BYTES_PER_S * 1e3}
+            for what, fn in (("encode", lambda: c.torch_encode(x)),
+                             ("decode", lambda: c.torch_decode(packed, n))):
+                row[f"{what}_ms"] = cuda_ms(torch, fn, 20)
+                row[f"{what}_device_ms"] = sum(kernel_ms(torch, fn, 20).values())
+            out["codecs"][name] = row
+            print(f"  {name}: bytes equal numpy's, decode equal (incl. inf/-inf/NaN); "
+                  f"{wire} wire bytes ({row['ratio']:.2f}x fewer than f32); encode "
+                  f"{row['encode_ms']:.4f} ms ({row['encode_device_ms']:.4f} on the device), "
+                  f"decode {row['decode_ms']:.4f} ({row['decode_device_ms']:.4f}); bound "
+                  f"{row['bound_ms']:.4f} ms each")
+
+        api.init(engine_args("cuda", free_port(), 1, 0))
+        try:
+            require(dist.get_backend() == "nccl", "the engine did not start NCCL")
+            hop_bytes = wire_device(None, x.device)
+            for planes in (1, 2):
+                got = ring_allreduce_quantized(x, planes=planes)
+                want = ring_allreduce_quantized(x.cpu(), planes=planes)
+                require(got.device == x.device and got.cpu().numpy().tobytes()
+                        == want.numpy().tobytes(),
+                        f"ring_allreduce_quantized planes {planes}: the card's differs "
+                        "from the CPU's")
+            for name in FUSED_CODECS:
+                fn = fused.build_fused_allreduce(None, (0,), api.SUM, compress.get_codec(name),
+                                                 n, device=self.dev)
+                ref = compress.reference_allreduce([xs], api.SUM, name)
+                require(fn(x).cpu().numpy().tobytes() == ref.tobytes(),
+                        f"the fused ring on the card ({name}) differs from reference_allreduce")
+            nccl = {"exact_ms": _mean_ms(lambda: api.allreduce(xs, api.SUM), 10)}
+            for name in FUSED_CODECS:
+                got = api.allreduce(xs, api.SUM, codec=name)
+                ref = compress.reference_allreduce([xs], api.SUM, name)
+                require(got.tobytes() == ref.tobytes(),
+                        f"api.allreduce codec={name} on NCCL differs from reference_allreduce")
+                nccl[name] = _mean_ms(lambda: api.allreduce(xs, api.SUM, codec=name), 10)
+            out["nccl_world1"] = nccl
+        finally:
+            api.finalize()
+        print(f"  NCCL, world 1 (a hop's bytes would live on {hop_bytes}; the engine's "
+              "fused ring is off at world 1, so api.allreduce takes the host transport): "
+              "ring_allreduce_quantized (planes 1, 2) bitwise the CPU's; the fused ring on "
+              "the card and api.allreduce(codec=...) bitwise reference_allreduce; ms "
+              + json.dumps({k: round(v, 4) for k, v in nccl.items()}))
+        t0 = time.perf_counter()
+        runs = run_ranks(_compress_rank, DP_RANKS)
+        wall = time.perf_counter() - t0
+        gloo = {}
+        for r, run in enumerate(runs):
+            for k, v in run.items():
+                if k.startswith("equal/"):
+                    require(bool(v), f"gloo rank {r}: api.allreduce {k[6:]} differs from "
+                                     "reference_allreduce")
+                if k.startswith("fused/"):
+                    mode = k.split("/")[1]
+                    require(bool(v) == (mode == "1"), f"gloo rank {r}: fused_active {k}")
+        for mode in ("1", "0"):
+            gloo[mode] = {"exact_ms": float(runs[0][f"exact_ms/{mode}"])}
+            gloo[mode].update({name: float(runs[0][f"ms/{mode}/{name}"])
+                               for name in FUSED_CODECS})
+        out[f"gloo_world{DP_RANKS}"] = gloo
+        print(f"  gloo, {DP_RANKS} processes on one card ({wall:.1f} s incl. start-up; "
+              f"backend {runs[0]['backend']}, codec work on the card, a hop's bytes on "
+              f"{runs[0]['wire']}): api.allreduce(codec=...) bitwise reference_allreduce "
+              f"on every rank, fused ring on (1) and off (0); rank 0 ms "
+              + json.dumps({m: {k: round(v, 4) for k, v in d.items()}
+                            for m, d in gloo.items()}))
+        return out
+
+    # -- phase 10 -----------------------------------------------------------------
     def hybrid_phase(self, n_trees: int = 3):
         """Two workers on the card, each one process whose local group is an
         NCCL group of one, the hop the port's TorchEngine over gloo: the
@@ -1268,7 +1631,68 @@ class Smoke:
               "round's splits at every level; ms/round " + ", ".join(f"{x:.3f}" for x in ms))
         return sum(ms[1:]) / len(ms[1:])
 
-    # -- phase 10 -----------------------------------------------------------------
+    # -- phase 11 -----------------------------------------------------------------
+    def trace_phase(self, logdir: str):
+        """One warm fused bf16 round and one warm hook-based bf16 round under
+        profile.device_trace: each round's wall time, the device time in
+        the port's kernels, the device time of every other kernel by the
+        top aten op that launched it, and the time the device sat idle
+        inside the round."""
+        from torch.profiler import record_function
+
+        from rabit_tpu_torch import _build, profile
+
+        torch, gbdt = self.torch, self.gbdt
+        cfg = gbdt.GBDTConfig(n_features=N_FEATURES, n_trees=2, depth=DEPTH,
+                              n_bins=self.n_bins)
+        fused = gbdt.train_round_fused(gbdt.init_state(cfg, self.n_rows, self.dev),
+                                       self.xb3, self.y, cfg)  # warm-up
+        hook = gbdt.train_round(gbdt.init_state(cfg, self.n_rows, self.dev),
+                                self.xb, self.y, cfg)  # warm-up
+        runs = {"fused round": lambda: gbdt.train_round_fused(fused, self.xb3, self.y, cfg),
+                "hook round": lambda: gbdt.train_round(hook, self.xb, self.y, cfg)}
+        untraced_ms = {}
+        for name, fn in runs.items():  # the same rounds, not traced
+            self.sync()
+            t0 = time.perf_counter()
+            fn()
+            self.sync()
+            untraced_ms[name] = (time.perf_counter() - t0) * 1e3
+
+        def rounds():
+            with profile.device_trace(logdir, device=self.dev) as prof:
+                for name, fn in runs.items():
+                    with record_function(name):
+                        fn()
+                        self.sync()
+            return prof
+
+        prof, counts = self.path(rounds)
+        want = {"hist_level0": 1, "hist_level": DEPTH - 1, "route_level": 1,
+                "node_histograms_kernel": DEPTH}
+        require(counts == want, f"trace launch counts {counts}, expected {want}")
+        names = _build.kernel_names()
+        out = {}
+        for window in ("fused round", "hook round"):
+            got = profile.split(prof.events(), names, window=window)
+            require(got["busy_ms"] > 0, f"{window}: the trace saw no device time")
+            got["untraced_ms"] = untraced_ms[window]
+            out[window] = got
+            port = sum(got["port_ms"].values())
+            other = sorted(got["other_ms"].items(), key=lambda kv: -kv[1])
+            print(f"  {window}: wall {got['window_ms']:.3f} ms traced ({untraced_ms[window]:.3f} "
+                  f"not traced); device busy {got['busy_ms']:.3f} ms; the port's kernels "
+                  f"{port:.3f} ms on the device "
+                  + json.dumps({k: round(v, 4) for k, v in got["port_ms"].items()})
+                  + f"; other kernels {sum(got['other_ms'].values()):.3f} ms by top op "
+                  + json.dumps({k: round(v, 4) for k, v in other})
+                  + f"; device idle {got['idle_ms']:.3f} ms traced "
+                  f"({untraced_ms[window] - got['busy_ms']:.3f} not traced: its wall less the "
+                  f"busy time); {got['launches']} device launches, copies and fills")
+        print(f"  Chrome trace under {logdir}")
+        return out
+
+    # -- phase 12 -----------------------------------------------------------------
     def measure(self):
         torch, boost = self.torch, self.boost
         xb3, g3, h3 = self.xb3, self.g3, self.h3
@@ -1460,6 +1884,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rows", type=int, default=1_000_000,
                     help="rows of the generated data set (default: the headline 1M)")
+    ap.add_argument("--trace-dir", default="traces",
+                    help="where the trace phase writes its Chrome trace (default: traces/)")
     args = ap.parse_args()
     try:
         import torch
@@ -1550,8 +1976,14 @@ def main() -> int:
         phase = next_phase("engine")
         smoke.engine_phase()
 
+        phase = next_phase("compress")
+        smoke.compress_phase()
+
         phase = next_phase("hybrid")
         print(f"[hybrid] train_round_hybrid {smoke.hybrid_phase():.3f} ms/round", flush=True)
+
+        phase = next_phase("trace")
+        smoke.trace_phase(args.trace_dir)
 
         phase = next_phase("report")
         smoke.measure()

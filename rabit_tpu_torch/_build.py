@@ -17,6 +17,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -102,3 +103,14 @@ def lib(name: str) -> ctypes.CDLL:
     if name not in _libs:
         build_all()
     return _libs[name]
+
+
+def kernel_names() -> tuple[str, ...]:
+    """The ``__global__`` functions of every source (the names the card's
+    profiler shows the port's kernels under)."""
+    names = set()
+    for name in SOURCES:
+        text = (SRC_DIR / f"{name}.cu").read_text()
+        names.update(re.findall(
+            r"__global__\s+(?:void\s+|__launch_bounds__\([^)]*\)\s*)*(\w+)\s*\(", text))
+    return tuple(sorted(names))

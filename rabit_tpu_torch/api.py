@@ -7,12 +7,14 @@ op enums, ``broadcast`` of any picklable object (length, then payload),
 ``allgather``, and the versioned checkpoints, pickled as the reference
 binding pickles them.  The engine comes from config (``rabit_engine=torch``
 for ``engine.torch_dist.TorchEngine``, ``empty`` for the solo engine); a
-process that never calls ``init`` runs solo.
+process that never calls ``init`` runs solo.  Compressed collectives follow
+the ``rabit_compress_*`` policy that ``init`` resolves (``compress``): an
+allreduce ``codec=`` (or the policy's default codec) and the broadcast
+payloads' byte codec.
 
 Not ported (ROADMAP.md Queue 1): the durable checkpoint spill
 (``rabit_checkpoint_dir``), elastic ``rebootstrap``, the flight recorder and
-metrics (``obs``), the quorum policy, the delivery plane and compressed
-collectives.
+metrics (``obs``), the quorum policy and the delivery plane.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
+from rabit_tpu_torch import compress
 from rabit_tpu_torch.config import Config
 from rabit_tpu_torch.engine import create_engine
 from rabit_tpu_torch.engine.base import BITOR, DTYPE_ENUM, MAX, MIN, SUM, Engine
@@ -63,7 +66,9 @@ def init(args: list[str] | None = None, **overrides: Any) -> None:
         _engine = None
     if args is None:
         args = [a for a in sys.argv[1:] if "=" in a]
-    engine = create_engine(Config(args, {k: str(v) for k, v in overrides.items()}))
+    config = Config(args, {k: str(v) for k, v in overrides.items()})
+    compress.configure(config)  # a bad policy fails before the engine starts
+    engine = create_engine(config)
     engine.init()
     _engine = engine
 
@@ -74,6 +79,7 @@ def finalize() -> None:
     if _engine is not None:
         _engine.shutdown()
         _engine = None
+    compress.reset()
 
 
 def get_rank() -> int:
@@ -93,15 +99,24 @@ def tracker_print(msg: str) -> None:
 
 
 def allreduce(data, op: int,
-              prepare_fun: Callable[[np.ndarray], None] | None = None):
+              prepare_fun: Callable[[np.ndarray], None] | None = None,
+              codec: str | None = None):
     """Allreduce a numpy array or a torch tensor (returned as a tensor of
     its dtype on its device); ``op`` is one of MAX, MIN, SUM, BITOR.
     ``prepare_fun(data)`` (numpy only) fills ``data`` right before the
-    reduction."""
+    reduction.
+
+    ``codec`` selects a wire codec (``compress``) for this call: the
+    payload crosses the engine encoded and every rank decodes and folds
+    identically, trading the codec's documented error bound for wire
+    bytes.  ``None`` applies the ``rabit_compress_allreduce`` policy
+    (float32, non-BITOR payloads of at least ``rabit_compress_min_bytes``);
+    ``"identity"`` forces the exact path.  On the compressed path
+    ``prepare_fun`` runs eagerly: its output feeds the encoder."""
     if isinstance(data, torch.Tensor):
         if prepare_fun is not None:
             raise TypeError("prepare_fun takes numpy arrays only")
-        out = allreduce(data.detach().cpu().numpy(), op)
+        out = allreduce(data.detach().cpu().numpy(), op, codec=codec)
         return torch.as_tensor(out, device=data.device)
     if not isinstance(data, np.ndarray):
         raise TypeError("allreduce takes numpy arrays and torch tensors")
@@ -115,20 +130,45 @@ def allreduce(data, op: int,
         def prep(view: np.ndarray) -> None:
             prepare_fun(data)
             view[...] = np.ascontiguousarray(data).reshape(-1)
-    out = get_engine().allreduce(buf, op, prepare_fun=prep)
+    c = compress.resolve(codec, buf.dtype, op, buf.nbytes)
+    engine = get_engine()
+    if c is None:
+        out = engine.allreduce(buf, op, prepare_fun=prep)
+    else:
+        out = engine.allreduce_compressed(buf, op, c, prepare_fun=prep)
     return np.asarray(out).reshape(data.shape)
 
 
 def broadcast(data: Any, root: int) -> Any:
-    """Broadcast any picklable object from ``root``."""
+    """Broadcast any picklable object from ``root``.
+
+    With ``rabit_compress_broadcast`` configured (e.g. ``zlib``), the
+    pickled payload crosses the wire compressed behind a one-byte codec
+    frame; payloads under ``rabit_compress_min_bytes`` ride as identity.
+    The policy comes from the shared job config, so every rank frames and
+    deframes symmetrically."""
     engine = get_engine()
+    pol = compress.policy()
+    bcodec = compress.get_codec(pol.broadcast) if pol.broadcast else None
     payload = None
     if engine.get_rank() == root:
         if data is None:
             raise ValueError("need to pass in data when broadcasting")
         payload = pickle.dumps(data, protocol=pickle.HIGHEST_PROTOCOL)
+        if bcodec is not None:
+            if len(payload) >= pol.min_bytes:
+                wire = bcodec.encode_bytes(payload)
+                compress.observe(engine, bcodec.name, raw=len(payload), wire=len(wire))
+                payload = bytes([bcodec.codec_id]) + wire
+            else:
+                payload = bytes([0]) + payload  # identity frame
     out = engine.broadcast(payload, root)
-    return data if engine.get_rank() == root else pickle.loads(out)
+    if engine.get_rank() == root:
+        return data
+    if bcodec is not None:
+        out = bytes(out)
+        out = compress.get_codec_by_id(out[0]).decode_bytes(out[1:])
+    return pickle.loads(out)
 
 
 def allgather(data: np.ndarray) -> np.ndarray:

@@ -22,7 +22,35 @@ DEFAULTS: dict[str, str] = {
     "rabit_torch_master_port": "",
     "rabit_torch_world_size": "",
     "rabit_torch_rank": "",
+    # Compressed collectives (compress): the default codec of api.allreduce
+    # (identity|bf16|bf16x2|i8|i8x2; empty: exact), applied to float32
+    # non-BITOR payloads of at least rabit_compress_min_bytes (a codec=
+    # argument always wins); the lossless deflate stage of the host
+    # transport's wire bytes; the byte codec (zlib) of api.broadcast.
+    "rabit_compress_allreduce": "",
+    "rabit_compress_min_bytes": "1024",
+    "rabit_compress_wire_deflate": "1",
+    "rabit_compress_broadcast": "",
+    # The fused quantized ring of TorchEngine (engine.fused): auto (on) | 1
+    # | 0 (the host transport), and the most KiB a hop sends at once (0:
+    # one send a hop).
+    "rabit_fused_allreduce": "auto",
+    "rabit_fused_chunk_kib": "256",
+    # The ring order of the fused ring (sched): auto|tree|ring|swing, and
+    # the mesh model's dims "RxC[:nowrap]" (empty: near-square).
+    "rabit_schedule": "auto",
+    "rabit_sched_mesh": "",
 }
+
+_UNIT = {"B": 1, "K": 1 << 10, "M": 1 << 20, "G": 1 << 30}
+
+
+def parse_unit(value: str) -> int:
+    """``"256M"``-style sizes."""
+    value = value.strip()
+    if value and value[-1].upper() in _UNIT:
+        return int(float(value[:-1]) * _UNIT[value[-1].upper()])
+    return int(value)
 
 
 class Config:
@@ -43,3 +71,17 @@ class Config:
 
     def get(self, key: str, default: str | None = None) -> str | None:
         return self._cfg.get(key, default)
+
+    def get_int(self, key: str, default: int = 0) -> int:
+        val = self._cfg.get(key)
+        return default if val is None else int(val)
+
+    def get_size(self, key: str, default: int = 0) -> int:
+        val = self._cfg.get(key)
+        return default if val is None else parse_unit(val)
+
+    def get_bool(self, key: str, default: bool = False) -> bool:
+        val = self._cfg.get(key)
+        if val is None:
+            return default
+        return val.strip().lower() not in ("0", "false", "no", "off", "")

@@ -97,6 +97,34 @@ class Engine(ABC):
         """Equal-sized per-rank slices in, their concatenation over ranks
         (rank order) out."""
 
+    def allreduce_compressed(self, data: np.ndarray, op: int, codec,
+                             prepare_fun: Callable[[np.ndarray], None] | None = None,
+                             cache_key: str | None = None) -> np.ndarray:
+        """Allreduce with a wire codec (``rabit_tpu_torch.compress``): each
+        rank's contribution crosses the engine encoded; every rank decodes
+        and folds the gathered planes identically, so the result is bitwise
+        identical on all ranks and equals ``reference_allreduce``.
+
+        Default: the numpy host transport over this engine's own
+        ``allgather`` (plus a tiny size-agreement allreduce when the
+        deflate stage, ``rabit_compress_wire_deflate``, makes wire sizes
+        data-dependent).  ``TorchEngine`` overrides it with the fused ring
+        on its device.  ``prepare_fun`` runs eagerly: its output feeds the
+        encoder."""
+        from rabit_tpu_torch import compress
+
+        if prepare_fun is not None:
+            prepare_fun(data)
+        return compress.host_allreduce(self, np.ascontiguousarray(data), op, codec,
+                                       cache_key=cache_key,
+                                       deflate=compress.policy().wire_deflate)
+
+    def fused_active(self, codec, op) -> bool:
+        """True when ``allreduce_compressed(codec, op)`` runs the fused
+        ring on the device (``engine.fused``) rather than the host
+        transport.  Only ``TorchEngine`` says so."""
+        return False
+
     # -- checkpoint / recovery --------------------------------------------
 
     @abstractmethod

@@ -22,6 +22,16 @@ OR, and neither takes unsigned 32- or 64-bit integers, so:
   wraps modulo 2**32 (2**64) in either reading, and for MAX and MIN the
   sign bit is flipped first, which maps unsigned order onto signed order.
 
+Compressed allreduce (``allreduce_compressed``): with
+``rabit_fused_allreduce`` on (the default) and more than one rank, the
+fused quantized ring of ``engine.fused`` along the planned ring order,
+built once per (op, codec, element count); its encode and decode-fold run
+on this rank's card with ``rabit_torch_device=cuda`` (on the host with
+``cpu``), and its hops cross the default group (through host memory where
+that group is gloo).  Otherwise the numpy host transport of the base
+class.  Either way the result equals ``compress.reference_allreduce`` of
+the ranks' contributions bit for bit.
+
 Checkpoints stay in host memory, one copy a process (recovery of a lost
 process is the robust engine's work, which this one does not do).
 """
@@ -29,6 +39,7 @@ process is the robust engine's work, which this one does not do).
 from __future__ import annotations
 
 import os
+import time
 
 import numpy as np
 import torch
@@ -36,6 +47,7 @@ import torch.distributed as dist
 
 from rabit_tpu_torch.engine.base import (BITOR, DTYPE_ENUM, MAX, MIN, SUM, Engine,
                                          HostCheckpoints)
+from rabit_tpu_torch.engine import fused
 
 _TORCH_OP = {MAX: dist.ReduceOp.MAX, MIN: dist.ReduceOp.MIN, SUM: dist.ReduceOp.SUM}
 # unsigned dtypes the backends lack -> (the signed dtype of the same bits,
@@ -65,6 +77,12 @@ class TorchEngine(HostCheckpoints, Engine):
         self._owns_group = False
         self._rank, self._world = 0, 1
         self._stage = None  # where arrays cross the group (None: solo)
+        # the fused rings, per (op, codec, element count), and their ring
+        # order; rabit_fused_allreduce and rabit_fused_chunk_kib
+        self._fused: dict[tuple, object] = {}
+        self._fused_order: tuple[int, ...] | None = None
+        self._fused_on = fused.fused_mode(config)
+        self._fused_chunk = fused.chunk_bytes_from_config(config)
 
     # -- lifecycle -----------------------------------------------------------
 
@@ -101,9 +119,13 @@ class TorchEngine(HostCheckpoints, Engine):
     def rebuild(self) -> None:
         """Adopt the current world: re-read rank and world from the default
         process group (none: solo) and drop what was derived from the old
-        one (the staging device, which follows the rank and the backend).
-        The counterpart of XlaEngine.rebuild_mesh; checkpoints are kept."""
+        one (the staging device, which follows the rank and the backend,
+        and the fused rings with their ring order, built for the old
+        world).  The counterpart of XlaEngine.rebuild_mesh; checkpoints are
+        kept."""
         self._stage = None
+        self._fused.clear()
+        self._fused_order = None
         if dist.is_available() and dist.is_initialized():
             self._rank, self._world = dist.get_rank(), dist.get_world_size()
             self._stage = (torch.device("cuda", self._card(self._rank))
@@ -153,10 +175,39 @@ class TorchEngine(HostCheckpoints, Engine):
             return out.view(arr.dtype).reshape(arr.shape)
         return self._all_reduce(arr, _TORCH_OP[op]).reshape(arr.shape)
 
+    def fused_active(self, codec, op) -> bool:
+        """True when allreduce_compressed takes the fused ring for this
+        (codec, op): ``rabit_fused_allreduce`` on, more than one rank, a
+        codec with a device path and an op the fold covers."""
+        return (self._fused_on and self._world > 1 and codec.has_torch
+                and op in fused.FUSED_OPS)
+
+    def _fused_fn(self, op: int, codec, n: int):
+        key = (op, codec.name, n)
+        if key not in self._fused:
+            if self._fused_order is None:
+                self._fused_order = fused.plan_ring_order(self._world, self.config)
+            device = (torch.device("cuda", self._card(self._rank))
+                      if self._device.type == "cuda" else torch.device("cpu"))
+            self._fused[key] = fused.build_fused_allreduce(
+                None, self._fused_order, op, codec, n,
+                chunk_bytes=self._fused_chunk, device=device)
+        return self._fused[key]
+
     def allreduce_compressed(self, data, op, codec, prepare_fun=None, cache_key=None):
-        raise NotImplementedError(
-            "TorchEngine.allreduce_compressed: the wire codecs are not ported "
-            "yet (ROADMAP.md Queue 1 item 6, compressed device paths)")
+        if prepare_fun is not None:
+            prepare_fun(data)
+        arr = np.ascontiguousarray(data)
+        if arr.dtype != np.float32 or not self.fused_active(codec, op):
+            return super().allreduce_compressed(arr, op, codec, cache_key=cache_key)
+        from rabit_tpu_torch.compress import observe
+
+        t0 = time.perf_counter()
+        out = self._fused_fn(op, codec, arr.size)(torch.from_numpy(arr.reshape(-1)))
+        result = out.cpu().numpy().reshape(arr.shape)
+        observe(self, codec.name, raw=arr.nbytes, wire=codec.wire_len(arr.size),
+                encode_s=time.perf_counter() - t0, fused=True)
+        return result
 
     def broadcast(self, data, root, cache_key=None):
         if not 0 <= root < self._world:

@@ -356,19 +356,31 @@ def train_round_dp(state: TrainState, xb: torch.Tensor, y: torch.Tensor,
 
 
 def train_round_dp_fused(state: TrainState, xb3: torch.Tensor, y: torch.Tensor,
-                         cfg: GBDTConfig, dp_group=None,
-                         wire_i8: bool = False) -> TrainState:
+                         cfg: GBDTConfig, dp_group=None, wire_i8: bool = False,
+                         wire_block: int = 256) -> TrainState:
     """train_round_fused across processes: this process holds a shard of
     the row blocks (``xb3``, and ``y``/margin by rows), and each level's
     histogram is summed exactly with one ``all_reduce`` over ``dp_group``
-    (the leaf masses ride the last one)."""
+    (the leaf masses ride the last one).
+
+    ``wire_i8=True`` sums each level's histogram over the quantized
+    int8-wire ring instead (``parallel.ring_allreduce_quantized``, ~2x
+    fewer wire bytes at ~2^-16 of the block max a hop): lossy, but every
+    rank decodes each chunk's identical wire bytes with the same ops, so
+    the histograms, and the split decisions even on exact ties, are
+    bitwise identical across ranks.  Keep the exact sum where a result
+    must equal a serial replay byte for byte.  The flat level histogram
+    (2^d * F * n_bins * 2 floats) must be divisible by
+    ``dp_size * wire_block``."""
     if wire_i8:
-        raise NotImplementedError(
-            "train_round_dp_fused(wire_i8=True): the quantized int8-wire ring "
-            "is not ported yet (ROADMAP.md Queue 1 item 6, compressed device "
-            "paths)")
-    return train_round_fused(state, xb3, y, cfg,
-                             combine=lambda a: _all_reduce(a, dp_group))
+        from rabit_tpu_torch.parallel import ring_allreduce_quantized
+
+        def combine(a):
+            return ring_allreduce_quantized(a.reshape(-1), dp_group,
+                                            block=wire_block).reshape(a.shape)
+    else:
+        combine = lambda a: _all_reduce(a, dp_group)
+    return train_round_fused(state, xb3, y, cfg, combine=combine)
 
 
 def train_round_hybrid(state: TrainState, xb: torch.Tensor, y: torch.Tensor,

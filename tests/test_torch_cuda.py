@@ -890,3 +890,108 @@ def test_torch_engine_nccl_world_one(cuda):
     finally:
         api.finalize()
     assert not dist.is_initialized()
+
+
+# -- compressed collectives on the card -------------------------------------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["identity", "bf16", "bf16x2", "i8", "i8x2"])
+def test_codecs_on_card_match_numpy(cuda, name):
+    """torch_encode of a CUDA tensor gives numpy encode's bytes bit for bit,
+    torch_decode on the card its values (NaN where it has NaN), with and
+    without an inf, a -inf and a NaN in one block, and at a depth-5 level
+    histogram's size."""
+    from rabit_tpu_torch.compress import get_codec
+
+    c = get_codec(name)
+    for n in (5, 256, 1000, 32 * 28 * 256 * 2):
+        for nonfinite in (False, True):
+            x = (np.random.RandomState(n).randn(n) * 10).astype(np.float32)
+            if nonfinite:
+                x[1], x[3], x[4] = np.inf, np.nan, -np.inf
+            enc = c.encode(x)
+            got = c.torch_encode(torch.as_tensor(x, device=cuda))
+            assert got.device.type == "cuda"
+            assert got.cpu().numpy().tobytes() == enc, (name, n, nonfinite)
+            packed = torch.as_tensor(np.frombuffer(enc, np.uint8).copy(), device=cuda)
+            np.testing.assert_array_equal(c.torch_decode(packed, n).cpu().numpy(),
+                                          c.decode(enc, n))
+
+
+@pytest.mark.gpu
+def test_quantized_ring_and_fused_ring_at_world_one_match_cpu(cuda, tmp_path):
+    """On an NCCL group of one: ring_allreduce_quantized of a CUDA tensor
+    (still one quantization) equals the CPU's bit for bit; the fused ring
+    on the card equals reference_allreduce bit for bit."""
+    import torch.distributed as dist
+
+    from rabit_tpu_torch.compress import get_codec, reference_allreduce
+    from rabit_tpu_torch.engine import fused
+    from rabit_tpu_torch.engine.base import MAX, SUM
+    from rabit_tpu_torch.parallel import ring_allreduce_quantized
+
+    x = (np.random.RandomState(5).randn(32 * 28 * 256 * 2) * 50).astype(np.float32)
+    dist.init_process_group("nccl", store=dist.FileStore(str(tmp_path / "store"), 1),
+                            rank=0, world_size=1)
+    try:
+        for planes in (1, 2):
+            got = ring_allreduce_quantized(torch.as_tensor(x, device=cuda), planes=planes)
+            want = ring_allreduce_quantized(torch.as_tensor(x), planes=planes)
+            assert got.device.type == "cuda"
+            assert got.cpu().numpy().tobytes() == want.numpy().tobytes(), planes
+        for name in ("bf16", "bf16x2", "i8", "i8x2"):
+            for op in (SUM, MAX):
+                fn = fused.build_fused_allreduce(None, (0,), op, get_codec(name), x.size,
+                                                 device=cuda)
+                got = fn(torch.as_tensor(x, device=cuda)).cpu().numpy()
+                assert got.tobytes() == reference_allreduce([x], op, name).tobytes()
+    finally:
+        dist.destroy_process_group()
+
+
+def _wire_run(tmp_path, device: str, world: int = 2) -> list[dict]:
+    """tests/workers/torch_wire_worker.py on ``world`` gloo processes."""
+    import os
+    import pathlib
+    import subprocess
+    import sys
+
+    root = pathlib.Path(__file__).resolve().parents[1]
+    worker = root / "tests" / "workers" / "torch_wire_worker.py"
+    tmp = tmp_path / device
+    tmp.mkdir()
+    env = dict(os.environ, PYTHONPATH=str(root))
+    procs = [subprocess.Popen([sys.executable, str(worker), str(r), str(world),
+                               str(tmp / "store"), str(tmp / f"rank{r}.npz"), device],
+                              env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for r in range(world)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=300)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for r, p in enumerate(procs):
+        assert p.returncode == 0, f"rank {r} exited {p.returncode}:\n{logs[r]}"
+    return [dict(np.load(tmp / f"rank{r}.npz")) for r in range(world)]
+
+
+@pytest.mark.gpu
+def test_wire_i8_round_of_two_gloo_processes_on_one_card_matches_cpu(cuda, tmp_path):
+    """train_round_dp_fused(wire_i8=True) on two gloo processes sharing the
+    card: the ranks' forests bitwise identical, and the split tables of the
+    same two processes' run on the CPU, leaves within rtol = atol = 1e-3
+    (the histogram kernel sums in another order than the plain version)."""
+    card, cpu = _wire_run(tmp_path, "cuda"), _wire_run(tmp_path, "cpu")
+    for key in ("wire", "exact"):
+        for k in ("feature", "threshold", "leaf"):
+            np.testing.assert_array_equal(card[1][f"{key}_{k}"], card[0][f"{key}_{k}"])
+        np.testing.assert_array_equal(card[0][f"{key}_feature"], cpu[0][f"{key}_feature"])
+        np.testing.assert_array_equal(card[0][f"{key}_threshold"],
+                                      cpu[0][f"{key}_threshold"])
+        np.testing.assert_allclose(card[0][f"{key}_leaf"], cpu[0][f"{key}_leaf"],
+                                   rtol=1e-3, atol=1e-3)

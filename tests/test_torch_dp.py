@@ -55,6 +55,14 @@ def _data5():
             rng.randint(0, 2, size=n).astype(np.float32))
 
 
+def _data11():
+    """tests/test_gbdt.py:345's data: one row block of 128 per rank."""
+    rng = np.random.RandomState(11)
+    n = 128 * WORLD
+    return (rng.randint(0, 16, size=(n, 4)).astype(np.int32),
+            rng.randint(0, 2, size=n).astype(np.float32))
+
+
 def _jax_rounds(cfg, xb, y):
     state = jgbdt.init_state(cfg, len(y))
     step = jax.jit(functools.partial(jgbdt.train_round, cfg=cfg))
@@ -70,7 +78,8 @@ def dp_runs(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("torch_dp")
     xb, y = _binned()
     xb5, y5 = _data5()
-    np.savez(tmp / "in.npz", xb=xb, y=y, xb5=xb5, y5=y5)
+    xb11, y11 = _data11()
+    np.savez(tmp / "in.npz", xb=xb, y=y, xb5=xb5, y5=y5, xb11=xb11, y11=y11)
     env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1")
     worker = ROOT / "tests" / "workers" / "torch_dp_worker.py"
     procs = [subprocess.Popen(
@@ -146,13 +155,49 @@ def test_train_round_dp_fused_matches_dp(dp_runs):
     _assert_matches(_forest(dp_runs[0], "dp5"), ref.forest, rtol=1e-4)
 
 
-def test_train_round_dp_refusals():
+def test_train_round_dp_fused_wire_i8_close_to_exact(dp_runs):
+    """tests/test_gbdt.py:345 across processes: the int8-wire histogram
+    ring grows, on every rank, the same forest bit for bit, with the exact
+    fused dp round's split tables and leaves within rtol = atol = 1e-3; and
+    JAX's wire_i8 round at the same world grows the same split tables."""
+    _assert_ranks_agree(dp_runs, "wire11")
+    exact = tgbdt.Forest(*_forest(dp_runs[0], "exact11"))
+    _assert_matches(_forest(dp_runs[0], "wire11"), exact, rtol=1e-3, atol=1e-3)
+    from jax.sharding import PartitionSpec as P
+
+    from rabit_tpu import parallel as rp
+    from rabit_tpu.ops import boost as jboost
+
+    xb, y = _data11()
+    cfg = jgbdt.GBDTConfig(n_features=4, n_trees=2, depth=3, n_bins=16)
+    mesh = rp.create_mesh(("dp",), devices=jax.devices()[:WORLD])
+    state_spec = jgbdt.TrainState(forest=jgbdt.Forest(P(), P(), P()), margin=P("dp"),
+                                  round=P())
+    wired = jax.jit(jax.shard_map(
+        functools.partial(jgbdt.train_round_dp_fused, cfg=cfg, interpret=True,
+                          wire_i8=True, wire_block=16),
+        mesh=mesh, in_specs=(state_spec, P("dp", None, None), P("dp")),
+        out_specs=state_spec, check_vma=False))
+    xb3, _ = jboost.block_rows(jnp.asarray(xb), 128)
+    state = jgbdt.init_state(cfg, len(y))
+    for _ in range(cfg.n_trees):
+        state = wired(state, xb3, jnp.asarray(y))
+    ref = jax.tree.map(np.asarray, state.forest)
+    feature, threshold, leaf = _forest(dp_runs[0], "wire11")
+    np.testing.assert_array_equal(feature, ref.feature)
+    np.testing.assert_array_equal(threshold, ref.threshold)
+    np.testing.assert_allclose(leaf, ref.leaf, rtol=1e-3, atol=1e-3)
+
+
+def test_train_round_dp_refusals(dp_runs):
+    # the worker's level-0 histogram, 5 * 16 * 2 = 160 floats, is no whole
+    # number of 256-float wire blocks a rank, and every rank refuses it as
+    # JAX refuses it
+    for run in dp_runs:
+        assert "not divisible by block 256" in str(run["refusal"])
     cfg = tgbdt.GBDTConfig(n_features=5, n_trees=1, depth=2, n_bins=16)
     state = tgbdt.init_state(cfg, 256, "cpu")
     xb3 = torch.zeros((1, 256, 5), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        tgbdt.train_round_dp_fused(state, xb3, torch.zeros(256), cfg,
-                                   wire_i8=True)
     with pytest.raises(ValueError, match="needs its dp_group"):
         tgbdt.train_round_dp(state, xb3[0], torch.zeros(256), cfg,
                              fp_group=object())

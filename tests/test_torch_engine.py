@@ -20,7 +20,8 @@ import pytest
 import torch
 import torch.distributed as dist
 
-from rabit_tpu_torch import api
+from rabit_tpu import compress as jcompress
+from rabit_tpu_torch import api, compress
 from rabit_tpu_torch.config import Config
 from rabit_tpu_torch.engine import create_engine
 from rabit_tpu_torch.engine.base import DTYPE_ENUM
@@ -98,8 +99,23 @@ def test_torch_engine_solo_paths():
     api.lazy_checkpoint({"m": 2})
     assert api.load_checkpoint() == (2, {"m": 2})
     assert api.version_number() == 2
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        api.get_engine().allreduce_compressed(x, api.SUM, codec=None)
+    # solo, a codec still makes its round trip (the host transport: the
+    # fused ring needs more than one rank)
+    y = (np.random.RandomState(0).randn(2000) * 40).astype(np.float32)
+    codec = compress.get_codec("i8")
+    assert not api.get_engine().fused_active(codec, api.SUM)
+    got = api.get_engine().allreduce_compressed(y, api.SUM, codec)
+    assert got.tobytes() == compress.reference_allreduce([y], api.SUM, "i8").tobytes()
+
+
+def test_torch_engine_refuses_unknown_fused_mode():
+    """rabit_fused_allreduce has one parser, engine.fused's, which the
+    engine runs when it is made: a value it does not know is refused there,
+    with the JAX package's message."""
+    with pytest.raises(ValueError, match="want auto, 1/on, or 0/off"):
+        TorchEngine(Config(CPU + ["rabit_fused_allreduce=maybe"]))
+    assert TorchEngine(Config(CPU + ["rabit_fused_allreduce=off"]))._fused_on is False
+    assert TorchEngine(Config(CPU + ["rabit_fused_chunk_kib=64"]))._fused_chunk == 64 * 1024
 
 
 def test_uninitialized_api_runs_solo_and_registry_picks_engines():
@@ -179,3 +195,38 @@ def test_rebuild_follows_the_world(tmp_path):
     engine.rebuild()
     assert engine._stage is None and engine.get_world_size() == 1
     assert api.load_checkpoint() == (1, {"v": 1})
+
+
+@pytest.mark.parametrize("engine", ["empty", "torch"])
+def test_solo_allreduce_codec_matches_reference(engine):
+    """tests/test_compress.py's solo case on the solo engine and on a solo
+    TorchEngine: api.allreduce(codec=...) equals both packages'
+    reference_allreduce bit for bit; the policy compresses a float32 SUM
+    over its floor, and a broadcast under rabit_compress_broadcast=zlib
+    returns the root's object; finalize resets the policy."""
+    api.init([f"rabit_engine={engine}", "rabit_torch_device=cpu",
+              "rabit_compress_allreduce=bf16x2", "rabit_compress_min_bytes=1K",
+              "rabit_compress_broadcast=zlib"])
+    x = (np.random.RandomState(0).randn(2000) * 40).astype(np.float32)
+    for name in ("bf16", "bf16x2", "i8", "i8x2"):
+        for op in (api.SUM, api.MAX):
+            got = api.allreduce(x, op, codec=name)
+            want = compress.reference_allreduce([x], op, name)
+            assert got.tobytes() == want.tobytes()
+            assert want.tobytes() == jcompress.reference_allreduce([x], op, name).tobytes()
+    got = api.allreduce(torch.from_numpy(x), api.SUM, codec="i8")
+    assert isinstance(got, torch.Tensor)
+    assert got.numpy().tobytes() == compress.reference_allreduce([x], api.SUM, "i8").tobytes()
+    assert api.allreduce(x, api.SUM).tobytes() == \
+        compress.reference_allreduce([x], api.SUM, "bf16x2").tobytes()
+    np.testing.assert_array_equal(api.allreduce(x[:10], api.SUM), x[:10])
+    np.testing.assert_array_equal(api.allreduce(x, api.SUM, codec="identity"), x)
+    assert api.broadcast({"w": list(range(2000))}, 0) == {"w": list(range(2000))}
+    with pytest.raises(TypeError, match="float32"):
+        api.allreduce(x.astype(np.float64), api.SUM, codec="i8")
+    with pytest.raises(ValueError, match="BITOR"):
+        api.allreduce(np.ones(4, np.float32), api.BITOR, codec="i8")
+    api.finalize()
+    assert compress.policy() == compress.Policy()
+    with pytest.raises(ValueError, match="unknown codec"):
+        api.init(["rabit_engine=empty", "rabit_compress_allreduce=lz4"])

@@ -264,7 +264,11 @@ def test_port_imports_no_jax():
         "       or m == 'rabit_tpu' or m.startswith('rabit_tpu.')]\n"
         "for m in ('rabit_tpu_torch.models.gbdt', 'rabit_tpu_torch.ops.hist',\n"
         "          'rabit_tpu_torch.elastic', 'rabit_tpu_torch.api',\n"
-        "          'rabit_tpu_torch.engine.torch_dist', 'torch.distributed'):\n"
+        "          'rabit_tpu_torch.engine.torch_dist', 'torch.distributed',\n"
+        "          'rabit_tpu_torch.compress', 'rabit_tpu_torch.compress.codecs',\n"
+        "          'rabit_tpu_torch.compress.transport', 'rabit_tpu_torch.sched',\n"
+        "          'rabit_tpu_torch.parallel', 'rabit_tpu_torch.parallel.collectives',\n"
+        "          'rabit_tpu_torch.engine.fused', 'rabit_tpu_torch.profile'):\n"
         "    assert m in sys.modules, m\n"
         "from rabit_tpu_torch.models import gbdt\n"
         "assert callable(gbdt.train_round_dp) and callable(gbdt.train_round_dp_fused)\n"

@@ -10,7 +10,13 @@ on the inputs in IN_NPZ:
   the members of an fp group hold the same rows, each histograms half the
   features);
 * ``dp5`` / ``fused5`` -- train_round_dp and train_round_dp_fused (row
-  blocks of 128) on the second data set.
+  blocks of 128) on the second data set;
+* ``exact11`` / ``wire11`` -- train_round_dp_fused exact and with
+  ``wire_i8=True, wire_block=16`` on the third (one row block of 128 a
+  rank);
+* ``refusal`` -- train_round_dp_fused with ``wire_i8=True`` on the second
+  data set, whose level-0 histogram (5 * 16 * 2 = 160 floats) is no whole
+  number of 256-float wire blocks a rank: the message it raises.
 
 Each scenario's forest and this rank's margin go to OUT_NPZ.  Imports torch,
 numpy and the port only.
@@ -72,6 +78,21 @@ def main(rank, world, store_file, in_npz, out_npz):
     _save(out, "dp5", _train(gbdt.train_round_dp, cfg5, xb, y))
     xb3, _ = boost.block_rows(xb, 128)
     _save(out, "fused5", _train(gbdt.train_round_dp_fused, cfg5, xb3, y))
+    try:  # every rank refuses at the same point, before any hop
+        gbdt.train_round_dp_fused(gbdt.init_state(cfg5, len(y), "cpu"), xb3,
+                                  torch.as_tensor(y), cfg5, wire_i8=True)
+        out["refusal"] = ""
+    except ValueError as e:
+        out["refusal"] = str(e)
+
+    cfg11 = gbdt.GBDTConfig(n_features=4, n_trees=2, depth=3, n_bins=16)
+    rows = slice(128 * rank, 128 * (rank + 1))
+    xb3, _ = boost.block_rows(torch.as_tensor(data["xb11"][rows]), 128)
+    y = data["y11"][rows]
+    _save(out, "exact11", _train(gbdt.train_round_dp_fused, cfg11, xb3, y))
+    wired = lambda s, x, yy, c: gbdt.train_round_dp_fused(s, x, yy, c, wire_i8=True,
+                                                          wire_block=16)
+    _save(out, "wire11", _train(wired, cfg11, xb3, y))
 
     np.savez(out_npz, **out)
     dist.destroy_process_group()
