@@ -76,21 +76,60 @@ Phases, each of which exits non-zero when it fails:
               TorchEngine over gloo: identical forests, depth + 1 hops a
               tree, the first two trees phase 7's but for printed near
               ties, every tree teacher-forced; ms/round.
-11. trace  -- one warm fused and one warm hook-based bf16 round under
+11. linear -- models.linear at the headline size (X = bins / 256, f32;
+              logistic, the LinearConfig defaults, 50 steps): LinearModel.fit
+              on the card bitwise its train_step loop, steps 0, 25, 49 held
+              teacher-forced against the CPU (tests/test_models.py's rtol
+              2e-4, atol 2e-5); train_step_dp on an NCCL group of one
+              bitwise the loop; then a gloo world of two processes sharing
+              the card (500k rows each; spawned once, it also runs phases 12
+              and 13's two-process parts): train_step_dp, every step
+              teacher-forced against the single-process step, and
+              LinearModel(engine_allreduce=api.allreduce) through TorchEngine,
+              bitwise the dp weights; ms/step of each.
+12. kmeans -- models.kmeans on the same data, K = 64, 20 iterations, the
+              init drawn by KMeans(seed=0): KMeans.fit bitwise its
+              train_iter loop, iterations 0, 10, 19 teacher-forced against
+              the CPU (assignments equal but for near ties within
+              c 2^-23 (|c.c| + 2 |x| |c|), c = 2F, counted; local_stats
+              within an f32 ulp of the f64 sums); train_iter_dp on NCCL world
+              1 bitwise; on the gloo world train_iter_dp (the checked
+              iterations' assignments against the card's but for near ties,
+              the new centers within 2^-21 of the f64 means) and
+              KMeans(engine_allreduce=...) bitwise the dp centers; ms/iteration
+              and the f64 one-hot segment_sum's time.
+13. attention -- ring_attention and ulysses_attention at sequence 8192, 32
+              heads of 128, f32 and bf16, causal and not, on an NCCL group of
+              one and on the gloo world (block 4096; k/v hops and Ulysses'
+              all-to-alls through host memory), each against
+              reference_attention of the f32-cast inputs computed 4 heads at
+              a time (tests/test_parallel.py's rtol 2e-4, atol 2e-5; bf16 adds
+              the output's half-ulp rounding, 2^-8); ms a call and the
+              hops' share.
+14. durable -- the api's durable spill (rabit_checkpoint_dir) in two-process
+              gloo jobs on the card, each fitting the linear model with a
+              checkpoint a step (tests/workers/torch_durable_worker.py): a job
+              stopped at version 3 of 6 and resumed by a fresh job, and again
+              with rank 1's global files deleted (served by rank 0's
+              broadcast), both bit for bit the weights of a job never
+              stopped; the frames' bytes and the jobs' times.
+15. trace  -- one warm fused and one warm hook-based bf16 round under
               profile.device_trace (a Chrome trace under --trace-dir): each
               round's wall time, the device time of the port's kernels, of
               every other kernel by the top aten op that launched it, and
               the device's idle time inside the round.
-12. report -- per-level times of the histogram kernels (d = 0..7, bf16
+16. report -- per-level times of the histogram kernels (d = 0..7, bf16
               and i8) and of the helpers, and a {"kernels": [...]} line
               with each kernel's time (CUDA events over back-to-back
               calls, "ms"; and the device time of the kernels a call
               launches, from torch.profiler, "device_ms"), launches,
               bound, plain-version time and library-call time.
 
-Launches are counted per path (phases 4-7 and 11, and 7 and 10 in their
+Launches are counted per path (phases 4-7 and 15, and 7 and 10 in their
 processes), each run with the counts set to 0 just before it and read just
-after; the phase-3 comparisons and the phase-12 timings do not count.  Each phase
+after; the phase-3 comparisons and the phase-16 timings do not count.
+Phases 11-14 run no kernel of the port (their products are torch matmuls
+and einsums, as in the JAX package, in f32 with TF32 off).  Each phase
 prints its wall time.  The histogram kernels count in
 boost.launches, their helpers (one hist_prep and one hist_partition a
 histogram) in boost.helper_launches.  The last line is {"ok": true, "device":
@@ -100,11 +139,13 @@ histogram) in boost.helper_launches.  The last line is {"ok": true, "device":
 from __future__ import annotations
 
 import argparse
+import contextlib
 import functools
 import json
 import multiprocessing
 import os
 import re
+import shutil
 import socket
 import subprocess
 import sys
@@ -134,6 +175,14 @@ WIRE_CHECKED_TREES = 2      # of them held teacher-forced against the single-pro
 CODECS = ("identity", "bf16", "bf16x2", "i8", "i8x2")
 FUSED_CODECS = CODECS[1:]
 LEVEL5 = 2 ** 5 * N_FEATURES * N_BINS * 2  # floats of a depth-5 level histogram
+KM_K, KM_ITERS = 64, 20     # k-means: clusters and iterations
+KM_CHECKED = (0, 10, KM_ITERS - 1)  # iterations held teacher-forced against the CPU
+LIN_CHECKED = (0, 25, 49)   # linear steps held teacher-forced against the CPU
+LIN_TOL = (2e-4, 2e-5)      # tests/test_models.py's linear rtol, atol
+ATT_SEQ, ATT_HEADS, ATT_DIM = 8192, 32, 128  # a 7B-class decoder's heads
+ATT_REF_HEADS = 4           # heads a slice of the head-sliced reference
+ATT_F32 = (2e-4, 2e-5)      # tests/test_parallel.py's attention rtol, atol
+DURABLE_STEPS, DURABLE_STOP = 6, 3
 REPLACES = {
     "hist_level0": "rabit_tpu/ops/boost.py:341",
     "hist_level": "rabit_tpu/ops/boost.py:374",
@@ -297,17 +346,22 @@ def run_ranks(target, world: int, *args) -> list[dict]:
         return [dict(np.load(os.path.join(tmp, f"rank{r}.npz"))) for r in range(world)]
 
 
-def basic_worker():
-    """tests/workers/torch_basic_worker.py, whose run_matrix is the engine
-    matrix (each result against numpy_reduce of the ranks' inputs)."""
+def worker_module(name: str):
+    """tests/workers/<name>.py as a module."""
     import importlib.util
 
     path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "workers",
-                        "torch_basic_worker.py")
-    spec = importlib.util.spec_from_file_location("torch_basic_worker", path)
+                        f"{name}.py")
+    spec = importlib.util.spec_from_file_location(name, path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def basic_worker():
+    """tests/workers/torch_basic_worker.py, whose run_matrix is the engine
+    matrix (each result against numpy_reduce of the ranks' inputs)."""
+    return worker_module("torch_basic_worker")
 
 
 def engine_args(device: str, port: int, world: int, rank: int) -> list[str]:
@@ -492,6 +546,200 @@ def _compress_rank(rank: int, world: int, tmp: str) -> None:
         dist.destroy_process_group()
 
 
+# -- phases 11-14: the linear and k-means models, attention, the durable spill ----
+
+
+def slice_data(n_rows: int):
+    """The headline data as the linear and k-means models take it: X =
+    bins / 256 (f32, [n, 28]) and the labels."""
+    xb, y = make_data(n_rows, seed=0)
+    return xb.astype(np.float32) / 256, y
+
+
+def attention_inputs(torch, dtype, seed: int = 11):
+    """Seeded global q, k, v ``[ATT_SEQ, ATT_HEADS, ATT_DIM]`` made on the
+    card (the same on every process of the card)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return [torch.randn(ATT_SEQ, ATT_HEADS, ATT_DIM, generator=g, device="cuda").to(dtype)
+            for _ in range(3)]
+
+
+def reference_rows(ring, q, k, v, causal: bool, rows: slice):
+    """reference_attention of the f32-cast inputs, the query rows ``rows``,
+    computed ATT_REF_HEADS heads at a time (the whole one would hold 8.6 GB
+    of scores a tensor)."""
+    import torch
+
+    out = []
+    for h in range(0, q.shape[1], ATT_REF_HEADS):
+        hs = slice(h, h + ATT_REF_HEADS)
+        out.append(ring.reference_attention(q[:, hs].float(), k[:, hs].float(),
+                                            v[:, hs].float(), causal=causal)[rows])
+    return torch.cat(out, 1)
+
+
+def tol_err(got, want, rtol: float, atol: float) -> float:
+    """Largest |got - want| / (atol + rtol |want|): within tolerance <= 1."""
+    return float(((got.float() - want).abs() / (atol + rtol * want.abs())).max())
+
+
+def att_tol(torch, dtype) -> tuple[float, float]:
+    """(rtol, atol) of attention against the f32 reference of the f32-cast
+    inputs: tests/test_parallel.py's in f32; in bf16 the output's rounding,
+    half an ulp (2^-8 of the value), on top."""
+    return ATT_F32 if dtype == torch.float32 else (2.0 ** -8 + ATT_F32[0], ATT_F32[1])
+
+
+def attention_cases(torch, ring, rank: int, world: int, out: dict) -> None:
+    """ring_attention and ulysses_attention on this rank's sequence block
+    over the default group, f32 and bf16, causal and not: each output's
+    tol_err against the head-sliced reference and its ms a call (rank
+    ``rank`` of ``world``); then the host-staged hops alone: one ring hop of
+    the f32 k and v blocks, and Ulysses' four all-to-alls."""
+    from rabit_tpu_torch.parallel.collectives import ring_shift
+    from rabit_tpu_torch.parallel.ring import _all_to_all
+
+    block = ATT_SEQ // world
+    rows = slice(rank * block, (rank + 1) * block)
+    for dname, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        q, k, v = attention_inputs(torch, dtype)
+        qb, kb, vb = q[rows], k[rows], v[rows]
+        rtol, atol = att_tol(torch, dtype)
+        for causal in (False, True):
+            want = reference_rows(ring, q, k, v, causal, rows)
+            for fn in ("ring_attention", "ulysses_attention"):
+                call = lambda: getattr(ring, fn)(qb, kb, vb, causal=causal)
+                got = call()
+                require(got.dtype == dtype and got.shape == qb.shape,
+                        f"{fn} gave {got.dtype} {tuple(got.shape)}")
+                key = f"{fn}/{dname}/{'causal' if causal else 'full'}"
+                out[f"err/{key}"] = tol_err(got, want, rtol, atol)
+                out[f"ms/{key}"] = cuda_ms(torch, call, 2)
+            del want
+        if world > 1:
+            if dname == "f32":  # the ring rotates k and v as f32 in either dtype
+                kf, vf = kb.float(), vb.float()
+                out["hop_ms/ring"] = cuda_ms(torch, lambda: ring_shift((kf, vf)), 2)
+            part = qb.reshape(world, block, ATT_HEADS // world, ATT_DIM)
+            out[f"hop_ms/ulysses/{dname}"] = cuda_ms(
+                torch, lambda: [_all_to_all(part, None) for _ in range(4)], 2)
+        del q, k, v, qb, kb, vb
+        torch.cuda.empty_cache()
+
+
+def _slice_rank(rank: int, world: int, tmp: str, n_rows: int) -> None:
+    """One process of the gloo world of phases 11-13, on the card, on this
+    rank's elastic shard: linear.train_step_dp and kmeans.train_iter_dp
+    over the group (every step's weights; the iterations' centers, and the
+    assignments at the checked ones), the engine-hook fits (LinearModel,
+    KMeans with engine_allreduce = api.allreduce through TorchEngine, which
+    adopts the group), each timed; then attention_cases."""
+    import torch
+    import torch.distributed as dist
+
+    from rabit_tpu_torch import api, elastic
+    from rabit_tpu_torch.models import kmeans, linear
+    from rabit_tpu_torch.parallel import ring
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False  # torch's default, made explicit
+    dist.init_process_group("gloo", store=dist.FileStore(os.path.join(tmp, "store"), world),
+                            rank=rank, world_size=world)
+    try:
+        X, y = slice_data(n_rows)
+        init = kmeans.KMeans(KM_K, 0, seed=0).fit(X).centers  # KMeans(seed=0)'s draw
+        rows = elastic.shard_slice(n_rows, world, rank)
+        Xs, ys = (torch.as_tensor(a[rows], device="cuda") for a in (X, y))
+        out = {}
+        cfg = linear.LinearConfig(n_features=N_FEATURES)
+        state = linear.init_state(cfg)
+        linear.train_step_dp(state, Xs, ys, cfg)  # warm-up: the first product and hop
+        kmeans.train_iter_dp(torch.as_tensor(init, device="cuda"), Xs)
+        ws = [state.w.cpu().numpy()]
+        t0 = time.perf_counter()
+        for _ in range(cfg.n_steps):
+            state = linear.train_step_dp(state, Xs, ys, cfg)
+            ws.append(state.w.cpu().numpy())
+        out["lin_dp_ms"] = (time.perf_counter() - t0) * 1e3 / cfg.n_steps
+        out["lin_dp_w"] = np.stack(ws)
+        centers, cs = torch.as_tensor(init, device="cuda"), [init]
+        t0 = time.perf_counter()
+        for i in range(KM_ITERS):
+            if i in KM_CHECKED:
+                out[f"km_dp_assign/{i}"] = kmeans.assign(Xs, centers).cpu().numpy()
+            centers = kmeans.train_iter_dp(centers, Xs)
+            cs.append(centers.cpu().numpy())
+        out["km_dp_ms"] = (time.perf_counter() - t0) * 1e3 / KM_ITERS
+        out["km_dp_c"] = np.stack(cs)
+        api.init(["rabit_engine=torch", "rabit_torch_device=cuda"])
+        try:
+            hook = lambda a: api.allreduce(a, api.SUM)
+            t0 = time.perf_counter()
+            out["lin_hook_w"] = linear.LinearModel(hook).fit(X[rows], y[rows]).w
+            out["lin_hook_ms"] = (time.perf_counter() - t0) * 1e3 / cfg.n_steps
+            t0 = time.perf_counter()
+            out["km_hook_c"] = kmeans.KMeans(KM_K, KM_ITERS, engine_allreduce=hook).fit(
+                X[rows], init_centers=init).centers
+            out["km_hook_ms"] = (time.perf_counter() - t0) * 1e3 / KM_ITERS
+        finally:
+            api.finalize()
+        del Xs, ys
+        attention_cases(torch, ring, rank, world, out)
+        np.savez(os.path.join(tmp, f"rank{rank}.npz"), **out)
+    finally:
+        dist.destroy_process_group()
+
+
+def _durable_rank(proc: int, n_procs: int, tmp: str, n_rows: int, jobs: str) -> None:
+    """One process of the durable phase: rank proc % 2 of job proc // 2 of
+    ``jobs`` (JSON: [checkpoint dir, steps, stop at] a job), a gloo job of
+    two processes on the card through the port's api and TorchEngine with
+    rabit_checkpoint_dir, running tests/workers/torch_durable_worker.py's
+    job (the linear model, a checkpoint a step, rank-local models) on the
+    headline data.  Writes the job's results and its wall time."""
+    import torch
+    import torch.distributed as dist
+
+    from rabit_tpu_torch import api
+
+    job, rank = divmod(proc, 2)
+    ckpt, niter, stop_at = json.loads(jobs)[job]
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", store=dist.FileStore(
+        os.path.join(tmp, f"job{job}.store"), 2), rank=rank, world_size=2)
+    try:
+        X, y = slice_data(n_rows)
+        worker = worker_module("torch_durable_worker")
+        api.init(["rabit_engine=torch", "rabit_torch_device=cuda",
+                  f"rabit_checkpoint_dir={ckpt}"])
+        try:
+            t0 = time.perf_counter()
+            out = worker.job(X, y, niter, stop_at, local=True, device="cuda")
+            out["wall_s"] = time.perf_counter() - t0
+        except worker.CheckFailed as e:
+            raise PhaseFailed(str(e)) from e
+        finally:
+            api.finalize()
+        np.savez(os.path.join(tmp, f"rank{proc}.npz"), **out)
+    finally:
+        dist.destroy_process_group()
+
+
+@contextlib.contextmanager
+def nccl_group_of_one():
+    """This process as an NCCL group of one (a FileStore in a temp dir)."""
+    import torch.distributed as dist
+
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1),
+                                rank=0, world_size=1)
+        try:
+            yield
+        finally:
+            dist.destroy_process_group()
+
+
 class Smoke:
     def __init__(self, torch, boost, hist, gbdt, n_rows: int, device="cuda",
                  n_bins: int = N_BINS):
@@ -520,6 +768,7 @@ class Smoke:
         self.bound = {}
         self.device_fns = {k: [] for k in REPLACES}  # calls whose mean is device_ms
         self.launches = {k: 0 for k in REPLACES}
+        self.slice_ms = {}
 
     def sync(self):
         if self.dev.type == "cuda":
@@ -1324,21 +1573,14 @@ class Smoke:
     def dp_single(self):
         """train_round_dp / train_round_dp_fused on an NCCL group of one:
         bitwise train_round / train_round_fused."""
-        import torch.distributed as dist
-
         torch, gbdt = self.torch, self.gbdt
         cfg = gbdt.GBDTConfig(n_features=N_FEATURES, n_trees=2, depth=DEPTH,
                               n_bins=self.n_bins)
         start = gbdt.init_state(cfg, self.n_rows, self.dev)
-        with tempfile.TemporaryDirectory() as tmp:
-            dist.init_process_group("nccl", store=dist.FileStore(
-                os.path.join(tmp, "store"), 1), rank=0, world_size=1)
-            try:
-                (s_dp, s_f), counts = self.path(lambda: (
-                    gbdt.train_round_dp(start, self.xb, self.y, cfg),
-                    gbdt.train_round_dp_fused(start, self.xb3, self.y, cfg)))
-            finally:
-                dist.destroy_process_group()
+        with nccl_group_of_one():
+            (s_dp, s_f), counts = self.path(lambda: (
+                gbdt.train_round_dp(start, self.xb, self.y, cfg),
+                gbdt.train_round_dp_fused(start, self.xb3, self.y, cfg)))
         want = {"node_histograms_kernel": DEPTH, "hist_level0": 1,
                 "hist_level": DEPTH - 1, "route_level": 1}
         require(counts == want, f"dp launch counts {counts}, expected {want}")
@@ -1631,7 +1873,276 @@ class Smoke:
               "round's splits at every level; ms/round " + ", ".join(f"{x:.3f}" for x in ms))
         return sum(ms[1:]) / len(ms[1:])
 
-    # -- phase 11 -----------------------------------------------------------------
+    # -- phases 11-14 -------------------------------------------------------------
+    @functools.cached_property
+    def X(self):
+        """slice_data's features on the card."""
+        return self.xb.float() / 256
+
+    def slice_world(self):
+        """The gloo world of phases 11-13 (DP_RANKS processes on the card,
+        _slice_rank), spawned once; its results are read by each phase."""
+        t0 = time.perf_counter()
+        self.slice_runs = run_ranks(_slice_rank, DP_RANKS, self.n_rows)
+        print(f"  the gloo world of phases linear, kmeans and attention: {DP_RANKS} "
+              f"processes on the card, {time.perf_counter() - t0:.1f} s incl. start-up")
+
+    def slice_rank_equal(self, key: str):
+        """The key's value, required bitwise equal on every rank."""
+        val = self.slice_runs[0][key]
+        for run in self.slice_runs[1:]:
+            require(run[key].tobytes() == val.tobytes(), f"the ranks' {key} differ")
+        return val
+
+    def linear_phase(self):
+        """linear: LinearModel.fit on the card at the headline size (logistic,
+        the LinearConfig defaults) bitwise its train_step loop, whose steps
+        LIN_CHECKED are held teacher-forced against the CPU; train_step_dp on
+        an NCCL group of one bitwise the loop; on the gloo world,
+        train_step_dp (every step teacher-forced against the single-process
+        step on the card) and LinearModel(engine_allreduce=api.allreduce),
+        bitwise the dp weights."""
+        torch = self.torch
+        from rabit_tpu_torch.models import linear
+
+        X, y = self.X, self.y
+        Xh, yh = X.cpu().numpy(), y.cpu().numpy()
+        cfg = linear.LinearConfig(n_features=N_FEATURES)
+        linear.LinearModel(n_steps=2).fit(Xh, yh)  # warm-up
+        t0 = time.perf_counter()
+        model = linear.LinearModel().fit(Xh, yh)
+        fit_ms = (time.perf_counter() - t0) * 1e3 / cfg.n_steps
+        require(model.w.shape == (N_FEATURES + 1,) and np.isfinite(model.w).all(),
+                f"LinearModel.fit gave {model.w}")
+        state = linear.init_state(cfg)
+        ws = [state.w]
+        for _ in range(cfg.n_steps):
+            state = linear.train_step(state, X, y, cfg)
+            ws.append(state.w)
+        require(ws[-1].cpu().numpy().tobytes() == model.w.tobytes(),
+                "LinearModel.fit differs from its train_step loop")
+        step_ms = cuda_ms(torch, lambda: linear.train_step(state, X, y, cfg), 20)
+        Xc, yc = X.cpu(), y.cpu()
+        cpu_err = max(tol_err(ws[i + 1].cpu(), linear.train_step(
+            linear.LinearState(ws[i].cpu(), state.step.cpu()), Xc, yc, cfg).w, *LIN_TOL)
+            for i in LIN_CHECKED)
+        require(cpu_err <= 1, f"linear steps {LIN_CHECKED} on the card against the CPU: "
+                              f"{cpu_err:.3f} of the tolerance")
+        acc = float((model.predict(Xh) == yh).mean())
+        with nccl_group_of_one():
+            s = linear.init_state(cfg)
+            for _ in range(cfg.n_steps):
+                s = linear.train_step_dp(s, X, y, cfg)
+            dp1_ms = cuda_ms(torch, lambda: linear.train_step_dp(s, X, y, cfg), 20)
+        require(torch.equal(s.w, ws[-1]), "train_step_dp on one NCCL rank differs from "
+                                          "train_step")
+        dp_w = self.slice_rank_equal("lin_dp_w")
+        hook_w = self.slice_rank_equal("lin_hook_w")
+        require(hook_w.tobytes() == dp_w[-1].tobytes(),
+                "the engine-hook fit differs from train_step_dp over the same group")
+        dp_err = max(tol_err(torch.as_tensor(dp_w[i + 1], device=self.dev), linear.train_step(
+            linear.LinearState(torch.as_tensor(dp_w[i], device=self.dev), state.step),
+            X, y, cfg).w, *LIN_TOL) for i in range(cfg.n_steps))
+        require(dp_err <= 1, f"train_step_dp over gloo against the single-process step: "
+                             f"{dp_err:.3f} of the tolerance")
+        r0 = self.slice_runs[0]
+        self.slice_ms["linear"] = ms = {
+            "fit": fit_ms, "train_step": step_ms, "dp_nccl1": dp1_ms,
+            f"dp_gloo{DP_RANKS}": float(r0["lin_dp_ms"]),
+            f"hook_gloo{DP_RANKS}": float(r0["lin_hook_ms"])}
+        print(f"  LinearModel.fit ({self.n_rows} x {N_FEATURES}, logistic, {cfg.n_steps} "
+              f"steps): bitwise its train_step loop; steps {LIN_CHECKED} within "
+              f"{cpu_err:.3f} of rtol/atol {LIN_TOL} of the CPU's; train accuracy {acc:.4f}; "
+              f"train_step_dp on NCCL world 1 bitwise; over gloo every step within "
+              f"{dp_err:.3f} of the tolerance of the single-process step, the engine hook "
+              "bitwise the dp weights")
+        print("  linear ms/step " + json.dumps(ms))
+
+    def kmeans_phase(self):
+        """kmeans: KMeans(64, 20, seed=0).fit on the card at the headline
+        size bitwise its train_iter loop, whose iterations KM_CHECKED are held
+        teacher-forced against the CPU (assignments but for near ties;
+        local_stats the f64 sums of the card's assignments, rounded); train_iter_dp
+        on an NCCL group of one bitwise the loop; on the gloo world,
+        train_iter_dp (the checked iterations teacher-forced: the ranks'
+        assignments against the card's single-process ones but for near ties,
+        the new centers the f64 means of the ranks' assignments) and
+        KMeans(engine_allreduce=api.allreduce), bitwise the dp centers."""
+        torch = self.torch
+        from rabit_tpu_torch.models import kmeans
+        from rabit_tpu_torch.ops import hist
+
+        flips_of = worker_module("torch_models_worker").assign_flips
+        X = self.X
+        Xh = X.cpu().numpy()
+        init = kmeans.KMeans(KM_K, 0, seed=0).fit(Xh).centers
+        kmeans.KMeans(KM_K, 2, seed=0).fit(Xh)  # warm-up
+        t0 = time.perf_counter()
+        model = kmeans.KMeans(KM_K, KM_ITERS, seed=0).fit(Xh)
+        fit_ms = (time.perf_counter() - t0) * 1e3 / KM_ITERS
+        require(model.centers.shape == (KM_K, N_FEATURES)
+                and np.isfinite(model.centers).all(), "KMeans.fit gave non-finite centers")
+        cs = [torch.as_tensor(init, device=self.dev)]
+        for _ in range(KM_ITERS):
+            cs.append(kmeans.train_iter(cs[-1], X))
+        require(cs[-1].cpu().numpy().tobytes() == model.centers.tobytes(),
+                "KMeans.fit differs from its train_iter loop")
+        c = cs[-1]
+        a = kmeans.assign(X, c)
+        vals = torch.cat([X, X.new_ones((len(X), 1))], 1)
+        ms = {"fit": fit_ms, "train_iter": cuda_ms(torch, lambda: kmeans.train_iter(c, X), 5),
+              "assign": cuda_ms(torch, lambda: kmeans.assign(X, c), 5),
+              "segment_sum": cuda_ms(torch, lambda: hist.segment_sum(vals, a, KM_K), 5)}
+
+        def f64_means(assign, centers):  # update() of the f64 sums, in f64
+            sums = np.stack([np.bincount(assign, Xh[:, j].astype(np.float64), KM_K)
+                             for j in range(N_FEATURES)], 1)
+            n = np.bincount(assign, minlength=KM_K)[:, None]
+            return np.where(n > 0, sums / np.maximum(n, 1), centers), sums, n
+
+        flips, stats_err = 0, 0.0
+        for i in KM_CHECKED:
+            ci = cs[i]
+            got = kmeans.assign(X, ci).cpu().numpy()
+            flips += flips_of(Xh, ci.cpu().numpy(), got,
+                              kmeans.assign(X.cpu(), ci.cpu()).numpy())
+            _, sums, n = f64_means(got, ci.cpu().numpy())
+            stats = kmeans.local_stats(X, ci).cpu().numpy()
+            require(np.array_equal(stats[:, -1:], n), f"iteration {i}: counts differ")
+            stats_err = max(stats_err, float(np.max(
+                np.abs(stats[:, :-1] - sums) / (1e-30 + 2.0 ** -23 * np.abs(sums)))))
+        require(stats_err <= 1, f"local_stats against the f64 sums: {stats_err:.3f} of an ulp")
+        with nccl_group_of_one():
+            c1 = cs[0]
+            for _ in range(KM_ITERS):
+                c1 = kmeans.train_iter_dp(c1, X)
+            ms["dp_nccl1"] = cuda_ms(torch, lambda: kmeans.train_iter_dp(c, X), 5)
+        require(torch.equal(c1, cs[-1]), "train_iter_dp on one NCCL rank differs from "
+                                         "train_iter")
+        dp_c = self.slice_rank_equal("km_dp_c")
+        hook_c = self.slice_rank_equal("km_hook_c")
+        require(hook_c.tobytes() == dp_c[-1].tobytes(),
+                "the engine-hook fit differs from train_iter_dp over the same group")
+        dp_flips, dp_err = 0, 0.0
+        for i in KM_CHECKED:
+            got = np.concatenate([run[f"km_dp_assign/{i}"] for run in self.slice_runs])
+            ci = torch.as_tensor(dp_c[i], device=self.dev)
+            dp_flips += flips_of(Xh, dp_c[i], got, kmeans.assign(X, ci).cpu().numpy())
+            want, _, _ = f64_means(got, dp_c[i])
+            dp_err = max(dp_err, float(np.max(
+                np.abs(dp_c[i + 1] - want) / (1e-30 + 2.0 ** -21 * np.abs(want)))))
+        require(dp_err <= 1, f"train_iter_dp over gloo against the f64 means: {dp_err:.3f} "
+                             "of the tolerance")
+        r0 = self.slice_runs[0]
+        ms.update({f"dp_gloo{DP_RANKS}": float(r0["km_dp_ms"]),
+                   f"hook_gloo{DP_RANKS}": float(r0["km_hook_ms"])})
+        self.slice_ms["kmeans"] = ms
+        print(f"  KMeans.fit ({self.n_rows} x {N_FEATURES}, K = {KM_K}, {KM_ITERS} "
+              f"iterations, seed 0): bitwise its train_iter loop, inertia "
+              f"{model.inertia(Xh):.6g}; iterations {KM_CHECKED}: {flips} assignments "
+              f"differ from the CPU's, each a near tie (c = 2F); local_stats within "
+              f"{stats_err:.3f} ulp of the f64 sums; train_iter_dp on NCCL world 1 bitwise; "
+              f"over gloo {dp_flips} near-tie assignments differ, centers within "
+              f"{dp_err:.3f} of 2^-21 of the f64 means; the engine hook bitwise the dp "
+              "centers")
+        print("  kmeans ms/iteration " + json.dumps(ms))
+
+    def attention_phase(self):
+        """attention: ring_attention and ulysses_attention at 8192 x 32 x
+        128, f32 and bf16, causal and not, on an NCCL group of one here and
+        on the gloo world (block 4096), each against the head-sliced
+        reference (att_tol); ms a call, and the host-staged hops alone."""
+        torch = self.torch
+        from rabit_tpu_torch.parallel import ring
+
+        torch.cuda.empty_cache()
+        world1 = {}
+        with nccl_group_of_one():
+            attention_cases(torch, ring, 0, 1, world1)
+        res = {"nccl1": world1, f"gloo{DP_RANKS}": self.slice_runs[0]}
+        for where, out in [("nccl1", world1)] + [
+                (f"gloo{DP_RANKS} rank {r}", run) for r, run in enumerate(self.slice_runs)]:
+            for k in (k for k in out if k.startswith("err/")):
+                require(float(out[k]) <= 1, f"{k[4:]} ({where}) against the reference: "
+                                            f"{float(out[k]):.3f} of the tolerance")
+        torch.cuda.empty_cache()
+        self.slice_ms["attention"] = ms = {
+            w: {k[3:]: float(v) for k, v in out.items() if k.startswith("ms/")}
+            for w, out in res.items()}
+        r0 = self.slice_runs[0]
+        hops = {k[7:]: float(v) for k, v in r0.items() if k.startswith("hop_ms/")}
+        ms["hops"] = hops
+        worst = max(float(v) for out in [world1] + self.slice_runs
+                    for k, v in out.items() if k.startswith("err/"))
+        print(f"  ring_attention, ulysses_attention ({ATT_SEQ} x {ATT_HEADS} x {ATT_DIM}; "
+              f"f32, bf16; causal and not; NCCL world 1 and gloo world {DP_RANKS}): every "
+              f"output within {worst:.3f} of its tolerance of the f32 reference (rtol/atol "
+              f"{ATT_F32}, bf16 rtol + 2^-8)")
+        g = ms[f"gloo{DP_RANKS}"]
+        for dname in ("f32", "bf16"):
+            share = {f"ring/{c}": hops["ring"] / g[f"ring_attention/{dname}/{c}"]
+                     for c in ("full", "causal")}
+            share.update({f"ulysses/{c}": hops[f"ulysses/{dname}"]
+                          / g[f"ulysses_attention/{dname}/{c}"] for c in ("full", "causal")})
+            print(f"  {dname}: share of a call in host-staged hops (rank 0) " + json.dumps(share))
+        print("  attention ms/call " + json.dumps(ms))
+
+    def durable_phase(self):
+        """durable: two-process gloo jobs on the card through the api with
+        rabit_checkpoint_dir (tests/workers/torch_durable_worker.py's job,
+        the headline data): one never stopped and one stopped at version
+        DURABLE_STOP of DURABLE_STEPS, together; then a fresh job resuming a
+        copy of the stopped one's directory, and another resuming a copy
+        with rank 1's global files deleted (rank 0's broadcast serves the
+        blob, rank 1 rebuilds its local model), together.  Both must end
+        with the unstopped job's weights bit for bit."""
+        t_phase = time.perf_counter()
+        with tempfile.TemporaryDirectory() as ck:
+            d = {k: os.path.join(ck, k) for k in ("clean", "stop", "resume", "missing")}
+            t0 = time.perf_counter()
+            first = run_ranks(_durable_rank, 4, self.n_rows, json.dumps(
+                [[d["clean"], DURABLE_STEPS, 0], [d["stop"], DURABLE_STEPS, DURABLE_STOP]]))
+            t1 = time.perf_counter() - t0
+            frames = {f: os.path.getsize(os.path.join(d["stop"], f))
+                      for f in sorted(os.listdir(d["stop"]))}
+            shutil.copytree(d["stop"], d["resume"])
+            shutil.copytree(d["stop"], d["missing"])
+            for f in os.listdir(d["missing"]):
+                if f.startswith("global_r1_"):
+                    os.unlink(os.path.join(d["missing"], f))
+            t0 = time.perf_counter()
+            second = run_ranks(_durable_rank, 4, self.n_rows, json.dumps(
+                [[d["resume"], DURABLE_STEPS, 0], [d["missing"], DURABLE_STEPS, 0]]))
+            t2 = time.perf_counter() - t0
+        clean, stopped, resumed, missing = first[:2], first[2:], second[:2], second[2:]
+        w = clean[0]["w"].tobytes()
+        for name, job, at, frm in (("unstopped", clean, DURABLE_STEPS, 0),
+                                   ("stopped", stopped, DURABLE_STOP, 0),
+                                   ("resumed", resumed, DURABLE_STEPS, DURABLE_STOP),
+                                   ("resumed without rank 1's files", missing, DURABLE_STEPS,
+                                    DURABLE_STOP)):
+            for run in job:
+                require(int(run["version"]) == at and int(run["resumed_from"]) == frm,
+                        f"the {name} job ended at v{int(run['version'])} from "
+                        f"v{int(run['resumed_from'])}, expected v{at} from v{frm}")
+                if name != "stopped":
+                    require(run["w"].tobytes() == w,
+                            f"the {name} job's weights differ from the unstopped job's")
+        require([int(r["rebuilt"]) for r in missing] == [0, 1],
+                "rank 1 did not rebuild its lost local model")
+        self.slice_ms["durable"] = {
+            "phase_s": time.perf_counter() - t_phase, "first_round_s": t1,
+            "second_round_s": t2, "frame_bytes": frames,
+            "job_s": {k: float(j[0]["wall_s"]) for k, j in (
+                ("unstopped", clean), ("stopped", stopped), ("resumed", resumed),
+                ("missing", missing))}}
+        print(f"  durable: stop at v{DURABLE_STOP} of {DURABLE_STEPS}, resumed by a fresh "
+              "job, and again with rank 1's global files deleted: the unstopped job's "
+              "weights bit for bit; rank 1 rebuilt its local model; frames on disk at the "
+              "stop " + json.dumps(frames))
+        print("  durable " + json.dumps(self.slice_ms["durable"]))
+
+    # -- phase 15 -----------------------------------------------------------------
     def trace_phase(self, logdir: str):
         """One warm fused bf16 round and one warm hook-based bf16 round under
         profile.device_trace: each round's wall time, the device time in
@@ -1692,7 +2203,7 @@ class Smoke:
         print(f"  Chrome trace under {logdir}")
         return out
 
-    # -- phase 12 -----------------------------------------------------------------
+    # -- phase 16 -----------------------------------------------------------------
     def measure(self):
         torch, boost = self.torch, self.boost
         xb3, g3, h3 = self.xb3, self.g3, self.h3
@@ -1902,7 +2413,8 @@ def main() -> int:
     except ImportError as e:
         print(f"FAIL: run from the root of a checkout ({e})", file=sys.stderr)
         return 2
-    torch.backends.cuda.matmul.allow_tf32 = False  # the plain versions' matmuls
+    # the plain versions' matmuls, and the products of phases 11-13 (exact f32)
+    torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     phase, t_phase = "device", time.perf_counter()
 
@@ -1981,6 +2493,19 @@ def main() -> int:
 
         phase = next_phase("hybrid")
         print(f"[hybrid] train_round_hybrid {smoke.hybrid_phase():.3f} ms/round", flush=True)
+
+        phase = next_phase("linear")
+        smoke.slice_world()
+        smoke.linear_phase()
+
+        phase = next_phase("kmeans")
+        smoke.kmeans_phase()
+
+        phase = next_phase("attention")
+        smoke.attention_phase()
+
+        phase = next_phase("durable")
+        smoke.durable_phase()
 
         phase = next_phase("trace")
         smoke.trace_phase(args.trace_dir)

@@ -9,5 +9,10 @@ by ``_build``; ``elastic`` the dense row partition across ranks.  ``api``
 is the module-level collective API (init, allreduce, broadcast, allgather,
 checkpoints) over an engine of ``engine``: ``engine.torch_dist``'s
 ``TorchEngine`` (torch.distributed, NCCL or gloo) or the solo engine,
-configured by ``config``.  The package imports torch and numpy only.
+configured by ``config``, with the durable checkpoint spill of ``store``
+(``rabit_checkpoint_dir``) and ``fusion``'s ``LazyAllreduce``.
+``models.linear`` and ``models.kmeans`` are the smaller model families;
+``parallel`` holds the collectives over process groups and, in
+``parallel.ring``, sequence-parallel attention.  The package imports torch
+and numpy only.
 """

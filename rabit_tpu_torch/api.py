@@ -12,9 +12,15 @@ the ``rabit_compress_*`` policy that ``init`` resolves (``compress``): an
 allreduce ``codec=`` (or the policy's default codec) and the broadcast
 payloads' byte codec.
 
-Not ported (ROADMAP.md Queue 1): the durable checkpoint spill
-(``rabit_checkpoint_dir``), elastic ``rebootstrap``, the flight recorder and
-metrics (``obs``), the quorum policy and the delivery plane.
+With ``rabit_checkpoint_dir`` set, every committed checkpoint is also
+spilled to disk (``store.CheckpointStore``, after the commit barrier), and
+a fresh job, whose engine holds version 0, resumes from the newest version
+every rank can serve (``_disk_resume``).  The events JAX records in its
+flight recorder go to the engine's ``obs_event`` hook.
+
+Not ported (ROADMAP.md Queue 1): elastic ``rebootstrap`` and the world
+epoch (the spilled frames carry epoch 0), the flight recorder and metrics
+(``obs``), the quorum policy and the delivery plane.
 """
 
 from __future__ import annotations
@@ -37,6 +43,30 @@ __all__ = ["MAX", "MIN", "SUM", "BITOR", "init", "finalize", "get_rank",
            "load_checkpoint", "version_number", "get_engine"]
 
 _engine: Engine | None = None
+# Durable-spill state (rabit_checkpoint_dir): the store, and the user-visible
+# version base when this job resumed a previous job's disk checkpoints.  The
+# base also travels inside every wrapped global blob (_wrap/_unwrap), so a
+# restarted worker recovers it from the peer-served blob rather than from
+# process memory.
+_ckpt_store = None
+_ckpt_base = 0
+
+_WRAP_TAG = "__rabit_tpu_ckpt1__"
+
+
+def _wrap(base: int, gblob: bytes) -> bytes:
+    return pickle.dumps((_WRAP_TAG, base, gblob), protocol=pickle.HIGHEST_PROTOCOL)
+
+
+def _unwrap(blob: bytes) -> tuple[int, bytes]:
+    """Returns (base, inner_blob); plain blobs (store off) pass through."""
+    try:
+        obj = pickle.loads(blob)
+    except Exception:  # noqa: BLE001 (not a pickle we wrote)
+        return 0, blob
+    if isinstance(obj, tuple) and len(obj) == 3 and obj[0] == _WRAP_TAG:
+        return int(obj[1]), obj[2]
+    return 0, blob
 
 
 def get_engine() -> Engine:
@@ -55,7 +85,7 @@ def init(args: list[str] | None = None, **overrides: Any) -> None:
     """Start the engine.  ``args`` are ``"key=value"`` strings (default: the
     ones in ``sys.argv[1:]``; of a key given twice the last wins); keyword
     overrides win over them."""
-    global _engine
+    global _engine, _ckpt_store, _ckpt_base
     if _engine is not None:
         if not getattr(_engine, "_provisional", False):
             import warnings
@@ -67,19 +97,30 @@ def init(args: list[str] | None = None, **overrides: Any) -> None:
     if args is None:
         args = [a for a in sys.argv[1:] if "=" in a]
     config = Config(args, {k: str(v) for k, v in overrides.items()})
-    compress.configure(config)  # a bad policy fails before the engine starts
+    pol = compress.configure(config)  # a bad policy fails before the engine starts
     engine = create_engine(config)
     engine.init()
     _engine = engine
+    _ckpt_base = 0
+    ckpt_dir = config.get("rabit_checkpoint_dir", "") or ""
+    if ckpt_dir and ckpt_dir != "NULL":
+        from rabit_tpu_torch.store import CheckpointStore
+
+        _ckpt_store = CheckpointStore(ckpt_dir, engine.get_rank(),
+                                      codec=pol.checkpoint, engine=engine)
+    else:
+        _ckpt_store = None
 
 
 def finalize() -> None:
     """Shut the engine down; the process runs solo after it."""
-    global _engine
+    global _engine, _ckpt_store, _ckpt_base
     if _engine is not None:
         _engine.shutdown()
         _engine = None
     compress.reset()
+    _ckpt_store = None
+    _ckpt_base = 0
 
 
 def get_rank() -> int:
@@ -180,24 +221,132 @@ def allgather(data: np.ndarray) -> np.ndarray:
     return np.asarray(out).reshape((engine.get_world_size(),) + data.shape)
 
 
+def _disk_resume():
+    """Fresh-job disk resume (store configured, engine version 0).
+
+    Every rank runs this IDENTICAL deterministic collective sequence (its
+    decisions depend only on collective results, which agree on all
+    ranks): MAX of the newest valid version, MIN of "have it", MIN of the
+    holders' ranks, then the holder's broadcast of the global blob.  A rank
+    missing its file takes another branch only after the agreed MIN.
+
+    Returns (base_version, gblob, lblob): (0, None, None) when there is
+    nothing on disk anywhere."""
+    engine = get_engine()
+    mine = np.array([_ckpt_store.latest_valid()], np.int64)
+    vmax = int(engine.allreduce(mine, MAX, cache_key="rabit_tpu.store::vmax")[0])
+    if vmax <= 0:
+        return 0, None, None
+    have = int(_ckpt_store.has(vmax))
+    all_have = int(
+        engine.allreduce(np.array([have], np.int64), MIN,
+                         cache_key="rabit_tpu.store::have")[0]
+    )
+    if all_have:
+        return vmax, _ckpt_store.load_global(vmax), _ckpt_store.load_local(vmax)
+    # Someone's disk copy is missing or stale: the lowest-ranked holder
+    # serves the (rank-identical) global blob over a broadcast.  Rank-local
+    # models cannot be served this way; a rank without its own file resumes
+    # with local_model=None, and the caller must rebuild rank-local state.
+    if not have:
+        import warnings
+
+        warnings.warn(
+            f"rabit_tpu_torch durable resume: rank {engine.get_rank()} has no "
+            f"valid disk checkpoint for v{vmax} (killed between the commit "
+            "barrier and its disk save?); the global model is served by a "
+            "peer but any rank-local model is LOST: load_checkpoint will "
+            "return local_model=None and the caller must rebuild it",
+            stacklevel=3,
+        )
+    world = engine.get_world_size()
+    root = int(
+        engine.allreduce(
+            np.array([engine.get_rank() if have else world], np.int64), MIN,
+            cache_key="rabit_tpu.store::root")[0]
+    )
+    # The blob crosses the wire zlib-compressed (both ends run this same
+    # code, so no frame negotiation is needed).
+    zcodec = compress.get_codec("zlib")
+    wireblob = engine.broadcast(
+        zcodec.encode_bytes(_ckpt_store.load_global(vmax))
+        if engine.get_rank() == root else None,
+        root, cache_key="rabit_tpu.store::blob",
+    )
+    gblob = zcodec.decode_bytes(bytes(wireblob))
+    compress.observe(engine, zcodec.name, raw=len(gblob), wire=len(wireblob))
+    engine.obs_event("recovery_blob_compressed", raw=len(gblob),
+                     wire=len(wireblob), version=vmax)
+    lblob = _ckpt_store.load_local(vmax) if have else None
+    return vmax, bytes(gblob), lblob
+
+
+def _note_commit(engine: Engine, nbytes: int) -> None:
+    """Report one checkpoint commit (engine version bump) to the engine's
+    event hook, where JAX records it and publishes it to the delivery
+    plane."""
+    engine.obs_event("checkpoint_commit", version=_ckpt_base + engine.version_number(),
+                     nbytes=nbytes)
+
+
 def checkpoint(global_model: Any, local_model: Any = None) -> None:
-    """Commit an iteration: pickle and store the models, bump the version."""
+    """Commit an iteration: pickle and store the models, bump the version.
+    With ``rabit_checkpoint_dir`` configured, the committed blobs are also
+    spilled to disk."""
     dump = lambda m: pickle.dumps(m, protocol=pickle.HIGHEST_PROTOCOL)
-    get_engine().checkpoint(dump(global_model),
-                            None if local_model is None else dump(local_model))
+    gblob = dump(global_model)
+    lblob = None if local_model is None else dump(local_model)
+    engine = get_engine()
+    if _ckpt_store is None:
+        engine.checkpoint(gblob, lblob)
+        _note_commit(engine, len(gblob))
+        return
+    wrapped = _wrap(_ckpt_base, gblob)
+    engine.checkpoint(wrapped, lblob)
+    _note_commit(engine, len(wrapped))
+    # Persist AFTER the commit barrier: live ranks' disk versions can then
+    # skew by at most one, which the store's keep-2 retention covers.
+    _ckpt_store.save(_ckpt_base + engine.version_number(), wrapped, lblob)
 
 
 def lazy_checkpoint(global_model: Any) -> None:
     """Checkpoint whose pickling waits until a load asks for it:
-    ``global_model`` must stay unchanged until the next checkpoint."""
-    get_engine().lazy_checkpoint(
+    ``global_model`` must stay unchanged until the next checkpoint.  With
+    ``rabit_checkpoint_dir`` configured it is the eager ``checkpoint``: disk
+    durability needs the bytes at commit time."""
+    if _ckpt_store is not None:
+        checkpoint(global_model)
+        return
+    engine = get_engine()
+    engine.lazy_checkpoint(
         lambda: pickle.dumps(global_model, protocol=pickle.HIGHEST_PROTOCOL))
+    _note_commit(engine, 0)
 
 
 def load_checkpoint(with_local: bool = False):
     """``(version, global_model)`` or, ``with_local``, ``(version,
-    global_model, local_model)``; version 0 means nothing checkpointed."""
-    version, gblob, lblob = get_engine().load_checkpoint()
+    global_model, local_model)``; version 0 means nothing checkpointed.
+    With ``rabit_checkpoint_dir`` configured, a fresh job first agrees on
+    and resumes from the newest disk checkpoint."""
+    global _ckpt_base
+    engine = get_engine()
+    version, gblob, lblob = engine.load_checkpoint()
+    if _ckpt_store is not None:
+        if version == 0:
+            vmax, dgblob, dlblob = _disk_resume()
+            if vmax > 0:
+                # Resuming a PREVIOUS job: the file's version is the new
+                # base; the wrapper inside carries the old job's base and is
+                # discarded.
+                _ckpt_base = vmax
+                _, gblob = _unwrap(dgblob)
+                lblob = dlblob
+                version = vmax
+        else:
+            # A blob of the CURRENT job: its wrapper carries this job's base.
+            _ckpt_base, gblob = _unwrap(gblob)
+            version = _ckpt_base + version
+    engine.obs_event("load_checkpoint", version=version, recovered=version > 0)
     gmodel = pickle.loads(gblob) if version > 0 and gblob is not None else None
     if not with_local:
         return version, gmodel
@@ -206,4 +355,6 @@ def load_checkpoint(with_local: bool = False):
 
 
 def version_number() -> int:
-    return get_engine().version_number()
+    """Checkpoint count; when this job resumed a previous job's disk
+    checkpoints, the resumed base is included."""
+    return _ckpt_base + get_engine().version_number()

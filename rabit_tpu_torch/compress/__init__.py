@@ -19,8 +19,8 @@ validated loudly (a wrong dtype or a BITOR op raises); the config policy is
 applied quietly only where it is sound (float32 payloads, non-BITOR ops, at
 least ``rabit_compress_min_bytes`` bytes) and everything else stays exact,
 so turning the knob on can never corrupt an exact path.  The ``checkpoint``
-field is kept for the durable store, which the port does not have yet:
-nothing reads it.  The fused ring's keys (``rabit_fused_allreduce``,
+field is the byte codec of the durable store's frames (``store``, built by
+``api.init`` when ``rabit_checkpoint_dir`` is set).  The fused ring's keys (``rabit_fused_allreduce``,
 ``rabit_fused_chunk_kib``) are not policy: ``TorchEngine``, the one engine
 that reads them, resolves them with ``engine.fused``'s parsers.
 """

@@ -31,6 +31,11 @@ DEFAULTS: dict[str, str] = {
     "rabit_compress_min_bytes": "1024",
     "rabit_compress_wire_deflate": "1",
     "rabit_compress_broadcast": "",
+    # The durable checkpoint spill (store): the directory every committed
+    # checkpoint is also written to, and a fresh job resumes from (empty or
+    # NULL: off); the byte codec of its frames.
+    "rabit_checkpoint_dir": "",
+    "rabit_checkpoint_compress": "zlib",
     # The fused quantized ring of TorchEngine (engine.fused): auto (on) | 1
     # | 0 (the host transport), and the most KiB a hop sends at once (0:
     # one send a hop).

@@ -194,11 +194,16 @@ def build_fused_allreduce(group, ring_order, op: int, codec: Codec, n: int,
 
 def run_local(contribs, op: int, codec, ring_order=None,
               chunk_bytes: int = DEFAULT_CHUNK_KIB * 1024, group=None,
-              device="cpu") -> np.ndarray:
+              device="cuda") -> np.ndarray:
     """Build and run the fused ring on this rank's contribution
     (``contribs[rank]`` of every rank's, all given) over ``group``; checks
     that every rank got the identical bits and returns them.  Each rank of
-    a spawned test world calls it."""
+    a spawned test world calls it.  Runs on the card unless ``device`` is
+    ``"cpu"``; asking for CUDA without a card raises."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {device} requested but no CUDA device is "
+                           "available; pass device='cpu' to run on the CPU")
     c = codec if isinstance(codec, Codec) else get_codec(codec)
     world, rank = dist.get_world_size(group), dist.get_rank(group)
     if len(contribs) != world:

@@ -4,9 +4,9 @@ The port's counterpart of ``rabit_tpu/parallel``: ``mesh`` lays the ranks
 of the default process group on a ``DeviceMesh`` (a collective takes the
 group of one of its dimensions where JAX takes an axis name), and
 ``collectives`` holds the collectives, the explicit rings and the
-quantized int8-wire ring.  The sequence-parallel attention of the JAX
-package's ``parallel/ring.py`` (``ring_attention``, ``ulysses_attention``,
-``reference_attention``) comes in a later slice.
+quantized int8-wire ring, and ``ring`` the sequence-parallel attention
+(``ring_attention``, ``ulysses_attention`` and their oracle
+``reference_attention``) over a group.
 """
 
 from rabit_tpu_torch.parallel.collectives import (
@@ -30,6 +30,11 @@ from rabit_tpu_torch.parallel.mesh import (
     sharded_along,
     snake_order,
 )
+from rabit_tpu_torch.parallel.ring import (
+    reference_attention,
+    ring_attention,
+    ulysses_attention,
+)
 
 __all__ = [
     "create_mesh",
@@ -49,4 +54,7 @@ __all__ = [
     "ring_allreduce_quantized",
     "fused_allreduce",
     "wire_device",
+    "ring_attention",
+    "ulysses_attention",
+    "reference_attention",
 ]

@@ -995,3 +995,116 @@ def test_wire_i8_round_of_two_gloo_processes_on_one_card_matches_cpu(cuda, tmp_p
                                       cpu[0][f"{key}_threshold"])
         np.testing.assert_allclose(card[0][f"{key}_leaf"], cpu[0][f"{key}_leaf"],
                                    rtol=1e-3, atol=1e-3)
+
+
+# -- the linear and k-means models, attention and run_local on the card ---------
+#
+# TF32 stays off (torch's default for matmuls, asserted here): the card's
+# products are then exact-f32 like the CPU's, in another order of summation.
+
+
+def _models_worker():
+    import importlib.util
+    import pathlib
+
+    path = pathlib.Path(__file__).parent / "workers" / "torch_models_worker.py"
+    spec = importlib.util.spec_from_file_location("torch_models_worker", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("objective", ["logistic", "squared"])
+def test_linear_on_card_matches_cpu(cuda, objective):
+    """LinearModel on cuda against the same fit on the CPU, at
+    tests/test_models.py's rtol 2e-4, atol 2e-5."""
+    from rabit_tpu_torch.models import linear
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    X, y = _models_worker().make_classif(n=20000, f=28)
+    got = linear.LinearModel(n_steps=50, objective=objective).fit(X, y)
+    want = linear.LinearModel(device="cpu", n_steps=50, objective=objective).fit(X, y)
+    assert got.state.w.device.type == "cuda"
+    np.testing.assert_allclose(got.w, want.w, rtol=2e-4, atol=2e-5)
+    np.testing.assert_allclose(got.predict_margin(X), want.predict_margin(X),
+                               rtol=2e-4, atol=2e-5)
+
+
+@pytest.mark.gpu
+def test_kmeans_on_card_matches_cpu(cuda):
+    """assign on the card against the CPU's but for near ties (the worker's
+    assign_flips, c = 2F); local_stats' counts exactly where the
+    assignments agree; KMeans.fit on blobs within rtol = atol = 1e-4 (the
+    CPU sums a cluster's rows in f32 in row order, the card in f64 rounded
+    once: they differ by the CPU's rounding, under 1500 * 2^-24 < 1e-4 of
+    the sum for these clusters)."""
+    from rabit_tpu_torch.models import kmeans
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    W = _models_worker()
+    rng = np.random.RandomState(8)
+    X = rng.rand(50000, 28).astype(np.float32)
+    C = X[rng.choice(len(X), 64, replace=False)]
+    got = kmeans.assign(torch.as_tensor(X, device=cuda), torch.as_tensor(C, device=cuda))
+    want = kmeans.assign(torch.as_tensor(X), torch.as_tensor(C))
+    W.assign_flips(X, C, got.cpu().numpy(), want.numpy())
+    stats = kmeans.local_stats(torch.as_tensor(X, device=cuda), torch.as_tensor(C, device=cuda))
+    np.testing.assert_array_equal(stats[:, -1].cpu().numpy(),
+                                  np.bincount(got.cpu().numpy(), minlength=64))
+    B, _ = W.make_blobs()
+    card = kmeans.KMeans(5, 30, seed=3).fit(B)
+    cpu = kmeans.KMeans(5, 30, seed=3, device="cpu").fit(B)
+    np.testing.assert_allclose(card.centers, cpu.centers, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [False, True])
+def test_attention_at_world_one_on_card_matches_reference(cuda, tmp_path, causal, dtype):
+    """ring_attention and ulysses_attention on an NCCL group of one against
+    reference_attention of the f32-cast inputs on the card: rtol 2e-4,
+    atol 2e-5 (tests/test_parallel.py's) in f32; bf16 adds the output's
+    rounding, half an ulp: rtol 2^-8 + 2e-4."""
+    import torch.distributed as dist
+
+    from rabit_tpu_torch.parallel import ring
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    rng = np.random.RandomState(9)
+    q, k, v = (torch.as_tensor(rng.randn(256, 8, 64).astype(np.float32), device=cuda)
+               .to(dtype) for _ in range(3))
+    want = ring.reference_attention(q.float(), k.float(), v.float(), causal=causal)
+    tol = dict(rtol=2e-4, atol=2e-5) if dtype == torch.float32 else \
+        dict(rtol=2.0 ** -8 + 2e-4, atol=2e-5)
+    dist.init_process_group("nccl", store=dist.FileStore(str(tmp_path / "store"), 1),
+                            rank=0, world_size=1)
+    try:
+        for fn in (ring.ring_attention, ring.ulysses_attention):
+            got = fn(q, k, v, causal=causal)
+            assert got.dtype == dtype and got.device.type == "cuda"
+            torch.testing.assert_close(got.float(), want, **tol)
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.gpu
+def test_run_local_on_card_matches_reference(cuda, tmp_path):
+    """engine.fused.run_local on its default device, the card, on an NCCL
+    group of one: bit for bit reference_allreduce."""
+    import torch.distributed as dist
+
+    from rabit_tpu_torch.compress import reference_allreduce
+    from rabit_tpu_torch.engine import fused
+    from rabit_tpu_torch.engine.base import MAX, SUM
+
+    x = (np.random.RandomState(6).randn(3000) * 20).astype(np.float32)
+    dist.init_process_group("nccl", store=dist.FileStore(str(tmp_path / "store"), 1),
+                            rank=0, world_size=1)
+    try:
+        for name in ("bf16", "bf16x2", "i8", "i8x2"):
+            for op in (SUM, MAX):
+                got = fused.run_local([x], op, name)
+                assert got.tobytes() == reference_allreduce([x], op, name).tobytes()
+    finally:
+        dist.destroy_process_group()

@@ -142,3 +142,16 @@ def test_api_compress_policy_and_broadcast(runs, world):
     np.testing.assert_allclose(small, np.sum([p[:100] for p in parts], axis=0), rtol=1e-6)
     for r in runs[world]:
         np.testing.assert_array_equal(r["bcast"], np.arange(3000) * 2)
+
+
+@pytest.mark.parametrize("device", [None, "cuda"])
+def test_run_local_without_a_card_raises(monkeypatch, device):
+    """run_local runs on the card unless given device="cpu": with no card,
+    the default and an explicit "cuda" raise before any collective, and
+    nothing falls back to the CPU."""
+    from rabit_tpu_torch.engine import fused
+
+    monkeypatch.setattr(fused.torch.cuda, "is_available", lambda: False)
+    kw = {} if device is None else {"device": device}
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        fused.run_local([np.ones(4, np.float32)], SUM, "i8", **kw)

@@ -268,7 +268,10 @@ def test_port_imports_no_jax():
         "          'rabit_tpu_torch.compress', 'rabit_tpu_torch.compress.codecs',\n"
         "          'rabit_tpu_torch.compress.transport', 'rabit_tpu_torch.sched',\n"
         "          'rabit_tpu_torch.parallel', 'rabit_tpu_torch.parallel.collectives',\n"
-        "          'rabit_tpu_torch.engine.fused', 'rabit_tpu_torch.profile'):\n"
+        "          'rabit_tpu_torch.engine.fused', 'rabit_tpu_torch.profile',\n"
+        "          'rabit_tpu_torch.models.linear', 'rabit_tpu_torch.models.kmeans',\n"
+        "          'rabit_tpu_torch.parallel.ring', 'rabit_tpu_torch.fusion',\n"
+        "          'rabit_tpu_torch.store'):\n"
         "    assert m in sys.modules, m\n"
         "from rabit_tpu_torch.models import gbdt\n"
         "assert callable(gbdt.train_round_dp) and callable(gbdt.train_round_dp_fused)\n"

@@ -100,10 +100,11 @@ def main(rank, world, store_file, out_npz):
         for cname in CODECS:
             for oname, op in OPS.items():
                 out[f"fused/{sname}/{cname}/{oname}"] = fused.run_local(
-                    parts, op, cname, ring_order=order)
+                    parts, op, cname, ring_order=order, device="cpu")
     parts = contribs(world, 5000, seed=3)
     for chunk in CHUNKS:
-        out[f"chunk/{chunk}"] = fused.run_local(parts, SUM, "i8x2", chunk_bytes=chunk)
+        out[f"chunk/{chunk}"] = fused.run_local(parts, SUM, "i8x2", chunk_bytes=chunk,
+                                                device="cpu")
     run_api(rank, world, out)
     np.savez(out_npz, **out)
     dist.destroy_process_group()
