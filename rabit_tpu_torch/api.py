@@ -1,26 +1,39 @@
 """Module-level API of the port's engine layer.
 
 The port's own copy of what it needs from ``rabit_tpu/api.py`` (the port
-imports nothing of the JAX package): ``init`` / ``finalize``, rank and
-world, ``allreduce`` of numpy arrays and torch tensors with the reference's
-op enums, ``broadcast`` of any picklable object (length, then payload),
-``allgather``, and the versioned checkpoints, pickled as the reference
-binding pickles them.  The engine comes from config (``rabit_engine=torch``
-for ``engine.torch_dist.TorchEngine``, ``empty`` for the solo engine); a
-process that never calls ``init`` runs solo.  Compressed collectives follow
-the ``rabit_compress_*`` policy that ``init`` resolves (``compress``): an
-allreduce ``codec=`` (or the policy's default codec) and the broadcast
-payloads' byte codec.
+imports nothing of the JAX package): ``init`` / ``finalize``, rank, world
+and processor name, ``allreduce`` of numpy arrays and torch tensors with
+the reference's op enums, ``broadcast`` of any picklable object (length,
+then payload), ``allgather``, and the versioned checkpoints, pickled as the
+reference binding pickles them.  The engine comes from config
+(``engine.create_engine``: ``rabit_engine=native|robust|base|mock`` for
+rabit's fault-tolerant C++ engine under a tracker, ``torch`` for
+``engine.torch_dist.TorchEngine``, ``empty`` for the solo engine; ``auto``
+picks the native engine when a tracker is set); a process that never calls
+``init`` runs solo.
+
+Every user collective carries a cache key that names its call site
+(``_caller_key``: file, line and function of the caller, the same on every
+rank and in every life of a worker), which the robust engine uses to replay
+a restarted worker's collectives from before ``load_checkpoint`` out of its
+bootstrap cache (``rabit_bootstrap_cache=1``).  Compressed collectives
+follow the ``rabit_compress_*`` policy that ``init`` resolves
+(``compress``): an allreduce ``codec=`` (or the policy's default codec)
+and the broadcast payloads' byte codec.
 
 With ``rabit_checkpoint_dir`` set, every committed checkpoint is also
-spilled to disk (``store.CheckpointStore``, after the commit barrier), and
-a fresh job, whose engine holds version 0, resumes from the newest version
-every rank can serve (``_disk_resume``).  The events JAX records in its
-flight recorder go to the engine's ``obs_event`` hook.
+spilled to disk (``store.CheckpointStore``, after the commit barrier,
+stamped with the adopted world epoch), and a fresh job, whose engine holds
+version 0, resumes from the newest version every rank can serve
+(``_disk_resume``).  ``rebootstrap`` re-enters the tracker after a change
+of the world (``NativeEngine.rebootstrap``, ``TorchEngine.rebuild``) and
+adopts the next world epoch (``world_epoch``), running the callbacks of
+``register_rebalance``.  The events JAX records in its flight recorder go
+to the engine's ``obs_event`` hook.
 
-Not ported (ROADMAP.md Queue 1): elastic ``rebootstrap`` and the world
-epoch (the spilled frames carry epoch 0), the flight recorder and metrics
-(``obs``), the quorum policy and the delivery plane.
+Not ported (ROADMAP.md Queue 1): the flight recorder and metrics (``obs``),
+heartbeat leases, the elastic plane's spares and resizes, the quorum
+policy and the delivery plane.
 """
 
 from __future__ import annotations
@@ -30,7 +43,6 @@ import sys
 from typing import Any, Callable
 
 import numpy as np
-import torch
 
 from rabit_tpu_torch import compress
 from rabit_tpu_torch.config import Config
@@ -38,9 +50,11 @@ from rabit_tpu_torch.engine import create_engine
 from rabit_tpu_torch.engine.base import BITOR, DTYPE_ENUM, MAX, MIN, SUM, Engine
 
 __all__ = ["MAX", "MIN", "SUM", "BITOR", "init", "finalize", "get_rank",
-           "get_world_size", "is_distributed", "tracker_print", "allreduce",
-           "broadcast", "allgather", "checkpoint", "lazy_checkpoint",
-           "load_checkpoint", "version_number", "get_engine"]
+           "get_world_size", "is_distributed", "tracker_print", "get_processor_name",
+           "allreduce", "broadcast", "allgather", "checkpoint", "lazy_checkpoint",
+           "load_checkpoint", "version_number", "get_engine", "world_epoch",
+           "register_rebalance", "unregister_rebalance", "notify_world_change",
+           "rebootstrap"]
 
 _engine: Engine | None = None
 # Durable-spill state (rabit_checkpoint_dir): the store, and the user-visible
@@ -50,6 +64,10 @@ _engine: Engine | None = None
 # process memory.
 _ckpt_store = None
 _ckpt_base = 0
+# The world epoch this process last adopted, and the callbacks run when it
+# adopts another (register_rebalance).
+_world_epoch = {"epoch": 0, "world_size": 1}
+_rebalance_cbs: list[Callable[[dict, dict], None]] = []
 
 _WRAP_TAG = "__rabit_tpu_ckpt1__"
 
@@ -69,6 +87,13 @@ def _unwrap(blob: bytes) -> tuple[int, bytes]:
     return 0, blob
 
 
+def _caller_key(depth: int = 2) -> str:
+    """The cache key of a collective: file, line and function of the frame
+    ``depth`` levels up (the user's call site)."""
+    frame = sys._getframe(depth)
+    return f"{frame.f_code.co_filename}::{frame.f_lineno}::{frame.f_code.co_name}"
+
+
 def get_engine() -> Engine:
     """The active engine; a process that was never initialized gets a solo
     engine, which a later ``init`` replaces."""
@@ -85,7 +110,7 @@ def init(args: list[str] | None = None, **overrides: Any) -> None:
     """Start the engine.  ``args`` are ``"key=value"`` strings (default: the
     ones in ``sys.argv[1:]``; of a key given twice the last wins); keyword
     overrides win over them."""
-    global _engine, _ckpt_store, _ckpt_base
+    global _engine, _ckpt_store, _ckpt_base, _world_epoch
     if _engine is not None:
         if not getattr(_engine, "_provisional", False):
             import warnings
@@ -102,6 +127,7 @@ def init(args: list[str] | None = None, **overrides: Any) -> None:
     engine.init()
     _engine = engine
     _ckpt_base = 0
+    _world_epoch = {"epoch": 0, "world_size": engine.get_world_size()}
     ckpt_dir = config.get("rabit_checkpoint_dir", "") or ""
     if ckpt_dir and ckpt_dir != "NULL":
         from rabit_tpu_torch.store import CheckpointStore
@@ -114,13 +140,70 @@ def init(args: list[str] | None = None, **overrides: Any) -> None:
 
 def finalize() -> None:
     """Shut the engine down; the process runs solo after it."""
-    global _engine, _ckpt_store, _ckpt_base
+    global _engine, _ckpt_store, _ckpt_base, _world_epoch
     if _engine is not None:
         _engine.shutdown()
         _engine = None
     compress.reset()
     _ckpt_store = None
     _ckpt_base = 0
+    _world_epoch = {"epoch": 0, "world_size": 1}
+
+
+def world_epoch() -> dict:
+    """The world epoch this process last adopted: ``{"epoch",
+    "world_size"}``; epoch 0 and the engine's world until ``rebootstrap``
+    or ``notify_world_change`` adopts another."""
+    return dict(_world_epoch)
+
+
+def register_rebalance(callback: Callable[[dict, dict], None]) -> None:
+    """Run ``callback(old, new)`` (``world_epoch()``-shaped dicts) whenever
+    this process adopts a new world epoch, e.g. to re-cut a data shard
+    with ``models.gbdt.elastic_shard``.  Registering twice registers once;
+    callbacks should be idempotent, and their exceptions reach the
+    notifier."""
+    if callback not in _rebalance_cbs:
+        _rebalance_cbs.append(callback)
+
+
+def unregister_rebalance(callback: Callable[[dict, dict], None]) -> None:
+    if callback in _rebalance_cbs:
+        _rebalance_cbs.remove(callback)
+
+
+def notify_world_change(epoch: int, world_size: int) -> None:
+    """Adopt a new world epoch: record it (the durable spill stamps its
+    frames from here), report ``epoch_changed`` (and ``shard_rebalanced``
+    when callbacks ran) to the engine's event hook, and run the rebalance
+    callbacks.  The same epoch and world again is a no-op."""
+    global _world_epoch
+    old = dict(_world_epoch)
+    if epoch == old["epoch"] and world_size == old["world_size"]:
+        return
+    _world_epoch = {"epoch": int(epoch), "world_size": int(world_size)}
+    engine = get_engine()
+    engine.obs_event("epoch_changed", epoch=int(epoch), world=int(world_size),
+                     prev_world=old["world_size"])
+    for cb in list(_rebalance_cbs):
+        cb(old, dict(_world_epoch))
+    if _rebalance_cbs:
+        engine.obs_event("shard_rebalanced", epoch=int(epoch), callbacks=len(_rebalance_cbs))
+
+
+def rebootstrap() -> dict:
+    """Re-enter the tracker after a change of the world and adopt the next
+    epoch: the native engine finalizes and checks in again (a fresh
+    assignment, perhaps another world), ``TorchEngine`` re-reads its
+    process group (``rebuild``), the solo engine only moves the epoch.
+    Returns the new ``world_epoch()``."""
+    engine = get_engine()
+    if hasattr(engine, "rebootstrap"):
+        engine.rebootstrap()
+    elif hasattr(engine, "rebuild"):
+        engine.rebuild()
+    notify_world_change(_world_epoch["epoch"] + 1, engine.get_world_size())
+    return world_epoch()
 
 
 def get_rank() -> int:
@@ -139,6 +222,10 @@ def tracker_print(msg: str) -> None:
     get_engine().tracker_print(msg if isinstance(msg, str) else str(msg))
 
 
+def get_processor_name() -> str:
+    return get_engine().get_host()
+
+
 def allreduce(data, op: int,
               prepare_fun: Callable[[np.ndarray], None] | None = None,
               codec: str | None = None):
@@ -154,13 +241,20 @@ def allreduce(data, op: int,
     (float32, non-BITOR payloads of at least ``rabit_compress_min_bytes``);
     ``"identity"`` forces the exact path.  On the compressed path
     ``prepare_fun`` runs eagerly: its output feeds the encoder."""
-    if isinstance(data, torch.Tensor):
+    key = _caller_key()
+    torch = sys.modules.get("torch")  # a tensor's caller has imported it
+    if torch is not None and isinstance(data, torch.Tensor):
         if prepare_fun is not None:
             raise TypeError("prepare_fun takes numpy arrays only")
-        out = allreduce(data.detach().cpu().numpy(), op, codec=codec)
+        out = _allreduce(data.detach().cpu().numpy(), op, None, codec, key)
         return torch.as_tensor(out, device=data.device)
     if not isinstance(data, np.ndarray):
         raise TypeError("allreduce takes numpy arrays and torch tensors")
+    return _allreduce(data, op, prepare_fun, codec, key)
+
+
+def _allreduce(data: np.ndarray, op: int, prepare_fun, codec: str | None,
+               key: str) -> np.ndarray:
     if data.dtype not in DTYPE_ENUM:
         raise TypeError(f"dtype {data.dtype} not supported")
     if op not in (MAX, MIN, SUM, BITOR):
@@ -174,9 +268,9 @@ def allreduce(data, op: int,
     c = compress.resolve(codec, buf.dtype, op, buf.nbytes)
     engine = get_engine()
     if c is None:
-        out = engine.allreduce(buf, op, prepare_fun=prep)
+        out = engine.allreduce(buf, op, prepare_fun=prep, cache_key=key)
     else:
-        out = engine.allreduce_compressed(buf, op, c, prepare_fun=prep)
+        out = engine.allreduce_compressed(buf, op, c, prepare_fun=prep, cache_key=key)
     return np.asarray(out).reshape(data.shape)
 
 
@@ -189,6 +283,7 @@ def broadcast(data: Any, root: int) -> Any:
     The policy comes from the shared job config, so every rank frames and
     deframes symmetrically."""
     engine = get_engine()
+    key = _caller_key()
     pol = compress.policy()
     bcodec = compress.get_codec(pol.broadcast) if pol.broadcast else None
     payload = None
@@ -203,7 +298,7 @@ def broadcast(data: Any, root: int) -> Any:
                 payload = bytes([bcodec.codec_id]) + wire
             else:
                 payload = bytes([0]) + payload  # identity frame
-    out = engine.broadcast(payload, root)
+    out = engine.broadcast(payload, root, cache_key=key)
     if engine.get_rank() == root:
         return data
     if bcodec is not None:
@@ -217,7 +312,7 @@ def allgather(data: np.ndarray) -> np.ndarray:
     if not isinstance(data, np.ndarray):
         raise TypeError("allgather takes numpy arrays")
     engine = get_engine()
-    out = engine.allgather(np.ascontiguousarray(data).reshape(-1))
+    out = engine.allgather(np.ascontiguousarray(data).reshape(-1), cache_key=_caller_key())
     return np.asarray(out).reshape((engine.get_world_size(),) + data.shape)
 
 
@@ -305,8 +400,10 @@ def checkpoint(global_model: Any, local_model: Any = None) -> None:
     engine.checkpoint(wrapped, lblob)
     _note_commit(engine, len(wrapped))
     # Persist AFTER the commit barrier: live ranks' disk versions can then
-    # skew by at most one, which the store's keep-2 retention covers.
-    _ckpt_store.save(_ckpt_base + engine.version_number(), wrapped, lblob)
+    # skew by at most one, which the store's keep-2 retention covers.  The
+    # adopted world epoch rides in the frame (RTC3 past epoch 0).
+    _ckpt_store.save(_ckpt_base + engine.version_number(), wrapped, lblob,
+                     epoch=_world_epoch["epoch"])
 
 
 def lazy_checkpoint(global_model: Any) -> None:

@@ -46,10 +46,21 @@ which the torch path writes on every device.
 
 from __future__ import annotations
 
+import importlib
 import zlib
 
 import numpy as np
-import torch
+
+
+class _Torch:
+    """``torch``, imported at its first use: the numpy codecs, and the api
+    and the native engine over them, load no torch."""
+
+    def __getattr__(self, name):
+        return getattr(importlib.import_module("torch"), name)
+
+
+torch = _Torch()
 
 #: Elements per scale block of the block-scaled int8 codecs.
 BLOCK = 256

@@ -1,9 +1,10 @@
 """Layered ``key=value`` configuration of the port's engine layer.
 
 The port's own copy of what it needs from ``rabit_tpu/config.py`` (the port
-imports nothing of the JAX package): built-in defaults, then ``RABIT_TPU_*``
-environment variables, then argv ``k=v`` pairs in order (the last one
-wins), then keyword overrides.
+imports nothing of the JAX package): built-in defaults, then the
+environment (the ``DMLC_*`` spellings every rabit launcher hands a worker,
+then ``RABIT_TPU_*``, which wins over them), then argv ``k=v`` pairs in
+order (the last one wins), then keyword overrides.
 """
 
 from __future__ import annotations
@@ -11,8 +12,34 @@ from __future__ import annotations
 import os
 from typing import Iterable, Mapping
 
+# Environment variables of the rabit launchers, and the config key each
+# sets (rabit_tpu/config.py's table; RABIT_TPU_* spellings win over them).
+_ENV_TO_KEY = {
+    "DMLC_TRACKER_URI": "rabit_tracker_uri",
+    "DMLC_TRACKER_PORT": "rabit_tracker_port",
+    "DMLC_TASK_ID": "rabit_task_id",
+    "DMLC_ROLE": "rabit_role",
+    "DMLC_NUM_ATTEMPT": "rabit_num_trial",
+    "DMLC_WORKER_CONNECT_RETRY": "rabit_connect_retry",
+    "RABIT_OBS_DIR": "rabit_obs_dir",
+    "rabit_global_replica": "rabit_global_replica",
+    "rabit_local_replica": "rabit_local_replica",
+}
+
 DEFAULTS: dict[str, str] = {
-    "rabit_engine": "auto",         # auto | torch | empty
+    # auto | torch | empty | native | robust | base | mock (engine/__init__.py)
+    "rabit_engine": "auto",
+    # The native engine (engine.native) and its tracker: the tracker's
+    # address (NULL: none), this worker's task id and restart count (the
+    # launcher sets them through DMLC_*), and the connect retries before a
+    # missing tracker is an error.  The native library reads the rest of
+    # its settings (rabit_global_replica, rabit_bootstrap_cache, mock, ...)
+    # from the same key=value pairs, with rabit_tpu/config.py's defaults.
+    "rabit_tracker_uri": "NULL",
+    "rabit_tracker_port": "9091",
+    "rabit_task_id": "NULL",
+    "rabit_num_trial": "0",
+    "rabit_connect_retry": "5",
     # TorchEngine: "cuda" stages arrays on the card and uses NCCL, "cpu"
     # uses gloo.  The torch.distributed bootstrap falls back to the
     # standard MASTER_ADDR / MASTER_PORT / WORLD_SIZE / RANK variables
@@ -64,6 +91,9 @@ class Config:
     def __init__(self, args: Iterable[str] | None = None,
                  overrides: Mapping[str, str] | None = None):
         self._cfg = dict(DEFAULTS)
+        for name, key in _ENV_TO_KEY.items():
+            if name in os.environ:
+                self._cfg[key] = os.environ[name]
         for name, val in os.environ.items():
             if name.startswith("RABIT_TPU_"):
                 self._cfg[name[len("RABIT_TPU_"):].lower()] = val
@@ -90,3 +120,6 @@ class Config:
         if val is None:
             return default
         return val.strip().lower() not in ("0", "false", "no", "off", "")
+
+    def as_dict(self) -> dict[str, str]:
+        return dict(self._cfg)

@@ -9,6 +9,7 @@ dispatches to.  Buffers at this layer are numpy arrays or raw bytes.
 
 from __future__ import annotations
 
+import socket
 from abc import ABC, abstractmethod
 from typing import Callable
 
@@ -76,6 +77,14 @@ class Engine(ABC):
 
     def is_distributed(self) -> bool:
         return self.get_world_size() > 1
+
+    def get_host(self) -> str:
+        return socket.gethostname()
+
+    def get_ring_prev_rank(self) -> int:
+        """Rank of the ring predecessor."""
+        world = self.get_world_size()
+        return (self.get_rank() + world - 1) % world
 
     # -- collectives -------------------------------------------------------
 

@@ -19,9 +19,9 @@ a payload, all integers little-endian:
   is the encoded blob.  Written by a compressing store (the default,
   ``rabit_checkpoint_compress=zlib``).
 * ``RTC3``: RTC2 plus the world epoch (u32) of the committing membership
-  generation, written by ``rabit_tpu/store.py`` for a nonzero epoch.  The
-  port has no elastic world epoch yet, so it writes RTC1 and RTC2 only and
-  reads all three (``epoch_of`` reports the epoch of an RTC3 frame).
+  generation (``api.world_epoch``), written for a nonzero epoch (codec id 0,
+  identity, when the store is uncompressed); ``epoch_of`` reads it back.
+  Epoch 0 keeps writing RTC1 or RTC2.
 
 The crc covers the bytes on disk, so integrity is checked before any
 decode touches them.  A file that fails the check (torn by a crash the
@@ -91,11 +91,13 @@ class CheckpointStore:
 
     # -- writes -------------------------------------------------------------
 
-    def save(self, version: int, gblob: bytes, lblob: bytes | None) -> None:
-        """Persist one committed checkpoint atomically; prune old versions."""
-        self._write(self._gpath(version), gblob)
+    def save(self, version: int, gblob: bytes, lblob: bytes | None,
+             epoch: int = 0) -> None:
+        """Persist one committed checkpoint atomically; prune old versions.
+        A nonzero ``epoch`` is recorded in the frames (RTC3)."""
+        self._write(self._gpath(version), gblob, epoch)
         if lblob is not None:
-            self._write(self._lpath(version), lblob)
+            self._write(self._lpath(version), lblob, epoch)
         if version not in self._versions:
             self._versions.append(version)
             self._versions.sort()
@@ -122,8 +124,14 @@ class CheckpointStore:
             observe(self._engine, self._codec.name, raw=len(blob), wire=len(payload))
         return payload
 
-    def _write(self, path: Path, blob: bytes) -> None:
-        if self._codec is None:
+    def _write(self, path: Path, blob: bytes, epoch: int = 0) -> None:
+        if epoch > 0:
+            codec_id, payload = 0, blob
+            if self._codec is not None:
+                codec_id, payload = self._codec.codec_id, self._encode(blob)
+            header = _HDR3.pack(_MAGIC3, codec_id, zlib.crc32(payload), len(payload),
+                                epoch)
+        elif self._codec is None:
             header, payload = _HDR.pack(_MAGIC, zlib.crc32(blob), len(blob)), blob
         else:
             payload = self._encode(blob)

@@ -2,7 +2,8 @@
 
 Every test here is marked ``gpu`` and skips where there is no CUDA device.
 The file imports no JAX (the machine with the card has none), so it runs
-there on its own:
+there on its own (the last two tests run workers of the native engine under
+the port's launcher):
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -m gpu
 
@@ -13,6 +14,9 @@ atol=1e-5 against the plain twins (the kernel sums in another order); node
 ids and margins exact; rounds on the card against the CPU's exact-f32
 round as tests/test_gbdt.py holds the fused rounds.
 """
+
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -1108,3 +1112,42 @@ def test_run_local_on_card_matches_reference(cuda, tmp_path):
                 assert got.tobytes() == reference_allreduce([x], op, name).tobytes()
     finally:
         dist.destroy_process_group()
+
+
+# -- the native engine on the card --------------------------------------------------
+
+WORKERS = Path(__file__).parent / "workers"
+
+
+def _cluster(world, args, worker, max_restarts=0):
+    from rabit_tpu_torch.engine import native
+    from rabit_tpu_torch.tracker.launcher import LocalCluster
+
+    native.build_lib()
+    cluster = LocalCluster(world, max_restarts=max_restarts, quiet=True)
+    assert cluster.run([sys.executable, str(WORKERS / worker), *args], timeout=300) == 0
+    assert all(rc == 0 for rc in cluster.returncodes.values())
+    return cluster
+
+
+@pytest.mark.gpu
+def test_native_engine_matrix_with_card_tensors(cuda):
+    """The engine matrix through the native engine at world 2 under the
+    port's launcher, its tensor case sent from the card."""
+    cluster = _cluster(2, ["64", "rabit_engine=native", "lazy=0", "tensor_device=cuda"],
+                       "torch_basic_worker.py")
+    assert sorted(cluster.messages) == ["worker 0/2 ok", "worker 1/2 ok"]
+
+
+@pytest.mark.gpu
+def test_native_mock_kill_with_a_round_on_the_card(cuda, tmp_path):
+    """Two hybrid workers on the card (each an NCCL group of one, the hop the
+    native engine): a mock kill mid-tree recovers to the clean run's forest
+    bit for bit."""
+    args = ["rabit_engine=mock", "mode=hybrid", "device=cuda", "ntrees=3"]
+    _cluster(2, [*args, f"out={tmp_path / 'clean'}"], "torch_gbdt_native_worker.py")
+    cluster = _cluster(2, [*args, f"out={tmp_path / 'kill'}", "mock=1,1,1,0"],
+                       "torch_gbdt_native_worker.py", max_restarts=2)
+    assert cluster.restarts == {"0": 0, "1": 1}
+    np.testing.assert_array_equal(np.load(tmp_path / "kill.npy"),
+                                  np.load(tmp_path / "clean.npy"))

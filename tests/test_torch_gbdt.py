@@ -253,13 +253,18 @@ def test_cuda_without_a_card_raises():
 
 
 def test_port_imports_no_jax():
-    """Importing the port and every module of it leaves jax and rabit_tpu
-    out of sys.modules (rabit_tpu_torch itself shares the prefix)."""
+    """Importing the port and every module of it, chip_smoke.py and the
+    workers of the port's own engine leaves jax and rabit_tpu out of
+    sys.modules (rabit_tpu_torch itself shares the prefix)."""
     code = (
         "import sys, pkgutil, importlib, rabit_tpu_torch\n"
         "for m in pkgutil.walk_packages(rabit_tpu_torch.__path__, 'rabit_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
+        "import importlib.util\n"
+        "for w in ('torch_recover_worker', 'torch_gbdt_native_worker'):\n"
+        "    spec = importlib.util.spec_from_file_location(w, f'tests/workers/{w}.py')\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'rabit_tpu' or m.startswith('rabit_tpu.')]\n"
         "for m in ('rabit_tpu_torch.models.gbdt', 'rabit_tpu_torch.ops.hist',\n"
@@ -271,7 +276,9 @@ def test_port_imports_no_jax():
         "          'rabit_tpu_torch.engine.fused', 'rabit_tpu_torch.profile',\n"
         "          'rabit_tpu_torch.models.linear', 'rabit_tpu_torch.models.kmeans',\n"
         "          'rabit_tpu_torch.parallel.ring', 'rabit_tpu_torch.fusion',\n"
-        "          'rabit_tpu_torch.store'):\n"
+        "          'rabit_tpu_torch.store', 'rabit_tpu_torch.engine.native',\n"
+        "          'rabit_tpu_torch.tracker.protocol', 'rabit_tpu_torch.tracker.tracker',\n"
+        "          'rabit_tpu_torch.tracker.launcher'):\n"
         "    assert m in sys.modules, m\n"
         "from rabit_tpu_torch.models import gbdt\n"
         "assert callable(gbdt.train_round_dp) and callable(gbdt.train_round_dp_fused)\n"

@@ -4,12 +4,20 @@ numpy_reduce folded in rank order, and every element is checked.
 
     MASTER_ADDR=... MASTER_PORT=... WORLD_SIZE=... RANK=... \\
         python torch_basic_worker.py [N] rabit_engine=torch rabit_torch_device=cpu
+    python -m rabit_tpu_torch.tracker.launcher -n 2 -- \\
+        python torch_basic_worker.py [N] rabit_engine=native lazy=0
 
 The matrix of tests/workers/basic_worker.py (allreduce MAX/SUM/MIN/BITOR,
 broadcast, allgather, prepare_fun, checkpoints) minus compression and
 fusion, over every dtype of DTYPE_ENUM and every op.  Float SUMs take
 integer values, whose sum is exact in any order.  Exits non-zero on a
 mismatch.  Imports torch, numpy and the port only.
+
+``tensor_device=cuda`` sends the tensor case's tensor from the card.
+``lazy=0`` checkpoints twice with a local model where the default follows
+one such checkpoint with a lazy one: rabit's robust engine wants every
+checkpoint of a job to carry a local model or none, and a lazy checkpoint
+carries none.
 """
 
 import sys
@@ -46,7 +54,7 @@ def rank_input(dtype: np.dtype, op: int, rank: int, n: int) -> np.ndarray:
     return rng.randint(info.min, info.max, size=n, dtype=dtype)
 
 
-def run_matrix(n: int = 64) -> None:
+def run_matrix(n: int = 64, lazy: bool = True, tensor_device: str = "cpu") -> None:
     """The whole matrix on the engine ``api.init`` started."""
     rank, world = api.get_rank(), api.get_world_size()
 
@@ -80,9 +88,10 @@ def run_matrix(n: int = 64) -> None:
     want = np.array([(1 << 62) + r for r in range(world)], np.uint64).sum(dtype=np.uint64)
     check(got[0] == want, "uint64 sum past 2**62 (wrapping past 2**64 at world 4)")
     # a torch tensor comes back a tensor of its dtype on its device
-    t = api.allreduce(torch.full((3,), float(rank + 1)), api.SUM)
+    t = api.allreduce(torch.full((3,), float(rank + 1), device=tensor_device), api.SUM)
     check(isinstance(t, torch.Tensor) and t.dtype == torch.float32
-          and torch.equal(t, torch.full((3,), world * (world + 1) / 2)), "tensor sum")
+          and t.device.type == tensor_device
+          and torch.equal(t.cpu(), torch.full((3,), world * (world + 1) / 2)), "tensor sum")
 
     # broadcast a python object from each root in turn
     for root in range(world):
@@ -119,10 +128,16 @@ def run_matrix(n: int = 64) -> None:
     check(api.version_number() == 1, "version after checkpoint")
     check(api.load_checkpoint(with_local=True) == (1, {"iter": 1}, {"rank": rank}),
           "load_checkpoint returns the committed models")
-    model = {"iter": 2}
-    api.lazy_checkpoint(model)
-    check(api.load_checkpoint(with_local=True) == (2, {"iter": 2}, None),
-          "lazy checkpoint")
+    if lazy:
+        model = {"iter": 2}
+        api.lazy_checkpoint(model)
+        check(api.load_checkpoint(with_local=True) == (2, {"iter": 2}, None),
+              "lazy checkpoint")
+    else:
+        api.checkpoint({"iter": 2}, {"rank": rank, "iter": 2})
+        check(api.load_checkpoint(with_local=True) == (2, {"iter": 2},
+                                                       {"rank": rank, "iter": 2}),
+              "second checkpoint")
 
 
 def main() -> int:
@@ -130,7 +145,9 @@ def main() -> int:
     api.init()
     positional = [a for a in sys.argv[1:] if "=" not in a]
     try:
-        run_matrix(int(positional[0]) if positional else 64)
+        run_matrix(int(positional[0]) if positional else 64,
+                   lazy="lazy=0" not in sys.argv[1:],
+                   tensor_device="cuda" if "tensor_device=cuda" in sys.argv[1:] else "cpu")
     except CheckFailed as e:
         print(e, file=sys.stderr, flush=True)
         return 2
