@@ -91,18 +91,33 @@ Phases, each of which exits non-zero when it fails:
               phase 10's; ms/round, the ms of a depth-6 level histogram's
               hop beside phase 8's gloo hop, and the seconds from a death to
               the restarted worker's next commit.
-12. linear -- models.linear at the headline size (X = bins / 256, f32;
+12. liveness -- leases, the hang watchdog and obs on the card: phase 11's
+              gbdt job under rabit_engine=robust with
+              rabit_heartbeat_sec=0.5, the flight recorder and
+              rabit_trace_exit=1.  A clean run (the forest phase 11's clean
+              gbdt forest; both ranks' snapshots in the tracker's
+              telemetry.json, each counting one allreduce a hop and the
+              accuracy count; no lease expired; an -exit dump a rank;
+              ms/round); rank 1 frozen with SIGSTOP after its first commit
+              (its lease expires within (1 + LEASE_FACTOR) x 0.5 + 1 s, the
+              launcher SIGKILLs and restarts it once, the forest is the
+              clean run's; the detection latency and the seconds to the
+              restarted worker's next commit); and dump-then-die (rank 1
+              frozen with no lease, rank 0 with rabit_obs_hang_sec=1,
+              rabit_hang_abort_sec=3 and the native detectors parked at 120
+              s exits with 11 within 10 s, leaving -hang and -abort dumps).
+13. linear -- models.linear at the headline size (X = bins / 256, f32;
               logistic, the LinearConfig defaults, 50 steps): LinearModel.fit
               on the card bitwise its train_step loop, steps 0, 25, 49 held
               teacher-forced against the CPU (tests/test_models.py's rtol
               2e-4, atol 2e-5); train_step_dp on an NCCL group of one
               bitwise the loop; then a gloo world of two processes sharing
-              the card (500k rows each; spawned once, it also runs phases 12
-              and 13's two-process parts): train_step_dp, every step
+              the card (500k rows each; spawned once, it also runs phases 14
+              and 15's two-process parts): train_step_dp, every step
               teacher-forced against the single-process step, and
               LinearModel(engine_allreduce=api.allreduce) through TorchEngine,
               bitwise the dp weights; ms/step of each.
-13. kmeans -- models.kmeans on the same data, K = 64, 20 iterations, the
+14. kmeans -- models.kmeans on the same data, K = 64, 20 iterations, the
               init drawn by KMeans(seed=0): KMeans.fit bitwise its
               train_iter loop, iterations 0, 10, 19 teacher-forced against
               the CPU (assignments equal but for near ties within
@@ -113,7 +128,7 @@ Phases, each of which exits non-zero when it fails:
               the new centers within 2^-21 of the f64 means) and
               KMeans(engine_allreduce=...) bitwise the dp centers; ms/iteration
               and the f64 one-hot segment_sum's time.
-14. attention -- ring_attention and ulysses_attention at sequence 8192, 32
+15. attention -- ring_attention and ulysses_attention at sequence 8192, 32
               heads of 128, f32 and bf16, causal and not, on an NCCL group of
               one and on the gloo world (block 4096; k/v hops and Ulysses'
               all-to-alls through host memory), each against
@@ -121,14 +136,14 @@ Phases, each of which exits non-zero when it fails:
               a time (tests/test_parallel.py's rtol 2e-4, atol 2e-5; bf16 adds
               the output's half-ulp rounding, 2^-8); ms a call and the
               hops' share.
-15. durable -- the api's durable spill (rabit_checkpoint_dir) in two-process
+16. durable -- the api's durable spill (rabit_checkpoint_dir) in two-process
               gloo jobs on the card, each fitting the linear model with a
               checkpoint a step (tests/workers/torch_durable_worker.py): a job
               stopped at version 3 of 6 and resumed by a fresh job, and again
               with rank 1's global files deleted (served by rank 0's
               broadcast), both bit for bit the weights of a job never
               stopped; the frames' bytes and the jobs' times.
-16. report -- per-level times of the histogram kernels (d = 0..7, bf16
+17. report -- per-level times of the histogram kernels (d = 0..7, bf16
               and i8) and of the helpers, and a {"kernels": [...]} line
               with each kernel's time (CUDA events over back-to-back
               calls, "ms"; and the device time of the kernels a call
@@ -139,16 +154,16 @@ Phases, each of which exits non-zero when it fails:
               long run the card's profiler keeps only part of the launches
               (kernel_ms), and earlier its sessions would slow the launches
               of the phases after them.
-17. trace  -- one warm fused and one warm hook-based bf16 round under
+18. trace  -- one warm fused and one warm hook-based bf16 round under
               profile.device_trace (a Chrome trace under --trace-dir): each
               round's wall time, the device time of the port's kernels, of
               every other kernel by the top aten op that launched it, and
               the device's idle time inside the round.
 
-Launches are counted per path (phases 4-7 and 17, and 7, 10 and 11 in
-their processes), each run with the counts set to 0 just before it and read just
-after; the phase-3 comparisons and the phase-16 timings do not count.
-Phases 12-15 run no kernel of the port (their products are torch matmuls
+Launches are counted per path (phases 4-7 and 18, and 7, 10, 11 and 12
+in their processes), each run with the counts set to 0 just before it and read just
+after; the phase-3 comparisons and the phase-17 timings do not count.
+Phases 13-16 run no kernel of the port (their products are torch matmuls
 and einsums, as in the JAX package, in f32 with TF32 off).  Each phase
 prints its wall time.  The histogram kernels count in
 boost.launches, their helpers (one hist_prep and one hist_partition a
@@ -167,6 +182,7 @@ import multiprocessing
 import os
 import re
 import shutil
+import signal
 import socket
 import subprocess
 import sys
@@ -207,6 +223,8 @@ ATT_F32 = (2e-4, 2e-5)      # tests/test_parallel.py's attention rtol, atol
 DURABLE_STEPS, DURABLE_STOP = 6, 3
 RECOVER_TREES = 3           # trees a run of the recover phase
 RECOVER_PAUSE = 2.0         # s before each tree of the preempted run
+LIVE_HB = 0.5               # rabit_heartbeat_sec of the liveness phase
+HANG_PAUSE = 0.5            # s before each tree of the dump-then-die run
 REPLACES = {
     "hist_level0": "rabit_tpu/ops/boost.py:341",
     "hist_level": "rabit_tpu/ops/boost.py:374",
@@ -355,6 +373,17 @@ def hist_err(got, ref) -> float:
     atol = HIST_RTOL * float(ref.abs().max())
     lim = atol + HIST_RTOL * ref.abs()
     return float(((got - ref).abs() / lim.clamp_min(1e-30)).max())
+
+
+def read_json(path: str):
+    with open(path) as f:
+        return json.load(f)
+
+
+def dump_kinds(path: str) -> list[str]:
+    """The event kinds of a flight dump, its header line first."""
+    with open(path) as f:
+        return [json.loads(line)["kind"] for line in f if line.strip()]
 
 
 def free_port() -> int:
@@ -592,7 +621,7 @@ def _compress_rank(rank: int, world: int, tmp: str) -> None:
         dist.destroy_process_group()
 
 
-# -- phases 12-15: the linear and k-means models, attention, the durable spill ----
+# -- phases 13-16: the linear and k-means models, attention, the durable spill ----
 
 
 def slice_data(n_rows: int):
@@ -674,7 +703,7 @@ def attention_cases(torch, ring, rank: int, world: int, out: dict) -> None:
 
 
 def _slice_rank(rank: int, world: int, tmp: str, n_rows: int) -> None:
-    """One process of the gloo world of phases 11-13, on the card, on this
+    """One process of the gloo world of phases 13-15, on the card, on this
     rank's elastic shard: linear.train_step_dp and kmeans.train_iter_dp
     over the group (every step's weights; the iterations' centers, and the
     assignments at the checked ones), the engine-hook fits (LinearModel,
@@ -1944,33 +1973,48 @@ class Smoke:
         return sum(ms[1:]) / len(ms[1:])
 
     # -- phase 11 -----------------------------------------------------------------
-    def recover_run(self, mode: str, *args: str, preempt=None) -> dict:
+    def recover_run(self, mode: str, *args: str, preempt=None, wedge=None,
+                    engine: str = "mock", obs: bool = False) -> dict:
         """DP_RANKS workers of tests/workers/torch_gbdt_native_worker.py on
-        the card under the port's LocalCluster, rabit_engine=mock: each
-        trains RECOVER_TREES trees of the headline data (its elastic shard)
-        in ``mode``.  Fails unless every worker ends with exit 0.  Returns
-        rank 0's forest, the restarts and preemptions, the workers' stats,
-        the commit stamps and the kill times."""
+        the card under the port's LocalCluster, rabit_engine=``engine``:
+        each trains RECOVER_TREES trees of the headline data (its elastic
+        shard) in ``mode``.  Fails unless every worker ends with exit 0.
+        Returns rank 0's forest, the restarts, preemptions and wedges, the
+        workers' stats and registry files, the commit stamps, the kill and
+        freeze times and the tracker's telemetry; with ``obs``, the workers
+        and the tracker get RABIT_OBS_DIR=<tmp>/obs, and the run the files
+        there (telemetry.json read back)."""
         from rabit_tpu_torch.tracker.launcher import LocalCluster
 
         with tempfile.TemporaryDirectory() as tmp:
+            obs_dir = os.path.join(tmp, "obs")
             cmd = [sys.executable, worker_path("torch_gbdt_native_worker"),
-                   "rabit_engine=mock", f"mode={mode}", "device=cuda", f"rows={self.n_rows}",
-                   f"ntrees={RECOVER_TREES}", f"out={os.path.join(tmp, 'forest')}",
-                   f"stats={tmp}", *args]
+                   f"rabit_engine={engine}", f"mode={mode}", "device=cuda",
+                   f"rows={self.n_rows}", f"ntrees={RECOVER_TREES}",
+                   f"out={os.path.join(tmp, 'forest')}", f"stats={tmp}", *args]
             cluster = LocalCluster(DP_RANKS, max_restarts=2, quiet=True)
             t0 = time.time()
+            if obs:
+                os.environ["RABIT_OBS_DIR"] = obs_dir  # the tracker's too
             try:
-                cluster.run(cmd, timeout=600, preempt=preempt)
+                cluster.run(cmd, timeout=600, preempt=preempt, wedge=wedge)
             except (RuntimeError, TimeoutError) as e:
-                raise PhaseFailed(f"recover {mode} {list(args)}: {e}") from e
+                raise PhaseFailed(f"{engine} {mode} {list(args)}: {e}") from e
+            finally:
+                os.environ.pop("RABIT_OBS_DIR", None)
             require(all(rc == 0 for rc in cluster.returncodes.values()),
-                    f"recover {mode} {list(args)}: workers exited {cluster.returncodes}")
+                    f"{engine} {mode} {list(args)}: workers exited {cluster.returncodes}")
             run = {"forest": np.load(os.path.join(tmp, "forest.npy")), "t0": t0,
                    "wall_s": time.time() - t0, "restarts": sum(cluster.restarts.values()),
                    "preempts": cluster.preempts_delivered, "deaths": cluster.death_times,
+                   "wedges": cluster.wedge_times, "telemetry": cluster.telemetry,
+                   "obs_files": sorted(os.listdir(obs_dir)) if os.path.isdir(obs_dir) else [],
                    "stats": [dict(np.load(os.path.join(tmp, f"rank{r}.npz")))
-                             for r in range(DP_RANKS)]}
+                             for r in range(DP_RANKS)],
+                   "registry": [read_json(os.path.join(tmp, f"rank{r}.registry.json"))
+                                for r in range(DP_RANKS)]}
+            if "telemetry.json" in run["obs_files"]:
+                run["telemetry_file"] = read_json(os.path.join(obs_dir, "telemetry.json"))
         # "[rank] commit version=V attempt=A t=T" after every commit
         run["commits"] = [tuple(float(x) for x in m.groups()) for m in (
             re.search(r"\[(\d+)\] commit version=(\d+) attempt=(\d+) t=([\d.]+)", msg)
@@ -1982,7 +2026,7 @@ class Smoke:
                     counts[k[9:]] = counts.get(k[9:], 0) + int(v)
         want = ("node_histograms_kernel", *HELPERS)
         require(all(counts.get(k, 0) > 0 for k in want) and set(counts) <= set(want),
-                f"recover {mode} {list(args)}: launches {counts}")
+                f"{engine} {mode} {list(args)}: launches {counts}")
         for k, v in counts.items():
             self.launches[k] += v
         run["launches"] = counts
@@ -2041,6 +2085,7 @@ class Smoke:
             print(f"  {what} ({mode}): forest byte-identical to the clean run's; restarts "
                   f"{run['restarts']}; from the death to the restarted worker's next "
                   f"commit {out['recovery_s'][what]:.2f} s; run {run['wall_s']:.1f} s")
+        self.clean_gbdt = clean["gbdt"]
         same = np.array_equal(clean["gbdt"]["forest"], clean["hybrid"]["forest"])
         print(f"  clean hybrid forest bitwise the hybrid phase's (TorchEngine over gloo): "
               f"True; clean gbdt forest bitwise the clean hybrid's: {same}")
@@ -2050,14 +2095,148 @@ class Smoke:
               f"phase) {self.gloo_hop_ms:.3f} ms")
         return out
 
-    # -- phases 12-15 -------------------------------------------------------------
+    # -- phase 12 -----------------------------------------------------------------
+    def liveness_phase(self):
+        """Leases, the watchdog and obs on the card: the recover phase's
+        gbdt job under rabit_engine=robust with heartbeat leases, the flight
+        recorder and -exit dumps on.  (a) A clean run: the forest the
+        recover phase's clean gbdt forest, two ranks' snapshots in the
+        telemetry each counting one allreduce a hop and the accuracy count,
+        no lease expired, an -exit dump a rank.  (b) Rank 1 frozen (SIGSTOP)
+        after its first commit: its lease expires within
+        (1 + LEASE_FACTOR) x hb + 1 s of the freeze, the launcher SIGKILLs
+        and restarts it (one restart, a recovery wave restarting "1"), and
+        the forest is (a)'s.  (c) Dump-then-die: rank 1 frozen again, with
+        no lease; rank 0, stuck in its next hop, dumps -hang and -abort and
+        exits with HANG_ABORT_EXIT within 10 s."""
+        from rabit_tpu_torch.tracker.protocol import LEASE_FACTOR
+
+        live = [f"rabit_heartbeat_sec={LIVE_HB}", "rabit_trace_exit=1", f"pause={RECOVER_PAUSE}"]
+        clean = self.recover_run("gbdt", *live, engine="robust", obs=True)
+        t = clean["telemetry"]
+        require(clean["restarts"] == 0 and t["n_lease_expired"] == 0,
+                f"clean: restarts {clean['restarts']}, leases expired {t['n_lease_expired']}")
+        require(np.array_equal(clean["forest"], self.clean_gbdt["forest"]),
+                "clean: the forest with obs on differs from the recover phase's clean gbdt run's")
+        require(clean.get("telemetry_file") == t, "clean: telemetry.json differs from the "
+                "tracker's document, or is missing")
+        require(set(t["ranks"]) == {str(r) for r in range(DP_RANKS)},
+                f"clean: snapshots of ranks {sorted(t['ranks'])}")
+        for r, reg in enumerate(clean["registry"]):
+            calls = t["ranks"][str(r)]["metrics"]["ops"]["allreduce"]["calls"]
+            require(reg["hops"] == RECOVER_TREES * (DEPTH + 1) and calls == reg["hops"] + 1,
+                    f"clean: rank {r} made {reg['hops']} hops, its snapshot {calls} allreduces")
+        exits = sorted(n.split("-")[1] for n in clean["obs_files"] if n.endswith("-exit.jsonl"))
+        require(exits == [f"rank{r}" for r in range(DP_RANKS)], f"clean: exit dumps {exits}")
+        ms = clean["stats"][0]["ms"].tolist()
+        print(f"  (a) clean, obs and leases on: {clean['wall_s']:.1f} s incl. start-up; "
+              f"forest byte-identical to the recover phase's clean gbdt run's; snapshots of "
+              f"ranks {sorted(t['ranks'])}, allreduce calls = hops + 1; exit dumps {exits}; "
+              "ms/round " + ", ".join(f"{x:.3f}" for x in ms) + " (recover phase, obs off: "
+              + ", ".join(f"{x:.3f}" for x in self.clean_gbdt["stats"][0]["ms"].tolist()) + ")")
+
+        first = min(ts for _, v, _, ts in clean["commits"] if v == 1)
+        delay = first - clean["t0"] + 1.5 * RECOVER_PAUSE
+        wedged = self.recover_run("gbdt", *live, engine="robust", obs=True, wedge=[(delay, 1)])
+        t = wedged["telemetry"]
+        require(len(wedged["wedges"]) == 1, f"frozen: {len(wedged['wedges'])} wedges landed")
+        leases = [e for e in t["events"] if e["kind"] == "lease_expired"]
+        require(bool(leases) and leases[0]["task_id"] == "1", f"frozen: lease expiries {leases}")
+        detect = leases[0]["ts"] - wedged["wedges"][0]
+        bound = (1 + LEASE_FACTOR) * LIVE_HB + 1.0
+        require(0 < detect < bound, f"frozen: lease expired {detect:.3f} s after the freeze "
+                f"(bound {bound} s)")
+        require(any(w["epoch"] > 0 and w["ts"] > leases[0]["ts"] and "1" in w["restarted"]
+                    for w in t["waves"]), f"frozen: no recovery wave restarted 1: {t['waves']}")
+        require(t["n_lease_expired"] >= 1 and wedged["restarts"] == 1 and t["restarts"] == {"1": 1},
+                f"frozen: {t['n_lease_expired']} expiries, restarts {wedged['restarts']}, "
+                f"{t['restarts']}")
+        require(np.array_equal(wedged["forest"], clean["forest"]),
+                "frozen: the forest differs from the clean run's")
+        after = [ts for _, _, attempt, ts in wedged["commits"] if attempt > 0]
+        require(bool(after), "frozen: the restarted worker never committed")
+        to_commit = min(after) - wedged["wedges"][0]
+        print(f"  (b) rank 1 frozen at {delay:.1f} s: lease expired after {detect:.3f} s "
+              f"(bound {bound} s), SIGKILL and one restart; from the freeze to the restarted "
+              f"worker's next commit {to_commit:.2f} s; forest byte-identical to (a)'s; run "
+              f"{wedged['wall_s']:.1f} s")
+
+        hang = self.hang_abort()
+        print(f"  (c) rank 1 frozen, no lease: rank 0 exited {hang['rc']} {hang['abort_s']:.2f} s "
+              f"after the freeze, dumps {hang['dumps']}")
+        return {"ms": ms, "detect_s": detect, "freeze_to_commit_s": to_commit,
+                "abort_s": hang["abort_s"], "clean_wall_s": clean["wall_s"],
+                "frozen_wall_s": wedged["wall_s"]}
+
+    def hang_abort(self) -> dict:
+        """Dump-then-die: two gbdt workers on the card under a tracker of
+        this process; rank 0 with rabit_obs_hang_sec=1, rabit_hang_abort_sec=3
+        and the native detectors parked at 120 s.  Rank 1 is SIGSTOPped when
+        its first commit arrives; rank 0 must exit with HANG_ABORT_EXIT
+        within 10 s, leaving a -hang and an -abort dump, the latter holding
+        hang_detected and hang_abort.  Then every process is killed."""
+        from rabit_tpu_torch.obs import HANG_ABORT_EXIT
+        from rabit_tpu_torch.tracker.tracker import Tracker
+
+        with tempfile.TemporaryDirectory() as tmp:
+            obs_dir = os.path.join(tmp, "obs")
+            tracker = Tracker(DP_RANKS, quiet=True).start()
+            procs = []
+            try:
+                for rank in range(DP_RANKS):
+                    env = dict(os.environ, DMLC_TRACKER_URI=tracker.host,
+                               DMLC_TRACKER_PORT=str(tracker.port), DMLC_TASK_ID=str(rank),
+                               DMLC_NUM_ATTEMPT="0")
+                    cmd = [sys.executable, worker_path("torch_gbdt_native_worker"),
+                           "rabit_engine=robust", "mode=gbdt", "device=cuda",
+                           f"rows={self.n_rows}", f"ntrees={RECOVER_TREES}", f"pause={HANG_PAUSE}",
+                           f"rabit_obs_dir={obs_dir}"]
+                    if rank == 0:
+                        cmd += ["rabit_obs_hang_sec=1", "rabit_hang_abort_sec=3",
+                                "rabit_stall_timeout_sec=120", "rabit_timeout_sec=120"]
+                    with open(os.path.join(tmp, f"rank{rank}.err"), "w") as err:
+                        procs.append(subprocess.Popen(cmd, env=env, stdout=subprocess.DEVNULL,
+                                                      stderr=err))
+                deadline = time.time() + 300
+                while not any(m.startswith("[1] commit version=1") for m in list(tracker.messages)):
+                    require(time.time() < deadline and all(p.poll() is None for p in procs),
+                            f"dump-then-die: no first commit of rank 1 (exits "
+                            f"{[p.poll() for p in procs]})")
+                    time.sleep(0.01)
+                os.kill(procs[1].pid, signal.SIGSTOP)
+                frozen = time.time()
+                while procs[0].poll() is None and time.time() - frozen < 20:
+                    time.sleep(0.01)
+                abort_s = time.time() - frozen
+                rc = procs[0].poll()
+                with open(os.path.join(tmp, "rank0.err")) as f:
+                    err = f.read()[-2000:]
+                require(rc == HANG_ABORT_EXIT and abort_s < 10,
+                        f"dump-then-die: rank 0 exited {rc} after {abort_s:.2f} s: {err}")
+                names = sorted(os.listdir(obs_dir))
+                hang = [n for n in names if n.startswith("flight-rank0-") and n.endswith("-hang.jsonl")]
+                aborts = [n for n in names
+                          if n.startswith("flight-rank0-") and n.endswith("-abort.jsonl")]
+                require(len(hang) == 1 and len(aborts) == 1, f"dump-then-die: dumps {names}")
+                kinds = dump_kinds(os.path.join(obs_dir, aborts[0]))
+                require("hang_detected" in kinds and "hang_abort" in kinds,
+                        f"dump-then-die: the abort dump holds {kinds}")
+                return {"rc": rc, "abort_s": abort_s, "dumps": names}
+            finally:
+                for p in procs:
+                    if p.poll() is None:
+                        p.kill()  # a stopped process dies too
+                    p.wait()
+                tracker.stop()
+
+    # -- phases 13-16 -------------------------------------------------------------
     @functools.cached_property
     def X(self):
         """slice_data's features on the card."""
         return self.xb.float() / 256
 
     def slice_world(self):
-        """The gloo world of phases 11-13 (DP_RANKS processes on the card,
+        """The gloo world of phases 13-15 (DP_RANKS processes on the card,
         _slice_rank), spawned once; its results are read by each phase."""
         t0 = time.perf_counter()
         self.slice_runs = run_ranks(_slice_rank, DP_RANKS, self.n_rows)
@@ -2319,7 +2498,7 @@ class Smoke:
               "stop " + json.dumps(frames))
         print("  durable " + json.dumps(self.slice_ms["durable"]))
 
-    # -- phase 17 -----------------------------------------------------------------
+    # -- phase 18 -----------------------------------------------------------------
     def trace_phase(self, logdir: str):
         """One warm fused bf16 round and one warm hook-based bf16 round under
         profile.device_trace: each round's wall time, the device time in
@@ -2380,7 +2559,7 @@ class Smoke:
         print(f"  Chrome trace under {logdir}")
         return out
 
-    # -- phase 16 -----------------------------------------------------------------
+    # -- phase 17 -----------------------------------------------------------------
     def measure(self):
         torch, boost = self.torch, self.boost
         xb3, g3, h3 = self.xb3, self.g3, self.h3
@@ -2598,7 +2777,7 @@ def main() -> int:
     except ImportError as e:
         print(f"FAIL: run from the root of a checkout ({e})", file=sys.stderr)
         return 2
-    # the plain versions' matmuls, and the products of phases 11-13 (exact f32)
+    # the plain versions' matmuls, and the products of phases 13-15 (exact f32)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     phase, t_phase = "device", time.perf_counter()
@@ -2686,6 +2865,9 @@ def main() -> int:
         phase = next_phase("recover")
         rec = smoke.recover_phase()
         print("[recover] " + json.dumps(rec), flush=True)
+
+        phase = next_phase("liveness")
+        print("[liveness] " + json.dumps(smoke.liveness_phase()), flush=True)
 
         phase = next_phase("linear")
         smoke.slice_world()

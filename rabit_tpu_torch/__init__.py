@@ -10,7 +10,10 @@ is the module-level collective API (init, allreduce, broadcast, allgather,
 checkpoints) over an engine of ``engine``: ``engine.torch_dist``'s
 ``TorchEngine`` (torch.distributed, NCCL or gloo) or the solo engine,
 configured by ``config``, with the durable checkpoint spill of ``store``
-(``rabit_checkpoint_dir``) and ``fusion``'s ``LazyAllreduce``.
+(``rabit_checkpoint_dir``) and ``fusion``'s ``LazyAllreduce``; ``obs`` is
+its flight recorder, metrics registry, hang watchdog and heartbeat leases,
+and ``tracker`` the tracker and launcher of rabit's C++ engine
+(``engine.native``).
 ``models.linear`` and ``models.kmeans`` are the smaller model families;
 ``parallel`` holds the collectives over process groups and, in
 ``parallel.ring``, sequence-parallel attention.  The package imports torch

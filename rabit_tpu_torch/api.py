@@ -28,12 +28,19 @@ version 0, resumes from the newest version every rank can serve
 (``_disk_resume``).  ``rebootstrap`` re-enters the tracker after a change
 of the world (``NativeEngine.rebootstrap``, ``TorchEngine.rebuild``) and
 adopts the next world epoch (``world_epoch``), running the callbacks of
-``register_rebalance``.  The events JAX records in its flight recorder go
-to the engine's ``obs_event`` hook.
+``register_rebalance``.
 
-Not ported (ROADMAP.md Queue 1): the flight recorder and metrics (``obs``),
-heartbeat leases, the elastic plane's spares and resizes, the quorum
-policy and the delivery plane.
+Observability (``obs``): ``init`` configures the flight recorder, the hang
+watchdog, lease renewal and snapshot shipping from the same config; every
+public collective runs inside ``obs.collective`` (``op_begin``/``op_end``
+stamped with the cross-rank ``(version, seqno)``, timed into the metrics
+registry); ``finalize`` ships the last snapshot to the tracker before the
+engine's shutdown and, with ``rabit_trace_exit=1``, dumps the ring after
+it.  The api's own events go through the engine's ``obs_event`` hook,
+which records them tagged with the engine's class.
+
+Not ported (ROADMAP.md Queue 1): the elastic plane's spares and resizes,
+the quorum policy and the delivery plane.
 """
 
 from __future__ import annotations
@@ -44,7 +51,7 @@ from typing import Any, Callable
 
 import numpy as np
 
-from rabit_tpu_torch import compress
+from rabit_tpu_torch import compress, obs
 from rabit_tpu_torch.config import Config
 from rabit_tpu_torch.engine import create_engine
 from rabit_tpu_torch.engine.base import BITOR, DTYPE_ENUM, MAX, MIN, SUM, Engine
@@ -126,6 +133,15 @@ def init(args: list[str] | None = None, **overrides: Any) -> None:
     engine = create_engine(config)
     engine.init()
     _engine = engine
+    obs.configure(config, rank=engine.get_rank())
+    # The resolved policy is recorded so a cross-rank config skew shows in
+    # the dumps.
+    obs.record_event("compress_policy", allreduce=pol.allreduce or "identity",
+                     min_bytes=pol.min_bytes, wire_deflate=pol.wire_deflate,
+                     broadcast=pol.broadcast or "identity",
+                     checkpoint=pol.checkpoint or "identity")
+    obs.record_event("engine_ready", engine=type(engine).__name__,
+                     rank=engine.get_rank(), world=engine.get_world_size())
     _ckpt_base = 0
     _world_epoch = {"epoch": 0, "world_size": engine.get_world_size()}
     ckpt_dir = config.get("rabit_checkpoint_dir", "") or ""
@@ -139,11 +155,15 @@ def init(args: list[str] | None = None, **overrides: Any) -> None:
 
 
 def finalize() -> None:
-    """Shut the engine down; the process runs solo after it."""
+    """Shut the engine down; the process runs solo after it.  The final
+    metrics snapshot goes to the tracker first, while it still serves."""
     global _engine, _ckpt_store, _ckpt_base, _world_epoch
     if _engine is not None:
+        obs.ship_final_snapshot()
+        obs.record_event("engine_finalize", engine=type(_engine).__name__)
         _engine.shutdown()
         _engine = None
+        obs.dump_final()  # rabit_trace_exit=1: this life's ring as a -exit dump
     compress.reset()
     _ckpt_store = None
     _ckpt_base = 0
@@ -240,32 +260,51 @@ def allreduce(data, op: int,
     bytes.  ``None`` applies the ``rabit_compress_allreduce`` policy
     (float32, non-BITOR payloads of at least ``rabit_compress_min_bytes``);
     ``"identity"`` forces the exact path.  On the compressed path
-    ``prepare_fun`` runs eagerly: its output feeds the encoder."""
+    ``prepare_fun`` runs eagerly: its output feeds the encoder.
+
+    The ``obs.collective`` window of a tensor is the whole call, its
+    staging through the host included, and counts the tensor's bytes."""
     key = _caller_key()
     torch = sys.modules.get("torch")  # a tensor's caller has imported it
     if torch is not None and isinstance(data, torch.Tensor):
         if prepare_fun is not None:
             raise TypeError("prepare_fun takes numpy arrays only")
-        out = _allreduce(data.detach().cpu().numpy(), op, None, codec, key)
-        return torch.as_tensor(out, device=data.device)
+        nbytes = data.numel() * data.element_size()
+        c = _resolve(np.dtype(str(data.dtype).removeprefix("torch.")), op, codec, nbytes)
+        with _window(c, op, nbytes, key):
+            out = _allreduce(data.detach().cpu().numpy(), op, None, c, key)
+            return torch.as_tensor(out, device=data.device)
     if not isinstance(data, np.ndarray):
         raise TypeError("allreduce takes numpy arrays and torch tensors")
-    return _allreduce(data, op, prepare_fun, codec, key)
+    c = _resolve(data.dtype, op, codec, data.nbytes)
+    with _window(c, op, data.nbytes, key):
+        return _allreduce(data, op, prepare_fun, c, key)
 
 
-def _allreduce(data: np.ndarray, op: int, prepare_fun, codec: str | None,
-               key: str) -> np.ndarray:
-    if data.dtype not in DTYPE_ENUM:
-        raise TypeError(f"dtype {data.dtype} not supported")
+def _resolve(dtype: np.dtype, op: int, codec: str | None, nbytes: int):
+    """Check the dtype and op; the codec of the call (None: exact)."""
+    if dtype not in DTYPE_ENUM:
+        raise TypeError(f"dtype {dtype} not supported")
     if op not in (MAX, MIN, SUM, BITOR):
         raise ValueError(f"unknown reduction op {op}")
+    return compress.resolve(codec, dtype, op, nbytes)
+
+
+def _window(c, op: int, nbytes: int, key: str):
+    """The ``obs.collective`` window of one allreduce."""
+    if c is None:
+        return obs.collective("allreduce", nbytes, cache_key=key)
+    return obs.collective("allreduce", nbytes, cache_key=key, codec=c.name,
+                          fused=get_engine().fused_active(c, op))
+
+
+def _allreduce(data: np.ndarray, op: int, prepare_fun, c, key: str) -> np.ndarray:
     buf = data.flatten()  # a fresh 1-D copy
     prep = None
     if prepare_fun is not None:
         def prep(view: np.ndarray) -> None:
             prepare_fun(data)
             view[...] = np.ascontiguousarray(data).reshape(-1)
-    c = compress.resolve(codec, buf.dtype, op, buf.nbytes)
     engine = get_engine()
     if c is None:
         out = engine.allreduce(buf, op, prepare_fun=prep, cache_key=key)
@@ -298,7 +337,12 @@ def broadcast(data: Any, root: int) -> Any:
                 payload = bytes([bcodec.codec_id]) + wire
             else:
                 payload = bytes([0]) + payload  # identity frame
-    out = engine.broadcast(payload, root, cache_key=key)
+    # A non-root learns the payload's length from the wire, inside the window.
+    with obs.collective("broadcast", len(payload) if payload is not None else 0,
+                        cache_key=key,
+                        codec=bcodec.name if bcodec is not None else None) as span:
+        out = engine.broadcast(payload, root, cache_key=key)
+        span.nbytes = len(payload) if payload is not None else len(out) if out else 0
     if engine.get_rank() == root:
         return data
     if bcodec is not None:
@@ -312,7 +356,10 @@ def allgather(data: np.ndarray) -> np.ndarray:
     if not isinstance(data, np.ndarray):
         raise TypeError("allgather takes numpy arrays")
     engine = get_engine()
-    out = engine.allgather(np.ascontiguousarray(data).reshape(-1), cache_key=_caller_key())
+    flat = np.ascontiguousarray(data).reshape(-1)
+    key = _caller_key()
+    with obs.collective("allgather", flat.nbytes, cache_key=key):
+        out = engine.allgather(flat, cache_key=key)
     return np.asarray(out).reshape((engine.get_world_size(),) + data.shape)
 
 
@@ -378,10 +425,14 @@ def _disk_resume():
 
 def _note_commit(engine: Engine, nbytes: int) -> None:
     """Report one checkpoint commit (engine version bump) to the engine's
-    event hook, where JAX records it and publishes it to the delivery
-    plane."""
-    engine.obs_event("checkpoint_commit", version=_ckpt_base + engine.version_number(),
-                     nbytes=nbytes)
+    event hook and the registry; the cross-rank collective numbering moves
+    to the new version."""
+    version = _ckpt_base + engine.version_number()
+    obs.collective_epoch(version)
+    engine.obs_event("checkpoint_commit", version=version, nbytes=nbytes)
+    reg = obs.get_registry()
+    reg.counter("checkpoint_commits_total").inc()
+    reg.gauge("checkpoint_version").set(version)
 
 
 def checkpoint(global_model: Any, local_model: Any = None) -> None:
@@ -443,7 +494,12 @@ def load_checkpoint(with_local: bool = False):
             # A blob of the CURRENT job: its wrapper carries this job's base.
             _ckpt_base, gblob = _unwrap(gblob)
             version = _ckpt_base + version
+    # Landing on version V resets the per-version seqno as the survivors'
+    # commit of V did, so a restarted worker resumes the shared numbering.
+    obs.collective_epoch(version)
     engine.obs_event("load_checkpoint", version=version, recovered=version > 0)
+    if version > 0:
+        obs.get_registry().counter("load_checkpoint_recovered_total").inc()
     gmodel = pickle.loads(gblob) if version > 0 and gblob is not None else None
     if not with_local:
         return version, gmodel

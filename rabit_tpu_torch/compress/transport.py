@@ -16,8 +16,8 @@ world has more than one rank):
 
 A cross-rank codec mismatch is caught by the frame header
 (``CodecMismatchError`` naming the ranks).  The compression metrics go to
-the engine's ``obs_event`` hook as a ``compress`` event (the port has no
-metrics registry yet).
+the process metrics registry (``obs``) and, as a ``compress`` event, to
+the engine's ``obs_event`` hook.
 """
 
 from __future__ import annotations
@@ -30,6 +30,8 @@ import numpy as np
 
 from rabit_tpu_torch.compress.codecs import DEFLATE_LEVEL, Codec, get_codec
 from rabit_tpu_torch.engine.base import MAX, numpy_reduce
+from rabit_tpu_torch.obs import stream as obs_stream
+from rabit_tpu_torch.obs.metrics import GLOBAL_REGISTRY
 
 #: Wire frame prepended to every rank's allgather slice:
 #: codec id, flags, reserved, encoded payload length.
@@ -45,9 +47,22 @@ class CodecMismatchError(RuntimeError):
 def observe(engine, codec_name: str, raw: int, wire: int,
             encode_s: float | None = None, decode_s: float | None = None,
             fused: bool = False) -> None:
-    """Report one compression event (raw and wire bytes, encode and decode
-    seconds, and whether the fused device ring moved the bytes) to the
-    engine's ``obs_event`` hook."""
+    """Record one compression event: raw and wire byte counters, the
+    labeled ``wire_bytes``/``raw_bytes`` series (``fused=1`` where the fused
+    device ring moved the bytes) and the per-codec ratio and latency
+    histograms into the process registry, as ``rabit_tpu``'s ``observe``
+    does; and a ``compress`` event to the engine's ``obs_event`` hook."""
+    reg = GLOBAL_REGISTRY
+    reg.counter("compress_raw_bytes_total").inc(int(raw))
+    reg.counter("compress_wire_bytes_total").inc(int(wire))
+    obs_stream.stream_count("wire_bytes", wire, codec=codec_name, fused=int(bool(fused)))
+    obs_stream.stream_count("raw_bytes", raw, codec=codec_name, fused=int(bool(fused)))
+    if wire > 0:
+        reg.histogram(f"compress_ratio_{codec_name}").observe(raw / wire)
+    if encode_s is not None:
+        reg.histogram(f"compress_encode_seconds_{codec_name}").observe(encode_s)
+    if decode_s is not None:
+        reg.histogram(f"compress_decode_seconds_{codec_name}").observe(decode_s)
     engine.obs_event("compress", codec=codec_name, raw=int(raw), wire=int(wire),
                      encode_s=encode_s, decode_s=decode_s, fused=bool(fused))
 

@@ -72,6 +72,31 @@ DEFAULTS: dict[str, str] = {
     # the mesh model's dims "RxC[:nowrap]" (empty: near-square).
     "rabit_schedule": "auto",
     "rabit_sched_mesh": "",
+    # Observability (obs): with rabit_obs_dir (or RABIT_OBS_DIR) set, a rank
+    # dumps its flight recorder there on SIGTERM or when a collective is
+    # stuck past rabit_obs_hang_sec, and the tracker writes telemetry.json
+    # there.  rabit_obs_heartbeat_sec > 0 ships metric snapshots to the
+    # tracker that often (finalize always ships one); rabit_obs_spill_sec >
+    # 0 spills the ring that often; rabit_obs_max_files caps the dir's
+    # flight dumps (oldest first; 0: no cap).
+    "rabit_obs_dir": "",
+    "rabit_obs_capacity": "2048",
+    "rabit_obs_hang_sec": "300",
+    "rabit_obs_heartbeat_sec": "0",
+    "rabit_obs_spill_sec": "0",
+    "rabit_obs_max_files": "256",
+    # Liveness: rabit_heartbeat_sec > 0 renews a lease with the tracker
+    # that often, and the tracker suspects (the launcher SIGKILLs) a worker
+    # silent for LEASE_FACTOR intervals; rabit_hang_abort_sec > 0 makes a
+    # rank whose collective is stuck that long dump its ring and exit 11
+    # (dump-then-die).
+    "rabit_heartbeat_sec": "0",
+    "rabit_hang_abort_sec": "0",
+    # rabit_trace_exit=1: dump the ring as flight-*-exit.jsonl at finalize;
+    # rabit_trace_clock_pings: timestamped round trips to the tracker before
+    # the final snapshot, for its clock-offset estimate.
+    "rabit_trace_exit": "0",
+    "rabit_trace_clock_pings": "2",
 }
 
 _UNIT = {"B": 1, "K": 1 << 10, "M": 1 << 20, "G": 1 << 30}

@@ -56,8 +56,12 @@ class Engine(ABC):
     def __init__(self, config: Config):
         self.config = config
 
-    def obs_event(self, kind: str, /, **fields) -> None:
-        """Hook for a structured engine event; the port records none."""
+    def obs_event(self, kind: str, /, **fields):
+        """Record a structured engine-layer event into the process flight
+        recorder (``obs``), tagged with the backend class."""
+        from rabit_tpu_torch import obs
+
+        return obs.record_event(kind, engine=type(self).__name__, **fields)
 
     # -- lifecycle ---------------------------------------------------------
 

@@ -8,9 +8,10 @@ where the device time of a window went: the port's own kernels by name,
 every other kernel by the top aten op that launched it, and the time the
 device sat idle.
 
-``CollectiveStats`` / ``GLOBAL_STATS`` of the JAX module (per-collective
-counts, bytes and latency) ride on its metrics registry, which the port
-does not have yet (``obs``, ROADMAP.md Queue 1 item 9).
+``CollectiveStats`` is the per-collective view (calls, bytes, latency and
+its percentiles) over a metrics registry (``obs.metrics``);
+``GLOBAL_STATS`` reads the process registry that ``api`` times every
+collective into.
 """
 
 from __future__ import annotations
@@ -23,6 +24,43 @@ import torch
 from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
 
 from rabit_tpu_torch.config import Config
+from rabit_tpu_torch.obs.metrics import GLOBAL_REGISTRY, MetricsRegistry, OpStats
+
+
+
+class CollectiveStats:
+    """Per-operation accumulated timing, a facade over a thread-safe
+    :class:`~rabit_tpu_torch.obs.metrics.MetricsRegistry`.  A bare
+    ``CollectiveStats()`` gets a private registry; ``GLOBAL_STATS`` shares
+    the process registry."""
+
+    def __init__(self, registry: MetricsRegistry | None = None):
+        self._registry = registry if registry is not None else MetricsRegistry()
+
+    @property
+    def registry(self) -> MetricsRegistry:
+        return self._registry
+
+    @property
+    def ops(self) -> dict[str, OpStats]:
+        return self._registry.ops
+
+    def timed(self, op: str, nbytes: int):
+        """Context manager timing one collective into the per-op stats and
+        its latency histogram."""
+        return self._registry.timed(op, nbytes)
+
+    def reset(self) -> None:
+        self._registry.reset()
+
+    def report(self) -> str:
+        """One line per op: count, volume, mean and max latency, bandwidth,
+        and latency percentiles."""
+        return self._registry.report()
+
+
+#: The process-wide view ``api`` times into.
+GLOBAL_STATS = CollectiveStats(registry=GLOBAL_REGISTRY)
 
 
 @contextlib.contextmanager

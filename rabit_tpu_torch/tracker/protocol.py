@@ -20,11 +20,26 @@ table, the wave's epoch, the epoch's task-id -> rank map and the planned
 schedule (algorithm name, ring order).  The C++ client reads through the
 epoch and closes; the fields behind it are for schedule-aware clients, and
 the bytes are those ``rabit_tpu``'s tracker sends.
+
+The observability commands carry a message like a print, and their ACK is
+followed by the tracker's clock as a string (``TimedAck``):
+
+      CMD_METRICS:             str JSON snapshot (``obs.ship.build_snapshot``);
+      CMD_HEARTBEAT:           str decimal lease interval in seconds (0 or
+                               less grants no lease: a clock ping).
+
+A lease lapses after ``LEASE_FACTOR`` intervals without a renewal.
+Python-side messages go through ``tracker_rpc``: one connection each,
+every socket operation bounded, transport failures retried with jittered
+exponential backoff.
 """
 
 from __future__ import annotations
 
+import random
+import socket
 import struct
+import time
 
 MAGIC_HELLO = 0x7AB17001
 MAGIC_ASSIGN = 0x7AB17002
@@ -35,6 +50,13 @@ CMD_START = 1
 CMD_RECOVER = 2
 CMD_PRINT = 3
 CMD_SHUTDOWN = 4
+CMD_METRICS = 5
+CMD_HEARTBEAT = 6
+
+#: How many renewal intervals a lease survives without a renewal.  2 means
+#: one lost or late heartbeat is tolerated; the second expires the lease, so
+#: a frozen worker is suspected within 2 x rabit_heartbeat_sec.
+LEASE_FACTOR = 2.0
 
 _U32 = struct.Struct("<I")
 _I32 = struct.Struct("<i")
@@ -111,3 +133,93 @@ def tree_topology(rank: int, world: int) -> tuple[int, list[int]]:
     parent = (rank - 1) // 2 if rank > 0 else -1
     children = [c for c in (2 * rank + 1, 2 * rank + 2) if c < world]
     return parent, children
+
+
+def send_hello(sock, cmd: int, task_id: str, prev_rank: int = -1,
+               listen_port: int = 0, message: str = "") -> None:
+    """One worker hello (see the module docstring)."""
+    out = [put_u32(MAGIC_HELLO), put_u32(cmd), put_i32(prev_rank), put_str(task_id)]
+    if cmd in (CMD_START, CMD_RECOVER):
+        out.append(put_u32(listen_port))
+    elif cmd in (CMD_PRINT, CMD_METRICS, CMD_HEARTBEAT):
+        out.append(put_str(message))
+    sock.sendall(b"".join(out))
+
+
+class TimedAck(int):
+    """An ACK that carries the tracker's clock stamp (metrics and heartbeat
+    replies).  Equal to the plain ACK value, so ``reply == ACK`` holds;
+    ``offset`` and ``err`` are the NTP-style midpoint estimate of
+    tracker_clock - worker_clock and its bound."""
+
+    server_ts: float
+    t_send: float
+    t_recv: float
+
+    def __new__(cls, ack: int, server_ts: float, t_send: float,
+                t_recv: float) -> "TimedAck":
+        self = super().__new__(cls, ack)
+        self.server_ts = server_ts
+        self.t_send = t_send
+        self.t_recv = t_recv
+        return self
+
+    @property
+    def rtt(self) -> float:
+        return max(self.t_recv - self.t_send, 0.0)
+
+    @property
+    def offset(self) -> float:
+        """tracker_ts - worker_ts; project with worker_ts + offset."""
+        return self.server_ts - (self.t_send + self.t_recv) / 2.0
+
+    @property
+    def err(self) -> float:
+        """Half the round trip: the offset estimate's error bound."""
+        return self.rtt / 2.0
+
+
+class TrackerUnreachable(ConnectionError):
+    """The tracker could not be reached, or never replied, within the retry
+    budget of :func:`tracker_rpc`."""
+
+
+def tracker_rpc(host: str, port: int, cmd: int, task_id: str, *,
+                prev_rank: int = -1, message: str = "", timeout: float = 10.0,
+                retries: int = 5, backoff: float = 0.1) -> int:
+    """One Python-side tracker message (print, metrics, heartbeat,
+    shutdown), the counterpart of ``rabit_tpu.tracker.protocol.tracker_rpc``
+    for one tracker address.  Check-ins are the native engine's and are
+    refused here.
+
+    One RPC is a fresh connection, the hello and the reply; ``timeout``
+    bounds the connect and every read.  Transport failures (refused, reset,
+    a torn reply, a timed-out read) are retried up to ``retries`` more
+    times after ``backoff * 2^attempt`` seconds (capped at 2 s, scaled by
+    a uniform 0.5-1.0 so a restart wave does not stampede the tracker);
+    when the budget is spent, :class:`TrackerUnreachable`.
+
+    Returns the ACK, as a :class:`TimedAck` for METRICS and HEARTBEAT."""
+    if cmd not in (CMD_PRINT, CMD_SHUTDOWN, CMD_METRICS, CMD_HEARTBEAT):
+        raise ValueError(f"tracker_rpc does not send command {cmd}")
+    retries = max(int(retries), 0)
+    last_err: Exception | None = None
+    for attempt in range(retries + 1):
+        try:
+            with socket.create_connection((host, int(port)), timeout=timeout) as sock:
+                sock.settimeout(timeout)
+                t_send = time.time()
+                send_hello(sock, cmd, task_id, prev_rank=prev_rank, message=message)
+                ack = get_u32(sock)
+                if cmd in (CMD_METRICS, CMD_HEARTBEAT):
+                    server_ts = float(get_str(sock))
+                    return TimedAck(ack, server_ts, t_send, time.time())
+                return ack
+        except (ConnectionError, OSError) as exc:  # socket.timeout is an OSError
+            last_err = exc
+            if attempt < retries:
+                delay = min(backoff * (2 ** attempt), 2.0)
+                time.sleep(delay * (0.5 + 0.5 * random.random()))
+    raise TrackerUnreachable(
+        f"tracker {host}:{port} unreachable: {retries + 1} attempt(s) failed "
+        f"(cmd={cmd}, task_id={task_id!r}); last error: {last_err!r}")

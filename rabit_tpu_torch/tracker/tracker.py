@@ -11,27 +11,48 @@ peer table, the epoch, and the schedule ``sched.plan`` lays out, byte for
 byte what ``rabit_tpu``'s tracker sends for the same check-ins.  A
 check-in whose worker hung up while the wave filled is purged before the
 wave closes, so a worker that dies between its check-in and the reply
-cannot strand the others.  ``print`` messages go to ``messages``; the job
-is done once every task id has shut down.
+cannot strand the others.  ``print`` messages go to ``messages`` (the
+robust engine's stats lines also become ``events``); the job is done once
+every task id has shut down and no other task holds a lease.
 
-One thread accepts; each connection is served on a thread of its own.
-Leases, spares and resizes, relays, the HA standby, quorum records,
-delivery and telemetry are ``rabit_tpu``'s and not ported.
+Liveness: a worker with ``rabit_heartbeat_sec`` renews a lease
+(``CMD_HEARTBEAT``); a lease silent for ``LEASE_FACTOR`` intervals
+expires, is recorded as ``lease_expired`` and is handed to
+``on_suspect(task_id)`` (the launcher SIGKILLs the worker, and the usual
+recovery wave follows).  A shutdown or a new check-in of the task id drops
+its lease.
+
+Telemetry: ``CMD_METRICS`` snapshots (the newest a rank; their streamed
+``delta`` windows folded into a rollup), the waves, the leases and the
+restarts make the job's telemetry document (``build_telemetry``), written
+atomically to ``<obs_dir>/telemetry.json`` when the job ends or the
+tracker stops.  Its keys are ``rabit_tpu``'s, less those of the planes not
+ported (quorum, relays, spares and resizes, serving, incidents).
+
+One thread accepts; each connection is served on a thread of its own, and
+one more scans the leases.  Spares and resizes, relays, the HA standby,
+quorum records and delivery are ``rabit_tpu``'s and not ported.
 """
 
 from __future__ import annotations
 
+import json
+import os
 import socket
 import threading
 import time
 from collections import deque
 from dataclasses import dataclass
+from typing import Callable
 
+from rabit_tpu_torch.obs import stream as obs_stream
+from rabit_tpu_torch.obs.events import event_from_stats_line
 from rabit_tpu_torch.sched import mesh_for_world, plan
 from rabit_tpu_torch.tracker import protocol as P
 
 HELLO_TIMEOUT_SEC = 60.0  # a torn hello must not pin its thread and socket forever
 MAX_MESSAGES = 4096       # the print log keeps the newest
+TELEMETRY_SCHEMA = 1
 
 
 @dataclass
@@ -41,6 +62,23 @@ class _Pending:
     listen_port: int
     host: str
     cmd: int
+
+
+@dataclass
+class _Lease:
+    expires: float   # time.monotonic() deadline
+    interval: float  # the worker's renewal interval (seconds)
+    rank: int        # the rank the worker reported (-1 before its assignment)
+
+
+def rank_map_delta(prev: dict[str, int], new: dict[str, int]) -> dict:
+    """The membership change between two waves' rank maps, as
+    ``rabit_tpu``'s wave events carry it: ``{"joined": {task: rank},
+    "left": {task: old_rank}, "moved": {task: [old_rank, new_rank]}}``."""
+    return {"joined": {t: r for t, r in new.items() if t not in prev},
+            "left": {t: r for t, r in prev.items() if t not in new},
+            "moved": {t: [prev[t], r] for t, r in new.items()
+                      if t in prev and prev[t] != r}}
 
 
 def _conn_dead(conn: socket.socket) -> bool:
@@ -103,19 +141,39 @@ class Tracker:
     ``host:port`` (port 0: any free port; ``self.port`` says which) from
     construction; ``start`` begins serving.  The schedule is
     ``rabit_tpu``'s default (``rabit_schedule=auto`` on the near-square
-    mesh model)."""
+    mesh model).  ``obs_dir`` (default: ``RABIT_OBS_DIR``) is where
+    telemetry.json goes; ``on_suspect(task_id)`` is called from the lease
+    thread when a lease expires (its exceptions are swallowed)."""
 
     def __init__(self, world_size: int, host: str = "127.0.0.1", port: int = 0,
-                 quiet: bool = False):
+                 quiet: bool = False, obs_dir: str | None = None,
+                 on_suspect: Callable[[str], None] | None = None):
         if world_size < 1:
             raise ValueError(f"world_size must be >= 1, got {world_size}")
         self.world_size = world_size
+        self.base_world = world_size
         self.quiet = quiet
+        self.on_suspect = on_suspect
+        self.obs_dir = obs_dir if obs_dir is not None else (
+            os.environ.get("RABIT_OBS_DIR", "") or None)
         self.messages: deque[str] = deque(maxlen=MAX_MESSAGES)
-        #: one {"ts", "kind": "wave", "epoch", "world", "assignments",
-        #: "recovering", "restarted"} a closed wave
+        self.messages_dropped = 0
+        #: the job's timeline: one {"ts", "kind": "wave", "epoch", "world",
+        #: "assignments", "recovering", "restarted", "delta"} a closed wave,
+        #: lease expiries, snapshots, and events from the workers' stats lines
         self.events: list[dict] = []
         self.epoch = -1  # the first wave is epoch 0
+        self.schedule = "auto"
+        self.snapshots: dict[int, dict] = {}  # rank -> newest shipped snapshot
+        self.telemetry: dict | None = None
+        self._stream = obs_stream.StreamRollup()
+        self._delta_ranks: set[str] = set()
+        self._leases: dict[str, _Lease] = {}
+        self._epochs: list[dict] = []  # {"epoch", "world"} a wave
+        self._prev_map: dict[str, int] = {}
+        self._started_at = time.time()
+        self._telemetry_written = False
+        self._telemetry_flushed = threading.Event()
         self._srv = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
         self._srv.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
         self._srv.bind((host, port))
@@ -135,14 +193,17 @@ class Tracker:
         self._thread = threading.Thread(target=self._serve, daemon=True,
                                         name="rabit-torch-tracker")
         self._thread.start()
+        threading.Thread(target=self._lease_monitor, daemon=True,
+                         name="rabit-torch-tracker-leases").start()
         return self
 
     def wait(self, timeout: float | None = None) -> bool:
-        """True once every task id has shut down."""
+        """True once the job is done (telemetry.json is then written)."""
         return self._done.wait(timeout)
 
     def stop(self) -> None:
-        """Stop serving and drop every held check-in."""
+        """Stop serving, drop every held check-in, and write telemetry.json
+        with what the tracker has, if the job's end has not."""
         self._done.set()
         # shutdown() before close() wakes the accept() the serving thread
         # is blocked in; close() alone would leave it listening.
@@ -157,6 +218,7 @@ class Tracker:
             p.conn.close()
         if self._thread is not None:
             self._thread.join(timeout=5)
+        self.write_telemetry()
 
     # -- serving -------------------------------------------------------------
 
@@ -175,11 +237,16 @@ class Tracker:
                 conn.close()
                 return
             cmd = P.get_u32(conn)
-            P.get_i32(conn)  # the worker's previous rank: its task id is the key
+            prev_rank = P.get_i32(conn)  # a task id keys the ranks; leases record it
             task_id = P.get_str(conn)
             if cmd in (P.CMD_START, P.CMD_RECOVER):
                 listen_port = P.get_u32(conn)
                 conn.settimeout(None)  # held until the wave closes
+                with self._lock:
+                    # A check-in supersedes the previous life's lease: the
+                    # fresh worker renews once it is up, and a stale lease
+                    # must not suspect it mid-bootstrap.
+                    self._leases.pop(task_id, None)
                 wave = self._register(_Pending(conn, task_id, listen_port, addr[0], cmd))
                 if wave is not None:
                     self._send_wave(wave)
@@ -187,24 +254,215 @@ class Tracker:
             if cmd == P.CMD_PRINT:
                 self._log_print(P.get_str(conn))
                 conn.sendall(P.put_u32(P.ACK))
+            elif cmd == P.CMD_METRICS:
+                self._accept_snapshot(P.get_str(conn))
+                conn.sendall(P.put_u32(P.ACK) + self._clock_stamp())
+            elif cmd == P.CMD_HEARTBEAT:
+                self._renew_lease(task_id, prev_rank, P.get_str(conn))
+                conn.sendall(P.put_u32(P.ACK) + self._clock_stamp())
             elif cmd == P.CMD_SHUTDOWN:
+                with self._lock:
+                    # dropped before the ACK: a clean exit is never suspected
+                    self._leases.pop(task_id, None)
                 conn.sendall(P.put_u32(P.ACK))
                 self._note_shutdown(task_id)
             conn.close()  # and any command the core tracker does not serve
         except (ConnectionError, OSError, ValueError):
             conn.close()
 
+    @staticmethod
+    def _clock_stamp() -> bytes:
+        """The tracker's clock, appended to metrics and heartbeat ACKs: one
+        half of a worker's offset estimate (``protocol.TimedAck``)."""
+        return P.put_str(f"{time.time():.6f}")
+
     def _log_print(self, msg: str) -> None:
-        self.messages.append(msg)
+        """Keep one worker print in the bounded log, and turn the robust
+        engine's stats lines into events."""
+        with self._lock:
+            if len(self.messages) >= MAX_MESSAGES:
+                if self.messages_dropped == 0:
+                    self.events.append({"ts": round(time.time(), 6),
+                                        "kind": "messages_dropped", "cap": MAX_MESSAGES})
+                self.messages_dropped += 1
+            self.messages.append(msg)
+        ev = event_from_stats_line(msg)
+        if ev is not None:
+            with self._lock:
+                self.events.append({"ts": round(ev.ts, 6), "kind": ev.kind, **ev.fields})
         if not self.quiet:
             print(msg, end="" if msg.endswith("\n") else "\n", flush=True)
 
     def _note_shutdown(self, task_id: str) -> None:
         with self._lock:
             self._shutdown_tasks.add(task_id)
-            done = len(self._shutdown_tasks) >= self.world_size
+            done = self._complete_locked()
         if done:
-            self._done.set()
+            self._finalize_done()
+
+    def _complete_locked(self) -> bool:
+        """The completion guard: every task id of the world has shut down,
+        and no task that has not holds a lease (a dead one's lease expires
+        and releases the guard)."""
+        return (len(self._shutdown_tasks) >= self.world_size
+                and not set(self._leases) - self._shutdown_tasks)
+
+    def _finalize_done(self) -> None:
+        """Write telemetry.json BEFORE releasing ``wait()``: once the
+        launcher sees the job done, the file exists."""
+        self.write_telemetry()
+        self._done.set()
+
+    # -- liveness ------------------------------------------------------------
+
+    def _renew_lease(self, task_id: str, rank: int, payload: str) -> None:
+        """Grant or renew a lease: the worker renews every ``interval``
+        seconds and is suspected after LEASE_FACTOR intervals of silence.
+        A malformed or non-positive interval is ignored."""
+        try:
+            interval = float(payload)
+        except ValueError:
+            return
+        if not 0 < interval < 86400:
+            return
+        with self._lock:
+            self._leases[task_id] = _Lease(
+                time.monotonic() + P.LEASE_FACTOR * interval, interval, rank)
+
+    def _lease_monitor(self) -> None:
+        while not self._done.wait(0.05):
+            self._lease_tick(time.monotonic())
+
+    def _lease_tick(self, now: float) -> None:
+        """One scan: an expired lease is removed before ``on_suspect``
+        fires, so one hang gives exactly one suspicion (the restarted life
+        takes a lease of its own)."""
+        expired: list[tuple[str, _Lease]] = []
+        with self._lock:
+            for task_id, lease in list(self._leases.items()):
+                if now >= lease.expires:
+                    del self._leases[task_id]
+                    expired.append((task_id, lease))
+            for task_id, lease in expired:
+                self.events.append({
+                    "ts": round(time.time(), 6), "kind": "lease_expired",
+                    "task_id": task_id, "rank": lease.rank, "interval": lease.interval,
+                    "overdue": round(now - lease.expires, 6)})
+        for task_id, lease in expired:
+            if not self.quiet:
+                print(f"[tracker] lease expired for task {task_id} (rank {lease.rank}, "
+                      f"interval {lease.interval}s): suspecting worker", flush=True)
+            if self.on_suspect is not None:
+                try:
+                    self.on_suspect(task_id)
+                except Exception:  # noqa: BLE001 (detection must survive its hook)
+                    pass
+        if expired:
+            # An expired lease may have been all that held the completion
+            # guard open: every other task has shut down.
+            with self._lock:
+                done = self._complete_locked()
+            if done:
+                self._finalize_done()
+
+    def live_tasks(self) -> list[str]:
+        """Task ids that hold an unexpired lease."""
+        with self._lock:
+            return sorted(self._leases)
+
+    # -- telemetry -----------------------------------------------------------
+
+    def _accept_snapshot(self, payload: str) -> None:
+        """Keep one CMD_METRICS snapshot (the newest a rank wins: a
+        restarted life's replaces its predecessor's).  A snapshot whose rank
+        lies outside the world is rejected; its streamed ``delta`` is
+        stripped and folded into the rollup, so the kept snapshot is
+        cumulative only."""
+        try:
+            snap = json.loads(payload)
+            rank = int(snap.get("rank", -1))
+        except (ValueError, TypeError, AttributeError):
+            return  # a malformed snapshot must not hurt the tracker
+        delta = snap.pop("delta", None)
+        if not 0 <= rank < self.world_size:
+            with self._lock:
+                self.events.append({"ts": round(time.time(), 6), "kind": "snapshot_rejected",
+                                    "rank": rank, "task_id": str(snap.get("task_id", ""))})
+            return
+        with self._lock:
+            self.snapshots[rank] = snap
+            self.events.append({"ts": round(time.time(), 6), "kind": "metrics_snapshot",
+                                "rank": rank, "task_id": snap.get("task_id", "")})
+        if isinstance(delta, dict) and delta:
+            stamp = round(time.time(), 6)
+            self._stream.fold(rank, delta, ts=stamp)
+            with self._lock:
+                if str(rank) not in self._delta_ranks:  # the first fold a rank
+                    self._delta_ranks.add(str(rank))
+                    self.events.append({"ts": stamp, "kind": "metrics_delta_folded",
+                                        "rank": str(rank)})
+
+    def build_telemetry(self) -> dict:
+        """The job's telemetry document: per-rank snapshots (op stats and
+        latency percentiles), the waves, lease expiries, restarts, clock
+        offsets and the streamed rollup, under ``rabit_tpu``'s key names."""
+        with self._lock:
+            events = list(self.events)
+            snapshots = {str(r): s for r, s in sorted(self.snapshots.items())}
+            restarts = {t: n - 1 for t, n in self._n_starts.items() if n > 1}
+            epochs = list(self._epochs)
+            dropped = self.messages_dropped
+        waves = [e for e in events if e["kind"] == "wave"]
+        clocks = {r: s["clock"] for r, s in snapshots.items()
+                  if isinstance(s, dict) and s.get("clock")}
+        return {
+            "schema": TELEMETRY_SCHEMA,
+            "job": "",
+            "world_size": self.world_size,
+            "base_world": self.base_world,
+            "started_at": round(self._started_at, 6),
+            "finished_at": round(time.time(), 6),
+            "n_waves": len(waves),
+            "n_recovery_waves": sum(1 for w in waves if w["epoch"] > 0),
+            "n_lease_expired": sum(1 for e in events if e["kind"] == "lease_expired"),
+            "schedule": self.schedule,
+            "messages_dropped": dropped,
+            "epochs": epochs,
+            "restarts": restarts,
+            "clocks": clocks,
+            "stream": self._stream.render(),
+            "waves": waves,
+            "events": events,
+            "ranks": snapshots,
+        }
+
+    def write_telemetry(self) -> str | None:
+        """Build the document into ``self.telemetry`` and write it to
+        ``<obs_dir>/telemetry.json`` (a temporary file renamed into place,
+        so a reader never sees a torn file).  The first caller wins; a later
+        one waits until the file is down.  Returns the path, or None without
+        an obs dir.  Never raises on a write error."""
+        with self._lock:
+            claimed = self._telemetry_written
+            self._telemetry_written = True
+        if claimed:
+            self._telemetry_flushed.wait(5.0)
+            return None
+        try:
+            self.telemetry = self.build_telemetry()
+            if not self.obs_dir:
+                return None
+            os.makedirs(self.obs_dir, exist_ok=True)
+            path = os.path.join(self.obs_dir, "telemetry.json")
+            tmp = f"{path}.tmp.{os.getpid()}"
+            with open(tmp, "w") as f:
+                json.dump(self.telemetry, f, indent=1, sort_keys=True)
+            os.replace(tmp, path)
+            return path
+        except OSError:
+            return None  # observability must not fail the job
+        finally:
+            self._telemetry_flushed.set()
 
     # -- waves ---------------------------------------------------------------
 
@@ -226,9 +484,13 @@ class Tracker:
 
     def _purge_dead_locked(self) -> None:
         dead = [p for p in self._pending if _conn_dead(p.conn)]
+        if not dead:
+            return
         for p in dead:
             p.conn.close()
         self._pending = [p for p in self._pending if p not in dead]
+        self.events.append({"ts": round(time.time(), 6), "kind": "wave_purged",
+                            "dropped": sorted(p.task_id for p in dead)})
 
     def _close_wave_locked(self) -> dict:
         world = self.world_size
@@ -253,7 +515,10 @@ class Tracker:
             "ts": round(time.time(), 6), "kind": "wave", "epoch": self.epoch,
             "world": world, "assignments": dict(rank_map),
             "recovering": sorted(p.task_id for p in members if p.cmd == P.CMD_RECOVER),
-            "restarted": sorted(restarted)})
+            "restarted": sorted(restarted),
+            "delta": rank_map_delta(self._prev_map, rank_map)})
+        self._prev_map = dict(rank_map)
+        self._epochs.append({"epoch": self.epoch, "world": world})
         return {"members": members, "world": world, "epoch": self.epoch,
                 "rank_map": rank_map}
 
@@ -261,7 +526,12 @@ class Tracker:
         """One Assignment a member, sent outside the lock."""
         world, rank_map = wave["world"], wave["rank_map"]
         peers = {rank_map[p.task_id]: (p.host, p.listen_port) for p in wave["members"]}
-        splan = plan(world, "auto", mesh=mesh_for_world(world))
+        splan = plan(world, self.schedule, mesh=mesh_for_world(world))
+        with self._lock:
+            self.events.append({
+                "ts": round(time.time(), 6), "kind": "schedule_planned",
+                "epoch": wave["epoch"], "algo": splan.algo, "world": world,
+                "ring_order": list(splan.ring_order), "n_avoided": len(splan.avoided)})
         tail = P.assignment_tail_bytes(peers, wave["epoch"], rank_map, splan.algo,
                                        list(splan.ring_order))
         for p in wave["members"]:

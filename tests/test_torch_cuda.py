@@ -1151,3 +1151,42 @@ def test_native_mock_kill_with_a_round_on_the_card(cuda, tmp_path):
     assert cluster.restarts == {"0": 0, "1": 1}
     np.testing.assert_array_equal(np.load(tmp_path / "kill.npy"),
                                   np.load(tmp_path / "clean.npy"))
+
+
+# -- observability and liveness on the card -----------------------------------------
+
+@pytest.mark.gpu
+def test_obs_collective_counts_a_card_tensors_bytes(cuda):
+    """obs.collective around api.allreduce of a card tensor records the
+    tensor's bytes, and the result stays on the card."""
+    from rabit_tpu_torch import api, obs
+
+    api.init(["rabit_engine=empty"])
+    try:
+        obs.get_recorder().clear()
+        t = torch.arange(1000, dtype=torch.float32, device=cuda)
+        out = api.allreduce(t, api.SUM)
+        assert out.device.type == "cuda" and torch.equal(out, t)
+        ops = [e for e in obs.get_recorder().snapshot() if e.kind in ("op_begin", "op_end")]
+        assert [(e.kind, e.fields["op"], e.fields["nbytes"]) for e in ops] == [
+            ("op_begin", "allreduce", 4000), ("op_end", "allreduce", 4000)]
+    finally:
+        api.finalize()
+
+
+@pytest.mark.gpu
+def test_leases_of_two_workers_on_the_card(cuda, tmp_path, monkeypatch):
+    """Two GBDT workers on the card (rows small) with heartbeat leases under
+    the port's launcher: no lease expires, and telemetry.json holds both
+    ranks' snapshots, each with its allreduce stats."""
+    import json
+
+    monkeypatch.setenv("RABIT_OBS_DIR", str(tmp_path / "obs"))
+    _cluster(2, ["rabit_engine=robust", "mode=gbdt", "device=cuda", "ntrees=3",
+                 "rabit_heartbeat_sec=0.5", f"out={tmp_path / 'forest'}"],
+             "torch_gbdt_native_worker.py")
+    t = json.loads((tmp_path / "obs" / "telemetry.json").read_text())
+    assert t["n_lease_expired"] == 0 and t["restarts"] == {}
+    assert set(t["ranks"]) == {"0", "1"}
+    for snap in t["ranks"].values():
+        assert snap["metrics"]["ops"]["allreduce"]["calls"] == 3 * (3 + 1) + 1

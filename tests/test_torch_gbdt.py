@@ -278,7 +278,10 @@ def test_port_imports_no_jax():
         "          'rabit_tpu_torch.parallel.ring', 'rabit_tpu_torch.fusion',\n"
         "          'rabit_tpu_torch.store', 'rabit_tpu_torch.engine.native',\n"
         "          'rabit_tpu_torch.tracker.protocol', 'rabit_tpu_torch.tracker.tracker',\n"
-        "          'rabit_tpu_torch.tracker.launcher'):\n"
+        "          'rabit_tpu_torch.tracker.launcher', 'rabit_tpu_torch.obs',\n"
+        "          'rabit_tpu_torch.obs.events', 'rabit_tpu_torch.obs.metrics',\n"
+        "          'rabit_tpu_torch.obs.ship', 'rabit_tpu_torch.obs.stream',\n"
+        "          'rabit_tpu_torch.obs.trace'):\n"
         "    assert m in sys.modules, m\n"
         "from rabit_tpu_torch.models import gbdt\n"
         "assert callable(gbdt.train_round_dp) and callable(gbdt.train_round_dp_fused)\n"

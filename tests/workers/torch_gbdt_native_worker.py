@@ -33,11 +33,17 @@ Worker args (k=v; the last one wins):
     stop_at=K         every worker stops cleanly after tree K
     stats=DIR         write rank{r}.npz: the launches of this life, ms a
                       round, and with time_hop=1 the ms of one depth-6
-                      level histogram's hop as numpy and as a card tensor
+                      level histogram's hop as numpy and as a card tensor;
+                      and rank{r}.registry.json: this life's engine hops
+                      and its metrics registry's snapshot (obs)
+The config's own keys go to api.init as well, among them the liveness and
+observability ones: rabit_heartbeat_sec, rabit_hang_abort_sec,
+rabit_obs_dir, rabit_obs_hang_sec, rabit_trace_exit.
 Every commit is stamped to the tracker: "[rank] commit version=V
 attempt=A t=T" (T: time.time()).
 """
 
+import json
 import os
 import sys
 import tempfile
@@ -50,7 +56,7 @@ import torch.distributed as dist
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[2]))
 
-from rabit_tpu_torch import api  # noqa: E402
+from rabit_tpu_torch import api, obs  # noqa: E402
 from rabit_tpu_torch.models import gbdt  # noqa: E402
 from rabit_tpu_torch.ops import boost, hist  # noqa: E402
 
@@ -115,9 +121,11 @@ def main() -> int:
         ys = torch.as_tensor(y[rank::world], device=dev)
 
     hops = []
+    n_hops = [0]  # this life's engine hops
 
     def hop(a: np.ndarray) -> np.ndarray:
         hops.append(a.shape)
+        n_hops[0] += 1
         return api.allreduce(np.asarray(a, np.float32), api.SUM)
 
     store_dir = None
@@ -199,6 +207,9 @@ def main() -> int:
             stats["hop_tensor_ms"] = mean_ms(lambda: api.allreduce(ta, api.SUM))
         if stats_dir:
             np.savez(os.path.join(stats_dir, f"rank{rank}.npz"), **stats)
+            with open(os.path.join(stats_dir, f"rank{rank}.registry.json"), "w") as f:
+                json.dump({"hops": n_hops[0], "attempt": attempt,
+                           "registry": obs.get_registry().snapshot()}, f)
         if out_path and rank == 0:
             np.save(out_path, mine)
         api.tracker_print(f"[{rank}] torch {mode} gbdt verified: {n_trees} trees, "

@@ -16,10 +16,13 @@ Worker args (k=v, all also handed to the engine; the last one wins):
     preload_op=1   broadcast before load_checkpoint, which a restarted life
                    replays from the bootstrap cache (rabit_bootstrap_cache=1)
                    by its call site's cache key
+    sleep=S        sleep S seconds before each iteration, so timed
+                   preemptions and freezes land mid-work
 """
 
 import os
 import sys
+import time
 from pathlib import Path
 
 import numpy as np
@@ -47,6 +50,7 @@ def main() -> int:
     use_local = getarg("local", "0") == "1"
     use_lazy = getarg("lazy", "0") == "1"
     preload_op = getarg("preload_op", "0") == "1"
+    pause = float(getarg("sleep", "0"))
 
     rt.init()
     rank, world = rt.get_rank(), rt.get_world_size()
@@ -70,6 +74,8 @@ def main() -> int:
         rt.tracker_print(f"[{rank}] recovered version={version}")
 
     for it in range(version, niter):
+        if pause:
+            time.sleep(pause)
         # MAX: data[i] = rank + i + it  ->  world-1 + i + it
         a = (np.arange(ndata) + rank + it).astype(np.float32)
         out = rt.allreduce(a, rt.MAX)
