@@ -37,10 +37,10 @@ Phases, each of which exits non-zero when it fails:
               rounds, launch counts per kernel, and every level held
               teacher-forced against the plain versions.  Then GBDT.fit /
               predict as a user calls them, the fused round on a small
-              input against the CPU reference round, and one depth-8 and one
-              depth-14 fused round per encoding, teacher-forced (levels of
-              8192 nodes on the first 70 row blocks).  The four fused
-              rounds again on data of 512 bins.
+              input against the CPU reference round, and one depth-10
+              fused round per encoding, teacher-forced (depths 14 and 15
+              are the GPU tests').  The four fused rounds again on data of
+              512 bins.
 5. hook    -- the hook-based round: GBDT(engine_allreduce=...).fit (depth
               + 1 hook calls per tree), train_round's ms/round in bf16 and
               i8 (1 warm-up, 3 timed), every level teacher-forced, at 256
@@ -70,8 +70,11 @@ Phases, each of which exits non-zero when it fails:
               NCCL group of one against the CPU and reference_allreduce,
               and api.allreduce(codec=...) through TorchEngine on NCCL at
               world 1 and on two gloo processes sharing the card
-              (rabit_fused_allreduce on and off), each bitwise equal to
-              reference_allreduce and timed beside the exact SUM.
+              (rabit_fused_allreduce on: the fused ring; off: the unfused
+              device path, encode, one all_gather of the planes and the
+              rank-order decode-fold on the card, with no run of the numpy
+              host transport), each bitwise equal to reference_allreduce and
+              timed beside the exact SUM.
 10. hybrid -- train_round_hybrid on two processes sharing the card, each a
               worker whose local group is an NCCL group of one, the hop
               TorchEngine over gloo: identical forests, depth + 1 hops a
@@ -106,18 +109,34 @@ Phases, each of which exits non-zero when it fails:
               frozen with no lease, rank 0 with rabit_obs_hang_sec=1,
               rabit_hang_abort_sec=3 and the native detectors parked at 120
               s exits with 11 within 10 s, leaving -hang and -abort dumps).
-13. linear -- models.linear at the headline size (X = bins / 256, f32;
+13. elastic -- the elastic plane on the card: two ElasticWorkers
+              (tests/workers/torch_elastic_worker.py) under the port's
+              LocalCluster and tracker, heartbeats on, each histogramming
+              its shard_slice of the headline bins (64 nodes, g an integer
+              in [-8, 8], h = 1: exact, folded in rank order as int64) with
+              node_histograms_kernel, 8 versions a run: (a) a clean run; (b)
+              rank 1 SIGKILLed once version 2 is committed, no spare, one
+              restart; (c) the same kill with a warm spare parked (promoted
+              within one wave; the restarted worker parks as a surplus spare
+              and is released); (d) rank 1 dies at version 3 with no spare
+              and shrink_after_sec=1: the world shrinks to 1 and grows back
+              when a spare parks.  Every completed state bitwise the world-1
+              totals of the kernel on the card (version 1 held against its
+              plain version), the telemetry's n_spares_promoted, n_shrunk and
+              n_grown counting the events, and the seconds from the death to
+              the next commit for (b) and (c).
+14. linear -- models.linear at the headline size (X = bins / 256, f32;
               logistic, the LinearConfig defaults, 50 steps): LinearModel.fit
               on the card bitwise its train_step loop, steps 0, 25, 49 held
               teacher-forced against the CPU (tests/test_models.py's rtol
               2e-4, atol 2e-5); train_step_dp on an NCCL group of one
               bitwise the loop; then a gloo world of two processes sharing
-              the card (500k rows each; spawned once, it also runs phases 14
-              and 15's two-process parts): train_step_dp, every step
+              the card (500k rows each; spawned once, it also runs phases 15
+              and 16's two-process parts): train_step_dp, every step
               teacher-forced against the single-process step, and
               LinearModel(engine_allreduce=api.allreduce) through TorchEngine,
               bitwise the dp weights; ms/step of each.
-14. kmeans -- models.kmeans on the same data, K = 64, 20 iterations, the
+15. kmeans -- models.kmeans on the same data, K = 64, 20 iterations, the
               init drawn by KMeans(seed=0): KMeans.fit bitwise its
               train_iter loop, iterations 0, 10, 19 teacher-forced against
               the CPU (assignments equal but for near ties within
@@ -128,7 +147,7 @@ Phases, each of which exits non-zero when it fails:
               the new centers within 2^-21 of the f64 means) and
               KMeans(engine_allreduce=...) bitwise the dp centers; ms/iteration
               and the f64 one-hot segment_sum's time.
-15. attention -- ring_attention and ulysses_attention at sequence 8192, 32
+16. attention -- ring_attention and ulysses_attention at sequence 8192, 32
               heads of 128, f32 and bf16, causal and not, on an NCCL group of
               one and on the gloo world (block 4096; k/v hops and Ulysses'
               all-to-alls through host memory), each against
@@ -136,14 +155,14 @@ Phases, each of which exits non-zero when it fails:
               a time (tests/test_parallel.py's rtol 2e-4, atol 2e-5; bf16 adds
               the output's half-ulp rounding, 2^-8); ms a call and the
               hops' share.
-16. durable -- the api's durable spill (rabit_checkpoint_dir) in two-process
+17. durable -- the api's durable spill (rabit_checkpoint_dir) in two-process
               gloo jobs on the card, each fitting the linear model with a
               checkpoint a step (tests/workers/torch_durable_worker.py): a job
               stopped at version 3 of 6 and resumed by a fresh job, and again
               with rank 1's global files deleted (served by rank 0's
               broadcast), both bit for bit the weights of a job never
               stopped; the frames' bytes and the jobs' times.
-17. report -- per-level times of the histogram kernels (d = 0..7, bf16
+18. report -- per-level times of the histogram kernels (d = 0..7, bf16
               and i8) and of the helpers, and a {"kernels": [...]} line
               with each kernel's time (CUDA events over back-to-back
               calls, "ms"; and the device time of the kernels a call
@@ -154,16 +173,16 @@ Phases, each of which exits non-zero when it fails:
               long run the card's profiler keeps only part of the launches
               (kernel_ms), and earlier its sessions would slow the launches
               of the phases after them.
-18. trace  -- one warm fused and one warm hook-based bf16 round under
+19. trace  -- one warm fused and one warm hook-based bf16 round under
               profile.device_trace (a Chrome trace under --trace-dir): each
               round's wall time, the device time of the port's kernels, of
               every other kernel by the top aten op that launched it, and
               the device's idle time inside the round.
 
-Launches are counted per path (phases 4-7 and 18, and 7, 10, 11 and 12
-in their processes), each run with the counts set to 0 just before it and read just
-after; the phase-3 comparisons and the phase-17 timings do not count.
-Phases 13-16 run no kernel of the port (their products are torch matmuls
+Launches are counted per path (phases 4-7 and 19, and 7, 10, 11, 12 and
+13 in their processes), each run with the counts set to 0 just before it and read just
+after; the phase-3 and phase-13 comparisons and the phase-18 timings do not count.
+Phases 14-17 run no kernel of the port (their products are torch matmuls
 and einsums, as in the JAX package, in f32 with TF32 off).  Each phase
 prints its wall time.  The histogram kernels count in
 boost.launches, their helpers (one hist_prep and one hist_partition a
@@ -199,8 +218,8 @@ PROFILE_TRIES = 8           # profiles kernel_ms takes before it gives up on two
 F32_OPS_PER_S = 67e12       # H100 SXM f32 outside the tensor cores
 HIST_RTOL = 1e-5            # histograms: rtol, and atol = 1e-5 * max |bin|
 GAIN_TIE = 1e-4             # a differing split must be this close in gain
-DEEP = 8                    # the deep round's depth: levels of 64 and 128 nodes
-DEEPEST = 14                # the deepest round: a last histogram of 8192 nodes
+DEEP = 8                    # levels of 64 and 128 nodes: the kernel checks and the report
+DEEPEST = 10                # the deepest round: levels of 512 nodes, the sorting partition
 FULL_PLAIN_DEPTH = 13       # levels below this: whole plain histograms; deeper: a subset
 SUBSET_BLOCKS = 70          # row blocks of the plain histogram / leaf fit past that
                             # (more than 2 x leaf_fit's merge groups of 32 blocks)
@@ -222,9 +241,15 @@ ATT_REF_HEADS = 4           # heads a slice of the head-sliced reference
 ATT_F32 = (2e-4, 2e-5)      # tests/test_parallel.py's attention rtol, atol
 DURABLE_STEPS, DURABLE_STOP = 6, 3
 RECOVER_TREES = 3           # trees a run of the recover phase
-RECOVER_PAUSE = 2.0         # s before each tree of the preempted run
+RECOVER_PAUSE = 1.0         # s before each tree of the preempted run
+COMMIT_1 = re.compile(r"\[\d+\] commit version=1 ")  # a worker's first commit, as it prints it
 LIVE_HB = 0.5               # rabit_heartbeat_sec of the liveness phase
 HANG_PAUSE = 0.5            # s before each tree of the dump-then-die run
+ELASTIC_NODES = 64          # the elastic job's histogram: a depth-6 level
+ELASTIC_VERSIONS = 8        # versions a run of the elastic phase
+ELASTIC_SLEEP = 0.3         # s a version waits before its contribution (the kill lands mid-job)
+ELASTIC_HB = 0.5            # its workers' heartbeat interval
+ELASTIC_SHRINK = 1.0        # shrink_after_sec of the shrink run
 REPLACES = {
     "hist_level0": "rabit_tpu/ops/boost.py:341",
     "hist_level": "rabit_tpu/ops/boost.py:374",
@@ -586,8 +611,11 @@ def _compress_rank(rank: int, world: int, tmp: str) -> None:
     port's TorchEngine adopts this program's gloo group with
     rabit_torch_device=cuda (codec work on the card, hops through host
     memory), and api.allreduce(codec=...) of a depth-5 level histogram's
-    size runs with rabit_fused_allreduce 1 and 0, each result against
-    reference_allreduce bit for bit, each time beside the exact SUM's."""
+    size runs with rabit_fused_allreduce 1 (the fused ring) and 0 (the
+    unfused device path), each result against reference_allreduce bit for
+    bit, each time beside the exact SUM's and the numpy host transport's
+    (called directly); the api's runs of the host transport are counted
+    (none is due)."""
     import torch
     import torch.distributed as dist
 
@@ -600,6 +628,9 @@ def _compress_rank(rank: int, world: int, tmp: str) -> None:
     rng = np.random.RandomState(7)
     parts = [(rng.randn(LEVEL5) * 50).astype(np.float32) for _ in range(world)]
     out = {"wire": str(wire_device(None, "cuda")), "backend": dist.get_backend()}
+    host_runs = []
+    host_allreduce = compress.host_allreduce
+    compress.host_allreduce = lambda *a, **kw: host_runs.append(1) or host_allreduce(*a, **kw)
     try:
         for mode in ("1", "0"):
             api.init(["rabit_engine=torch", "rabit_torch_device=cuda",
@@ -614,14 +645,19 @@ def _compress_rank(rank: int, world: int, tmp: str) -> None:
                         compress.get_codec(name), api.SUM)
                     out[f"ms/{mode}/{name}"] = _mean_ms(
                         lambda: api.allreduce(parts[rank], api.SUM, codec=name))
+                    if mode == "0":  # the host transport the device path replaced
+                        out[f"ms/host/{name}"] = _mean_ms(lambda: host_allreduce(
+                            api.get_engine(), parts[rank], api.SUM, compress.get_codec(name),
+                            deflate=compress.policy().wire_deflate))
             finally:
                 api.finalize()
+        out["host_runs"] = len(host_runs)
         np.savez(os.path.join(tmp, f"rank{rank}.npz"), **out)
     finally:
         dist.destroy_process_group()
 
 
-# -- phases 13-16: the linear and k-means models, attention, the durable spill ----
+# -- phases 14-17: the linear and k-means models, attention, the durable spill ----
 
 
 def slice_data(n_rows: int):
@@ -703,7 +739,7 @@ def attention_cases(torch, ring, rank: int, world: int, out: dict) -> None:
 
 
 def _slice_rank(rank: int, world: int, tmp: str, n_rows: int) -> None:
-    """One process of the gloo world of phases 13-15, on the card, on this
+    """One process of the gloo world of phases 14-16, on the card, on this
     rank's elastic shard: linear.train_step_dp and kmeans.train_iter_dp
     over the group (every step's weights; the iterations' centers, and the
     assignments at the checked ones), the engine-hook fits (LinearModel,
@@ -1414,10 +1450,7 @@ class Smoke:
     def teacher_forced(self, state, cfg):
         """One fused round level by level, each kernel held against its plain
         version on the kernel path's inputs; returns the kernel path's
-        split tables.  Levels of 8192 nodes and more (d >= FULL_PLAIN_DEPTH)
-        hold the histogram on the first SUBSET_BLOCKS row blocks, the node
-        ids over all rows, and take the splits off the kernel's
-        histogram."""
+        split tables."""
         boost, gbdt, torch = self.boost, self.gbdt, self.torch
         g, h = gbdt.gradients(cfg, state.margin, self.y)
         g3, _ = boost.block_rows(g)
@@ -1432,21 +1465,11 @@ class Smoke:
         for d in range(1, cfg.depth):
             hk, nk = boost.hist_level(self.xb3, node3, g3, h3, feat, thr,
                                       depth=d, **kw)
-            if d < FULL_PLAIN_DEPTH:
-                hp, npl = boost.hist_level_plain(self.xb3, node3, g3, h3, feat, thr,
-                                                 depth=d, **kw)
-                require(bool(torch.equal(nk, npl)), f"level {d} node ids differ")
-                require(hist_err(hk, hp) <= 1.0, f"level {d} histogram disagrees")
-                feat, thr = self.compare_splits(hk, hp, cfg, f"level {d}")
-            else:
-                npl = boost.route_level_plain(self.xb3, node3, feat, thr, depth=d)
-                require(bool(torch.equal(nk, npl)), f"level {d} node ids differ")
-                a = [t[:SUBSET_BLOCKS] for t in (self.xb3, node3, g3, h3)] + [feat, thr]
-                hs, _ = boost.hist_level(*a, depth=d, **kw)
-                hp, _ = boost.hist_level_plain(*a, depth=d, **kw)
-                require(hist_err(hs, hp) <= 1.0, f"level {d} histogram disagrees "
-                        f"on the first {SUBSET_BLOCKS} row blocks")
-                feat, thr, _ = self.gbdt.best_splits(hk, cfg)
+            hp, npl = boost.hist_level_plain(self.xb3, node3, g3, h3, feat, thr,
+                                             depth=d, **kw)
+            require(bool(torch.equal(nk, npl)), f"level {d} node ids differ")
+            require(hist_err(hk, hp) <= 1.0, f"level {d} histogram disagrees")
+            feat, thr = self.compare_splits(hk, hp, cfg, f"level {d}")
             feats.append(feat)
             thrs.append(thr)
             node3 = nk
@@ -1540,10 +1563,9 @@ class Smoke:
                     "small input: leaves differ from the reference")
         print("  small input: fused round on the card grows the CPU reference's trees")
 
-    def deep_round(self, i8: bool, depth: int = DEEP):
-        """One deep fused round (depth 8: levels of 64 and 128 nodes; depth
-        14: up to 8192 nodes, the sorting partition), teacher-forced against
-        the plain versions (past depth 13 on a subset: see teacher_forced)."""
+    def deep_round(self, i8: bool, depth: int = DEEPEST):
+        """One deep fused round (levels of 64 to 512 nodes, the sorting
+        partition past 256), teacher-forced against the plain versions."""
         torch, gbdt = self.torch, self.gbdt
         cfg = gbdt.GBDTConfig(n_features=N_FEATURES, n_trees=1, depth=depth,
                               n_bins=self.n_bins, mxu_i8=i8)
@@ -1561,7 +1583,8 @@ class Smoke:
                     bool(torch.equal(state.forest.threshold[0, d, :n], thrs[d])),
                     f"depth-{depth} round differs from the teacher-forced tree at level {d}")
         print(f"  depth-{depth} fused round {'i8' if i8 else 'bf16'}: {ms:.3f} ms "
-              f"(one round, cold), launches {counts}, every level matches the plain path")
+              f"(one round, cold), launches {counts}, every level matches the plain path "
+              f"(round and check {time.perf_counter() - t0:.1f} s)")
 
     # -- phase 5 ------------------------------------------------------------------
     def teacher_forced_hook(self, state, cfg):
@@ -1932,15 +1955,19 @@ class Smoke:
                 if k.startswith("fused/"):
                     mode = k.split("/")[1]
                     require(bool(v) == (mode == "1"), f"gloo rank {r}: fused_active {k}")
+            require(int(run["host_runs"]) == 0,
+                    f"gloo rank {r}: the numpy host transport ran {run['host_runs']} times")
         for mode in ("1", "0"):
             gloo[mode] = {"exact_ms": float(runs[0][f"exact_ms/{mode}"])}
             gloo[mode].update({name: float(runs[0][f"ms/{mode}/{name}"])
                                for name in FUSED_CODECS})
+        gloo["host"] = {name: float(runs[0][f"ms/host/{name}"]) for name in FUSED_CODECS}
         out[f"gloo_world{DP_RANKS}"] = gloo
         print(f"  gloo, {DP_RANKS} processes on one card ({wall:.1f} s incl. start-up; "
               f"backend {runs[0]['backend']}, codec work on the card, a hop's bytes on "
               f"{runs[0]['wire']}): api.allreduce(codec=...) bitwise reference_allreduce "
-              f"on every rank, fused ring on (1) and off (0); rank 0 ms "
+              f"on every rank, the fused ring (1) and the unfused device path (0; no host "
+              f"transport; the host transport itself timed as host); rank 0 ms "
               + json.dumps({m: {k: round(v, 4) for k, v in d.items()}
                             for m, d in gloo.items()}))
         return out
@@ -1983,7 +2010,10 @@ class Smoke:
         workers' stats and registry files, the commit stamps, the kill and
         freeze times and the tracker's telemetry; with ``obs``, the workers
         and the tracker get RABIT_OBS_DIR=<tmp>/obs, and the run the files
-        there (telemetry.json read back)."""
+        there (telemetry.json read back).  The delays of ``preempt`` and
+        ``wedge`` count from the run's first commit of version 1 (a
+        worker's print to the tracker), not from launch: a process's start
+        on the card varies by seconds between runs."""
         from rabit_tpu_torch.tracker.launcher import LocalCluster
 
         with tempfile.TemporaryDirectory() as tmp:
@@ -1997,7 +2027,9 @@ class Smoke:
             if obs:
                 os.environ["RABIT_OBS_DIR"] = obs_dir  # the tracker's too
             try:
-                cluster.run(cmd, timeout=600, preempt=preempt, wedge=wedge)
+                cluster.run(cmd, timeout=600, preempt=preempt, wedge=wedge,
+                            start_when=lambda _: any(COMMIT_1.search(m)
+                                                     for m in list(cluster.messages)))
             except (RuntimeError, TimeoutError) as e:
                 raise PhaseFailed(f"{engine} {mode} {list(args)}: {e}") from e
             finally:
@@ -2065,13 +2097,13 @@ class Smoke:
                 "the clean hybrid forest over the native engine differs from the hybrid "
                 "phase's over TorchEngine")
         hop = {k: float(clean["hybrid"]["stats"][0][k]) for k in ("hop_ms", "hop_tensor_ms")}
-        first = min(t for r, v, a, t in clean["hybrid"]["commits"] if v == 1)
-        delay = first - clean["hybrid"]["t0"] + 1.5 * RECOVER_PAUSE
+        delay = 1.5 * RECOVER_PAUSE  # after the first commit: in the pause before tree 3
         kills = [("gbdt", "mid-tree mock kill (rank 1, version 1, level-2 hop)",
                   ["mock=1,1,2,0"], None),
                  ("hybrid", "commit-window mock kill (rank 0, version 1, seqno -3)",
                   ["mock=0,1,-3,0"], None),
-                 ("hybrid", f"SIGKILL of rank 1 at {delay:.1f} s", [f"pause={RECOVER_PAUSE}"],
+                 ("hybrid", f"SIGKILL of rank 1 {delay:.1f} s after the first commit",
+                  [f"pause={RECOVER_PAUSE}"],
                   [(delay, 1)])]
         out = {"hop": hop, "recovery_s": {}, "ms": {m: r["stats"][0]["ms"].tolist()
                                                      for m, r in clean.items()}}
@@ -2135,8 +2167,7 @@ class Smoke:
               "ms/round " + ", ".join(f"{x:.3f}" for x in ms) + " (recover phase, obs off: "
               + ", ".join(f"{x:.3f}" for x in self.clean_gbdt["stats"][0]["ms"].tolist()) + ")")
 
-        first = min(ts for _, v, _, ts in clean["commits"] if v == 1)
-        delay = first - clean["t0"] + 1.5 * RECOVER_PAUSE
+        delay = 1.5 * RECOVER_PAUSE  # after the first commit
         wedged = self.recover_run("gbdt", *live, engine="robust", obs=True, wedge=[(delay, 1)])
         t = wedged["telemetry"]
         require(len(wedged["wedges"]) == 1, f"frozen: {len(wedged['wedges'])} wedges landed")
@@ -2156,7 +2187,7 @@ class Smoke:
         after = [ts for _, _, attempt, ts in wedged["commits"] if attempt > 0]
         require(bool(after), "frozen: the restarted worker never committed")
         to_commit = min(after) - wedged["wedges"][0]
-        print(f"  (b) rank 1 frozen at {delay:.1f} s: lease expired after {detect:.3f} s "
+        print(f"  (b) rank 1 frozen {delay:.1f} s after the first commit: lease expired after {detect:.3f} s "
               f"(bound {bound} s), SIGKILL and one restart; from the freeze to the restarted "
               f"worker's next commit {to_commit:.2f} s; forest byte-identical to (a)'s; run "
               f"{wedged['wall_s']:.1f} s")
@@ -2229,14 +2260,182 @@ class Smoke:
                     p.wait()
                 tracker.stop()
 
-    # -- phases 13-16 -------------------------------------------------------------
+    # -- phase 13 -----------------------------------------------------------------
+    def elastic_expected(self, ew):
+        """The elastic job's totals: one world-1 run of node_histograms_kernel
+        on the card over all rows, a version at a time (int64, exact), and
+        version 1 held against node_histograms_kernel_plain.  These
+        launches are a comparison's: they do not count."""
+        torch = self.torch
+        node = torch.as_tensor(ew.row_nodes(self.n_rows, ELASTIC_NODES), device=self.dev)
+        h = torch.ones(self.n_rows, device=self.dev)
+        total = None
+        for v in range(1, ELASTIC_VERSIONS + 1):
+            g = torch.as_tensor(ew.row_grads(0, self.n_rows, v), device=self.dev)
+            hv = self.hist.node_histograms_kernel(self.xb, g, h, node, ELASTIC_NODES, self.n_bins)
+            if v == 1:
+                plain = self.hist.node_histograms_kernel_plain(self.xb, g, h, node,
+                                                               ELASTIC_NODES, self.n_bins)
+                require(torch.equal(hv, plain), "the elastic job's histogram differs from "
+                        "node_histograms_kernel_plain")
+                require(bool((hv == hv.round()).all()) and float(hv.abs().max()) < 2 ** 24,
+                        "the elastic job's histogram is not exact integers")
+            hv = hv.to(torch.int64).cpu().numpy()
+            total = hv if total is None else total + hv
+        return total
+
+    def elastic_run(self, what: str, *args: str, spares: int = 0, shrink: float = 0.0,
+                    max_restarts: int = 0, preempt=None, start_when=None) -> dict:
+        """DP_RANKS workers of tests/workers/torch_elastic_worker.py on the
+        card (and ``spares`` hot spares) under the port's LocalCluster and
+        tracker, ElasticWorker over node_histograms_kernel at the headline
+        width, heartbeats on.  Fails unless every process exits 0.  Returns
+        each life's result (state, worlds, commit wall times, launches), the
+        tracker's events and telemetry, the deaths and the restarts."""
+        from rabit_tpu_torch.tracker.launcher import LocalCluster
+
+        with tempfile.TemporaryDirectory() as tmp:
+            cmd = [sys.executable, worker_path("torch_elastic_worker"), "device=cuda",
+                   f"rows={self.n_rows}", f"bins={self.n_bins}", f"nodes={ELASTIC_NODES}",
+                   f"niter={ELASTIC_VERSIONS}", f"sleep={ELASTIC_SLEEP}", f"hb={ELASTIC_HB}",
+                   "deadline=240", f"out={tmp}", *args]
+            cluster = LocalCluster(DP_RANKS, max_restarts=max_restarts, quiet=True,
+                                   spares=spares, shrink_after_sec=shrink)
+            t0 = time.time()
+            try:
+                cluster.run(cmd, timeout=300, preempt=preempt, start_when=start_when)
+            except (RuntimeError, TimeoutError) as e:
+                raise PhaseFailed(f"elastic {what}: {e}") from e
+            require(all(rc == 0 for rc in cluster.returncodes.values()),
+                    f"elastic {what}: workers exited {cluster.returncodes}")
+            lives = {os.path.basename(f)[:-4]: dict(np.load(os.path.join(tmp, f)))
+                     for f in os.listdir(tmp) if f.endswith(".npz")}
+        counts = {}
+        for life in lives.values():
+            for k, v in life.items():
+                if k.startswith("launches/"):
+                    counts[k[9:]] = counts.get(k[9:], 0) + int(v)
+        return {"lives": lives, "events": list(cluster.events), "telemetry": cluster.telemetry,
+                "deaths": list(cluster.death_times), "restarts": dict(cluster.restarts),
+                "preempts": cluster.preempts_delivered, "wall_s": time.time() - t0,
+                "launches": counts}
+
+    def elastic_check(self, run, what: str, want) -> list[dict]:
+        """Every completed life's state bitwise ``want``; the launches are
+        the kernel and its helpers only, one each a contribution, added to
+        the report's; the telemetry's three elastic keys count the events.
+        Returns the completed lives."""
+        done = [life for life in run["lives"].values() if bool(life["completed"])]
+        require(len(done) >= 1, f"elastic {what}: no worker completed")
+        for life in done:
+            require(np.array_equal(life["state"], want),
+                    f"elastic {what}: a completed state differs from the expected totals")
+        counts = run["launches"]
+        want_keys = ("node_histograms_kernel", *HELPERS)
+        require(all(counts.get(k, 0) > 0 for k in want_keys) and set(counts) <= set(want_keys)
+                and len({counts[k] for k in want_keys}) == 1,
+                f"elastic {what}: launches {counts}")
+        for k, v in counts.items():
+            self.launches[k] += v
+        t = run["telemetry"]
+        for key, kind in (("n_spares_promoted", "spare_promoted"),
+                          ("n_shrunk", "world_shrunk"), ("n_grown", "world_grown")):
+            n = sum(1 for e in run["events"] if e["kind"] == kind)
+            require(t[key] == n, f"elastic {what}: telemetry {key} {t[key]}, {n} {kind} events")
+        return done
+
+    def death_to_commit(self, run, what: str) -> float:
+        """Seconds from the first death to the next commit of any worker."""
+        after = [t for life in run["lives"].values() for _, t in life["commits"]
+                 if run["deaths"] and t > run["deaths"][0]]
+        require(bool(run["deaths"]) and bool(after), f"elastic {what}: no commit after the death")
+        return min(after) - run["deaths"][0]
+
+    def elastic_phase(self):
+        """The elastic plane on the card: DP_RANKS ElasticWorkers sharing the
+        card, each histogramming its shard_slice of the headline bins
+        (ELASTIC_NODES nodes, integer g, h = 1: exact, folded as int64)
+        with node_histograms_kernel, ELASTIC_VERSIONS versions a run.  (a)
+        A clean run, with no pause before a contribution; (b) rank 1 SIGKILLed once version 2 is committed, no
+        spare, one restart (the restart baseline); (c) the same kill with a
+        warm spare parked (the card touched, the bins resident, one
+        contribution launched before it parks): the spare is promoted in one
+        wave, every epoch at world 2, the restarted worker parks as a
+        surplus spare and is released; (d) rank 1 dies at version 3 with no
+        spare and shrink_after_sec: the world shrinks to 1, and a spare that
+        parks once it has shrunk grows it back.  Every completed state is
+        bitwise the world-1 totals; the seconds from the death to the next
+        commit are printed for (b) and (c)."""
+        ew = worker_module("torch_elastic_worker")
+        want = self.elastic_expected(ew)
+
+        def parked(ev):
+            return any(e["kind"] == "spare_parked" for e in ev)
+
+        def committed(ev):  # rank 0 uploads its state after each commit
+            return any(e["kind"] == "bootstrap_blob" and e["version"] >= 2 for e in ev)
+
+        out = {}
+        clean = self.elastic_run("clean", "sleep=0")  # no kill to land: no pause
+        done = self.elastic_check(clean, "(a) clean", want)
+        require(len(done) == DP_RANKS and all(list(d["worlds"]) == [DP_RANKS] for d in done)
+                and clean["launches"]["node_histograms_kernel"] == DP_RANKS * ELASTIC_VERSIONS,
+                f"(a) clean: worlds {[list(d['worlds']) for d in done]}, launches "
+                f"{clean['launches']}")
+        print(f"  (a) clean: {clean['wall_s']:.1f} s incl. start-up; states bitwise the "
+              f"world-1 totals; launches {clean['launches']}")
+
+        restart = self.elastic_run("restart", max_restarts=1, preempt=[(0.0, 1)],
+                                   start_when=committed)
+        self.elastic_check(restart, "(b) restart", want)
+        require(restart["preempts"] == 1 and restart["restarts"]["1"] == 1
+                and restart["telemetry"]["n_spares_promoted"] == 0,
+                f"(b) restart: {restart['preempts']} kills, restarts {restart['restarts']}")
+        out["restart_s"] = self.death_to_commit(restart, "(b) restart")
+        print(f"  (b) SIGKILL of rank 1 after version 2, no spare: one restart; from the death "
+              f"to the next commit {out['restart_s']:.3f} s; run {restart['wall_s']:.1f} s")
+
+        hot = self.elastic_run("hot spare", spares=1, max_restarts=1, preempt=[(0.0, 1)],
+                               start_when=lambda ev: parked(ev) and committed(ev))
+        self.elastic_check(hot, "(c) hot spare", want)
+        t = hot["telemetry"]
+        surplus = [e["task_id"] for e in hot["events"] if e["kind"] == "spare_parked"]
+        require(hot["preempts"] == 1 and t["n_spares_promoted"] >= 1
+                and all(ep["world"] == DP_RANKS for ep in t["epochs"]) and "1" in surplus,
+                f"(c) hot spare: {hot['preempts']} kills, {t['n_spares_promoted']} promoted, "
+                f"epochs {t['epochs']}, parked {surplus}")
+        require(any(bool(life["parked_only"]) for k, life in hot["lives"].items()
+                    if k.startswith("1-")), "(c) hot spare: the restarted worker did not park")
+        out["hot_spare_s"] = self.death_to_commit(hot, "(c) hot spare")
+        print(f"  (c) the same kill with a warm spare parked: promoted in one wave, epochs "
+              f"{[ep['world'] for ep in t['epochs']]}, the restarted worker parked (spares "
+              f"parked {surplus}); from the death to the next commit {out['hot_spare_s']:.3f} s "
+              f"(restart: {out['restart_s']:.3f} s); run {hot['wall_s']:.1f} s")
+
+        shrink = self.elastic_run("shrink", "die=1:3", "park_after_shrink=1",
+                                  f"world={DP_RANKS}", spares=1, shrink=ELASTIC_SHRINK)
+        self.elastic_check(shrink, "(d) shrink", want)
+        t = shrink["telemetry"]
+        worlds = [ep["world"] for ep in t["epochs"]]
+        require(t["n_shrunk"] >= 1 and t["n_grown"] >= 1 and 1 in worlds
+                and worlds[-1] == DP_RANKS, f"(d) shrink: {t['n_shrunk']} shrunk, "
+                f"{t['n_grown']} grown, epochs {t['epochs']}")
+        print(f"  (d) rank 1 dies at version 3, no spare, shrink_after_sec={ELASTIC_SHRINK}: "
+              f"worlds {worlds} (world_shrunk, then world_grown when the spare parked); states "
+              f"bitwise the totals; run {shrink['wall_s']:.1f} s")
+        out.update({k: r["wall_s"] for k, r in (("clean_wall_s", clean),
+                                                ("restart_wall_s", restart),
+                                                ("hot_wall_s", hot), ("shrink_wall_s", shrink))})
+        return out
+
+    # -- phases 14-17 -------------------------------------------------------------
     @functools.cached_property
     def X(self):
         """slice_data's features on the card."""
         return self.xb.float() / 256
 
     def slice_world(self):
-        """The gloo world of phases 13-15 (DP_RANKS processes on the card,
+        """The gloo world of phases 14-16 (DP_RANKS processes on the card,
         _slice_rank), spawned once; its results are read by each phase."""
         t0 = time.perf_counter()
         self.slice_runs = run_ranks(_slice_rank, DP_RANKS, self.n_rows)
@@ -2498,7 +2697,7 @@ class Smoke:
               "stop " + json.dumps(frames))
         print("  durable " + json.dumps(self.slice_ms["durable"]))
 
-    # -- phase 18 -----------------------------------------------------------------
+    # -- phase 19 -----------------------------------------------------------------
     def trace_phase(self, logdir: str):
         """One warm fused bf16 round and one warm hook-based bf16 round under
         profile.device_trace: each round's wall time, the device time in
@@ -2559,7 +2758,7 @@ class Smoke:
         print(f"  Chrome trace under {logdir}")
         return out
 
-    # -- phase 17 -----------------------------------------------------------------
+    # -- phase 18 -----------------------------------------------------------------
     def measure(self):
         torch, boost = self.torch, self.boost
         xb3, g3, h3 = self.xb3, self.g3, self.h3
@@ -2777,14 +2976,16 @@ def main() -> int:
     except ImportError as e:
         print(f"FAIL: run from the root of a checkout ({e})", file=sys.stderr)
         return 2
-    # the plain versions' matmuls, and the products of phases 13-15 (exact f32)
+    # the plain versions' matmuls, and the products of phases 14-16 (exact f32)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     phase, t_phase = "device", time.perf_counter()
+    took = {}  # each phase's wall seconds, printed as one line at the end
 
     def next_phase(name: str) -> str:  # prints the phase that ends and its wall time
         nonlocal t_phase
-        print(f"[{phase}] took {time.perf_counter() - t_phase:.1f} s", flush=True)
+        took[phase] = time.perf_counter() - t_phase
+        print(f"[{phase}] took {took[phase]:.1f} s", flush=True)
         t_phase = time.perf_counter()
         return name
 
@@ -2833,8 +3034,6 @@ def main() -> int:
         smoke.small_reference()
         for i8 in (False, True):
             smoke.deep_round(i8)
-        for i8 in (False, True):
-            smoke.deep_round(i8, DEEPEST)
         print("[main] ms/round " + json.dumps(round_ms), flush=True)
 
         phase = next_phase("hook")
@@ -2869,6 +3068,9 @@ def main() -> int:
         phase = next_phase("liveness")
         print("[liveness] " + json.dumps(smoke.liveness_phase()), flush=True)
 
+        phase = next_phase("elastic")
+        print("[elastic] " + json.dumps(smoke.elastic_phase()), flush=True)
+
         phase = next_phase("linear")
         smoke.slice_world()
         smoke.linear_phase()
@@ -2890,6 +3092,8 @@ def main() -> int:
         phase = next_phase("trace")
         smoke.trace_phase(args.trace_dir)
         next_phase("")
+        print("[phases] " + json.dumps({**{k: round(v, 1) for k, v in took.items()},
+                                         "total": round(sum(took.values()), 1)}))
         print(json.dumps(smoke.kernels_line()))
     except PhaseFailed as e:
         print(f"FAIL [{phase}]: {e}", file=sys.stderr)

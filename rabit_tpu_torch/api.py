@@ -61,7 +61,7 @@ __all__ = ["MAX", "MIN", "SUM", "BITOR", "init", "finalize", "get_rank",
            "allreduce", "broadcast", "allgather", "checkpoint", "lazy_checkpoint",
            "load_checkpoint", "version_number", "get_engine", "world_epoch",
            "register_rebalance", "unregister_rebalance", "notify_world_change",
-           "rebootstrap"]
+           "rebootstrap", "collective_stats", "reset_collective_stats"]
 
 _engine: Engine | None = None
 # Durable-spill state (rabit_checkpoint_dir): the store, and the user-visible
@@ -99,6 +99,18 @@ def _caller_key(depth: int = 2) -> str:
     ``depth`` levels up (the user's call site)."""
     frame = sys._getframe(depth)
     return f"{frame.f_code.co_filename}::{frame.f_lineno}::{frame.f_code.co_name}"
+
+
+def collective_stats():
+    """This process's accumulated per-collective timing
+    (``profile.GLOBAL_STATS``, over the process metrics registry)."""
+    from rabit_tpu_torch.profile import GLOBAL_STATS
+
+    return GLOBAL_STATS
+
+
+def reset_collective_stats() -> None:
+    collective_stats().reset()
 
 
 def get_engine() -> Engine:
@@ -139,7 +151,9 @@ def init(args: list[str] | None = None, **overrides: Any) -> None:
     obs.record_event("compress_policy", allreduce=pol.allreduce or "identity",
                      min_bytes=pol.min_bytes, wire_deflate=pol.wire_deflate,
                      broadcast=pol.broadcast or "identity",
-                     checkpoint=pol.checkpoint or "identity")
+                     checkpoint=pol.checkpoint or "identity",
+                     fused=compress.fused_setting(config),
+                     fused_chunk_kib=config.get_int("rabit_fused_chunk_kib", 256))
     obs.record_event("engine_ready", engine=type(engine).__name__,
                      rank=engine.get_rank(), world=engine.get_world_size())
     _ckpt_base = 0

@@ -8,8 +8,9 @@ on any device (``codecs``).  They reach the data plane through:
 
 * ``api.allreduce(..., codec=...)``: a per-call codec, with a policy
   default (``rabit_compress_allreduce``) and a size floor
-  (``rabit_compress_min_bytes``).  ``TorchEngine`` runs the fused quantized
-  ring (``engine.fused``: encode and decode-fold on its device); every
+  (``rabit_compress_min_bytes``).  ``TorchEngine`` keeps the codec work
+  on its device: the fused quantized ring (``engine.fused``) or, with
+  ``rabit_fused_allreduce=0``, one all_gather of the encoded planes; every
   other engine gets the numpy transport (``transport``);
 * ``api.broadcast``: a byte codec in a one-byte frame
   (``rabit_compress_broadcast``).
@@ -22,7 +23,8 @@ so turning the knob on can never corrupt an exact path.  The ``checkpoint``
 field is the byte codec of the durable store's frames (``store``, built by
 ``api.init`` when ``rabit_checkpoint_dir`` is set).  The fused ring's keys (``rabit_fused_allreduce``,
 ``rabit_fused_chunk_kib``) are not policy: ``TorchEngine``, the one engine
-that reads them, resolves them with ``engine.fused``'s parsers.
+that reads them, resolves them with ``engine.fused``'s parsers, which read
+``fused_setting``; ``api.init`` records its spelling as ``rabit_tpu`` does.
 """
 
 from __future__ import annotations
@@ -85,6 +87,22 @@ def _bytes_codec(name: str, what: str) -> str:
         raise ValueError(f"{what}: codec {name!r} is lossy — byte blobs "
                          f"(checkpoints, broadcasts) need lossless codecs")
     return name
+
+
+#: rabit_fused_allreduce spellings, as rabit_tpu's policy accepts them
+FUSED_MODES = ("auto", "1", "0", "on", "off", "true", "false", "yes", "no", "")
+
+
+def fused_setting(config) -> str:
+    """The normalised ``rabit_fused_allreduce`` spelling (``auto`` for an
+    empty value), as ``rabit_tpu``'s policy records it; any other value is
+    refused."""
+    value = config.get("rabit_fused_allreduce", "auto") or "auto"
+    mode = value.strip().lower()
+    if mode not in FUSED_MODES:
+        raise ValueError(
+            f"rabit_fused_allreduce={value!r}: want auto, 1/on, or 0/off")
+    return mode or "auto"
 
 
 def configure(config) -> Policy:

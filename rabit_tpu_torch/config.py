@@ -97,6 +97,16 @@ DEFAULTS: dict[str, str] = {
     # the final snapshot, for its clock-offset estimate.
     "rabit_trace_exit": "0",
     "rabit_trace_clock_pings": "2",
+    # Elastic worlds (elastic): rabit_spare=1 makes a worker a hot spare that
+    # parks in the tracker's pool until it is promoted into a dead rank's
+    # slot; rabit_shrink_after_sec > 0 lets a recovery wave close with the
+    # survivors when no spare fills it in time (0: wait for a full wave);
+    # rabit_min_world floors the shrink; rabit_spare_promote_sec is the
+    # grace before a short wave takes a parked spare.
+    "rabit_spare": "0",
+    "rabit_shrink_after_sec": "0",
+    "rabit_min_world": "1",
+    "rabit_spare_promote_sec": "0.25",
 }
 
 _UNIT = {"B": 1, "K": 1 << 10, "M": 1 << 20, "G": 1 << 30}

@@ -121,9 +121,10 @@ class Engine(ABC):
         Default: the numpy host transport over this engine's own
         ``allgather`` (plus a tiny size-agreement allreduce when the
         deflate stage, ``rabit_compress_wire_deflate``, makes wire sizes
-        data-dependent).  ``TorchEngine`` overrides it with the fused ring
-        on its device.  ``prepare_fun`` runs eagerly: its output feeds the
-        encoder."""
+        data-dependent).  ``TorchEngine`` overrides it with the codec work
+        on its device (the fused ring, or with ``rabit_fused_allreduce=0``
+        one all_gather of the encoded planes).  ``prepare_fun`` runs
+        eagerly: its output feeds the encoder."""
         from rabit_tpu_torch import compress
 
         if prepare_fun is not None:
@@ -134,8 +135,8 @@ class Engine(ABC):
 
     def fused_active(self, codec, op) -> bool:
         """True when ``allreduce_compressed(codec, op)`` runs the fused
-        ring on the device (``engine.fused``) rather than the host
-        transport.  Only ``TorchEngine`` says so."""
+        ring on the device (``engine.fused``) rather than the unfused device
+        path or the host transport.  Only ``TorchEngine`` says so."""
         return False
 
     # -- checkpoint / recovery --------------------------------------------

@@ -39,6 +39,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from rabit_tpu_torch.compress import fused_setting
 from rabit_tpu_torch.compress.codecs import BLOCK, Codec, _BlockI8, get_codec
 from rabit_tpu_torch.engine.base import MAX, MIN, SUM
 from rabit_tpu_torch.parallel.collectives import _exchange
@@ -57,20 +58,16 @@ def chunk_bytes_from_config(config) -> int:
                0) * 1024
 
 
-#: rabit_fused_allreduce spellings: on (``auto``, the default, means on) and off
+#: rabit_fused_allreduce spellings that turn the ring on (``auto``, the
+#: default, means on); the others of ``compress.FUSED_MODES`` turn it off
 _FUSED_ON = ("auto", "1", "on", "true", "yes")
-_FUSED_OFF = ("0", "off", "false", "no")
 
 
 def fused_mode(config) -> bool:
     """Resolve ``rabit_fused_allreduce``: ``auto`` (the default) means on;
-    ``0`` forces the host transport.  Any other value is refused."""
-    value = config.get("rabit_fused_allreduce", "auto") or "auto"
-    mode = value.strip().lower()
-    if mode not in _FUSED_ON + _FUSED_OFF:
-        raise ValueError(
-            f"rabit_fused_allreduce={value!r}: want auto, 1/on, or 0/off")
-    return mode in _FUSED_ON
+    ``0`` keeps the codec work on the device without the ring.  Any other
+    value is refused."""
+    return fused_setting(config) in _FUSED_ON
 
 
 def segment_widths(codec: Codec) -> tuple[int, ...]:
@@ -98,7 +95,8 @@ def plan_ring_order(world: int, config) -> tuple[int, ...]:
     return sched.plan(world, knobs["schedule"], mesh).ring_order
 
 
-def _fold_fn(op: int):
+def fold_fn(op: int):
+    """The elementwise fold of ``op``, as the host transport's numpy fold."""
     if op == SUM:
         return torch.add
     if op == MAX:
@@ -127,7 +125,7 @@ def build_fused_allreduce(group, ring_order, op: int, codec: Codec, n: int,
                          f"0..{world - 1}")
     if n < 1:
         raise ValueError(f"fused allreduce needs n >= 1, got {n}")
-    fold = _fold_fn(op)
+    fold = fold_fn(op)
 
     # Equal-slice geometry: pad to world * slice_blocks scale blocks so the
     # ring moves identically-shaped chunks.  Zero padding is block-local in

@@ -22,15 +22,20 @@ OR, and neither takes unsigned 32- or 64-bit integers, so:
   wraps modulo 2**32 (2**64) in either reading, and for MAX and MIN the
   sign bit is flipped first, which maps unsigned order onto signed order.
 
-Compressed allreduce (``allreduce_compressed``): with
-``rabit_fused_allreduce`` on (the default) and more than one rank, the
-fused quantized ring of ``engine.fused`` along the planned ring order,
-built once per (op, codec, element count); its encode and decode-fold run
-on this rank's card with ``rabit_torch_device=cuda`` (on the host with
-``cpu``), and its hops cross the default group (through host memory where
-that group is gloo).  Otherwise the numpy host transport of the base
-class.  Either way the result equals ``compress.reference_allreduce`` of
-the ranks' contributions bit for bit.
+Compressed allreduce (``allreduce_compressed``) of a float32 payload
+under SUM, MAX or MIN, with a codec that has a device path, on more than
+one rank: with ``rabit_fused_allreduce`` on (the default), the fused
+quantized ring of ``engine.fused`` along the planned ring order, built once
+per (op, codec, element count); with it off, ``rabit_tpu``'s unfused device
+path (``XlaEngine._compressed_fns``): the codec's encode, one
+``all_gather`` of the encoded uint8 planes over the default group, and the
+rank-order decode-fold as separate eager ops.  Either way the codec work
+runs on this rank's card with ``rabit_torch_device=cuda`` (on the host
+with ``cpu``), and the bytes cross the default group (through host memory
+where that group is gloo).  Any other payload, codec or op, and world 1,
+take the numpy host transport of the base class, as in ``rabit_tpu``.  The
+result equals ``compress.reference_allreduce`` of the ranks'
+contributions bit for bit.
 
 Checkpoints stay in host memory, one copy a process (recovery of a lost
 process is the robust engine's work, which this one does not do).
@@ -194,19 +199,47 @@ class TorchEngine(HostCheckpoints, Engine):
                 chunk_bytes=self._fused_chunk, device=device)
         return self._fused[key]
 
+    def _codec_device(self) -> torch.device:
+        """Where the codec work of a compressed allreduce runs."""
+        if self._device.type == "cuda":
+            return torch.device("cuda", self._card(self._rank))
+        return torch.device("cpu")
+
+    def _gathered_fold(self, x: torch.Tensor, op: int, codec) -> torch.Tensor:
+        """The unfused device path: encode, one all_gather of the encoded
+        planes, and the rank-order decode-fold, each an eager op, so no
+        fold contracts into another."""
+        n = x.numel()
+        wire = codec.torch_encode(x.to(self._codec_device()))
+        mine = wire.to(self._stage)
+        parts = [torch.empty_like(mine) for _ in range(self._world)]
+        dist.all_gather(parts, mine)
+        fold = fused.fold_fn(op)
+        acc = None
+        for part in parts:
+            dec = codec.torch_decode(part.to(wire.device), n)
+            acc = dec if acc is None else fold(acc, dec)
+        return acc
+
     def allreduce_compressed(self, data, op, codec, prepare_fun=None, cache_key=None):
         if prepare_fun is not None:
             prepare_fun(data)
         arr = np.ascontiguousarray(data)
-        if arr.dtype != np.float32 or not self.fused_active(codec, op):
+        if (self._world == 1 or not codec.has_torch or arr.dtype != np.float32
+                or op not in fused.FUSED_OPS):
             return super().allreduce_compressed(arr, op, codec, cache_key=cache_key)
         from rabit_tpu_torch.compress import observe
 
+        on_ring = self._fused_on  # the guard above covered the rest of fused_active
         t0 = time.perf_counter()
-        out = self._fused_fn(op, codec, arr.size)(torch.from_numpy(arr.reshape(-1)))
+        x = torch.from_numpy(arr.reshape(-1))
+        if on_ring:
+            out = self._fused_fn(op, codec, arr.size)(x)
+        else:
+            out = self._gathered_fold(x, op, codec)
         result = out.cpu().numpy().reshape(arr.shape)
         observe(self, codec.name, raw=arr.nbytes, wire=codec.wire_len(arr.size),
-                encode_s=time.perf_counter() - t0, fused=True)
+                encode_s=time.perf_counter() - t0, fused=on_ring)
         return result
 
     def broadcast(self, data, root, cache_key=None):

@@ -161,6 +161,16 @@ def gradients(cfg: GBDTConfig, margin: torch.Tensor, y: torch.Tensor):
     raise ValueError(f"unknown objective {cfg.objective}")
 
 
+def node_histograms(xb: torch.Tensor, g: torch.Tensor, h: torch.Tensor,
+                    node: torch.Tensor, n_nodes: int, n_bins: int,
+                    mxu_i8: bool = False) -> torch.Tensor:
+    """Per-(node, feature, bin) gradient and hessian sums, [n_nodes, F, B,
+    2], as ``rabit_tpu.models.gbdt.node_histograms``: the CUDA kernel on the
+    card (its i8 encoding with ``mxu_i8``), the exact scatter on the CPU
+    (``ops.hist.node_histograms``)."""
+    return _hist.node_histograms(xb, g, h, node, n_nodes, n_bins, mxu_i8=mxu_i8)
+
+
 def split_gains(hist: torch.Tensor, cfg: GBDTConfig) -> torch.Tensor:
     """Gain of every split candidate of a [nodes, F, B, 2] histogram,
     [nodes, F*B]: XGBoost's GL^2/(HL+l) + GR^2/(HR+l) - G^2/(H+l) for

@@ -10,7 +10,9 @@ task id, and its peers recover it through the tracker's next wave; a
 worker's dump-then-die exit (``obs.HANG_ABORT_EXIT``) is such a death.
 ``run(..., preempt=[(delay_s, task), ...])`` SIGKILLs workers at those
 times, wherever they are; ``wedge=[(delay_s, task), ...]`` SIGSTOPs them
-instead, a silent hang with no exit and no TCP error.
+instead, a silent hang with no exit and no TCP error.  ``start_when``
+(a test of the tracker's events) holds both clocks until it is true, so
+a kill can wait for a spare to park or a version to commit.
 
 Self-healing: the tracker's lease monitor calls back into the launcher
 when a worker with ``rabit_heartbeat_sec`` goes silent (``on_suspect``),
@@ -19,9 +21,19 @@ ordinary death that the restart path and the engine's recovery handle.
 After ``run`` the tracker's telemetry document is ``telemetry``
 (telemetry.json lands in ``RABIT_OBS_DIR`` when that is set).
 
+Elastic worlds (``elastic``): ``spares=K`` (``--spares K``) also starts K
+hot spares, task ids ``s0`` .. ``s{K-1}`` (``spare_task_id``), with
+``rabit_spare=1`` in their environment; they park in the tracker's pool.
+``shrink_after_sec`` (``--shrink-after``) lets a recovery wave close with
+the survivors when no spare fills it in time.  A dead spare is not
+started again and does not hold the job open; a restarted worker whose
+slot a spare took parks as a spare and is released when the job ends.
+Bookkeeping is keyed by task id.
+
 Usage:
     python -m rabit_tpu_torch.tracker.launcher --num-workers 4 \\
-        [--max-restarts 20] [--preempt DELAY:TASK] [--wedge DELAY:TASK] \\
+        [--max-restarts 20] [--spares K] [--shrink-after SEC] \\
+        [--preempt DELAY:TASK] [--wedge DELAY:TASK] \\
         -- python worker.py rabit_heartbeat_sec=0.5 [args...]
 """
 
@@ -34,24 +46,40 @@ import subprocess
 import sys
 import threading
 import time
+from typing import Callable
 
 from rabit_tpu_torch.tracker.tracker import Tracker
 
 
+#: Seconds a released spare has to leave before the run kills it.
+SPARE_EXIT_SEC = 10.0
+
+
+def spare_task_id(i: int) -> str:
+    """Task id of the i-th hot spare: outside the workers' dense numbering
+    ("0".."N-1"), as a spare is outside the ranks until it is promoted."""
+    return f"s{i}"
+
+
 class LocalCluster:
     def __init__(self, num_workers: int, max_restarts: int = 0, quiet: bool = False,
-                 extra_env: dict[str, str] | None = None):
+                 extra_env: dict[str, str] | None = None, spares: int = 0,
+                 shrink_after_sec: float = 0.0):
         self.num_workers = num_workers
         self.max_restarts = max_restarts
         self.quiet = quiet
         self.extra_env = extra_env or {}
-        #: restarts and the last exit code, per task id ("0".."N-1")
-        self.restarts: dict[str, int] = {str(i): 0 for i in range(num_workers)}
-        self.returncodes: dict[str, int | None] = {str(i): None for i in range(num_workers)}
+        self.shrink_after_sec = float(shrink_after_sec)
+        tasks = [str(i) for i in range(num_workers)]
+        tasks += [spare_task_id(i) for i in range(int(spares))]
+        #: restarts and the last exit code, per task id ("0".."N-1", then
+        #: the spares' "s0".."sK-1")
+        self.restarts: dict[str, int] = {t: 0 for t in tasks}
+        self.returncodes: dict[str, int | None] = {t: None for t in tasks}
         self.messages: list[str] = []  # the tracker's print log of the last run
         self.events: list[dict] = []   # the tracker's waves of the last run
-        #: time.time() of each worker death seen: a preemption at its
-        #: SIGKILL, another death when it is reaped
+        #: time.time() of each worker death seen, once a death: a preemption
+        #: or a suspect at its SIGKILL, another death when it is reaped
         self.death_times: list[float] = []
         #: scheduled preemptions whose SIGKILL landed (a worker that had
         #: already exited is left alone and not counted)
@@ -61,47 +89,60 @@ class LocalCluster:
         self.wedge_times: list[float] = []
         #: the tracker's telemetry document of the last run
         self.telemetry: dict | None = None
-        # task ids the lease monitor suspected, drained (and SIGKILLed) by
-        # the run loop: the monitor thread never touches a process
-        self._suspects: list[str] = []
+        # (task id, time.monotonic()) of each suspicion of the lease monitor,
+        # drained (and SIGKILLed) by the run loop: the monitor thread never
+        # touches a process
+        self._suspects: list[tuple[str, float]] = []
         self._suspect_lock = threading.Lock()
+        self._spawned: dict[str, float] = {}  # task id -> time.monotonic() of its life's start
 
     def _on_suspect(self, task_id: str) -> None:
         """The tracker's lease-expiry callback (on its monitor thread)."""
         with self._suspect_lock:
-            self._suspects.append(task_id)
+            self._suspects.append((task_id, time.monotonic()))
 
     def _spawn(self, cmd: list[str], tracker: Tracker, task_id: str) -> subprocess.Popen:
         env = dict(os.environ)
         env.update(self.extra_env)
         env.update(DMLC_TRACKER_URI=tracker.host, DMLC_TRACKER_PORT=str(tracker.port),
                    DMLC_TASK_ID=task_id, DMLC_NUM_ATTEMPT=str(self.restarts[task_id]))
+        if not task_id.isdigit():
+            env["RABIT_TPU_RABIT_SPARE"] = "1"  # config's environment layer: rabit_spare=1
+        self._spawned[task_id] = time.monotonic()
         return subprocess.Popen(cmd, env=env)
 
     def run(self, cmd: list[str], timeout: float = 300.0,
             preempt: list[tuple[float, int]] | None = None,
-            wedge: list[tuple[float, int]] | None = None) -> int:
-        """Run ``cmd`` x num_workers under a fresh tracker; returns 0 when
-        every worker has exited cleanly.  Raises when a task id's restart
-        budget is spent or ``timeout`` seconds pass; every worker still
-        running then is killed.  A suspect of the lease monitor is SIGKILLed
-        and restarted from the same budget."""
+            wedge: list[tuple[float, int]] | None = None,
+            start_when: Callable[[list[dict]], bool] | None = None) -> int:
+        """Run ``cmd`` x num_workers (and the spares) under a fresh
+        tracker; returns 0 when every worker has exited cleanly.  Raises
+        when a task id's restart budget is spent or ``timeout`` seconds
+        pass; every process still running then is killed.  A suspect of the
+        lease monitor is SIGKILLed and restarted from the same budget.  The
+        delays of ``preempt`` and ``wedge`` count from launch, or from the
+        first time ``start_when(events)`` holds for the tracker's events."""
         self._suspects = []
-        tracker = Tracker(self.num_workers, quiet=self.quiet,
-                          on_suspect=self._on_suspect).start()
+        tracker = Tracker(self.num_workers, quiet=self.quiet, on_suspect=self._on_suspect,
+                          shrink_after_sec=self.shrink_after_sec).start()
         self.messages = tracker.messages
         self.events = tracker.events
         procs: dict[str, subprocess.Popen | None] = {
-            str(i): self._spawn(cmd, tracker, str(i)) for i in range(self.num_workers)}
-        start = time.monotonic()
+            t: self._spawn(cmd, tracker, t) for t in self.restarts}
+        launched = time.monotonic()
+        start = None if start_when is not None else launched
         pending = sorted(preempt or [], key=lambda p: p[0], reverse=True)
         wedges = sorted(wedge or [], key=lambda p: p[0], reverse=True)
         stamped: set[str] = set()  # deaths already in death_times
+        done_at = None  # monotonic time the tracker saw the job done
         try:
             while True:
-                if time.monotonic() - start > timeout:
+                if time.monotonic() - launched > timeout:
                     raise TimeoutError(f"cluster did not finish within {timeout}s")
-                while pending and time.monotonic() - start >= pending[-1][0]:
+                if start is None and start_when(list(tracker.events)):
+                    start = time.monotonic()
+                elapsed = time.monotonic() - start if start is not None else -1.0
+                while pending and start is not None and elapsed >= pending[-1][0]:
                     tid = str(pending[-1][1])
                     proc = procs.get(tid)
                     if proc is not None and proc.poll() is not None:
@@ -115,9 +156,10 @@ class LocalCluster:
                         self.preempts_delivered += 1
                         self.death_times.append(killed_at)
                         stamped.add(tid)
+                    tracker.note_exit(tid)
                     if not self.quiet:
                         print(f"[launcher] preempted worker {tid} (SIGKILL)", flush=True)
-                while wedges and time.monotonic() - start >= wedges[-1][0]:
+                while wedges and start is not None and elapsed >= wedges[-1][0]:
                     tid = str(wedges.pop()[1])
                     proc = procs.get(tid)
                     if proc is None or proc.poll() is not None:
@@ -129,10 +171,10 @@ class LocalCluster:
                         print(f"[launcher] wedged worker {tid} (SIGSTOP)", flush=True)
                 with self._suspect_lock:
                     suspects, self._suspects = self._suspects, []
-                for tid in suspects:
+                for tid, at in suspects:
                     proc = procs.get(tid)
-                    if proc is None or proc.poll() is not None:
-                        continue  # dead or finished: nothing to heal
+                    if proc is None or proc.poll() is not None or self._spawned[tid] > at:
+                        continue  # dead, finished, or a later life than the one suspected
                     # SIGKILL works on a stopped process too; its peers get
                     # TCP resets and the restart below takes over.
                     proc.kill()
@@ -141,18 +183,34 @@ class LocalCluster:
                     if not self.quiet:
                         print(f"[launcher] worker {tid} suspected by the lease monitor: "
                               "SIGKILL", flush=True)
-                alive = 0
+                alive = spares_alive = 0
                 for tid, proc in list(procs.items()):
                     if proc is None:
                         continue
+                    spare = not tid.isdigit()
                     ret = proc.poll()
                     if ret is None:
-                        alive += 1
+                        if spare:
+                            spares_alive += 1
+                        else:
+                            alive += 1
                     elif ret == 0:
                         self.returncodes[tid] = 0
                         procs[tid] = None
+                    elif spare:
+                        # A dead spare is not started again: the pool shrank.
+                        self.returncodes[tid] = ret
+                        procs[tid] = None
+                        if tid in stamped:
+                            stamped.discard(tid)
+                        else:
+                            self.death_times.append(time.time())
+                        if not self.quiet:
+                            print(f"[launcher] spare {tid} died (code {ret}); the pool "
+                                  "shrank", flush=True)
                     else:
                         self.returncodes[tid] = ret
+                        tracker.note_exit(tid)
                         if self.restarts[tid] >= self.max_restarts:
                             raise RuntimeError(f"worker {tid} died with code {ret}; restart "
                                                f"budget ({self.max_restarts}) exhausted")
@@ -166,7 +224,13 @@ class LocalCluster:
                                   f"{self.restarts[tid]}/{self.max_restarts}", flush=True)
                         procs[tid] = self._spawn(cmd, tracker, tid)
                         alive += 1
-                if alive == 0:
+                if tracker.wait(0) and done_at is None:
+                    done_at = time.monotonic()
+                # A spare holds the run open while it may still be working
+                # (promoted) and, once the job is done, while it leaves the
+                # pool it was released from (SPARE_EXIT_SEC at most).
+                if alive == 0 and (spares_alive == 0 or (
+                        done_at is not None and time.monotonic() - done_at > SPARE_EXIT_SEC)):
                     return 0
                 time.sleep(0.02)
         finally:
@@ -190,6 +254,13 @@ def main(argv: list[str] | None = None) -> int:
                     help="SIGSTOP worker TASK DELAY seconds after launch, a silent hang "
                          "(repeatable); give the workers rabit_heartbeat_sec so the "
                          "lease monitor suspects it")
+    ap.add_argument("--spares", type=int, default=0, metavar="K",
+                    help="also start K hot spares (task ids s0..sK-1, rabit_spare=1) "
+                         "that park in the tracker's pool until a dead rank's slot "
+                         "needs them")
+    ap.add_argument("--shrink-after", type=float, default=0.0, metavar="SEC",
+                    help="let a recovery wave close with the survivors when no spare "
+                         "fills it within SEC seconds (0: wait for a full wave)")
     ap.add_argument("cmd", nargs=argparse.REMAINDER)
     args = ap.parse_args(argv)
     cmd = args.cmd[1:] if args.cmd[:1] == ["--"] else args.cmd
@@ -206,7 +277,8 @@ def main(argv: list[str] | None = None) -> int:
                 ap.error(f"{flag} wants DELAY:TASK pairs, got {s!r}")
         return out
 
-    cluster = LocalCluster(args.num_workers, args.max_restarts, quiet=args.quiet)
+    cluster = LocalCluster(args.num_workers, args.max_restarts, quiet=args.quiet,
+                           spares=args.spares, shrink_after_sec=args.shrink_after)
     return cluster.run(cmd, timeout=args.timeout, preempt=schedule(args.preempt, "--preempt"),
                        wedge=schedule(args.wedge, "--wedge"))
 

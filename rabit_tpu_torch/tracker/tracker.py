@@ -1,5 +1,5 @@
-"""The tracker: rank assignment and the bootstrap and recovery waves of
-rabit's C++ engine.
+"""The tracker: rank assignment, the bootstrap and recovery waves of
+rabit's C++ engine, and the elastic plane's spares and resizes.
 
 The port's core of ``rabit_tpu/tracker/tracker.py``.  Workers check in
 with ``start`` (a fresh process) or ``recover`` (a survivor whose
@@ -13,7 +13,24 @@ check-in whose worker hung up while the wave filled is purged before the
 wave closes, so a worker that dies between its check-in and the reply
 cannot strand the others.  ``print`` messages go to ``messages`` (the
 robust engine's stats lines also become ``events``); the job is done once
-every task id has shut down and no other task holds a lease.
+as many task ids as the world holds have shut down and no other task
+holds a lease.
+
+Elastic worlds (``elastic``): the epoch line belongs to
+``elastic.MembershipManager``, which decides every wave.  A worker with
+``rabit_spare=1`` checks in with ``spare``, receives the cached bootstrap
+blob (which rank 0 uploads with ``blob`` after each commit) and parks on a
+warm socket.  A wave short of a rank takes a parked spare once it has
+waited ``promote_after_sec`` (``spare_promoted``), at once when the dead
+rank's lease expired (``note_dead``); with no spare past
+``shrink_after_sec`` it closes with the survivors (``world_shrunk``), and
+when spares park again below the launch size the ``epoch`` reply asks the
+workers to re-enter a wave at their next version boundary, which grows
+the world back (``world_grown``).  A check-in the closing wave has no slot
+for, and a fresh worker's check-in whose slot a spare has taken, park as
+spares too.  The age-gated decisions run on a monitor thread; with no
+spares and ``shrink_after_sec=0`` no wave closes but a full one, as
+before.
 
 Liveness: a worker with ``rabit_heartbeat_sec`` renews a lease
 (``CMD_HEARTBEAT``); a lease silent for ``LEASE_FACTOR`` intervals
@@ -23,15 +40,16 @@ recovery wave follows).  A shutdown or a new check-in of the task id drops
 its lease.
 
 Telemetry: ``CMD_METRICS`` snapshots (the newest a rank; their streamed
-``delta`` windows folded into a rollup), the waves, the leases and the
-restarts make the job's telemetry document (``build_telemetry``), written
-atomically to ``<obs_dir>/telemetry.json`` when the job ends or the
-tracker stops.  Its keys are ``rabit_tpu``'s, less those of the planes not
-ported (quorum, relays, spares and resizes, serving, incidents).
+``delta`` windows folded into a rollup), the waves, the leases, the
+restarts, the promotions and resizes make the job's telemetry document
+(``build_telemetry``), written atomically to ``<obs_dir>/telemetry.json``
+when the job ends or the tracker stops.  Its keys are ``rabit_tpu``'s,
+less those of the planes not ported (quorum, relays, serving, schedule
+repair, incidents).
 
-One thread accepts; each connection is served on a thread of its own, and
-one more scans the leases.  Spares and resizes, relays, the HA standby,
-quorum records and delivery are ``rabit_tpu``'s and not ported.
+One thread accepts; each connection is served on a thread of its own, one
+more scans the leases and one the forming wave.  Quorum records, relays,
+the HA standby and delivery are ``rabit_tpu``'s and not ported.
 """
 
 from __future__ import annotations
@@ -45,6 +63,7 @@ from collections import deque
 from dataclasses import dataclass
 from typing import Callable
 
+from rabit_tpu_torch.elastic.membership import CLOSE, MembershipManager
 from rabit_tpu_torch.obs import stream as obs_stream
 from rabit_tpu_torch.obs.events import event_from_stats_line
 from rabit_tpu_torch.sched import mesh_for_world, plan
@@ -62,6 +81,7 @@ class _Pending:
     listen_port: int
     host: str
     cmd: int
+    origin: str = "worker"  # "spare": it came out of the spare pool
 
 
 @dataclass
@@ -69,16 +89,6 @@ class _Lease:
     expires: float   # time.monotonic() deadline
     interval: float  # the worker's renewal interval (seconds)
     rank: int        # the rank the worker reported (-1 before its assignment)
-
-
-def rank_map_delta(prev: dict[str, int], new: dict[str, int]) -> dict:
-    """The membership change between two waves' rank maps, as
-    ``rabit_tpu``'s wave events carry it: ``{"joined": {task: rank},
-    "left": {task: old_rank}, "moved": {task: [old_rank, new_rank]}}``."""
-    return {"joined": {t: r for t, r in new.items() if t not in prev},
-            "left": {t: r for t, r in prev.items() if t not in new},
-            "moved": {t: [prev[t], r] for t, r in new.items()
-                      if t in prev and prev[t] != r}}
 
 
 def _conn_dead(conn: socket.socket) -> bool:
@@ -143,15 +153,23 @@ class Tracker:
     ``rabit_tpu``'s default (``rabit_schedule=auto`` on the near-square
     mesh model).  ``obs_dir`` (default: ``RABIT_OBS_DIR``) is where
     telemetry.json goes; ``on_suspect(task_id)`` is called from the lease
-    thread when a lease expires (its exceptions are swallowed)."""
+    thread when a lease expires (its exceptions are swallowed).
+    ``shrink_after_sec``, ``min_world`` and ``promote_after_sec`` are the
+    elastic knobs (``elastic.settings``); ``world_size`` is the current
+    world, ``base_world`` the launch size."""
 
     def __init__(self, world_size: int, host: str = "127.0.0.1", port: int = 0,
                  quiet: bool = False, obs_dir: str | None = None,
-                 on_suspect: Callable[[str], None] | None = None):
+                 on_suspect: Callable[[str], None] | None = None,
+                 shrink_after_sec: float = 0.0, min_world: int = 1,
+                 promote_after_sec: float = 0.25):
         if world_size < 1:
             raise ValueError(f"world_size must be >= 1, got {world_size}")
         self.world_size = world_size
         self.base_world = world_size
+        self.elastic = MembershipManager(world_size, min_world=min_world,
+                                         shrink_after_sec=shrink_after_sec,
+                                         promote_after_sec=promote_after_sec)
         self.quiet = quiet
         self.on_suspect = on_suspect
         self.obs_dir = obs_dir if obs_dir is not None else (
@@ -160,17 +178,15 @@ class Tracker:
         self.messages_dropped = 0
         #: the job's timeline: one {"ts", "kind": "wave", "epoch", "world",
         #: "assignments", "recovering", "restarted", "delta"} a closed wave,
-        #: lease expiries, snapshots, and events from the workers' stats lines
+        #: the spares' and resizes' events, lease expiries, snapshots, and
+        #: events from the workers' stats lines
         self.events: list[dict] = []
-        self.epoch = -1  # the first wave is epoch 0
         self.schedule = "auto"
         self.snapshots: dict[int, dict] = {}  # rank -> newest shipped snapshot
         self.telemetry: dict | None = None
         self._stream = obs_stream.StreamRollup()
         self._delta_ranks: set[str] = set()
         self._leases: dict[str, _Lease] = {}
-        self._epochs: list[dict] = []  # {"epoch", "world"} a wave
-        self._prev_map: dict[str, int] = {}
         self._started_at = time.time()
         self._telemetry_written = False
         self._telemetry_flushed = threading.Event()
@@ -181,11 +197,20 @@ class Tracker:
         self.host, self.port = self._srv.getsockname()
         self._lock = threading.Lock()
         self._pending: list[_Pending] = []
+        self._wave_started: float | None = None  # monotonic, the wave's first check-in
+        self._spares: list[_Pending] = []  # parked spares (warm sockets)
+        self._spares_seen = False  # a spare has parked: the job is elastic
+        self._blob: tuple[int, bytes] | None = None  # (version, bootstrap blob)
         self._ranks: dict[str, int] = {}  # task id -> its last rank
         self._n_starts: dict[str, int] = {}  # task id -> start check-ins
         self._shutdown_tasks: set[str] = set()
         self._done = threading.Event()
         self._thread: threading.Thread | None = None
+
+    @property
+    def epoch(self) -> int:
+        """The newest committed world epoch (-1 before the first wave)."""
+        return self.elastic.epoch
 
     # -- lifecycle -----------------------------------------------------------
 
@@ -195,6 +220,8 @@ class Tracker:
         self._thread.start()
         threading.Thread(target=self._lease_monitor, daemon=True,
                          name="rabit-torch-tracker-leases").start()
+        threading.Thread(target=self._wave_monitor, daemon=True,
+                         name="rabit-torch-tracker-waves").start()
         return self
 
     def wait(self, timeout: float | None = None) -> bool:
@@ -216,14 +243,25 @@ class Tracker:
             held, self._pending = self._pending, []
         for p in held:
             p.conn.close()
+        self._release_spares()
         if self._thread is not None:
             self._thread.join(timeout=5)
         self.write_telemetry()
 
+    def _release_spares(self) -> None:
+        """Close every parked spare's warm socket: the spare sees EOF and
+        leaves its park.  Runs when the job is done and at ``stop``."""
+        with self._lock:
+            spares, self._spares = self._spares, []
+        for sp in spares:
+            sp.conn.close()
+
     # -- serving -------------------------------------------------------------
 
     def _serve(self) -> None:
-        while not self._done.is_set():
+        # Serves until ``stop`` closes the socket, the job's end included: a
+        # restarted worker that checks in after it is parked and released.
+        while True:
             try:
                 conn, addr = self._srv.accept()
             except OSError:
@@ -239,7 +277,7 @@ class Tracker:
             cmd = P.get_u32(conn)
             prev_rank = P.get_i32(conn)  # a task id keys the ranks; leases record it
             task_id = P.get_str(conn)
-            if cmd in (P.CMD_START, P.CMD_RECOVER):
+            if cmd in (P.CMD_START, P.CMD_RECOVER, P.CMD_SPARE):
                 listen_port = P.get_u32(conn)
                 conn.settimeout(None)  # held until the wave closes
                 with self._lock:
@@ -247,11 +285,25 @@ class Tracker:
                     # fresh worker renews once it is up, and a stale lease
                     # must not suspect it mid-bootstrap.
                     self._leases.pop(task_id, None)
-                wave = self._register(_Pending(conn, task_id, listen_port, addr[0], cmd))
+                p = _Pending(conn, task_id, listen_port, addr[0], cmd)
+                if cmd == P.CMD_SPARE or self._done.is_set():
+                    # the socket stays open until a promotion answers it, or
+                    # the release at the job's end
+                    self._park_spare(p)
+                    return
+                wave = self._register(p)
                 if wave is not None:
                     self._send_wave(wave)
                 return
-            if cmd == P.CMD_PRINT:
+            if cmd == P.CMD_EPOCH:
+                P.get_str(conn)  # the worker's committed version (informational)
+                conn.sendall(P.put_u32(P.ACK) + P.put_str(json.dumps(self._epoch_info())))
+            elif cmd == P.CMD_BLOB:
+                version = P.get_u32(conn)
+                nbytes = P.get_u32(conn)
+                self._keep_blob(task_id, version, P.recv_exact(conn, nbytes) if nbytes else b"")
+                conn.sendall(P.put_u32(P.ACK))
+            elif cmd == P.CMD_PRINT:
                 self._log_print(P.get_str(conn))
                 conn.sendall(P.put_u32(P.ACK))
             elif cmd == P.CMD_METRICS:
@@ -301,17 +353,37 @@ class Tracker:
             self._finalize_done()
 
     def _complete_locked(self) -> bool:
-        """The completion guard: every task id of the world has shut down,
-        and no task that has not holds a lease (a dead one's lease expires
-        and releases the guard)."""
+        """The completion guard: as many task ids as the current world
+        holds have shut down, and no task that has not holds a lease (a
+        dead one's lease expires and releases the guard; after a shrink a
+        survivor still re-waving holds one)."""
         return (len(self._shutdown_tasks) >= self.world_size
                 and not set(self._leases) - self._shutdown_tasks)
 
     def _finalize_done(self) -> None:
         """Write telemetry.json BEFORE releasing ``wait()``: once the
-        launcher sees the job done, the file exists."""
+        launcher sees the job done, the file exists.  Then the parked
+        spares are released, so that their processes end with the job."""
         self.write_telemetry()
         self._done.set()
+        self._release_spares()
+
+    def _epoch_info(self) -> dict:
+        """The ``epoch`` reply: the current epoch and world, and whether a
+        grow-back waits for the workers' next version boundary."""
+        with self._lock:
+            self._reap_spares_locked()
+            return {"epoch": self.elastic.epoch, "world": self.world_size,
+                    "rewave": self.elastic.grow_wanted(len(self._spares))}
+
+    def _keep_blob(self, task_id: str, version: int, blob: bytes) -> None:
+        """Keep the newest uploaded state as the blob a parked spare gets."""
+        with self._lock:
+            if self._blob is None or version >= self._blob[0]:
+                self._blob = (version, blob)
+            self.events.append({"ts": round(time.time(), 6), "kind": "bootstrap_blob",
+                                "task_id": task_id, "version": version,
+                                "nbytes": len(blob)})
 
     # -- liveness ------------------------------------------------------------
 
@@ -357,6 +429,8 @@ class Tracker:
                     self.on_suspect(task_id)
                 except Exception:  # noqa: BLE001 (detection must survive its hook)
                     pass
+            # a task known dead: a parked spare takes its slot at once
+            self.note_dead(task_id)
         if expired:
             # An expired lease may have been all that held the completion
             # guard open: every other task has shut down.
@@ -404,13 +478,15 @@ class Tracker:
 
     def build_telemetry(self) -> dict:
         """The job's telemetry document: per-rank snapshots (op stats and
-        latency percentiles), the waves, lease expiries, restarts, clock
-        offsets and the streamed rollup, under ``rabit_tpu``'s key names."""
+        latency percentiles), the waves and epochs, lease expiries,
+        restarts, promotions and resizes, clock offsets and the streamed
+        rollup, under ``rabit_tpu``'s key names."""
         with self._lock:
             events = list(self.events)
             snapshots = {str(r): s for r, s in sorted(self.snapshots.items())}
             restarts = {t: n - 1 for t, n in self._n_starts.items() if n > 1}
-            epochs = list(self._epochs)
+            epochs = [{"epoch": we.epoch, "world": we.world_size}
+                      for we in self.elastic.history]
             dropped = self.messages_dropped
         waves = [e for e in events if e["kind"] == "wave"]
         clocks = {r: s["clock"] for r, s in snapshots.items()
@@ -425,6 +501,9 @@ class Tracker:
             "n_waves": len(waves),
             "n_recovery_waves": sum(1 for w in waves if w["epoch"] > 0),
             "n_lease_expired": sum(1 for e in events if e["kind"] == "lease_expired"),
+            "n_shrunk": sum(1 for e in events if e["kind"] == "world_shrunk"),
+            "n_grown": sum(1 for e in events if e["kind"] == "world_grown"),
+            "n_spares_promoted": sum(1 for e in events if e["kind"] == "spare_promoted"),
             "schedule": self.schedule,
             "messages_dropped": dropped,
             "epochs": epochs,
@@ -469,20 +548,58 @@ class Tracker:
     def _register(self, p: _Pending) -> dict | None:
         """Admit one check-in; returns the closed wave, or None while the
         wave fills.  A check-in from a task id already pending replaces
-        the stale one."""
+        the stale one.  In an elastic job a fresh worker's check-in whose
+        task id the current epoch does not hold, while no wave forms (a
+        spare took its slot), is parked as a spare."""
         with self._lock:
             for stale in [q for q in self._pending if q.task_id == p.task_id]:
                 stale.conn.close()
             self._pending = [q for q in self._pending if q.task_id != p.task_id]
-            self._pending.append(p)
-            if len(self._pending) < self.world_size:
-                return None
-            self._purge_dead_locked()
-            if len(self._pending) < self.world_size:
-                return None
-            return self._close_wave_locked()
+            slot_taken = (p.cmd == P.CMD_START and not self._pending
+                          and self.elastic.epoch >= 0
+                          and (self._spares_seen or self.elastic.shrink_after_sec > 0)
+                          and p.task_id not in self.elastic.current.rank_map)
+            if not slot_taken:
+                self._pending.append(p)
+                if self._wave_started is None:
+                    self._wave_started = time.monotonic()
+                return self._close_wave_locked(timer=False)
+        self._park_spare(p)
+        return None
+
+    def _park_spare(self, p: _Pending) -> None:
+        """Park a spare: send it the cached bootstrap blob and keep its
+        socket in the pool, where a promotion answers it with an
+        Assignment."""
+        with self._lock:
+            self._leases.pop(p.task_id, None)
+            version, blob = self._blob if self._blob is not None else (0, b"")
+        try:
+            p.conn.sendall(P.put_blob_frame(version, blob))
+        except OSError:
+            p.conn.close()
+            return
+        with self._lock:
+            for stale in [s for s in self._spares if s.task_id == p.task_id]:
+                stale.conn.close()
+            self._spares = [s for s in self._spares if s.task_id != p.task_id]
+            p.origin, p.cmd = "spare", P.CMD_START
+            self._spares.append(p)
+            self._spares_seen = True
+            pool = len(self._spares)
+            self.events.append({"ts": round(time.time(), 6), "kind": "spare_parked",
+                                "task_id": p.task_id, "blob_version": version,
+                                "pool": pool})
+        if not self.quiet:
+            print(f"[tracker] spare {p.task_id} parked (blob v{version}, pool {pool})",
+                  flush=True)
+        if self._done.is_set():
+            self._release_spares()  # parked after the job's end: released at once
 
     def _purge_dead_locked(self) -> None:
+        """Drop pending check-ins whose worker hung up: a dead socket would
+        get its Assignment into the void, and a shrink counts live
+        survivors only."""
         dead = [p for p in self._pending if _conn_dead(p.conn)]
         if not dead:
             return
@@ -492,38 +609,139 @@ class Tracker:
         self.events.append({"ts": round(time.time(), 6), "kind": "wave_purged",
                             "dropped": sorted(p.task_id for p in dead)})
 
-    def _close_wave_locked(self) -> dict:
-        world = self.world_size
+    def _reap_spares_locked(self) -> None:
+        """Drop parked spares whose warm socket hung up: a spare that died
+        in the pool is neither counted nor promoted."""
+        dead = [s for s in self._spares if _conn_dead(s.conn)]
+        if not dead:
+            return
+        for s in dead:
+            s.conn.close()
+        self._spares = [s for s in self._spares if s not in dead]
+        self.events.append({"ts": round(time.time(), 6), "kind": "spare_dropped",
+                            "dropped": sorted(s.task_id for s in dead)})
+
+    def _close_wave_locked(self, timer: bool) -> dict | None:
+        """Close the pending wave if ``MembershipManager.decide`` says so;
+        returns the wave (members, surplus check-ins to park) or None.
+
+        ``timer=False`` is the check-in path: only a full wave (or a grow
+        that absorbs spares) closes, so a job with no spares and no shrink
+        deadline closes its waves exactly as before.  ``timer=True`` is the
+        wave monitor's and ``note_dead``'s path, which also applies the
+        age-gated promotion and shrink."""
+        if not self._pending:
+            self._wave_started = None
+            return None
+        # (a spare that note_dead moved into the wave counts as well: the
+        # pool may be empty now)
+        elastic_active = (bool(self._spares) or self.elastic.shrink_after_sec > 0
+                          or self.world_size < self.base_world
+                          or any(p.origin == "spare" for p in self._pending))
+        if timer and not elastic_active:
+            return None
+        age = time.monotonic() - (self._wave_started or time.monotonic())
+        if len(self._pending) >= self.world_size or timer:
+            self._purge_dead_locked()
+        if timer:
+            self._reap_spares_locked()
+        if not self._pending:
+            self._wave_started = None
+            return None
+        decision = self.elastic.decide(
+            len(self._pending), len(self._spares) if elastic_active else 0, age)
+        if decision.action != CLOSE:
+            return None
+        for _ in range(decision.take_spares):
+            if not self._spares:
+                break
+            self._pending.append(self._spares.pop(0))
+        world = decision.world
         # Members: check-ins holding a rank of this world first, then in
-        # check-in order; any others wait for the next wave.
+        # check-in order.  In an elastic job the rest (a restarted worker
+        # racing a promoted spare for one slot) park as spares; otherwise
+        # they wait for the next wave, as before.
         order = sorted(range(len(self._pending)), key=lambda i: (
             not 0 <= self._ranks.get(self._pending[i].task_id, -1) < world, i))
-        chosen = sorted(order[:world])
-        members = [self._pending[i] for i in chosen]
-        self._pending = [self._pending[i] for i in sorted(order[world:])]
+        members = [self._pending[i] for i in sorted(order[:world])]
+        rest = [self._pending[i] for i in sorted(order[world:])]
+        surplus = rest if elastic_active else []
+        self._pending = [] if elastic_active else rest
+        self._wave_started = time.monotonic() if self._pending else None
+        promoted = [p.task_id for p in members if p.origin == "spare"]
         self._ranks.update(assign_ranks([(p.task_id, p.host) for p in members], world,
                                         self._ranks))
         rank_map = {p.task_id: self._ranks[p.task_id] for p in members}
-        self.epoch += 1
+        prev_world = self.world_size
+        prev_map = dict(self.elastic.current.rank_map)
+        wepoch, delta = self.elastic.commit(rank_map, world)
+        self.world_size = world
         restarted = []
         for p in members:
             if p.cmd == P.CMD_START:
                 if self._n_starts.get(p.task_id, 0) > 0:
                     restarted.append(p.task_id)
                 self._n_starts[p.task_id] = self._n_starts.get(p.task_id, 0) + 1
+        ts = round(time.time(), 6)
         self.events.append({
-            "ts": round(time.time(), 6), "kind": "wave", "epoch": self.epoch,
+            "ts": ts, "kind": "wave", "epoch": wepoch.epoch,
             "world": world, "assignments": dict(rank_map),
             "recovering": sorted(p.task_id for p in members if p.cmd == P.CMD_RECOVER),
-            "restarted": sorted(restarted),
-            "delta": rank_map_delta(self._prev_map, rank_map)})
-        self._prev_map = dict(rank_map)
-        self._epochs.append({"epoch": self.epoch, "world": world})
-        return {"members": members, "world": world, "epoch": self.epoch,
-                "rank_map": rank_map}
+            "restarted": sorted(restarted), "delta": delta})
+        for task_id in promoted:
+            self.events.append({"ts": ts, "kind": "spare_promoted", "task_id": task_id,
+                                "rank": rank_map[task_id], "epoch": wepoch.epoch})
+        if world < prev_world:
+            self.events.append({"ts": ts, "kind": "world_shrunk", "epoch": wepoch.epoch,
+                                "from": prev_world, "to": world,
+                                "lost": sorted(t for t in prev_map if t not in rank_map)})
+        elif world > prev_world:
+            self.events.append({"ts": ts, "kind": "world_grown", "epoch": wepoch.epoch,
+                                "from": prev_world, "to": world,
+                                "joined": sorted(delta["joined"])})
+        return {"members": members, "world": world, "epoch": wepoch.epoch,
+                "rank_map": rank_map, "surplus": surplus}
+
+    def _wave_monitor(self) -> None:
+        """The age-gated wave decisions (promotion, shrink, grow), every
+        50 ms; nothing for a job with no spares and no shrink deadline."""
+        while not self._done.wait(0.05):
+            self._wave_tick()
+
+    def _wave_tick(self) -> None:
+        with self._lock:
+            wave = self._close_wave_locked(timer=True)
+        if wave is not None:
+            self._send_wave(wave)
+
+    def note_exit(self, task_id: str) -> None:
+        """The launcher saw the process of ``task_id`` die: its lease goes
+        (a dead life's lease must not suspect the next life while it
+        starts), and a parked spare takes its slot at once (``note_dead``)."""
+        with self._lock:
+            self._leases.pop(task_id, None)
+        self.note_dead(task_id)
+
+    def note_dead(self, task_id: str) -> None:
+        """A task known dead (its lease expired): move a parked spare into
+        the forming wave, so that the wave closes as soon as the survivors
+        have checked in, without the promotion grace."""
+        with self._lock:
+            if any(p.task_id == task_id for p in self._pending):
+                return  # it is checking in: not dead after all
+            self._reap_spares_locked()
+            if not self._spares:
+                return
+            self._pending.append(self._spares.pop(0))
+            if self._wave_started is None:
+                self._wave_started = time.monotonic()
+            wave = self._close_wave_locked(timer=True)
+        if wave is not None:
+            self._send_wave(wave)
 
     def _send_wave(self, wave: dict) -> None:
-        """One Assignment a member, sent outside the lock."""
+        """One Assignment a member, and a blob frame a surplus check-in
+        (now parked), sent outside the lock."""
         world, rank_map = wave["world"], wave["rank_map"]
         peers = {rank_map[p.task_id]: (p.host, p.listen_port) for p in wave["members"]}
         splan = plan(world, self.schedule, mesh=mesh_for_world(world))
@@ -545,3 +763,5 @@ class Tracker:
                 pass  # the worker died mid-bootstrap; its peers' next wave covers it
             finally:
                 p.conn.close()
+        for p in wave["surplus"]:
+            self._park_spare(p)

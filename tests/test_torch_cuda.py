@@ -2,8 +2,9 @@
 
 Every test here is marked ``gpu`` and skips where there is no CUDA device.
 The file imports no JAX (the machine with the card has none), so it runs
-there on its own (the last two tests run workers of the native engine under
-the port's launcher):
+there on its own (the native engine's tests run its workers under the
+port's launcher; the unfused compressed path's test spawns two gloo
+processes sharing the card):
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -m gpu
 
@@ -1190,3 +1191,78 @@ def test_leases_of_two_workers_on_the_card(cuda, tmp_path, monkeypatch):
     assert set(t["ranks"]) == {"0", "1"}
     for snap in t["ranks"].values():
         assert snap["metrics"]["ops"]["allreduce"]["calls"] == 3 * (3 + 1) + 1
+
+
+# -- the elastic plane and the unfused compressed path on the card ----------------
+
+
+def _worker_module(name):
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(name, WORKERS / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.gpu
+def test_elastic_contribution_on_card_matches_plain_and_world_one(cuda):
+    """tests/workers/torch_elastic_worker.py's contribution on the card
+    (node_histograms_kernel, 64 nodes x 28 features x 256 bins, integer g):
+    exact, equal to the plain version and to numpy's bincount, and the
+    rank-order fold of the shards at worlds 2 and 3 bitwise the world-1
+    histogram."""
+    from rabit_tpu_torch.elastic import refold
+    from rabit_tpu_torch.ops.hist import node_histograms_kernel_plain
+
+    ew = _worker_module("torch_elastic_worker")
+    rows, nodes, bins = 6000, 64, 256
+    xb, node = ew.make_bins(rows, bins), ew.row_nodes(rows, nodes)
+    work, _ = ew.card_contribution(xb, node, nodes, bins)
+    for v in (1, 5):
+        whole = work(v, 1, 0)
+        g = torch.as_tensor(ew.row_grads(0, rows, v), device=cuda)
+        plain = node_histograms_kernel_plain(
+            torch.as_tensor(xb, device=cuda), g, torch.ones_like(g),
+            torch.as_tensor(node, device=cuda), nodes, bins)
+        np.testing.assert_array_equal(whole, plain.to(torch.int64).cpu().numpy())
+        np.testing.assert_array_equal(whole, ew.numpy_hist(xb, node, ew.row_grads(0, rows, v),
+                                                           nodes, bins))
+        for world in (2, 3):
+            np.testing.assert_array_equal(refold([work(v, world, r) for r in range(world)]),
+                                          whole)
+
+
+@pytest.mark.gpu
+def test_unfused_compressed_path_on_card_matches_host_transport(cuda, tmp_path):
+    """rabit_fused_allreduce=0 with the codec work on the card (two gloo
+    processes sharing it, tests/workers/torch_compressed_device_worker.py):
+    every codec under SUM, MAX and MIN bitwise reference_allreduce, SUM
+    bitwise the host transport's result, and no run of the host transport
+    but the host-only codec's."""
+    import subprocess
+
+    from rabit_tpu_torch.compress import reference_allreduce
+    from rabit_tpu_torch.engine.base import MAX, MIN, SUM
+
+    cw = _worker_module("torch_compressed_device_worker")
+    root = Path(__file__).resolve().parents[1]
+    env = dict(__import__("os").environ, PYTHONPATH=str(root), OMP_NUM_THREADS="1")
+    procs = [subprocess.Popen([sys.executable, str(WORKERS / "torch_compressed_device_worker.py"),
+                               str(r), "2", str(tmp_path / "store"),
+                               str(tmp_path / f"rank{r}.npz"), "cuda"],
+                              env=env, cwd=root, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    logs = [p.communicate(timeout=300)[0] for p in procs]
+    assert all(p.returncode == 0 for p in procs), logs
+    xs = cw.contribs(2)
+    for r in range(2):
+        res = dict(np.load(tmp_path / f"rank{r}.npz"))
+        assert int(res["host_calls"]) == 2 and not res["fused_flags"].any()
+        assert res["unfused_counted"].all()
+        for cname in cw.CODECS:
+            for oname, op in (("sum", SUM), ("max", MAX), ("min", MIN)):
+                want = reference_allreduce(xs, op, cname)
+                assert res[f"dev/{cname}/{oname}"].tobytes() == want.tobytes(), (cname, oname)
+        for cname in ("bf16", "i8"):
+            assert res[f"dev/{cname}/sum"].tobytes() == res[f"host/{cname}"].tobytes()

@@ -262,7 +262,8 @@ def test_port_imports_no_jax():
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
         "import importlib.util\n"
-        "for w in ('torch_recover_worker', 'torch_gbdt_native_worker'):\n"
+        "for w in ('torch_recover_worker', 'torch_gbdt_native_worker',\n"
+        "          'torch_elastic_worker'):\n"
         "    spec = importlib.util.spec_from_file_location(w, f'tests/workers/{w}.py')\n"
         "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
@@ -281,7 +282,9 @@ def test_port_imports_no_jax():
         "          'rabit_tpu_torch.tracker.launcher', 'rabit_tpu_torch.obs',\n"
         "          'rabit_tpu_torch.obs.events', 'rabit_tpu_torch.obs.metrics',\n"
         "          'rabit_tpu_torch.obs.ship', 'rabit_tpu_torch.obs.stream',\n"
-        "          'rabit_tpu_torch.obs.trace'):\n"
+        "          'rabit_tpu_torch.obs.trace', 'rabit_tpu_torch.elastic.client',\n"
+        "          'rabit_tpu_torch.elastic.membership',\n"
+        "          'rabit_tpu_torch.elastic.rebalance'):\n"
         "    assert m in sys.modules, m\n"
         "from rabit_tpu_torch.models import gbdt\n"
         "assert callable(gbdt.train_round_dp) and callable(gbdt.train_round_dp_fused)\n"
