@@ -61,8 +61,9 @@ Phases, each of which exits non-zero when it fails:
               (every dtype x op against numpy_reduce, broadcast, allgather,
               prepare_fun, checkpoints) through the port's api and
               TorchEngine: in this process on NCCL at world 1, arrays
-              staged on the card, then on two processes over gloo; the
-              time of a 64-node histogram's SUM.
+              staged on the card, then on two processes over gloo
+              (spawned once, they also run phase 9's two-process part);
+              the time of a 64-node histogram's SUM.
 9. compress -- the wire codecs on the card (each codec's bytes equal
               numpy's encode, its decode numpy's, on a depth-5 level
               histogram and on a block with inf, -inf and NaN; device
@@ -75,8 +76,8 @@ Phases, each of which exits non-zero when it fails:
               rank-order decode-fold on the card, with no run of the numpy
               host transport), each bitwise equal to reference_allreduce and
               timed beside the exact SUM.
-10. hybrid -- train_round_hybrid on two processes sharing the card, each a
-              worker whose local group is an NCCL group of one, the hop
+10. hybrid -- train_round_hybrid on two processes sharing the card (phase
+              7's, which run it after their dp rounds), each a worker whose local group is an NCCL group of one, the hop
               TorchEngine over gloo: identical forests, depth + 1 hops a
               tree, the first two trees phase 7's but for printed near
               ties, every tree teacher-forced; ms/round.
@@ -88,7 +89,9 @@ Phases, each of which exits non-zero when it fails:
               node_histograms_kernel: a clean run of train_round with the
               hop on every histogram and the leaf masses, and of
               train_round_hybrid (each worker an NCCL group of one); then a
-              mock kill mid-tree, a kill in the checkpoint commit window and
+              mock kill mid-tree (with obs, rabit_trace_exit=1 and rank 0
+              1 s late to each tree: the trace phase 14 merges), a kill
+              in the checkpoint commit window and
               a timed SIGKILL, each run's forest byte-identical to its clean
               run's, restarts equal to kills, and the clean hybrid forest
               phase 10's; ms/round, the ms of a depth-6 level histogram's
@@ -119,24 +122,49 @@ Phases, each of which exits non-zero when it fails:
               restart; (c) the same kill with a warm spare parked (promoted
               within one wave; the restarted worker parks as a surplus spare
               and is released); (d) rank 1 dies at version 3 with no spare
-              and shrink_after_sec=1: the world shrinks to 1 and grows back
-              when a spare parks.  Every completed state bitwise the world-1
+              and shrink_after_sec=1 (1 s heartbeats): the world shrinks to
+              1 and grows back when a spare parks.  Every completed state bitwise the world-1
               totals of the kernel on the card (version 1 held against its
               plain version), the telemetry's n_spares_promoted, n_shrunk and
               n_grown counting the events, and the seconds from the death to
               the next commit for (b) and (c).
-14. linear -- models.linear at the headline size (X = bins / 256, f32;
+14. diagnose -- the diagnosis plane on the card: ElasticWorker threads of
+              this process against an in-process port Tracker
+              (tests/workers/torch_diag_job.py), each contribution
+              node_histograms_kernel over the worker's shard of the headline
+              bins (64 nodes, exact, folded on the card to [64, 2] int64 by
+              a bin-position weight), launches serialized: (a) world 3, 6
+              versions, clean: no incident; (b) world 3, schedule ring, 12
+              versions, rank 1's frames into rank 2 delayed 0.15 s by a
+              ChaosProxy: one degraded-link incident naming (1, 2) with
+              link-wait-attributed evidence, the schedule repaired (a later
+              ring with no 1 -> 2 hop), obs.top scraped from a thread while
+              the incident is open (rendered), the scrape at the end equal
+              to telemetry.json's stream, rank 2's link wait before and
+              after the repair; (c) world 4, 10 versions, rank 2 0.4 s late
+              to each contribution: one compute-straggler incident naming
+              rank 2.  Every state bitwise the world-1 totals (version 1's
+              histogram held against its plain version), the kernel launched
+              workers x versions times.  Then phase 11's mid-tree kill run,
+              which also ran with obs, rabit_trace_exit=1 and rank 0 a 1 s
+              straggler: export_job and critical_path_report over its obs
+              dir (a valid trace, (version, seqno) identities equal across
+              ranks, a clock estimate a rank within 0.5 s, rank 0 first by
+              arrival skew and first gating rank, the recovery's
+              collectives apart, telemetry.json gaining stragglers and
+              critical_path).
+15. linear -- models.linear at the headline size (X = bins / 256, f32;
               logistic, the LinearConfig defaults, 50 steps): LinearModel.fit
               on the card bitwise its train_step loop, steps 0, 25, 49 held
               teacher-forced against the CPU (tests/test_models.py's rtol
               2e-4, atol 2e-5); train_step_dp on an NCCL group of one
               bitwise the loop; then a gloo world of two processes sharing
-              the card (500k rows each; spawned once, it also runs phases 15
-              and 16's two-process parts): train_step_dp, every step
+              the card (500k rows each; spawned once, it also runs phases 16
+              and 17's two-process parts): train_step_dp, every step
               teacher-forced against the single-process step, and
               LinearModel(engine_allreduce=api.allreduce) through TorchEngine,
               bitwise the dp weights; ms/step of each.
-15. kmeans -- models.kmeans on the same data, K = 64, 20 iterations, the
+16. kmeans -- models.kmeans on the same data, K = 64, 20 iterations, the
               init drawn by KMeans(seed=0): KMeans.fit bitwise its
               train_iter loop, iterations 0, 10, 19 teacher-forced against
               the CPU (assignments equal but for near ties within
@@ -147,7 +175,7 @@ Phases, each of which exits non-zero when it fails:
               the new centers within 2^-21 of the f64 means) and
               KMeans(engine_allreduce=...) bitwise the dp centers; ms/iteration
               and the f64 one-hot segment_sum's time.
-16. attention -- ring_attention and ulysses_attention at sequence 8192, 32
+17. attention -- ring_attention and ulysses_attention at sequence 8192, 32
               heads of 128, f32 and bf16, causal and not, on an NCCL group of
               one and on the gloo world (block 4096; k/v hops and Ulysses'
               all-to-alls through host memory), each against
@@ -155,14 +183,14 @@ Phases, each of which exits non-zero when it fails:
               a time (tests/test_parallel.py's rtol 2e-4, atol 2e-5; bf16 adds
               the output's half-ulp rounding, 2^-8); ms a call and the
               hops' share.
-17. durable -- the api's durable spill (rabit_checkpoint_dir) in two-process
+18. durable -- the api's durable spill (rabit_checkpoint_dir) in two-process
               gloo jobs on the card, each fitting the linear model with a
               checkpoint a step (tests/workers/torch_durable_worker.py): a job
               stopped at version 3 of 6 and resumed by a fresh job, and again
               with rank 1's global files deleted (served by rank 0's
               broadcast), both bit for bit the weights of a job never
               stopped; the frames' bytes and the jobs' times.
-18. report -- per-level times of the histogram kernels (d = 0..7, bf16
+19. report -- per-level times of the histogram kernels (d = 0..7, bf16
               and i8) and of the helpers, and a {"kernels": [...]} line
               with each kernel's time (CUDA events over back-to-back
               calls, "ms"; and the device time of the kernels a call
@@ -173,16 +201,16 @@ Phases, each of which exits non-zero when it fails:
               long run the card's profiler keeps only part of the launches
               (kernel_ms), and earlier its sessions would slow the launches
               of the phases after them.
-19. trace  -- one warm fused and one warm hook-based bf16 round under
+20. trace  -- one warm fused and one warm hook-based bf16 round under
               profile.device_trace (a Chrome trace under --trace-dir): each
               round's wall time, the device time of the port's kernels, of
               every other kernel by the top aten op that launched it, and
               the device's idle time inside the round.
 
-Launches are counted per path (phases 4-7 and 19, and 7, 10, 11, 12 and
+Launches are counted per path (phases 4-7, 14 and 20, and 7, 10, 11, 12 and
 13 in their processes), each run with the counts set to 0 just before it and read just
-after; the phase-3 and phase-13 comparisons and the phase-18 timings do not count.
-Phases 14-17 run no kernel of the port (their products are torch matmuls
+after; the phase-3, phase-13 and phase-14 comparisons and the phase-19 timings do not count.
+Phases 15-18 run no kernel of the port (their products are torch matmuls
 and einsums, as in the JAX package, in f32 with TF32 off).  Each phase
 prints its wall time.  The histogram kernels count in
 boost.launches, their helpers (one hist_prep and one hist_partition a
@@ -206,6 +234,7 @@ import socket
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -242,6 +271,10 @@ ATT_F32 = (2e-4, 2e-5)      # tests/test_parallel.py's attention rtol, atol
 DURABLE_STEPS, DURABLE_STOP = 6, 3
 RECOVER_TREES = 3           # trees a run of the recover phase
 RECOVER_PAUSE = 1.0         # s before each tree of the preempted run
+# s rank 0 sleeps before each tree of the traced kill run: of its trees only
+# the last is both ranks' and outside the recovery, and the restarted life's
+# first kernel calls skew the trees before it by up to ~0.4 s in all
+TRACE_STRAGGLE = 1.0
 COMMIT_1 = re.compile(r"\[\d+\] commit version=1 ")  # a worker's first commit, as it prints it
 LIVE_HB = 0.5               # rabit_heartbeat_sec of the liveness phase
 HANG_PAUSE = 0.5            # s before each tree of the dump-then-die run
@@ -250,6 +283,15 @@ ELASTIC_VERSIONS = 8        # versions a run of the elastic phase
 ELASTIC_SLEEP = 0.3         # s a version waits before its contribution (the kill lands mid-job)
 ELASTIC_HB = 0.5            # its workers' heartbeat interval
 ELASTIC_SHRINK = 1.0        # shrink_after_sec of the shrink run
+# its workers' heartbeat interval: the dead worker's process must be gone
+# before its lease (two intervals) lapses, or the lease monitor SIGKILLs a
+# worker that has no restart left, and a process that held the card is
+# slow to end
+ELASTIC_SHRINK_HB = 1.0
+DIAG_VERSIONS = {"clean": 6, "slow link": 12, "straggler": 10}  # versions a job
+DIAG_SLEEP = 0.1            # s a diagnose-phase worker waits before each contribution
+DIAG_SLOW = (1, 2, 0.15)    # the slow link of run (b): src, dst, s a frame
+DIAG_STRAGGLER = (2, 0.4)   # the compute straggler of run (c): rank, s a version
 REPLACES = {
     "hist_level0": "rabit_tpu/ops/boost.py:341",
     "hist_level": "rabit_tpu/ops/boost.py:374",
@@ -484,24 +526,28 @@ def engine_matrix(api, worker) -> dict:
     return {"matrix_s": matrix_s, "hop_ms": _mean_ms(lambda: api.allreduce(a, api.SUM), 10)}
 
 
-def _engine_rank(rank: int, world: int, tmp: str, port: int) -> None:
-    """One process of the engine phase's gloo world: the matrix through
-    TorchEngine with host arrays."""
+def _engine_compress_rank(rank: int, world: int, tmp: str, port: int) -> None:
+    """One process of the gloo world of phases 8 and 9, spawned once: the
+    engine matrix through TorchEngine with host arrays (its own gloo group,
+    which api.finalize takes down), then the compress phase's part
+    (_compress_part).  Writes both parts' results, the engine's under
+    "engine/"."""
     from rabit_tpu_torch import api
 
     api.init(engine_args("cpu", port, world, rank))
     try:
-        np.savez(os.path.join(tmp, f"rank{rank}.npz"), **engine_matrix(api, basic_worker()))
+        out = {f"engine/{k}": v for k, v in engine_matrix(api, basic_worker()).items()}
     finally:
         api.finalize()
+    out.update(_compress_part(rank, world, tmp))
+    np.savez(os.path.join(tmp, f"rank{rank}.npz"), **out)
 
 
-def _hybrid_rank(rank: int, world: int, tmp: str, port: int, n_rows: int,
-                 n_trees: int) -> None:
+def _hybrid_part(rank: int, world: int, port: int, n_rows: int, n_trees: int) -> dict:
     """One worker of the hybrid phase: its local group an NCCL group of one
     (this process, on the card), the hop between workers the port's
     TorchEngine over gloo; train_round_hybrid on this rank's elastic shard.
-    Writes the forest, the launches, the hops and each round's ms."""
+    Returns the forest, the launches, the hops and each round's ms."""
     import torch
     import torch.distributed as dist
 
@@ -534,17 +580,30 @@ def _hybrid_rank(rank: int, world: int, tmp: str, port: int, n_rows: int,
             torch.cuda.synchronize()
             ms.append((time.perf_counter() - t0) * 1e3)
         forest = gbdt.forest_to_numpy(state.forest)
-        np.savez(os.path.join(tmp, f"rank{rank}.npz"), feature=forest.feature,
-                 threshold=forest.threshold, leaf=forest.leaf,
-                 launches=boost.launches["node_histograms_kernel"], hops=len(hops),
-                 ms=np.array(ms))
+        return dict(feature=forest.feature, threshold=forest.threshold, leaf=forest.leaf,
+                    launches=boost.launches["node_histograms_kernel"], hops=len(hops),
+                    ms=np.array(ms))
     finally:
         api.finalize()
 
 
-def _dp_rank(rank: int, world: int, tmp: str, n_rows: int, n_trees: int) -> None:
-    """One process of the gloo phase: train_round_dp with CUDA tensors on
-    this rank's elastic shard; writes its forest and launch counts."""
+def _dp_hybrid_rank(rank: int, world: int, tmp: str, n_rows: int, n_trees: int, port: int,
+                    hybrid_trees: int) -> None:
+    """One process of the gloo world of phases 7 and 10, spawned once: the
+    dp rounds (_dp_part, a FileStore gloo group it takes down), then the
+    hybrid round (_hybrid_part, TorchEngine's own group).  Writes both
+    parts' results, the hybrid's under "hybrid/"."""
+    out = _dp_part(rank, world, tmp, n_rows, n_trees)
+    out.update({f"hybrid/{k}": v
+                for k, v in _hybrid_part(rank, world, port, n_rows, hybrid_trees).items()})
+    np.savez(os.path.join(tmp, f"rank{rank}.npz"), **out)
+
+
+def _dp_part(rank: int, world: int, tmp: str, n_rows: int, n_trees: int) -> dict:
+    """The dp part of a process of phase 7's gloo world: train_round_dp
+    with CUDA tensors on this rank's elastic shard, then
+    train_round_dp_fused exact and over the int8 wire; returns the forests,
+    launch counts, times and the wire's summed histograms."""
     import torch
     import torch.distributed as dist
 
@@ -601,14 +660,15 @@ def _dp_rank(rank: int, world: int, tmp: str, n_rows: int, n_trees: int) -> None
         out["fused_launches"] = json.dumps(dict(boost.launches))
         out.update({f"wired_{i}": a.reshape(2 ** (i % DEPTH), N_FEATURES, N_BINS, 2)
                     .cpu().numpy() for i, a in enumerate(wired)})
-        np.savez(os.path.join(tmp, f"rank{rank}.npz"), **out)
+        parallel.ring_allreduce_quantized = ring
+        return out
     finally:
         dist.destroy_process_group()
 
 
-def _compress_rank(rank: int, world: int, tmp: str) -> None:
-    """One process of the compress phase's gloo world on the card: the
-    port's TorchEngine adopts this program's gloo group with
+def _compress_part(rank: int, world: int, tmp: str) -> dict:
+    """The compress phase's part of a process of the gloo world on the
+    card: the port's TorchEngine adopts this program's gloo group with
     rabit_torch_device=cuda (codec work on the card, hops through host
     memory), and api.allreduce(codec=...) of a depth-5 level histogram's
     size runs with rabit_fused_allreduce 1 (the fused ring) and 0 (the
@@ -652,12 +712,13 @@ def _compress_rank(rank: int, world: int, tmp: str) -> None:
             finally:
                 api.finalize()
         out["host_runs"] = len(host_runs)
-        np.savez(os.path.join(tmp, f"rank{rank}.npz"), **out)
+        return out
     finally:
+        compress.host_allreduce = host_allreduce
         dist.destroy_process_group()
 
 
-# -- phases 14-17: the linear and k-means models, attention, the durable spill ----
+# -- phases 15-18: the linear and k-means models, attention, the durable spill ----
 
 
 def slice_data(n_rows: int):
@@ -739,7 +800,7 @@ def attention_cases(torch, ring, rank: int, world: int, out: dict) -> None:
 
 
 def _slice_rank(rank: int, world: int, tmp: str, n_rows: int) -> None:
-    """One process of the gloo world of phases 14-16, on the card, on this
+    """One process of the gloo world of phases 15-17, on the card, on this
     rank's elastic shard: linear.train_step_dp and kmeans.train_iter_dp
     over the group (every step's weights; the iterations' centers, and the
     assignments at the checked ones), the engine-hook fits (LinearModel,
@@ -1710,17 +1771,24 @@ class Smoke:
         print(f"  NCCL, world 1: train_round_dp and train_round_dp_fused bitwise equal "
               f"to the single-process rounds; launches {counts}")
 
-    def dp_two_ranks(self, n_trees: int = 2):
+    def dp_two_ranks(self, n_trees: int = 2, hybrid_trees: int = 3):
         """DP_RANKS processes on the one card over gloo with CUDA tensors;
         their forests against each other and against the single-process
-        round, teacher-forced on the ranks' tables."""
+        round, teacher-forced on the ranks' tables.  The same processes then
+        run phase 10's hybrid round, whose results hybrid_phase checks."""
         t0 = time.perf_counter()
-        runs = run_ranks(_dp_rank, DP_RANKS, self.n_rows, n_trees)
+        both = run_ranks(_dp_hybrid_rank, DP_RANKS, self.n_rows, n_trees, free_port(),
+                         hybrid_trees)
         wall = time.perf_counter() - t0
+        runs = [{k: v for k, v in r.items() if not k.startswith("hybrid/")} for r in both]
+        self.hybrid_runs = [{k[7:]: v for k, v in r.items() if k.startswith("hybrid/")}
+                            for r in both]
+        self.hybrid_trees = hybrid_trees
         launches = self.check_ranks(runs, n_trees, "gloo")
         self.dp_forest = runs[0]
         self.check_forest(runs[0], n_trees, "gloo")
-        print(f"  gloo, {DP_RANKS} ranks on one card ({wall:.1f} s incl. start-up): "
+        print(f"  gloo, {DP_RANKS} ranks on one card ({wall:.1f} s incl. start-up and "
+              "phase 10's hybrid rounds in the same processes): "
               f"identical forests; launches per rank {launches}; the single-process "
               "round's splits at every level")
         # train_round_dp_fused exact and with wire_i8 (the int8-wire ring)
@@ -1830,7 +1898,8 @@ class Smoke:
     def engine_phase(self):
         """The engine matrix through the port's api: in this process on
         NCCL at world 1 (arrays staged on the card), then DP_RANKS
-        processes over gloo.  Returns each setting's times."""
+        processes over gloo, which go on to run phase 9's two-process part
+        (compress_phase checks it).  Returns each setting's times."""
         import torch.distributed as dist
 
         from rabit_tpu_torch import api
@@ -1844,8 +1913,12 @@ class Smoke:
             api.finalize()
         require(not dist.is_initialized(), "finalize left the process group up")
         t0 = time.perf_counter()
-        runs = run_ranks(_engine_rank, DP_RANKS, free_port())
-        out[f"gloo_world{DP_RANKS}"] = {k: float(runs[0][k]) for k in runs[0]}
+        runs = run_ranks(_engine_compress_rank, DP_RANKS, free_port())
+        self.compress_runs = [{k: v for k, v in r.items() if not k.startswith("engine/")}
+                              for r in runs]
+        out[f"gloo_world{DP_RANKS}"] = {k[7:]: float(v) for k, v in runs[0].items()
+                                        if k.startswith("engine/")}
+        # the world's wall time covers phase 9's two-process part as well
         out[f"gloo_world{DP_RANKS}"]["wall_s"] = time.perf_counter() - t0
         self.gloo_hop_ms = out[f"gloo_world{DP_RANKS}"]["hop_ms"]
         for k, v in out.items():
@@ -1943,9 +2016,7 @@ class Smoke:
               "ring_allreduce_quantized (planes 1, 2) bitwise the CPU's; the fused ring on "
               "the card and api.allreduce(codec=...) bitwise reference_allreduce; ms "
               + json.dumps({k: round(v, 4) for k, v in nccl.items()}))
-        t0 = time.perf_counter()
-        runs = run_ranks(_compress_rank, DP_RANKS)
-        wall = time.perf_counter() - t0
+        runs = self.compress_runs  # run by phase 8's processes
         gloo = {}
         for r, run in enumerate(runs):
             for k, v in run.items():
@@ -1963,7 +2034,7 @@ class Smoke:
                                for name in FUSED_CODECS})
         gloo["host"] = {name: float(runs[0][f"ms/host/{name}"]) for name in FUSED_CODECS}
         out[f"gloo_world{DP_RANKS}"] = gloo
-        print(f"  gloo, {DP_RANKS} processes on one card ({wall:.1f} s incl. start-up; "
+        print(f"  gloo, {DP_RANKS} processes on one card (phase 8's world; "
               f"backend {runs[0]['backend']}, codec work on the card, a hop's bytes on "
               f"{runs[0]['wire']}): api.allreduce(codec=...) bitwise reference_allreduce "
               f"on every rank, the fused ring (1) and the unfused device path (0; no host "
@@ -1973,16 +2044,14 @@ class Smoke:
         return out
 
     # -- phase 10 -----------------------------------------------------------------
-    def hybrid_phase(self, n_trees: int = 3):
-        """Two workers on the card, each one process whose local group is an
-        NCCL group of one, the hop the port's TorchEngine over gloo: the
-        ranks' forests identical, depth + 1 hops a tree, the first two trees
-        train_round_dp's (phase 7) but for printed near ties, every tree
-        teacher-forced against the single-process round.  Returns ms/round
-        (rank 0, rounds after the first)."""
-        t0 = time.perf_counter()
-        runs = run_ranks(_hybrid_rank, DP_RANKS, free_port(), self.n_rows, n_trees)
-        wall = time.perf_counter() - t0
+    def hybrid_phase(self):
+        """Two workers on the card (phase 7's processes), each one process
+        whose local group is an NCCL group of one, the hop the port's
+        TorchEngine over gloo: the ranks' forests identical, depth + 1 hops a
+        tree, the first two trees train_round_dp's (phase 7) but for printed
+        near ties, every tree teacher-forced against the single-process
+        round.  Returns ms/round (rank 0, rounds after the first)."""
+        runs, n_trees = self.hybrid_runs, self.hybrid_trees
         launches = self.check_ranks(runs, n_trees, "hybrid")
         hops = [int(run["hops"]) for run in runs]
         require(hops == [n_trees * (DEPTH + 1)] * DP_RANKS,
@@ -1993,7 +2062,7 @@ class Smoke:
                                              for k in ("feature", "threshold", "leaf")])
         self.check_forest(runs[0], n_trees, "hybrid")
         ms = runs[0]["ms"].tolist()
-        print(f"  hybrid, {DP_RANKS} workers on one card ({wall:.1f} s incl. start-up): "
+        print(f"  hybrid, {DP_RANKS} workers on one card (phase 7's processes): "
               f"identical forests; launches per rank {launches}; hops per rank {hops}; "
               f"first two trees bitwise train_round_dp's: {same}; the single-process "
               "round's splits at every level; ms/round " + ", ".join(f"{x:.3f}" for x in ms))
@@ -2001,7 +2070,7 @@ class Smoke:
 
     # -- phase 11 -----------------------------------------------------------------
     def recover_run(self, mode: str, *args: str, preempt=None, wedge=None,
-                    engine: str = "mock", obs: bool = False) -> dict:
+                    engine: str = "mock", obs: bool = False, keep_obs: str = "") -> dict:
         """DP_RANKS workers of tests/workers/torch_gbdt_native_worker.py on
         the card under the port's LocalCluster, rabit_engine=``engine``:
         each trains RECOVER_TREES trees of the headline data (its elastic
@@ -2010,7 +2079,8 @@ class Smoke:
         workers' stats and registry files, the commit stamps, the kill and
         freeze times and the tracker's telemetry; with ``obs``, the workers
         and the tracker get RABIT_OBS_DIR=<tmp>/obs, and the run the files
-        there (telemetry.json read back).  The delays of ``preempt`` and
+        there (telemetry.json read back); ``keep_obs`` (a directory) keeps a
+        copy of the obs dir past the run.  The delays of ``preempt`` and
         ``wedge`` count from the run's first commit of version 1 (a
         worker's print to the tracker), not from launch: a process's start
         on the card varies by seconds between runs."""
@@ -2047,6 +2117,8 @@ class Smoke:
                                 for r in range(DP_RANKS)]}
             if "telemetry.json" in run["obs_files"]:
                 run["telemetry_file"] = read_json(os.path.join(obs_dir, "telemetry.json"))
+            if keep_obs:
+                shutil.copytree(obs_dir, keep_obs, dirs_exist_ok=True)
         # "[rank] commit version=V attempt=A t=T" after every commit
         run["commits"] = [tuple(float(x) for x in m.groups()) for m in (
             re.search(r"\[(\d+)\] commit version=(\d+) attempt=(\d+) t=([\d.]+)", msg)
@@ -2098,8 +2170,13 @@ class Smoke:
                 "phase's over TorchEngine")
         hop = {k: float(clean["hybrid"]["stats"][0][k]) for k in ("hop_ms", "hop_tensor_ms")}
         delay = 1.5 * RECOVER_PAUSE  # after the first commit: in the pause before tree 3
-        kills = [("gbdt", "mid-tree mock kill (rank 1, version 1, level-2 hop)",
-                  ["mock=1,1,2,0"], None),
+        # the mid-tree kill also leaves the trace the diagnose phase merges:
+        # every rank's exit dump and telemetry.json, rank 0 a straggler
+        self.trace_obs = tempfile.mkdtemp(prefix="rabit-trace-obs-")
+        kills = [("gbdt", "mid-tree mock kill (rank 1, version 1, level-2 hop; rank 0 "
+                  f"{TRACE_STRAGGLE} s late to each tree, obs and exit dumps on)",
+                  ["mock=1,1,2,0", "rabit_trace_exit=1", "straggler=0",
+                   f"straggler_sleep={TRACE_STRAGGLE}"], None),
                  ("hybrid", "commit-window mock kill (rank 0, version 1, seqno -3)",
                   ["mock=0,1,-3,0"], None),
                  ("hybrid", f"SIGKILL of rank 1 {delay:.1f} s after the first commit",
@@ -2108,7 +2185,9 @@ class Smoke:
         out = {"hop": hop, "recovery_s": {}, "ms": {m: r["stats"][0]["ms"].tolist()
                                                      for m, r in clean.items()}}
         for mode, what, args, preempt in kills:
-            run = self.recover_run(mode, *args, preempt=preempt)
+            traced = "rabit_trace_exit=1" in args
+            run = self.recover_run(mode, *args, preempt=preempt, obs=traced,
+                                   keep_obs=self.trace_obs if traced else "")
             require(np.array_equal(run["forest"], clean[mode]["forest"]),
                     f"{what}: the forest differs from the clean {mode} run's")
             require(run["restarts"] == 1 and run["preempts"] == (1 if preempt else 0),
@@ -2362,8 +2441,9 @@ class Smoke:
         contribution launched before it parks): the spare is promoted in one
         wave, every epoch at world 2, the restarted worker parks as a
         surplus spare and is released; (d) rank 1 dies at version 3 with no
-        spare and shrink_after_sec: the world shrinks to 1, and a spare that
-        parks once it has shrunk grows it back.  Every completed state is
+        spare and shrink_after_sec (heartbeats every ELASTIC_SHRINK_HB): the
+        world shrinks to 1, and a spare that parks once it has shrunk grows
+        it back.  Every completed state is
         bitwise the world-1 totals; the seconds from the death to the next
         commit are printed for (b) and (c)."""
         ew = worker_module("torch_elastic_worker")
@@ -2413,14 +2493,16 @@ class Smoke:
               f"(restart: {out['restart_s']:.3f} s); run {hot['wall_s']:.1f} s")
 
         shrink = self.elastic_run("shrink", "die=1:3", "park_after_shrink=1",
-                                  f"world={DP_RANKS}", spares=1, shrink=ELASTIC_SHRINK)
+                                  f"world={DP_RANKS}", f"hb={ELASTIC_SHRINK_HB}", spares=1,
+                                  shrink=ELASTIC_SHRINK)
         self.elastic_check(shrink, "(d) shrink", want)
         t = shrink["telemetry"]
         worlds = [ep["world"] for ep in t["epochs"]]
         require(t["n_shrunk"] >= 1 and t["n_grown"] >= 1 and 1 in worlds
                 and worlds[-1] == DP_RANKS, f"(d) shrink: {t['n_shrunk']} shrunk, "
                 f"{t['n_grown']} grown, epochs {t['epochs']}")
-        print(f"  (d) rank 1 dies at version 3, no spare, shrink_after_sec={ELASTIC_SHRINK}: "
+        print(f"  (d) rank 1 dies at version 3, no spare, shrink_after_sec={ELASTIC_SHRINK}, "
+              f"heartbeats every {ELASTIC_SHRINK_HB} s: "
               f"worlds {worlds} (world_shrunk, then world_grown when the spare parked); states "
               f"bitwise the totals; run {shrink['wall_s']:.1f} s")
         out.update({k: r["wall_s"] for k, r in (("clean_wall_s", clean),
@@ -2428,14 +2510,242 @@ class Smoke:
                                                 ("hot_wall_s", hot), ("shrink_wall_s", shrink))})
         return out
 
-    # -- phases 14-17 -------------------------------------------------------------
+    # -- phase 14 -----------------------------------------------------------------
+    def diag_work(self, ew):
+        """The diagnose phase's contribution and its world-1 totals.  A
+        worker's contribution is node_histograms_kernel over its shard_slice
+        of the headline bins (ELASTIC_NODES nodes, the elastic job's integer
+        g, h = 1: exact), folded on the card to [nodes, 2] int64 by a
+        bin-position weight (sum over f, b of (f B + b + 1) hist[n, f, b]):
+        exact and linear, so the ranks' folds sum to the world-1 fold, and a
+        misplaced bin changes it.  The fold keeps a ring frame at 1 KiB: the
+        chaos proxy delays every 4 KiB chunk it forwards, so the 7.3 MB
+        histogram would take minutes a hop across the slow link.  g is
+        computed on the card, so a contribution takes the host well under a
+        millisecond and balanced workers show no wait a detection window
+        could count; launches are serialized (the workers are threads of
+        this process).  The totals equal the elastic worker's row_grads
+        (version 1 also checked against them in numpy).  Returns
+        work(version, world, rank) and totals(n_versions); the totals'
+        launches (version 1 held against node_histograms_kernel_plain) are a
+        comparison's and do not count."""
+        from rabit_tpu_torch.elastic import shard_slice
+
+        torch = self.torch
+        node = torch.as_tensor(ew.row_nodes(self.n_rows, ELASTIC_NODES), device=self.dev)
+        row = torch.arange(self.n_rows, device=self.dev, dtype=torch.int64)
+        weight = (torch.arange(N_FEATURES * self.n_bins, device=self.dev, dtype=torch.int64)
+                  + 1).reshape(1, N_FEATURES, self.n_bins, 1)
+        lock = threading.Lock()
+
+        def hist(version, rows, fn):
+            # ew.row_grads on the card: the host stays out of a worker's turn
+            g = ((7 * row[rows] + 13 * version) % 17 - 8).to(torch.float32)
+            return fn(self.xb[rows], g, torch.ones_like(g), node[rows], ELASTIC_NODES,
+                      self.n_bins)
+
+        def fold(hv):
+            return (hv.to(torch.int64) * weight).sum((1, 2)).cpu().numpy()
+
+        def kernel(*a):
+            with lock:  # the launch counters are plain dict adds
+                return self.hist.node_histograms_kernel(*a)
+
+        def work(version: int, world: int, rank: int) -> np.ndarray:
+            return fold(hist(version, shard_slice(self.n_rows, world, rank), kernel))
+
+        whole = slice(0, self.n_rows)
+        per_version = []
+        for v in range(1, max(DIAG_VERSIONS.values()) + 1):
+            hv = hist(v, whole, self.hist.node_histograms_kernel)
+            if v == 1:
+                g = ew.row_grads(0, self.n_rows, v)
+                require(np.array_equal(((7 * row + 13 * v) % 17 - 8).to(torch.float32)
+                                       .cpu().numpy(), g), "g on the card differs from "
+                        "row_grads")
+                plain = hist(v, whole, self.hist.node_histograms_kernel_plain)
+                require(bool(torch.equal(hv, plain)), "the diagnose job's histogram differs "
+                        "from node_histograms_kernel_plain")
+            per_version.append(fold(hv))
+        return work, lambda n: sum(per_version[:n])
+
+    def diag_run(self, dj, what: str, world: int, work, want, **kw) -> dict:
+        """One job of tests/workers/torch_diag_job.py: ``world`` ElasticWorker
+        threads against an in-process port Tracker, DIAG_VERSIONS[what]
+        versions; every completed state bitwise ``want``, and
+        node_histograms_kernel (and its helpers) launched once a worker and
+        version, with the counts set to 0 just before the run and read just
+        after."""
+        niter = DIAG_VERSIONS[what]
+        self.clear_counts()
+        t0 = time.time()
+        try:
+            out = dj.run_job(world, niter, work, iter_sleep=DIAG_SLEEP, deadline_sec=90.0, **kw)
+        except TimeoutError as e:
+            raise PhaseFailed(f"diagnose {what}: {e}") from e
+        counts = self.read_counts(world * niter)
+        require(counts == {"node_histograms_kernel": world * niter},
+                f"diagnose {what}: launches {counts}, expected {world * niter} of "
+                "node_histograms_kernel")
+        for tid, res in sorted(out["results"].items()):
+            require(res.completed and res.final_version == niter, f"diagnose {what}: task "
+                    f"{tid} did not complete: {res.error}")
+            require(np.array_equal(res.state, want(niter)),
+                    f"diagnose {what}: task {tid}'s state differs from the world-1 totals")
+        out["t0"] = t0
+        out["launches"] = counts
+        out["opened_s"] = [round(e["ts"] - t0, 3) for e in out["events"]
+                           if e["kind"] == "incident_opened"]
+        return out
+
+    @staticmethod
+    def incidents_of(out) -> list:
+        inc = out["incidents"]
+        return [(i["class"], i["subject"]) for i in inc["open"] + inc["recent"]]
+
+    def diagnose_phase(self):
+        """The diagnosis plane on the card.  Three jobs of ElasticWorker
+        threads (tests/workers/torch_diag_job.py) against an in-process port
+        Tracker, each worker's contribution node_histograms_kernel on the
+        card (diag_work): (a) world 3, clean: no incident; (b) world 3,
+        schedule ring, rank 1's frames into rank 2 delayed by a ChaosProxy
+        in front of rank 2's socket: one degraded-link incident naming
+        (1, 2) with link-wait-attributed evidence, the schedule repaired, a
+        later ring with no 1 -> 2 hop, obs.top scraped from a thread while it
+        runs (the open incident, rendered), and the scrape at the job's end
+        equal to telemetry.json's stream; (c) world 4, rank 2 a compute
+        straggler: one compute-straggler incident naming rank 2.  Then the
+        recover phase's traced kill run: export_job and critical_path_report
+        over its obs dir (a valid trace, (version, seqno) identities equal
+        across ranks, a clock a rank within 0.5 s, rank 0 first by arrival
+        skew and among the gating ranks, the recovery's collectives apart,
+        telemetry.json gains stragglers and critical_path)."""
+        from rabit_tpu_torch.obs import critical, top, trace
+        from rabit_tpu_torch.obs.events import load_dump
+
+        ew = worker_module("torch_elastic_worker")
+        dj = worker_module("torch_diag_job")
+        work, want = self.diag_work(ew)
+        out = {}
+
+        clean = self.diag_run(dj, "clean", 3, work, want)
+        require(self.incidents_of(clean) == [] and clean["n_repaired"] == 0,
+                f"(a) clean: incidents {self.incidents_of(clean)}")
+        print(f"  (a) clean, world 3, {DIAG_VERSIONS['clean']} versions: no incident; states "
+              f"bitwise the world-1 totals; launches {clean['launches']}; "
+              f"{clean['elapsed']:.1f} s")
+
+        src, dst, delay = DIAG_SLOW
+        with tempfile.TemporaryDirectory() as obs:
+            slow = self.diag_run(dj, "slow link", 3, work, want, schedule="ring", repair=True,
+                                 slow_link=DIAG_SLOW, obs_dir=obs, watch=dj.scrape_until_open)
+            tele = read_json(os.path.join(obs, "telemetry.json"))
+        require(self.incidents_of(slow) == [("degraded-link", {"src": src, "dst": dst})],
+                f"(b) slow link: incidents {self.incidents_of(slow)}")
+        inc = (slow["incidents"]["open"] + slow["incidents"]["recent"])[0]
+        require(any(e["rule"] == "link-wait-attributed" for e in inc["evidence"]),
+                f"(b) slow link: evidence {inc['evidence']}")
+        ring = slow["rings"][-1]
+        require(tele["n_schedule_repaired"] >= 1 and len(slow["rings"]) >= 2
+                and all((ring[i], ring[(i + 1) % 3]) != (src, dst) for i in range(3)),
+                f"(b) slow link: {tele['n_schedule_repaired']} repairs, rings {slow['rings']}")
+        seen = slow["watched"]
+        require(seen is not None and seen["incidents"]["n_open"] == 1
+                and seen["incidents"]["open"][0]["class"] == "degraded-link",
+                f"(b) slow link: the scrape taken mid-run shows {seen and seen['incidents']}")
+        final = slow["final"]["jobs"][""]["stream"]
+        require(final == tele["stream"], "(b) slow link: the scrape at the job's end differs "
+                "from telemetry.json's stream")
+        for name, h in seen["jobs"][""]["stream"]["total"]["histograms"].items():
+            require(h["count"] <= tele["stream"]["total"]["histograms"][name]["count"],
+                    f"(b) slow link: the mid-run scrape's {name} ran ahead of telemetry.json")
+        waits = tele["stream"]["per_rank"][str(dst)]["histograms"]
+        before = waits.get(f"link_wait_seconds{{dst={dst},src={src}}}", {})
+        new_prev = ring[(ring.index(dst) - 1) % 3]
+        after = waits.get(f"link_wait_seconds{{dst={dst},src={new_prev}}}", {})
+        require(before.get("count", 0) > 0 and after.get("count", 0) > 0,
+                f"(b) slow link: rank {dst}'s link waits {sorted(waits)}")
+        wait_ms = {"before": 1e3 * before["sum"] / before["count"],
+                   "after": 1e3 * after["sum"] / after["count"]}
+        kinds = {k: [round(e["ts"] - slow["t0"], 3) for e in slow["events"] if e["kind"] == k]
+                 for k in ("link_degraded", "incident_opened", "schedule_repaired")}
+        print("  (b) the scrape taken while the incident was open (obs.top.render):")
+        for line in top.render(seen).splitlines():
+            print("      " + line)
+        print(f"  (b) slow link {src} -> {dst} ({delay} s a frame), world 3, schedule ring, "
+              f"{DIAG_VERSIONS['slow link']} versions: one incident {inc['class']} "
+              f"{inc['subject']} (rule link-wait-attributed), {tele['n_schedule_repaired']} "
+              f"repair(s), rings {slow['rings']}; s from the start: slow_link reports "
+              f"{kinds['link_degraded']}, incident opened {kinds['incident_opened']}, repaired "
+              f"{kinds['schedule_repaired']}; rank {dst}'s mean wait on its incoming link "
+              f"{wait_ms['before']:.1f} ms ({src} -> {dst}) before the repair, "
+              f"{wait_ms['after']:.1f} ms ({new_prev} -> {dst}) after; the scrape at the job's "
+              f"end equal to telemetry.json's stream; states bitwise the totals; "
+              f"{slow['elapsed']:.1f} s")
+
+        rank, sleep = DIAG_STRAGGLER
+        strag = self.diag_run(dj, "straggler", 4, work, want, straggler=DIAG_STRAGGLER)
+        require(self.incidents_of(strag) == [("compute-straggler", {"rank": rank})],
+                f"(c) straggler: incidents {self.incidents_of(strag)}")
+        print(f"  (c) rank {rank} {sleep} s late to each contribution, world 4, "
+              f"{DIAG_VERSIONS['straggler']} versions: one incident compute-straggler "
+              f"{{'rank': {rank}}}, opened {strag['opened_s']} s from the start; states bitwise "
+              f"the totals; {strag['elapsed']:.1f} s")
+
+        t0 = time.perf_counter()
+        obs = self.trace_obs
+        doc, _, report = trace.export_job(obs)
+        export_s = time.perf_counter() - t0
+        require(trace.validate_chrome_trace(doc) == [], "the exported trace does not validate")
+        tables = {}
+        for name in os.listdir(obs):
+            if name.endswith("-exit.jsonl"):
+                tables[trace.parse_dump_name(name)["rank"]] = {
+                    (e.fields["version"], e.fields["seqno"]): e.fields["op"]
+                    for e in load_dump(os.path.join(obs, name))
+                    if e.kind == "op_begin" and e.fields.get("seqno") is not None}
+        require(set(tables) == set(range(DP_RANKS)), f"exit dumps of ranks {sorted(tables)}")
+        for key, op in tables[0].items():
+            require(all(t.get(key, op) == op for t in tables.values()),
+                    f"collective {key} differs across ranks")
+        job = trace.load_job(obs)
+        require(set(job.clocks) == set(range(DP_RANKS)) and job.max_clock_err() < 0.5,
+                f"clocks {job.clocks}")
+        top_rank = report["top_stragglers"][0]["rank"] if report["top_stragglers"] else None
+        require(top_rank == 0 and report["collectives_recovery_affected"] >= 1,
+                f"straggler report: top {report['top_stragglers'][:1]}, recovery-affected "
+                f"{report['collectives_recovery_affected']}")
+        cp = critical.critical_path_report(job)
+        gating = cp["top_gating_ranks"]
+        require(bool(gating) and gating[0]["rank"] == 0, f"critical path: gating ranks {gating}")
+        critical.fold_critical_path(obs, cp)
+        folded = read_json(os.path.join(obs, "telemetry.json"))
+        require("stragglers" in folded and "critical_path" in folded,
+                "telemetry.json lacks stragglers or critical_path")
+        shutil.rmtree(obs, ignore_errors=True)
+        print(f"  trace of the recover phase's traced kill run: {len(doc['traceEvents'])} "
+              f"events, valid; collectives {len(tables[0])} a rank, identities equal across "
+              f"ranks; clock error <= {job.max_clock_err() * 1e3:.3f} ms; "
+              f"{report['collectives_analyzed']} collectives analyzed, "
+              f"{report['collectives_recovery_affected']} recovery-affected; top straggler rank "
+              f"{top_rank} ({report['top_stragglers'][0]['lateness_total_s']:.3f} s late); "
+              f"critical path gates {cp['rounds_by_gate']}, top gating rank {gating[0]}; "
+              f"export {export_s * 1e3:.1f} ms; telemetry.json gained stragglers and "
+              "critical_path")
+        out.update(opened_s={k: r["opened_s"] for k, r in (("slow", slow), ("straggler", strag))},
+                   link_wait_ms=wait_ms, export_ms=export_s * 1e3,
+                   wall_s={k: r["elapsed"] for k, r in (("clean", clean), ("slow", slow),
+                                                        ("straggler", strag))})
+        return out
+
+    # -- phases 15-18 -------------------------------------------------------------
     @functools.cached_property
     def X(self):
         """slice_data's features on the card."""
         return self.xb.float() / 256
 
     def slice_world(self):
-        """The gloo world of phases 14-16 (DP_RANKS processes on the card,
+        """The gloo world of phases 15-17 (DP_RANKS processes on the card,
         _slice_rank), spawned once; its results are read by each phase."""
         t0 = time.perf_counter()
         self.slice_runs = run_ranks(_slice_rank, DP_RANKS, self.n_rows)
@@ -2697,7 +3007,7 @@ class Smoke:
               "stop " + json.dumps(frames))
         print("  durable " + json.dumps(self.slice_ms["durable"]))
 
-    # -- phase 19 -----------------------------------------------------------------
+    # -- phase 20 -----------------------------------------------------------------
     def trace_phase(self, logdir: str):
         """One warm fused bf16 round and one warm hook-based bf16 round under
         profile.device_trace: each round's wall time, the device time in
@@ -2758,7 +3068,7 @@ class Smoke:
         print(f"  Chrome trace under {logdir}")
         return out
 
-    # -- phase 18 -----------------------------------------------------------------
+    # -- phase 19 -----------------------------------------------------------------
     def measure(self):
         torch, boost = self.torch, self.boost
         xb3, g3, h3 = self.xb3, self.g3, self.h3
@@ -2976,7 +3286,7 @@ def main() -> int:
     except ImportError as e:
         print(f"FAIL: run from the root of a checkout ({e})", file=sys.stderr)
         return 2
-    # the plain versions' matmuls, and the products of phases 14-16 (exact f32)
+    # the plain versions' matmuls, and the products of phases 15-17 (exact f32)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     phase, t_phase = "device", time.perf_counter()
@@ -3070,6 +3380,9 @@ def main() -> int:
 
         phase = next_phase("elastic")
         print("[elastic] " + json.dumps(smoke.elastic_phase()), flush=True)
+
+        phase = next_phase("diagnose")
+        print("[diagnose] " + json.dumps(smoke.diagnose_phase()), flush=True)
 
         phase = next_phase("linear")
         smoke.slice_world()

@@ -68,10 +68,13 @@ DEFAULTS: dict[str, str] = {
     # one send a hop).
     "rabit_fused_allreduce": "auto",
     "rabit_fused_chunk_kib": "256",
-    # The ring order of the fused ring (sched): auto|tree|ring|swing, and
-    # the mesh model's dims "RxC[:nowrap]" (empty: near-square).
+    # The ring order of the fused ring and the tracker's plans (sched):
+    # auto|tree|ring|swing, the mesh model's dims "RxC[:nowrap]" (empty:
+    # near-square), and whether degraded-link reports trigger a repair
+    # replan at the next epoch boundary.
     "rabit_schedule": "auto",
     "rabit_sched_mesh": "",
+    "rabit_sched_repair": "1",
     # Observability (obs): with rabit_obs_dir (or RABIT_OBS_DIR) set, a rank
     # dumps its flight recorder there on SIGTERM or when a collective is
     # stuck past rabit_obs_hang_sec, and the tracker writes telemetry.json
@@ -107,6 +110,24 @@ DEFAULTS: dict[str, str] = {
     "rabit_shrink_after_sec": "0",
     "rabit_min_world": "1",
     "rabit_spare_promote_sec": "0.25",
+    # The diagnosis plane (obs.diagnose): rabit_diag_enable runs the
+    # tracker's HealthMonitor; rabit_diag_window_sec is its detection
+    # window; an incident opens after rabit_diag_open_windows firing windows
+    # in a row and resolves after rabit_diag_resolve_windows quiet ones;
+    # windows whose total link wait is under rabit_diag_min_wait_sec are
+    # noise; rabit_diag_link_share is the degraded-link concentration
+    # threshold (the top link's share of the window's wait),
+    # rabit_diag_hole_ratio the compute-straggler hole threshold (the quiet
+    # link's wait against the mean), rabit_diag_storm_leases the lease
+    # expiries over the recent windows that make a preemption storm.
+    "rabit_diag_enable": "1",
+    "rabit_diag_window_sec": "0.5",
+    "rabit_diag_open_windows": "2",
+    "rabit_diag_resolve_windows": "4",
+    "rabit_diag_min_wait_sec": "0.05",
+    "rabit_diag_link_share": "0.5",
+    "rabit_diag_hole_ratio": "0.25",
+    "rabit_diag_storm_leases": "3",
 }
 
 _UNIT = {"B": 1, "K": 1 << 10, "M": 1 << 20, "G": 1 << 30}

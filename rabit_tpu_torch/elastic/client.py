@@ -15,7 +15,14 @@ schedule; the identity ring when there is none): links go to the planned
 neighbours and the gathered blocks are placed by ring position, while the
 fold stays in rank order.  ``codec=`` sends each contribution through a
 wire codec of ``compress`` (the same bytes on every rank, decoded and
-folded in rank order).
+folded in rank order).  The worker times each wait on its incoming ring
+link (``link_wait_seconds{src,dst}``, streamed to the tracker on its
+heartbeat) and, once those waits pass ``slow_report_share`` of the
+epoch's wall time, reports the link as degraded: at most one ``slow_link``
+print an epoch, which the tracker's diagnosis plane attributes and the
+next wave's plan routes around.  ``advertise_port`` is the port peers are
+told to dial instead of the listen port (a ``chaos.ChaosProxy`` in front of
+it slows one link).
 
 When a link fails mid-collective the epoch is abandoned: links close, the
 worker checks in again with ``CMD_RECOVER``, and the next wave (the same
@@ -32,8 +39,8 @@ taken, and a spare never needed, end when the tracker releases them.
 
 Every socket operation is bounded, so being stuck is an error, not a
 hang.  Left out, and refused with ``NotImplementedError``: quorum rounds,
-the tracker failover list, the multi-job key and the slow-link reports
-(ROADMAP.md Queue 1, items 10c, 10d, 10g and 10b).
+the tracker failover list and the multi-job key (ROADMAP.md Queue 1,
+items 10c, 10d and 10g).
 """
 
 from __future__ import annotations
@@ -90,6 +97,8 @@ class ElasticResult:
     error: str = ""
     #: seconds spent waiting on the incoming ring link, over all epochs
     wait_prev_s: float = 0.0
+    #: slow_link reports this worker sent (at most one an epoch)
+    slow_reports: int = 0
     #: time.monotonic() of each version's commit
     commit_times: dict = field(default_factory=dict)
 
@@ -126,8 +135,9 @@ class ElasticWorker:
         link_timeout: float = 10.0,
         deadline_sec: float = 60.0,
         fail: tuple | None = None,
-        codec: str = "",
+        advertise_port: int | None = None,
         slow_report_share: float = 0.0,
+        codec: str = "",
         quorum: str = "",
         job: str = "",
     ):
@@ -137,8 +147,6 @@ class ElasticWorker:
             _refuse("quorum rounds (quorum=)", "10c")
         if job:
             _refuse("with a multi-job key (job=)", "10g")
-        if slow_report_share:
-            _refuse("slow-link reports (slow_report_share=)", "10b")
         self.tracker = (tracker[0], int(tracker[1]))
         self.task_id = task_id
         self.contribution = contribution
@@ -155,6 +163,11 @@ class ElasticWorker:
         self._listen.bind(("127.0.0.1", 0))
         self._listen.listen(16)
         self.listen_port = self._listen.getsockname()[1]
+        # the port peers dial: the listen port, or a proxy's in front of it
+        self.advertise_port = advertise_port
+        # past this share of the epoch's wall time waiting on the incoming
+        # link, report the link once an epoch (0: never)
+        self.slow_report_share = float(slow_report_share)
         self._links: dict[int, socket.socket] = {}
         self._hb: Heartbeat | None = None
         self._rank = -1
@@ -164,6 +177,10 @@ class ElasticWorker:
         self._ring_prev = -1
         self._ring_next = -1
         self._wait_total_s = 0.0
+        self._epoch_wait_s = 0.0
+        self._epoch_started = 0.0
+        self._epoch_reported = False
+        self._n_slow_reports = 0
         # this worker's own registry (several workers may share a process):
         # the link waits, shipped as deltas on the heartbeat
         self._metrics_reg = MetricsRegistry()
@@ -208,7 +225,7 @@ class ElasticWorker:
             try:
                 sock = self._connect()
                 P.send_hello(sock, cmd, self.task_id, prev_rank=prev_rank,
-                             listen_port=self.listen_port)
+                             listen_port=self.advertise_port or self.listen_port)
                 asg = self._await_assignment(sock)
                 if asg is None:
                     parked = True
@@ -255,7 +272,7 @@ class ElasticWorker:
         sock = self._connect()
         try:
             P.send_hello(sock, P.CMD_SPARE, self.task_id,
-                         listen_port=self.listen_port)
+                         listen_port=self.advertise_port or self.listen_port)
             sock.settimeout(self.wave_timeout)
             version, blob = P.recv_blob_frame(sock)
             self._note_blob(version, blob)
@@ -277,6 +294,33 @@ class ElasticWorker:
                 return P.Assignment.recv_body(sock)
         finally:
             sock.close()
+
+    def _maybe_report_slow(self, asg: P.Assignment) -> None:
+        """Report the incoming ring link as degraded once the waits on it
+        have taken ``slow_report_share`` of this epoch's wall time: a
+        ``slow_link`` print the tracker turns into a ``link_degraded``
+        event, at most one an epoch.  A delayed frame cascades downstream,
+        but the slow link's dst waits on every delayed hop, so reporting
+        one's own incoming link is the right attribution."""
+        if (self.slow_report_share <= 0 or self._epoch_reported
+                or asg.world_size <= 1):
+            return
+        elapsed = time.monotonic() - self._epoch_started
+        if elapsed < 0.2:  # too little evidence to indict a link
+            return
+        share = self._epoch_wait_s / elapsed
+        if share < self.slow_report_share:
+            return
+        self._epoch_reported = True
+        self._n_slow_reports += 1
+        line = (f"[{asg.rank}] slow_link src={self._ring_prev} dst={asg.rank} "
+                f"wait={self._epoch_wait_s:.3f} share={share:.3f}")
+        try:
+            P.tracker_rpc(self.tracker[0], self.tracker[1], P.CMD_PRINT, self.task_id,
+                          prev_rank=asg.rank, message=line, timeout=_RPC_TIMEOUT,
+                          retries=1)
+        except (P.TrackerUnreachable, ValueError):
+            pass  # a report must never fail the job
 
     def _query_epoch(self) -> dict | None:
         try:
@@ -319,7 +363,8 @@ class ElasticWorker:
 
     def _adopt_schedule(self, asg: P.Assignment) -> None:
         """The planned ring of the Assignment when it is a permutation of
-        the ranks, else the identity ring."""
+        the ranks, else the identity ring; the epoch's wait accounting
+        starts over."""
         world = asg.world_size
         if len(asg.ring_order) == world and sorted(asg.ring_order) == list(range(world)):
             self._order = list(asg.ring_order)
@@ -328,6 +373,9 @@ class ElasticWorker:
         self._pos = self._order.index(asg.rank)
         self._ring_prev = self._order[(self._pos - 1) % world]
         self._ring_next = self._order[(self._pos + 1) % world]
+        self._epoch_wait_s = 0.0
+        self._epoch_started = time.monotonic()
+        self._epoch_reported = False
 
     def _build_links(self, asg: P.Assignment) -> None:
         """Link to the planned ring neighbours: the lower rank dials, the
@@ -436,6 +484,7 @@ class ElasticWorker:
             t0 = time.monotonic()
             incoming = self._hop(outgoing)
             wait = time.monotonic() - t0
+            self._epoch_wait_s += wait
             self._wait_total_s += wait
             stream_observe("link_wait_seconds", wait, registry=self._metrics_reg,
                            src=self._ring_prev, dst=asg.rank)
@@ -545,6 +594,7 @@ class ElasticWorker:
             return res
         finally:
             res.wait_prev_s = round(self._wait_total_s, 6)
+            res.slow_reports = self._n_slow_reports
             res.commit_times = dict(self._commit_times)
             self._stop_heartbeat()
             self._close_links()
@@ -594,6 +644,7 @@ class ElasticWorker:
                     if asg.rank == 0:
                         self._ship_blob()
                     if self._version < self.niter:
+                        self._maybe_report_slow(asg)
                         info = self._query_epoch()
                         if info is not None and info.get("rewave"):
                             raise Rewave()

@@ -8,9 +8,17 @@ per-rank and job-wide rollup (:class:`StreamRollup`, telemetry.json's
 ``stream``).  Counters sum and histogram buckets add (:func:`merge_state`),
 so the fold of every window equals the cumulative counters.
 
+Streamed metric names are declared in :data:`STREAM_METRICS`, and
+:func:`stream_count` / :func:`stream_observe` refuse any other name: a
+typo'd producer would silently starve every consumer (the tracker's fold,
+the diagnosis plane, ``top``).  ``rabit_tpu`` holds its producers to the
+same table with a static lint; the port checks at the call.
+
 Labeled series are flat registry names, ``wire_bytes{codec=i8,fused=1}``
-(:func:`series_name`).  The scrape exposition and the relays' coalescing
-(``CMD_OBS``) are not ported yet.
+(:func:`series_name`).  :func:`delta_doc` / :func:`merge_delta_doc` are the
+per-job delta envelope a relay coalesces (the relays themselves are not
+ported); :func:`wire_bytes_by_codec` reads the codec split out of a
+rendered rollup, as the ``CMD_OBS`` scrape's readers do.
 """
 
 from __future__ import annotations
@@ -20,8 +28,30 @@ import threading
 
 from rabit_tpu_torch.obs.metrics import GLOBAL_REGISTRY, MetricsRegistry
 
-#: Version stamp of the rollup documents.
+#: Version stamp of the delta documents, the rollups and the scrape.
 STREAM_SCHEMA = 1
+
+#: Every metric name the delta stream carries, with its producer and
+#: meaning (``rabit_tpu``'s table; the delivery plane's names are kept so
+#: that either package's producers and readers agree).
+STREAM_METRICS: dict[str, str] = {
+    "wire_bytes": "post-codec bytes put on the wire, labeled "
+                  "codec=<name>,fused=<0|1> (compress/transport.observe; "
+                  "the per-tenant accounting the QoS loop meters)",
+    "raw_bytes": "pre-codec payload bytes for the same events, same "
+                 "labels — wire_bytes/raw_bytes is the live ratio",
+    "link_wait_seconds": "per-planned-link receive wait, labeled "
+                         "src=<rank>,dst=<rank> (ElasticWorker ring "
+                         "timers; the route-around loop's health signal)",
+    "delivery_bytes_served": "snapshot bytes the tracker served over "
+                             "CMD_SNAP, labeled job=<job>,digest=<hex>",
+    "delivery_subscribers": "distinct subscriber task ids seen on the "
+                            "CMD_SUB poll path, labeled job=<job>",
+    "delivery_cache_hits": "relay-local CMD_SNAP fetches answered from "
+                           "the digest cache, labeled relay=<id>",
+    "delivery_cache_misses": "CMD_SNAP fetches the relay had to proxy "
+                             "upstream, labeled relay=<id>",
+}
 
 
 def series_name(name: str, **labels) -> str:
@@ -46,12 +76,18 @@ def parse_series(series: str) -> tuple[str, dict[str, str]]:
     return base, labels
 
 
+def _declared(name: str) -> None:
+    if name not in STREAM_METRICS:
+        raise KeyError(f"streamed metric {name!r} is not declared in STREAM_METRICS")
+
+
 def stream_count(name: str, n: int, registry: MetricsRegistry | None = None,
                  **labels) -> None:
-    """Count ``n`` into the streamed counter ``name`` (``wire_bytes``,
-    ``raw_bytes``) under the given labels.  Writes into the process
-    registry, so the cumulative value also rides every snapshot: the delta
-    stream is a view of the registry, not a fork."""
+    """Count ``n`` into the streamed counter ``name`` (declared in
+    :data:`STREAM_METRICS`) under the given labels.  Writes into the
+    process registry, so the cumulative value also rides every snapshot:
+    the delta stream is a view of the registry, not a fork."""
+    _declared(name)
     reg = registry if registry is not None else GLOBAL_REGISTRY
     reg.counter(series_name(name, **labels)).inc(int(n))
 
@@ -59,8 +95,9 @@ def stream_count(name: str, n: int, registry: MetricsRegistry | None = None,
 def stream_observe(name: str, value: float,
                    registry: MetricsRegistry | None = None,
                    **labels) -> None:
-    """Observe ``value`` into the streamed histogram ``name`` under the
-    given labels."""
+    """Observe ``value`` into the streamed histogram ``name`` (declared in
+    :data:`STREAM_METRICS`) under the given labels."""
+    _declared(name)
     reg = registry if registry is not None else GLOBAL_REGISTRY
     reg.histogram(series_name(name, **labels)).observe(float(value))
 
@@ -200,6 +237,27 @@ class DeltaSource:
         return delta
 
 
+def delta_doc(job: str, rank: int, delta: dict) -> dict:
+    """One rank's delta in the wire envelope a relay batch carries: schema
+    stamp, job key, and a per-rank section map (a relay merges several
+    workers' docs into one per-job doc by merging the ``ranks`` maps)."""
+    return {"schema": STREAM_SCHEMA, "job": job, "ranks": {str(rank): delta}}
+
+
+def merge_delta_doc(acc: dict | None, doc: dict) -> dict:
+    """Coalesce one delta doc into a per-job accumulator doc: same-rank
+    sections fold with :func:`merge_state`."""
+    if acc is None:
+        acc = {"schema": STREAM_SCHEMA, "job": doc.get("job", ""), "ranks": {}}
+    for rank, delta in doc.get("ranks", {}).items():
+        held = acc["ranks"].get(rank)
+        if held is None:
+            acc["ranks"][rank] = merge_state(empty_state(), delta)
+        else:
+            merge_state(held, delta)
+    return acc
+
+
 # -- tracker side: live rollups ----------------------------------------------
 
 class StreamRollup:
@@ -227,8 +285,8 @@ class StreamRollup:
                 self.last_fold_ts = ts
 
     def render(self) -> dict:
-        """The JSON rollup telemetry.json embeds: cumulative counters verbatim
-        (reconcilable against the snapshots), histograms as
+        """The JSON rollup a scrape and telemetry.json embed: cumulative
+        counters verbatim (reconcilable against the snapshots), histograms as
         percentile summaries, plus the per-link health table parsed out
         of the ``link_wait_seconds`` series labels."""
         with self._lock:
@@ -262,3 +320,18 @@ def _render_links(state: dict) -> list[dict]:
         row.update(summarize_histogram(h))
         rows.append(row)
     return rows
+
+
+def wire_bytes_by_codec(rendered: dict) -> dict[str, int]:
+    """``{codec[:fused] -> wire bytes}`` from one rendered state's counters
+    (``fused=1`` series render as ``<codec>:fused``)."""
+    out: dict[str, int] = {}
+    for name, value in rendered.get("counters", {}).items():
+        base, labels = parse_series(name)
+        if base != "wire_bytes":
+            continue
+        key = labels.get("codec", "?")
+        if labels.get("fused") in ("1", "True", "true"):
+            key += ":fused"
+        out[key] = out.get(key, 0) + int(value)
+    return out

@@ -43,11 +43,19 @@ The elastic plane's commands (``elastic``):
                                answered with u32 ACK and a str JSON
                                ``{"epoch", "world", "rewave"}``: rewave asks
                                the worker to re-enter a wave at this version
-                               boundary (a grow-back is waiting);
+                               boundary (a grow-back or a schedule repair is
+                               waiting);
       CMD_BLOB:                u32 version, u32 nbytes, the bytes of the
                                current state, compressed by the sender;
                                answered with u32 ACK.  The tracker keeps the
                                newest as the blob a parked spare receives.
+
+The live scrape (``obs.top``):
+
+      CMD_OBS:                 str JSON options (``{"registry": false}``
+                               skips the registry section); answered with
+                               u32 ACK and a str JSON scrape document
+                               (``Tracker.build_scrape``).
 
 A START or RECOVER check-in that the wave has no slot for is answered with
 a blob frame too: it is parked as a spare on the same socket.  Workers of
@@ -85,6 +93,9 @@ CMD_HEARTBEAT = 6
 CMD_SPARE = 7
 CMD_EPOCH = 8
 CMD_BLOB = 9
+#: The live-telemetry scrape (the hello only: ``rabit_tpu``'s relays also
+#: carry CMD_OBS delta frames, which wait for the relays' port).
+CMD_OBS = 14
 
 #: How many renewal intervals a lease survives without a renewal.  2 means
 #: one lost or late heartbeat is tolerated; the second expires the lease, so
@@ -272,7 +283,7 @@ def send_hello(sock, cmd: int, task_id: str, prev_rank: int = -1,
     out = [put_u32(MAGIC_HELLO), put_u32(cmd), put_i32(prev_rank), put_str(task_id)]
     if cmd in (CMD_START, CMD_RECOVER, CMD_SPARE):
         out.append(put_u32(listen_port))
-    elif cmd in (CMD_PRINT, CMD_METRICS, CMD_HEARTBEAT, CMD_EPOCH):
+    elif cmd in (CMD_PRINT, CMD_METRICS, CMD_HEARTBEAT, CMD_EPOCH, CMD_OBS):
         out.append(put_str(message))
     elif cmd == CMD_BLOB:
         out += [put_u32(blob_version), put_u32(len(blob)), blob]
@@ -322,7 +333,7 @@ def tracker_rpc(host: str, port: int, cmd: int, task_id: str, *,
                 blob_version: int = 0, timeout: float = 10.0,
                 retries: int = 5, backoff: float = 0.1, backoff_cap: float = 2.0):
     """One Python-side tracker message (print, metrics, heartbeat,
-    shutdown, epoch poll, blob upload), the counterpart of
+    shutdown, epoch poll, blob upload, scrape), the counterpart of
     ``rabit_tpu.tracker.protocol.tracker_rpc`` for one tracker address.
     Check-ins are refused here: the native engine and ``ElasticWorker``
     make them on sockets of their own, and a spare's stays open.
@@ -335,9 +346,10 @@ def tracker_rpc(host: str, port: int, cmd: int, task_id: str, *,
     when the budget is spent, :class:`TrackerUnreachable`.
 
     Returns the ACK, as a :class:`TimedAck` for METRICS and HEARTBEAT, and
-    the reply's dict (``{"epoch", "world", "rewave"}``) for EPOCH."""
+    the reply's dict for EPOCH (``{"epoch", "world", "rewave"}``) and OBS
+    (the scrape document)."""
     if cmd not in (CMD_PRINT, CMD_SHUTDOWN, CMD_METRICS, CMD_HEARTBEAT, CMD_EPOCH,
-                   CMD_BLOB):
+                   CMD_BLOB, CMD_OBS):
         raise ValueError(f"tracker_rpc does not send command {cmd}")
     retries = max(int(retries), 0)
     last_err: Exception | None = None
@@ -352,7 +364,7 @@ def tracker_rpc(host: str, port: int, cmd: int, task_id: str, *,
                 if cmd in (CMD_METRICS, CMD_HEARTBEAT):
                     server_ts = float(get_str(sock))
                     return TimedAck(ack, server_ts, t_send, time.time())
-                if cmd == CMD_EPOCH:
+                if cmd in (CMD_EPOCH, CMD_OBS):
                     return json.loads(get_str(sock))
                 return ack
         except (ConnectionError, OSError) as exc:  # socket.timeout is an OSError

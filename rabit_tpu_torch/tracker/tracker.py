@@ -39,17 +39,35 @@ expires, is recorded as ``lease_expired`` and is handed to
 recovery wave follows).  A shutdown or a new check-in of the task id drops
 its lease.
 
+Schedules: every wave is planned by ``sched.plan`` (``schedule``:
+auto|tree|ring|swing).  A degraded link, flagged by a confirmed
+``degraded-link`` incident or an operator's ``origin=``-stamped
+``slow_link`` print (``flag_link``), is kept as a task-id pair; with
+``sched_repair`` on, the ``epoch`` reply asks for a wave at the next
+version boundary, as for a grow-back, and that wave's plan routes the ring
+around the link (``schedule_repaired``).
+
 Telemetry: ``CMD_METRICS`` snapshots (the newest a rank; their streamed
 ``delta`` windows folded into a rollup), the waves, the leases, the
-restarts, the promotions and resizes make the job's telemetry document
-(``build_telemetry``), written atomically to ``<obs_dir>/telemetry.json``
-when the job ends or the tracker stops.  Its keys are ``rabit_tpu``'s,
-less those of the planes not ported (quorum, relays, serving, schedule
-repair, incidents).
+restarts, the promotions and resizes, the schedule repairs and the
+incidents make the job's telemetry document (``build_telemetry``), written
+atomically to ``<obs_dir>/telemetry.json`` when the job ends or the
+tracker stops.  Its keys are ``rabit_tpu``'s, less those of the planes not
+ported (quorum, relays and the serving stats).
+
+Diagnosis: once a ``rabit_diag_window_sec`` window, the lease thread hands
+the rollup and the window's new events to an ``obs.diagnose.HealthMonitor``,
+which opens and resolves incidents (``incident_opened`` /
+``incident_resolved``); a ``degraded-link`` incident flags its link.  A
+``CMD_OBS`` hello is answered with ``build_scrape``: the live control
+state, the rollup, the incidents and this process's metrics registry, the
+document ``obs.top`` renders.
 
 One thread accepts; each connection is served on a thread of its own, one
-more scans the leases and one the forming wave.  Quorum records, relays,
-the HA standby and delivery are ``rabit_tpu``'s and not ported.
+more scans the leases (and runs the diagnosis windows) and one the forming
+wave.  Quorum records, relays, the HA standby and delivery are
+``rabit_tpu``'s and not ported; the scrape gives their sections the values
+``rabit_tpu``'s gives with those planes off.
 """
 
 from __future__ import annotations
@@ -63,15 +81,28 @@ from collections import deque
 from dataclasses import dataclass
 from typing import Callable
 
+from rabit_tpu_torch import sched
 from rabit_tpu_torch.elastic.membership import CLOSE, MembershipManager
+from rabit_tpu_torch.obs import diagnose as obs_diagnose
 from rabit_tpu_torch.obs import stream as obs_stream
 from rabit_tpu_torch.obs.events import event_from_stats_line
-from rabit_tpu_torch.sched import mesh_for_world, plan
+from rabit_tpu_torch.obs.metrics import GLOBAL_REGISTRY
 from rabit_tpu_torch.tracker import protocol as P
 
 HELLO_TIMEOUT_SEC = 60.0  # a torn hello must not pin its thread and socket forever
 MAX_MESSAGES = 4096       # the print log keeps the newest
+LISTEN_BACKLOG = 1024
 TELEMETRY_SCHEMA = 1
+
+
+def _aggregate_incidents(jobs: dict) -> dict:
+    """The scrape's top-level incidents digest: every job's open incidents,
+    each stamped with its job key, in one section."""
+    open_inc: list[dict] = []
+    for job_key, jdoc in sorted(jobs.items()):
+        for inc in ((jdoc.get("incidents") or {}).get("open") or ()):
+            open_inc.append({**inc, "job": job_key})
+    return {"schema": obs_diagnose.DIAG_SCHEMA, "n_open": len(open_inc), "open": open_inc}
 
 
 @dataclass
@@ -149,9 +180,10 @@ def assign_ranks(wave: list[tuple[str, str]], world_size: int,
 class Tracker:
     """A tracker for one job of ``world_size`` workers, listening on
     ``host:port`` (port 0: any free port; ``self.port`` says which) from
-    construction; ``start`` begins serving.  The schedule is
-    ``rabit_tpu``'s default (``rabit_schedule=auto`` on the near-square
-    mesh model).  ``obs_dir`` (default: ``RABIT_OBS_DIR``) is where
+    construction; ``start`` begins serving.  ``schedule`` is the algorithm
+    of each wave's plan (``sched.ALGOS``; on the near-square mesh model),
+    and ``sched_repair`` whether a flagged link is routed around at the
+    next wave.  ``obs_dir`` (default: ``RABIT_OBS_DIR``) is where
     telemetry.json goes; ``on_suspect(task_id)`` is called from the lease
     thread when a lease expires (its exceptions are swallowed).
     ``shrink_after_sec``, ``min_world`` and ``promote_after_sec`` are the
@@ -162,9 +194,12 @@ class Tracker:
                  quiet: bool = False, obs_dir: str | None = None,
                  on_suspect: Callable[[str], None] | None = None,
                  shrink_after_sec: float = 0.0, min_world: int = 1,
-                 promote_after_sec: float = 0.25):
+                 promote_after_sec: float = 0.25, schedule: str = "auto",
+                 sched_repair: bool = True):
         if world_size < 1:
             raise ValueError(f"world_size must be >= 1, got {world_size}")
+        if schedule not in sched.ALGOS:
+            raise ValueError(f"schedule={schedule!r} not in {sched.ALGOS}")
         self.world_size = world_size
         self.base_world = world_size
         self.elastic = MembershipManager(world_size, min_world=min_world,
@@ -181,11 +216,25 @@ class Tracker:
         #: the spares' and resizes' events, lease expiries, snapshots, and
         #: events from the workers' stats lines
         self.events: list[dict] = []
-        self.schedule = "auto"
+        self.schedule = schedule
+        self.sched_repair = bool(sched_repair)
+        self._link_flags: set[tuple[str, str]] = set()  # (src task, dst task)
+        self._repair_wanted = False
         self.snapshots: dict[int, dict] = {}  # rank -> newest shipped snapshot
         self.telemetry: dict | None = None
         self._stream = obs_stream.StreamRollup()
         self._delta_ranks: set[str] = set()
+        self._health = obs_diagnose.HealthMonitor()
+        self._diag_next = 0.0   # monotonic start of the next diagnosis window
+        self._diag_ev_idx = 0   # events the past windows consumed
+        self._obs_scraped = False  # the one obs_scrape event is recorded
+        #: the serving counters of the scrape's ``serving`` section (the
+        #: keys of rabit_tpu's; no reactor and no relay batches here)
+        self.serve_stats: dict[str, int] = {
+            "accepts": 0, "rpcs": 0, "handler_threads_hwm": 0, "reactor_conns_hwm": 0,
+            "batches": 0, "batch_msgs": 0, "obs_scrapes": 0}
+        self._stats_lock = threading.Lock()
+        self._handler_threads = 0
         self._leases: dict[str, _Lease] = {}
         self._started_at = time.time()
         self._telemetry_written = False
@@ -193,7 +242,7 @@ class Tracker:
         self._srv = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
         self._srv.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
         self._srv.bind((host, port))
-        self._srv.listen(1024)
+        self._srv.listen(LISTEN_BACKLOG)
         self.host, self.port = self._srv.getsockname()
         self._lock = threading.Lock()
         self._pending: list[_Pending] = []
@@ -266,7 +315,21 @@ class Tracker:
                 conn, addr = self._srv.accept()
             except OSError:
                 break
-            threading.Thread(target=self._handle, args=(conn, addr), daemon=True).start()
+            with self._stats_lock:
+                self.serve_stats["accepts"] += 1
+            threading.Thread(target=self._handle_counted, args=(conn, addr),
+                             daemon=True).start()
+
+    def _handle_counted(self, conn: socket.socket, addr) -> None:
+        with self._stats_lock:
+            self._handler_threads += 1
+            self.serve_stats["handler_threads_hwm"] = max(
+                self.serve_stats["handler_threads_hwm"], self._handler_threads)
+        try:
+            self._handle(conn, addr)
+        finally:
+            with self._stats_lock:
+                self._handler_threads -= 1
 
     def _handle(self, conn: socket.socket, addr) -> None:
         try:
@@ -295,6 +358,8 @@ class Tracker:
                 if wave is not None:
                     self._send_wave(wave)
                 return
+            with self._stats_lock:
+                self.serve_stats["rpcs"] += 1
             if cmd == P.CMD_EPOCH:
                 P.get_str(conn)  # the worker's committed version (informational)
                 conn.sendall(P.put_u32(P.ACK) + P.put_str(json.dumps(self._epoch_info())))
@@ -318,6 +383,9 @@ class Tracker:
                     self._leases.pop(task_id, None)
                 conn.sendall(P.put_u32(P.ACK))
                 self._note_shutdown(task_id)
+            elif cmd == P.CMD_OBS:
+                conn.sendall(P.put_u32(P.ACK) + P.put_str(json.dumps(
+                    self._scrape(task_id, P.get_str(conn)))))
             conn.close()  # and any command the core tracker does not serve
         except (ConnectionError, OSError, ValueError):
             conn.close()
@@ -342,6 +410,12 @@ class Tracker:
         if ev is not None:
             with self._lock:
                 self.events.append({"ts": round(ev.ts, 6), "kind": ev.kind, **ev.fields})
+            # A worker's slow_link report feeds the HealthMonitor, whose
+            # confirmed incident flags the link; a report stamped origin=
+            # (an operator's, e.g. torch_trace_tool.py report --flag-links)
+            # is a decision, not a symptom, and flags it at once.
+            if ev.kind == "link_degraded" and ev.fields.get("origin"):
+                self._flag_link(ev.fields)
         if not self.quiet:
             print(msg, end="" if msg.endswith("\n") else "\n", flush=True)
 
@@ -370,11 +444,13 @@ class Tracker:
 
     def _epoch_info(self) -> dict:
         """The ``epoch`` reply: the current epoch and world, and whether a
-        grow-back waits for the workers' next version boundary."""
+        grow-back or a schedule repair waits for the workers' next version
+        boundary (both are resolved by the same wave)."""
         with self._lock:
             self._reap_spares_locked()
             return {"epoch": self.elastic.epoch, "world": self.world_size,
-                    "rewave": self.elastic.grow_wanted(len(self._spares))}
+                    "rewave": (self.elastic.grow_wanted(len(self._spares))
+                               or self._repair_wanted)}
 
     def _keep_blob(self, task_id: str, version: int, blob: bytes) -> None:
         """Keep the newest uploaded state as the blob a parked spare gets."""
@@ -438,11 +514,117 @@ class Tracker:
                 done = self._complete_locked()
             if done:
                 self._finalize_done()
+        self._diag_tick(now)
 
     def live_tasks(self) -> list[str]:
         """Task ids that hold an unexpired lease."""
         with self._lock:
             return sorted(self._leases)
+
+    # -- diagnosis and the live scrape -----------------------------------------
+
+    def _diag_tick(self, now: float) -> None:
+        """One diagnosis window (``rabit_diag_window_sec`` cadence) on the
+        lease thread.  The window's state is copied under the lock, the
+        rules run outside it (the monitor and the rollup hold leaf locks of
+        their own), and a ``degraded-link`` incident flags its link with no
+        lock held."""
+        hm = self._health
+        if not hm.enabled or now < self._diag_next:
+            return
+        self._diag_next = now + hm.window_sec
+        with self._lock:
+            events_delta = self.events[self._diag_ev_idx:]
+            self._diag_ev_idx = len(self.events)
+            dropped = self.messages_dropped
+        opened, resolved = hm.observe(now, self._stream.render(),
+                                      {"events_delta": events_delta,
+                                       "messages_dropped": dropped})
+        if not opened and not resolved:
+            return
+        ts = round(time.time(), 6)
+        with self._lock:
+            for kind, incs in (("incident_opened", opened), ("incident_resolved", resolved)):
+                for inc in incs:
+                    self.events.append({"ts": ts, "kind": kind, "incident": inc.incident_id,
+                                        "class": inc.cls, **inc.subject})
+        for inc in opened:
+            if not self.quiet:
+                print(f"[tracker] incident opened: {inc.incident_id} {inc.subject}",
+                      flush=True)
+            if inc.cls == "degraded-link":
+                try:
+                    src, dst = int(inc.subject.get("src")), int(inc.subject.get("dst"))
+                except (TypeError, ValueError):
+                    continue
+                self.flag_link(src, dst)
+        for inc in resolved:
+            if not self.quiet:
+                print(f"[tracker] incident resolved: {inc.incident_id} after "
+                      f"{inc.windows} window(s)", flush=True)
+
+    def _scrape(self, task_id: str, message: str) -> dict:
+        """Serve one ``CMD_OBS`` scrape; the first of the tracker's life is
+        recorded as an ``obs_scrape`` event (one, so a poller does not flood
+        the timeline)."""
+        try:
+            opts = json.loads(message) if message else {}
+        except ValueError:
+            opts = {}
+        doc = self.build_scrape(opts if isinstance(opts, dict) else {})
+        with self._stats_lock:
+            self.serve_stats["obs_scrapes"] += 1
+        with self._lock:
+            if not self._obs_scraped:
+                self._obs_scraped = True
+                self.events.append({"ts": round(time.time(), 6), "kind": "obs_scrape",
+                                    "task_id": task_id})
+        return doc
+
+    def _scrape_job_state(self) -> dict:
+        """The job's live scrape section, from copies of the control state
+        taken under the lock: membership, leases, spares, the forming wave,
+        the link flags, the rollup and the incidents.  ``quorum_outstanding``
+        and ``delivery`` carry ``rabit_tpu``'s values with those planes off."""
+        with self._lock:
+            live = {
+                "epoch": self.elastic.epoch,
+                "world": self.world_size,
+                "base_world": self.base_world,
+                "leases": len(self._leases),
+                "spares": len(self._spares),
+                "pending": len(self._pending),
+                "n_shutdown": len(self._shutdown_tasks),
+                "restarts": sum(n - 1 for n in self._n_starts.values() if n > 1),
+                "quorum_outstanding": 0,
+                "link_flags": len(self._link_flags),
+                "n_events": len(self.events),
+                "n_snapshots": len(self.snapshots),
+                "messages_dropped": self.messages_dropped,
+                "delivery": {"line": None, "snaps": 0, "snap_bytes": 0, "subscribers": 0},
+            }
+        live["stream"] = self._stream.render()
+        live["incidents"] = self._health.render()
+        return live
+
+    def build_scrape(self, opts: dict | None = None) -> dict:
+        """The ``CMD_OBS`` document (``rabit_tpu``'s schema): live tracker
+        state, the job's rollup and incidents, and this process's metrics
+        registry unless ``opts`` sets ``registry`` false."""
+        opts = opts or {}
+        with self._stats_lock:
+            serve = dict(self.serve_stats)
+        doc = {
+            "schema": obs_stream.STREAM_SCHEMA,
+            "ts": round(time.time(), 6),
+            "started_at": round(self._started_at, 6),
+            "serving": {"reactor": False, "backlog": LISTEN_BACKLOG, **serve},
+            "jobs": {"": self._scrape_job_state()},
+        }
+        doc["incidents"] = _aggregate_incidents(doc["jobs"])
+        if opts.get("registry", True):
+            doc["registry"] = GLOBAL_REGISTRY.snapshot()
+        return doc
 
     # -- telemetry -----------------------------------------------------------
 
@@ -479,8 +661,9 @@ class Tracker:
     def build_telemetry(self) -> dict:
         """The job's telemetry document: per-rank snapshots (op stats and
         latency percentiles), the waves and epochs, lease expiries,
-        restarts, promotions and resizes, clock offsets and the streamed
-        rollup, under ``rabit_tpu``'s key names."""
+        restarts, promotions, resizes and schedule repairs, clock offsets,
+        the streamed rollup and the incidents, under ``rabit_tpu``'s key
+        names."""
         with self._lock:
             events = list(self.events)
             snapshots = {str(r): s for r, s in sorted(self.snapshots.items())}
@@ -505,11 +688,14 @@ class Tracker:
             "n_grown": sum(1 for e in events if e["kind"] == "world_grown"),
             "n_spares_promoted": sum(1 for e in events if e["kind"] == "spare_promoted"),
             "schedule": self.schedule,
+            "n_schedule_repaired": sum(1 for e in events
+                                       if e["kind"] == "schedule_repaired"),
             "messages_dropped": dropped,
             "epochs": epochs,
             "restarts": restarts,
             "clocks": clocks,
             "stream": self._stream.render(),
+            "incidents": self._health.render(),
             "waves": waves,
             "events": events,
             "ranks": snapshots,
@@ -739,17 +925,65 @@ class Tracker:
         if wave is not None:
             self._send_wave(wave)
 
+    # -- schedules -----------------------------------------------------------
+
+    def _flag_link(self, fields: dict) -> None:
+        """Take one degraded-link report: keep the (src, dst) link as a
+        task-id pair and ask for a repair wave.  With ``sched_repair`` off
+        the report is telemetry only and the plan never changes."""
+        if not self.sched_repair:
+            return
+        try:
+            src, dst = int(fields["src"]), int(fields["dst"])
+        except (KeyError, TypeError, ValueError):
+            return
+        with self._lock:
+            fresh = sched.flags_to_tasks([(src, dst)],
+                                         self.elastic.current.rank_map) - self._link_flags
+            if not fresh:
+                return
+            self._link_flags |= fresh
+            self._repair_wanted = True
+        if not self.quiet:
+            print(f"[tracker] link {src}->{dst} flagged degraded; repair replan armed",
+                  flush=True)
+
+    def flag_link(self, src: int, dst: int) -> None:
+        """Flag a degraded link directly (a confirmed incident, or an
+        analytics tool's verdict): the same effect as a worker report."""
+        self._flag_link({"src": src, "dst": dst})
+
+    def _plan_schedule(self, world: int, rank_map: dict[str, int]) -> sched.Plan:
+        """The closing wave's schedule: the flags as this epoch's rank pairs,
+        routed around.  The plan consumes the repair request."""
+        with self._lock:
+            avoid = sched.tasks_to_flags(self._link_flags, rank_map)
+            self._repair_wanted = False
+        return sched.plan(world, self.schedule, mesh=sched.mesh_for_world(world),
+                          avoid=avoid)
+
     def _send_wave(self, wave: dict) -> None:
         """One Assignment a member, and a blob frame a surplus check-in
         (now parked), sent outside the lock."""
         world, rank_map = wave["world"], wave["rank_map"]
         peers = {rank_map[p.task_id]: (p.host, p.listen_port) for p in wave["members"]}
-        splan = plan(world, self.schedule, mesh=mesh_for_world(world))
+        splan = self._plan_schedule(world, rank_map)
+        ts = round(time.time(), 6)
         with self._lock:
             self.events.append({
-                "ts": round(time.time(), 6), "kind": "schedule_planned",
+                "ts": ts, "kind": "schedule_planned",
                 "epoch": wave["epoch"], "algo": splan.algo, "world": world,
                 "ring_order": list(splan.ring_order), "n_avoided": len(splan.avoided)})
+            if splan.repaired or splan.residual:
+                self.events.append({
+                    "ts": ts, "kind": "schedule_repaired", "epoch": wave["epoch"],
+                    "algo": splan.algo, "avoided": [list(lk) for lk in splan.avoided],
+                    "residual": [list(lk) for lk in splan.residual]})
+        if (splan.repaired or splan.residual) and not self.quiet:
+            print(f"[tracker] schedule repaired for epoch {wave['epoch']}: routed around "
+                  f"{list(splan.avoided)}"
+                  + (f", residual {list(splan.residual)}" if splan.residual else ""),
+                  flush=True)
         tail = P.assignment_tail_bytes(peers, wave["epoch"], rank_map, splan.algo,
                                        list(splan.ring_order))
         for p in wave["members"]:

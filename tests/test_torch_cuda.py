@@ -1266,3 +1266,52 @@ def test_unfused_compressed_path_on_card_matches_host_transport(cuda, tmp_path):
                 assert res[f"dev/{cname}/{oname}"].tobytes() == want.tobytes(), (cname, oname)
         for cname in ("bf16", "i8"):
             assert res[f"dev/{cname}/sum"].tobytes() == res[f"host/{cname}"].tobytes()
+
+
+# -- the diagnosis plane on the card ------------------------------------------------
+
+@pytest.mark.gpu
+def test_straggler_incident_with_card_contributions(cuda):
+    """Four ElasticWorker threads (tests/workers/torch_diag_job.py), each
+    contribution node_histograms_kernel on card tensors; rank 2 0.4 s late
+    to each version: exactly one compute-straggler incident, naming rank 2,
+    and every state bitwise the world-1 totals."""
+    import threading
+
+    ew, dj = _worker_module("torch_elastic_worker"), _worker_module("torch_diag_job")
+    rows, nodes, bins, niter = 4000, 4, 16, 10
+    xb, node = ew.make_bins(rows, bins), ew.row_nodes(rows, nodes)
+    card, _ = ew.card_contribution(xb, node, nodes, bins)
+    lock = threading.Lock()
+
+    def work(v, world, rank):
+        with lock:  # the worker threads launch one at a time
+            return card(v, world, rank)
+
+    out = dj.run_job(4, niter, work, straggler=(2, 0.4), iter_sleep=0.1, deadline_sec=90.0)
+    inc = out["incidents"]
+    assert [(i["class"], i["subject"]) for i in inc["open"] + inc["recent"]] == [
+        ("compute-straggler", {"rank": 2})]
+    want = ew.expected_totals(xb, node, niter, nodes, bins)
+    for res in out["results"].values():
+        assert res.completed and np.array_equal(res.state, want)
+
+
+@pytest.mark.gpu
+def test_trace_of_a_native_gbdt_job_on_the_card(cuda, tmp_path, monkeypatch):
+    """Two GBDT workers on the card under the native engine with flight
+    dumps at exit, rank 0 0.3 s late to each tree: the job's obs dir exports
+    to one valid trace, every rank has a clock estimate, and rank 0 tops
+    the straggler report and the critical path's gating ranks."""
+    from rabit_tpu_torch.obs import critical, trace
+
+    monkeypatch.setenv("RABIT_OBS_DIR", str(tmp_path / "obs"))
+    _cluster(2, ["rabit_engine=mock", "mode=gbdt", "device=cuda", "ntrees=3", "straggler=0",
+                 "straggler_sleep=0.3", "rabit_trace_exit=1"], "torch_gbdt_native_worker.py")
+    obs = str(tmp_path / "obs")
+    doc, _, report = trace.export_job(obs)
+    assert trace.validate_chrome_trace(doc) == []
+    job = trace.load_job(obs)
+    assert set(job.clocks) == {0, 1} and job.max_clock_err() < 0.5
+    assert report["top_stragglers"][0]["rank"] == 0
+    assert critical.critical_path_report(job)["top_gating_ranks"][0]["rank"] == 0

@@ -483,8 +483,13 @@ def test_codec_job_bitwise_against_jax(codec, direction):
     ({"quorum": "2of3"}, "10c"), ({"job": "j"}, "10g"), ({"slow_report_share": 0.3}, "10b"),
 ])
 def test_unported_arguments_name_their_item(kw, item):
-    with pytest.raises(NotImplementedError, match=item):
-        ElasticWorker(("127.0.0.1", 1), "0", lambda v, w, r: np.zeros(1), 1, **kw)
+    if item == "10b":  # the slow-link report is ported (item 10b): accepted, never refused
+        w = ElasticWorker(("127.0.0.1", 1), "0", lambda v, w, r: np.zeros(1), 1, **kw)
+        assert w.slow_report_share == kw["slow_report_share"]
+        w._listen.close()
+    else:
+        with pytest.raises(NotImplementedError, match=item):
+            ElasticWorker(("127.0.0.1", 1), "0", lambda v, w, r: np.zeros(1), 1, **kw)
     with pytest.raises(NotImplementedError, match="10d"):
         ElasticWorker([("127.0.0.1", 1), ("127.0.0.1", 2)], "0",
                       lambda v, w, r: np.zeros(1), 1)

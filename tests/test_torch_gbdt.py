@@ -253,18 +253,20 @@ def test_cuda_without_a_card_raises():
 
 
 def test_port_imports_no_jax():
-    """Importing the port and every module of it, chip_smoke.py and the
-    workers of the port's own engine leaves jax and rabit_tpu out of
-    sys.modules (rabit_tpu_torch itself shares the prefix)."""
+    """Importing the port and every module of it, chip_smoke.py, the
+    workers of the port's own engine and tools/torch_trace_tool.py leaves
+    jax and rabit_tpu out of sys.modules (rabit_tpu_torch itself shares the
+    prefix)."""
     code = (
         "import sys, pkgutil, importlib, rabit_tpu_torch\n"
         "for m in pkgutil.walk_packages(rabit_tpu_torch.__path__, 'rabit_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
         "import importlib.util\n"
-        "for w in ('torch_recover_worker', 'torch_gbdt_native_worker',\n"
-        "          'torch_elastic_worker'):\n"
-        "    spec = importlib.util.spec_from_file_location(w, f'tests/workers/{w}.py')\n"
+        "for w in ('workers/torch_recover_worker', 'workers/torch_gbdt_native_worker',\n"
+        "          'workers/torch_elastic_worker', 'workers/torch_diag_job',\n"
+        "          '../tools/torch_trace_tool'):\n"
+        "    spec = importlib.util.spec_from_file_location(w.split('/')[-1], f'tests/{w}.py')\n"
         "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'rabit_tpu' or m.startswith('rabit_tpu.')]\n"
@@ -284,7 +286,9 @@ def test_port_imports_no_jax():
         "          'rabit_tpu_torch.obs.ship', 'rabit_tpu_torch.obs.stream',\n"
         "          'rabit_tpu_torch.obs.trace', 'rabit_tpu_torch.elastic.client',\n"
         "          'rabit_tpu_torch.elastic.membership',\n"
-        "          'rabit_tpu_torch.elastic.rebalance'):\n"
+        "          'rabit_tpu_torch.elastic.rebalance', 'rabit_tpu_torch.obs.critical',\n"
+        "          'rabit_tpu_torch.obs.diagnose', 'rabit_tpu_torch.obs.top',\n"
+        "          'rabit_tpu_torch.sched.repair', 'rabit_tpu_torch.chaos'):\n"
         "    assert m in sys.modules, m\n"
         "from rabit_tpu_torch.models import gbdt\n"
         "assert callable(gbdt.train_round_dp) and callable(gbdt.train_round_dp_fused)\n"

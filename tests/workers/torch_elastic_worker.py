@@ -29,7 +29,8 @@ Worker args (k=v on the command line):
                      enough for a kill to land mid-job
     hb=S             heartbeat interval (default 0.2; leases expire at 2x)
     die=TASK:V       task TASK dies silently before contributing to version V
-                     (exit 0: a scheduled death is not restarted)
+                     (exit 0 at once, with no teardown: a scheduled death is
+                     not restarted)
     park_after_shrink=1  a spare parks only once the tracker's world is
                      below ``world`` (the grow-back spare of a shrink run);
                      otherwise a spare parks once the job's first wave has
@@ -200,7 +201,13 @@ def main() -> int:
                                   dtype=np.float64).reshape(-1, 2),
                  **launches)
     if res.died and fail is not None:
-        return 0  # the scheduled death: not to be restarted
+        # The scheduled death, not to be restarted: the process goes at once,
+        # as a crashed one would.  Tearing down the card's context can take
+        # longer than the lapsing lease, whose monitor then SIGKILLs a worker
+        # with no restart left.
+        sys.stdout.flush()
+        sys.stderr.flush()
+        os._exit(0)
     if res.parked_only:
         return 0  # a spare never needed, or a worker released from its park
     if not res.completed:

@@ -30,6 +30,9 @@ Worker args (k=v; the last one wins):
                       bench.py's generator, seed 0, N rows x 28 features x
                       256 bins, depth 6 (chip_smoke.py's recover phase)
     pause=S           sleep S seconds before each tree
+    straggler=R       rank R also sleeps straggler_sleep seconds (default
+                      0.25) before each tree's first collective: an
+                      injected straggler for the trace analytics
     stop_at=K         every worker stops cleanly after tree K
     stats=DIR         write rank{r}.npz: the launches of this life, ms a
                       round, and with time_hop=1 the ms of one depth-6
@@ -100,11 +103,18 @@ def main() -> int:
     n_trees = int(getarg("ntrees", "4"))
     out_path = getarg("out", "")
     pause = float(getarg("pause", "0"))
+    straggler = int(getarg("straggler", "-1"))
+    straggler_sleep = float(getarg("straggler_sleep", "0.25"))
     stop_at = int(getarg("stop_at", "0"))
     dev = torch.device(getarg("device", "cpu"))
     n_rows = int(getarg("rows", "0"))
     stats_dir = getarg("stats", "")
     attempt = int(os.environ.get("DMLC_NUM_ATTEMPT", "0"))
+    if dev.type == "cuda":
+        # the card's context before the bootstrap: the ranks' first
+        # collective then skews by their work (or straggler=), not by the
+        # context's start-up
+        torch.zeros(1, device=dev)
     api.init()
     rank, world = api.get_rank(), api.get_world_size()
 
@@ -167,6 +177,8 @@ def main() -> int:
         for t in range(version, n_trees):
             if pause:
                 time.sleep(pause)
+            if rank == straggler:
+                time.sleep(straggler_sleep)
             hops.clear()
             if dev.type == "cuda":
                 torch.cuda.synchronize()

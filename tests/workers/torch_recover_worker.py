@@ -18,6 +18,10 @@ Worker args (k=v, all also handed to the engine; the last one wins):
                    by its call site's cache key
     sleep=S        sleep S seconds before each iteration, so timed
                    preemptions and freezes land mid-work
+    straggler=R    rank R also sleeps straggler_sleep seconds (default
+                   0.25) before each iteration's first collective: an
+                   injected straggler whose arrival skew the trace
+                   analytics must pin on R (tools/torch_trace_tool.py)
 """
 
 import os
@@ -51,6 +55,8 @@ def main() -> int:
     use_lazy = getarg("lazy", "0") == "1"
     preload_op = getarg("preload_op", "0") == "1"
     pause = float(getarg("sleep", "0"))
+    straggler = int(getarg("straggler", "-1"))
+    straggler_sleep = float(getarg("straggler_sleep", "0.25"))
 
     rt.init()
     rank, world = rt.get_rank(), rt.get_world_size()
@@ -76,6 +82,9 @@ def main() -> int:
     for it in range(version, niter):
         if pause:
             time.sleep(pause)
+        if rank == straggler:
+            # the others reach the MAX allreduce first and wait here
+            time.sleep(straggler_sleep)
         # MAX: data[i] = rank + i + it  ->  world-1 + i + it
         a = (np.arange(ndata) + rank + it).astype(np.float32)
         out = rt.allreduce(a, rt.MAX)
