@@ -153,18 +153,50 @@ Phases, each of which exits non-zero when it fails:
               arrival skew and first gating rank, the recovery's
               collectives apart, telemetry.json gaining stragglers and
               critical_path).
-15. linear -- models.linear at the headline size (X = bins / 256, f32;
+15. quorum -- quorum rounds on the card: ElasticWorker threads against an
+              in-process port Tracker (tests/workers/torch_diag_job.py),
+              phase 14's contribution (node_histograms_kernel on the card):
+              (a) world 3, quorum 1.0, 6 versions: every state bitwise the
+              world-1 totals, 6 quorum rounds a rank, no quorum_met; (b)
+              world 3, quorum 0.6, quorum_wait 0.12, 8 versions, rank 2
+              0.4 s late to each contribution up to version 3: every
+              quorum_met excludes [2], a late block delivered and folded,
+              the states bitwise equal and equal the totals less every
+              excluded contribution never folded (the plain version's
+              histogram of it), no exclusion at the last version; (c) world
+              3, quorum 0.6, quorum_flag_after 3, 10 versions, rank 2 0.2 s
+              late to every contribution, with quorum and without: the
+              adjusted totals, rank 2 skipping contributions, a
+              link_degraded via quorum with dst 2, and rank 0's commit
+              cadence over versions 1-9 under half the exact run's (both
+              printed in ms).  The kernel is launched once a contribution.
+16. failover -- the HA control plane on the card: the same jobs with a
+              port Standby (takeover 0.5 s, polls 0.05 s) beside a primary
+              that journals: (a) world 3, 4 versions, workers 0 and 1 check
+              in, the primary is killed after 0.3 s, then worker 2 starts:
+              the states bitwise the totals, one tracker_failover and a
+              wave on the promoted tracker, no lease_expired; (b) world 3,
+              quorum 0.6 with (b)'s healing straggler, 10 versions,
+              heartbeats 0.2 s, the primary killed once it has frozen 3
+              records: the promoted tracker answers each of them the same,
+              the states equal the totals adjusted by both trackers'
+              records, every shutdown lands on the promoted tracker, no
+              lease_expired; the seconds from the kill to the takeover and
+              to the next commit; (c) as (a) with a file journal that the
+              standby tails: the states the totals, and its state at the
+              takeover bitwise read_journal + replay of the file.
+17. linear -- models.linear at the headline size (X = bins / 256, f32;
               logistic, the LinearConfig defaults, 50 steps): LinearModel.fit
               on the card bitwise its train_step loop, steps 0, 25, 49 held
               teacher-forced against the CPU (tests/test_models.py's rtol
               2e-4, atol 2e-5); train_step_dp on an NCCL group of one
               bitwise the loop; then a gloo world of two processes sharing
-              the card (500k rows each; spawned once, it also runs phases 16
-              and 17's two-process parts): train_step_dp, every step
+              the card (500k rows each; spawned once, it also runs phases 18
+              and 19's two-process parts): train_step_dp, every step
               teacher-forced against the single-process step, and
               LinearModel(engine_allreduce=api.allreduce) through TorchEngine,
               bitwise the dp weights; ms/step of each.
-16. kmeans -- models.kmeans on the same data, K = 64, 20 iterations, the
+18. kmeans -- models.kmeans on the same data, K = 64, 20 iterations, the
               init drawn by KMeans(seed=0): KMeans.fit bitwise its
               train_iter loop, iterations 0, 10, 19 teacher-forced against
               the CPU (assignments equal but for near ties within
@@ -175,7 +207,7 @@ Phases, each of which exits non-zero when it fails:
               the new centers within 2^-21 of the f64 means) and
               KMeans(engine_allreduce=...) bitwise the dp centers; ms/iteration
               and the f64 one-hot segment_sum's time.
-17. attention -- ring_attention and ulysses_attention at sequence 8192, 32
+19. attention -- ring_attention and ulysses_attention at sequence 8192, 32
               heads of 128, f32 and bf16, causal and not, on an NCCL group of
               one and on the gloo world (block 4096; k/v hops and Ulysses'
               all-to-alls through host memory), each against
@@ -183,14 +215,14 @@ Phases, each of which exits non-zero when it fails:
               a time (tests/test_parallel.py's rtol 2e-4, atol 2e-5; bf16 adds
               the output's half-ulp rounding, 2^-8); ms a call and the
               hops' share.
-18. durable -- the api's durable spill (rabit_checkpoint_dir) in two-process
+20. durable -- the api's durable spill (rabit_checkpoint_dir) in two-process
               gloo jobs on the card, each fitting the linear model with a
               checkpoint a step (tests/workers/torch_durable_worker.py): a job
               stopped at version 3 of 6 and resumed by a fresh job, and again
               with rank 1's global files deleted (served by rank 0's
               broadcast), both bit for bit the weights of a job never
               stopped; the frames' bytes and the jobs' times.
-19. report -- per-level times of the histogram kernels (d = 0..7, bf16
+21. report -- per-level times of the histogram kernels (d = 0..7, bf16
               and i8) and of the helpers, and a {"kernels": [...]} line
               with each kernel's time (CUDA events over back-to-back
               calls, "ms"; and the device time of the kernels a call
@@ -201,16 +233,16 @@ Phases, each of which exits non-zero when it fails:
               long run the card's profiler keeps only part of the launches
               (kernel_ms), and earlier its sessions would slow the launches
               of the phases after them.
-20. trace  -- one warm fused and one warm hook-based bf16 round under
+22. trace  -- one warm fused and one warm hook-based bf16 round under
               profile.device_trace (a Chrome trace under --trace-dir): each
               round's wall time, the device time of the port's kernels, of
               every other kernel by the top aten op that launched it, and
               the device's idle time inside the round.
 
-Launches are counted per path (phases 4-7, 14 and 20, and 7, 10, 11, 12 and
+Launches are counted per path (phases 4-7, 14-16 and 22, and 7, 10, 11, 12 and
 13 in their processes), each run with the counts set to 0 just before it and read just
-after; the phase-3, phase-13 and phase-14 comparisons and the phase-19 timings do not count.
-Phases 15-18 run no kernel of the port (their products are torch matmuls
+after; the phase-3 and phase-13 to phase-16 comparisons and the phase-21 timings do not
+count.  Phases 17-20 run no kernel of the port (their products are torch matmuls
 and einsums, as in the JAX package, in f32 with TF32 off).  Each phase
 prints its wall time.  The histogram kernels count in
 boost.launches, their helpers (one hist_prep and one hist_partition a
@@ -292,6 +324,14 @@ DIAG_VERSIONS = {"clean": 6, "slow link": 12, "straggler": 10}  # versions a job
 DIAG_SLEEP = 0.1            # s a diagnose-phase worker waits before each contribution
 DIAG_SLOW = (1, 2, 0.15)    # the slow link of run (b): src, dst, s a frame
 DIAG_STRAGGLER = (2, 0.4)   # the compute straggler of run (c): rank, s a version
+QUORUM_SLEEP = 0.01         # s a quorum-phase worker waits before each contribution
+QUORUM_VERSIONS = {"full": 6, "healing": 8, "persistent": 10}
+QUORUM_HEALING = (2, 0.4, 3)  # run (b)'s straggler: rank, s a version, up to this version
+QUORUM_PERSISTENT = (2, 0.2)  # run (c)'s: rank, s more than the others before each version
+FAILOVER_VERSIONS = {"mid-wave": 4, "mid-run": 10, "file": 4}
+FAILOVER_SLEEP = 0.05       # s a failover-phase worker waits before each contribution
+FAILOVER_KILL = 0.3         # s after the start the primary dies in runs (a) and (c)
+FAILOVER_FREEZES = 3        # quorum records the primary freezes before run (b) kills it
 REPLACES = {
     "hist_level0": "rabit_tpu/ops/boost.py:341",
     "hist_level": "rabit_tpu/ops/boost.py:374",
@@ -718,7 +758,7 @@ def _compress_part(rank: int, world: int, tmp: str) -> dict:
         dist.destroy_process_group()
 
 
-# -- phases 15-18: the linear and k-means models, attention, the durable spill ----
+# -- phases 17-20: the linear and k-means models, attention, the durable spill ----
 
 
 def slice_data(n_rows: int):
@@ -800,7 +840,7 @@ def attention_cases(torch, ring, rank: int, world: int, out: dict) -> None:
 
 
 def _slice_rank(rank: int, world: int, tmp: str, n_rows: int) -> None:
-    """One process of the gloo world of phases 15-17, on the card, on this
+    """One process of the gloo world of phases 17-19, on the card, on this
     rank's elastic shard: linear.train_step_dp and kmeans.train_iter_dp
     over the group (every step's weights; the iterations' centers, and the
     assignments at the checked ones), the engine-hook fits (LinearModel,
@@ -2526,9 +2566,11 @@ class Smoke:
         could count; launches are serialized (the workers are threads of
         this process).  The totals equal the elastic worker's row_grads
         (version 1 also checked against them in numpy).  Returns
-        work(version, world, rank) and totals(n_versions); the totals'
-        launches (version 1 held against node_histograms_kernel_plain) are a
-        comparison's and do not count."""
+        work(version, world, rank), totals(n_versions) and plain_of(version,
+        world, rank) (the fold of node_histograms_kernel_plain on the same
+        shard, the contribution the quorum accounting subtracts); the
+        totals' launches (version 1 held against node_histograms_kernel_plain)
+        are a comparison's and do not count."""
         from rabit_tpu_torch.elastic import shard_slice
 
         torch = self.torch
@@ -2554,6 +2596,10 @@ class Smoke:
         def work(version: int, world: int, rank: int) -> np.ndarray:
             return fold(hist(version, shard_slice(self.n_rows, world, rank), kernel))
 
+        def plain_of(version: int, world: int, rank: int) -> np.ndarray:
+            return fold(hist(version, shard_slice(self.n_rows, world, rank),
+                             self.hist.node_histograms_kernel_plain))
+
         whole = slice(0, self.n_rows)
         per_version = []
         for v in range(1, max(DIAG_VERSIONS.values()) + 1):
@@ -2567,7 +2613,7 @@ class Smoke:
                 require(bool(torch.equal(hv, plain)), "the diagnose job's histogram differs "
                         "from node_histograms_kernel_plain")
             per_version.append(fold(hv))
-        return work, lambda n: sum(per_version[:n])
+        return work, lambda n: sum(per_version[:n]), plain_of
 
     def diag_run(self, dj, what: str, world: int, work, want, **kw) -> dict:
         """One job of tests/workers/torch_diag_job.py: ``world`` ElasticWorker
@@ -2625,7 +2671,7 @@ class Smoke:
 
         ew = worker_module("torch_elastic_worker")
         dj = worker_module("torch_diag_job")
-        work, want = self.diag_work(ew)
+        work, want, _ = self.diag_work(ew)
         out = {}
 
         clean = self.diag_run(dj, "clean", 3, work, want)
@@ -2738,14 +2784,227 @@ class Smoke:
                                                         ("straggler", strag))})
         return out
 
-    # -- phases 15-18 -------------------------------------------------------------
+    # -- phases 15 and 16 ---------------------------------------------------------
+    def job_run(self, dj, what: str, niter: int, work, **kw) -> dict:
+        """One job of tests/workers/torch_diag_job.py for the quorum and
+        failover phases: world 3, ``niter`` versions, every worker completed
+        at the last version, and node_histograms_kernel (with its helpers)
+        launched exactly once a contribution the workers made, with the
+        counts set to 0 just before the run and read just after."""
+        calls = [0]
+        lock = threading.Lock()
+
+        def counted(version, world, rank):
+            with lock:
+                calls[0] += 1
+            return work(version, world, rank)
+
+        self.clear_counts()
+        try:
+            out = dj.run_job(3, niter, counted, deadline_sec=90.0, **kw)
+        except TimeoutError as e:
+            raise PhaseFailed(f"{what}: {e}") from e
+        counts = self.read_counts(calls[0])
+        require(counts == {"node_histograms_kernel": calls[0]} and calls[0] > 0,
+                f"{what}: launches {counts}, expected {calls[0]} (one a contribution)")
+        for tid, res in sorted(out["results"].items()):
+            require(res.completed and res.final_version == niter,
+                    f"{what}: task {tid} did not complete: {res.error}")
+        out["launches"] = calls[0]
+        return out
+
+    @staticmethod
+    def equal_states(out, what: str) -> np.ndarray:
+        states = [out["results"][t].state for t in sorted(out["results"])]
+        require(all(np.array_equal(states[0], s) for s in states[1:]),
+                f"{what}: the ranks' states differ")
+        return states[0]
+
+    @staticmethod
+    def adjusted(out, totals, plain):
+        """The totals less every contribution a quorum record excluded and
+        no correction folded, in the plain version's histograms
+        (tests/test_quorum.py's _adjusted_expected)."""
+        ev = out["events"]
+        folded = {(e["src_version"], e["rank"]) for e in ev if e["kind"] == "correction_folded"}
+        want = totals.copy()
+        for e in ev:
+            if e["kind"] == "quorum_met":
+                for r in e["excluded"]:
+                    if (e["version"], r) not in folded:
+                        want = want - plain(e["version"], e["world"], r)
+        return want
+
+    @staticmethod
+    def kinds(events, kind: str) -> list:
+        return [e for e in events if e["kind"] == kind]
+
+    @staticmethod
+    def cadence_ms(out) -> float:
+        """Rank 0's mean commit interval over versions 1 to 9, in ms."""
+        ct = out["results"]["0"].commit_times
+        return 1e3 * (ct[9] - ct[1]) / 8
+
+    def quorum_phase(self):
+        """Quorum rounds on the card (phase 15 of the module docstring)."""
+        ew = worker_module("torch_elastic_worker")
+        dj = worker_module("torch_diag_job")
+        work, want, plain = self.diag_work(ew)
+        out = {}
+        t0 = time.perf_counter()
+
+        n = QUORUM_VERSIONS["full"]
+        full = self.job_run(dj, "quorum (a) full", n, work, quorum="1.0",
+                            iter_sleep=QUORUM_SLEEP)
+        require(np.array_equal(self.equal_states(full, "(a)"), want(n))
+                and all(r.quorum_rounds == n for r in full["results"].values())
+                and not self.kinds(full["events"], "quorum_met"),
+                f"(a) full quorum: rounds {[r.quorum_rounds for r in full['results'].values()]}, "
+                f"{len(self.kinds(full['events'], 'quorum_met'))} quorum_met")
+        print(f"  (a) world 3, quorum 1.0, {n} versions: states bitwise the world-1 totals, "
+              f"{n} quorum rounds a rank, no exclusion; launches {full['launches']}; "
+              f"{full['elapsed']:.2f} s")
+
+        n = QUORUM_VERSIONS["healing"]
+        heal = self.job_run(dj, "quorum (b) healing", n, work, quorum="0.6", quorum_wait=0.12,
+                            quorum_flag_after=0, straggler=QUORUM_HEALING,
+                            iter_sleep=QUORUM_SLEEP)
+        state = self.equal_states(heal, "(b)")
+        qm = self.kinds(heal["events"], "quorum_met")
+        late = self.kinds(heal["events"], "contribution_late")
+        folded = self.kinds(heal["events"], "correction_folded")
+        require(bool(qm) and all(e["excluded"] == [2] for e in qm) and late and folded
+                and max(e["version"] for e in qm) < n,
+                f"(b) healing straggler: quorum_met {[(e['version'], e['excluded']) for e in qm]}"
+                f", {len(late)} late, {len(folded)} folded")
+        require(np.array_equal(state, self.adjusted(heal, want(n), plain)),
+                "(b) healing straggler: the state differs from the record-adjusted totals")
+        print(f"  (b) world 3, quorum 0.6, rank 2 {QUORUM_HEALING[1]} s late up to version "
+              f"{QUORUM_HEALING[2]}, {n} versions: {len(qm)} rounds excluded [2] (versions "
+              f"{[e['version'] for e in qm]}), {len(late)} late block(s), {len(folded)} "
+              f"correction(s) folded, rank 2 skipped "
+              f"{heal['results']['2'].skipped_contributions}; states bitwise equal and the "
+              f"record-adjusted totals; launches {heal['launches']}; {heal['elapsed']:.2f} s")
+
+        n = QUORUM_VERSIONS["persistent"]
+        runs = {}
+        for name, kw in (("quorum", dict(quorum="0.6", quorum_wait=0.1, quorum_flag_after=3)),
+                         ("exact", {})):
+            runs[name] = self.job_run(dj, f"quorum (c) {name}", n, work,
+                                      straggler=QUORUM_PERSISTENT, iter_sleep=QUORUM_SLEEP,
+                                      **kw)
+        q, e = runs["quorum"], runs["exact"]
+        require(np.array_equal(self.equal_states(e, "(c) exact"), want(n)),
+                "(c) exact: the state differs from the totals")
+        require(np.array_equal(self.equal_states(q, "(c)"), self.adjusted(q, want(n), plain)),
+                "(c) persistent straggler: the state differs from the record-adjusted totals")
+        flagged = [x for x in self.kinds(q["events"], "link_degraded") if x.get("via") == "quorum"]
+        skipped = q["results"]["2"].skipped_contributions
+        cad = {k: self.cadence_ms(r) for k, r in runs.items()}
+        require(skipped > 0 and flagged and flagged[0]["dst"] == 2
+                and cad["quorum"] < 0.5 * cad["exact"],
+                f"(c) persistent straggler: rank 2 skipped {skipped}, flags "
+                f"{[(x['src'], x['dst']) for x in flagged]}, cadence {cad}")
+        print(f"  (c) world 3, rank 2 {QUORUM_PERSISTENT[1]} s late to every version, {n} "
+              f"versions: rank 0's commit cadence {cad['quorum']:.1f} ms with quorum 0.6, "
+              f"{cad['exact']:.1f} ms exact (ratio {cad['quorum'] / cad['exact']:.2f}); rank 2 "
+              f"skipped {skipped} contribution(s); links flagged via quorum "
+              f"{[(x['src'], x['dst']) for x in flagged]}, {q['n_repaired']} repair(s); "
+              f"states the record-adjusted totals; launches {q['launches']} and "
+              f"{e['launches']}; {q['elapsed']:.2f} s and {e['elapsed']:.2f} s")
+        out.update(cadence_ms=cad, skipped=skipped, excluded_rounds=len(qm),
+                   wall_s=time.perf_counter() - t0)
+        print(f"  quorum phase: {out['wall_s']:.1f} s", flush=True)
+        return out
+
+    def failover_phase(self):
+        """The HA control plane on the card (phase 16 of the module
+        docstring)."""
+        ew = worker_module("torch_elastic_worker")
+        dj = worker_module("torch_diag_job")
+        work, want, plain = self.diag_work(ew)
+        out = {}
+        t0 = time.perf_counter()
+        ha = dict(standby=True, takeover_sec=0.5, poll_sec=0.05)
+
+        n = FAILOVER_VERSIONS["mid-wave"]
+        wave = self.job_run(dj, "failover (a) mid-wave", n, work, kill_primary=FAILOVER_KILL,
+                            hold_back=(2,), iter_sleep=FAILOVER_SLEEP, **ha)
+        require(np.array_equal(self.equal_states(wave, "(a)"), want(n)),
+                "(a) mid-wave: the state differs from the totals")
+        pe = wave["promoted_events"]
+        require(len(self.kinds(pe, "tracker_failover")) == 1 and self.kinds(pe, "wave")
+                and not self.kinds(wave["events"], "lease_expired"),
+                f"(a) mid-wave: promoted events {[x['kind'] for x in pe]}")
+        print(f"  (a) world 3, {n} versions, primary killed {FAILOVER_KILL} s in with workers 0 "
+              f"and 1 in the wave, worker 2 started after: one tracker_failover, the wave "
+              f"closed on the promoted tracker, no lease_expired, states bitwise the totals; "
+              f"launches {wave['launches']}; {wave['elapsed']:.2f} s")
+
+        n = FAILOVER_VERSIONS["mid-run"]
+        run = self.job_run(dj, "failover (b) mid-run", n, work, quorum="0.6", quorum_wait=0.12,
+                           quorum_flag_after=0, straggler=QUORUM_HEALING, heartbeat_sec=0.2,
+                           kill_primary=("freezes", FAILOVER_FREEZES),
+                           iter_sleep=FAILOVER_SLEEP, **ha)
+        recs, answers = run["primary_records"], run["promoted_answers"]
+        require(len(recs) >= FAILOVER_FREEZES
+                and all(answers.get(k) == r for k, r in recs.items()),
+                f"(b) mid-run: {len(recs)} primary records, answers differ for "
+                f"{[k for k, r in recs.items() if answers.get(k) != r]}")
+        require(np.array_equal(self.equal_states(run, "(b)"), self.adjusted(run, want(n), plain)),
+                "(b) mid-run: the state differs from the totals adjusted by both trackers' "
+                "records")
+        require(run["promoted_shutdowns"] == {"0", "1", "2"}
+                and not self.kinds(run["events"], "lease_expired")
+                and len(self.kinds(run["promoted_events"], "tracker_failover")) == 1,
+                f"(b) mid-run: shutdowns on the promoted tracker {run['promoted_shutdowns']}, "
+                f"{len(self.kinds(run['events'], 'lease_expired'))} lease_expired")
+        fo = self.kinds(run["promoted_events"], "tracker_failover")[0]
+        to_failover = fo["ts"] - run["t_kill_wall"]
+        commits = sorted(t for r in run["results"].values() for t in r.commit_times.values()
+                         if t > run["t_kill"])
+        require(bool(commits), "(b) mid-run: no commit after the kill")
+        to_commit = commits[0] - run["t_kill"]
+        qm = [self.kinds(x, "quorum_met") for x in (run["primary_events"],
+                                                    run["promoted_events"])]
+        print(f"  (b) world 3, quorum 0.6, rank 2 {QUORUM_HEALING[1]} s late up to version "
+              f"{QUORUM_HEALING[2]}, {n} versions, heartbeats 0.2 s, primary killed after "
+              f"{len(recs)} frozen records: each answered the same by the promoted tracker; "
+              f"quorum_met {len(qm[0])} on the primary, {len(qm[1])} on the promoted; states "
+              f"the totals adjusted by both trackers' records; every shutdown on the promoted "
+              f"tracker, no lease_expired; from the kill {to_failover:.3f} s to the takeover, "
+              f"{to_commit:.3f} s to the next commit; launches {run['launches']}; "
+              f"{run['elapsed']:.2f} s")
+
+        n = FAILOVER_VERSIONS["file"]
+        with tempfile.TemporaryDirectory() as tmp:
+            filed = self.job_run(dj, "failover (c) file", n, work, kill_primary=FAILOVER_KILL,
+                                 hold_back=(2,), iter_sleep=FAILOVER_SLEEP,
+                                 journal_path=os.path.join(tmp, "job.journal"), **ha)
+        require(np.array_equal(self.equal_states(filed, "(c)"), want(n)),
+                "(c) file journal: the state differs from the totals")
+        require(filed["file_bytes"] is not None
+                and filed["standby_bytes"] == filed["file_bytes"]
+                and len(self.kinds(filed["promoted_events"], "tracker_failover")) == 1,
+                "(c) file journal: the standby's state at the takeover differs from "
+                "read_journal + replay of the file")
+        print(f"  (c) as (a) with a file journal the standby tails: states the totals; the "
+              f"standby's state at the takeover ({len(filed['file_bytes'])} bytes) bitwise "
+              f"read_journal + replay of the file; launches {filed['launches']}; "
+              f"{filed['elapsed']:.2f} s")
+        out.update(kill_to_failover_s=to_failover, kill_to_commit_s=to_commit,
+                   wall_s=time.perf_counter() - t0)
+        print(f"  failover phase: {out['wall_s']:.1f} s", flush=True)
+        return out
+
+    # -- phases 17-20 -------------------------------------------------------------
     @functools.cached_property
     def X(self):
         """slice_data's features on the card."""
         return self.xb.float() / 256
 
     def slice_world(self):
-        """The gloo world of phases 15-17 (DP_RANKS processes on the card,
+        """The gloo world of phases 17-19 (DP_RANKS processes on the card,
         _slice_rank), spawned once; its results are read by each phase."""
         t0 = time.perf_counter()
         self.slice_runs = run_ranks(_slice_rank, DP_RANKS, self.n_rows)
@@ -3007,7 +3266,7 @@ class Smoke:
               "stop " + json.dumps(frames))
         print("  durable " + json.dumps(self.slice_ms["durable"]))
 
-    # -- phase 20 -----------------------------------------------------------------
+    # -- phase 22 -----------------------------------------------------------------
     def trace_phase(self, logdir: str):
         """One warm fused bf16 round and one warm hook-based bf16 round under
         profile.device_trace: each round's wall time, the device time in
@@ -3068,7 +3327,7 @@ class Smoke:
         print(f"  Chrome trace under {logdir}")
         return out
 
-    # -- phase 19 -----------------------------------------------------------------
+    # -- phase 21 -----------------------------------------------------------------
     def measure(self):
         torch, boost = self.torch, self.boost
         xb3, g3, h3 = self.xb3, self.g3, self.h3
@@ -3286,7 +3545,7 @@ def main() -> int:
     except ImportError as e:
         print(f"FAIL: run from the root of a checkout ({e})", file=sys.stderr)
         return 2
-    # the plain versions' matmuls, and the products of phases 15-17 (exact f32)
+    # the plain versions' matmuls, and the products of phases 17-19 (exact f32)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     phase, t_phase = "device", time.perf_counter()
@@ -3383,6 +3642,12 @@ def main() -> int:
 
         phase = next_phase("diagnose")
         print("[diagnose] " + json.dumps(smoke.diagnose_phase()), flush=True)
+
+        phase = next_phase("quorum")
+        print("[quorum] " + json.dumps(smoke.quorum_phase()), flush=True)
+
+        phase = next_phase("failover")
+        print("[failover] " + json.dumps(smoke.failover_phase()), flush=True)
 
         phase = next_phase("linear")
         smoke.slice_world()

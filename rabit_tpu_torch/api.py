@@ -39,8 +39,12 @@ engine's shutdown and, with ``rabit_trace_exit=1``, dumps the ring after
 it.  The api's own events go through the engine's ``obs_event`` hook,
 which records them tagged with the engine's class.
 
-Not ported (ROADMAP.md Queue 1): the elastic plane's spares and resizes,
-the quorum policy and the delivery plane.
+``init`` also resolves the quorum policy (``quorum.resolve``: a typo'd
+``rabit_quorum`` fails before any engine starts) and records it as a
+``quorum_policy`` event; the engines' own collectives stay exact, since
+quorum rounds belong to the tracker and ``elastic.ElasticWorker``.
+
+Not ported (ROADMAP.md Queue 1): the delivery plane's publisher.
 """
 
 from __future__ import annotations
@@ -51,7 +55,7 @@ from typing import Any, Callable
 
 import numpy as np
 
-from rabit_tpu_torch import compress, obs
+from rabit_tpu_torch import compress, obs, quorum
 from rabit_tpu_torch.config import Config
 from rabit_tpu_torch.engine import create_engine
 from rabit_tpu_torch.engine.base import BITOR, DTYPE_ENUM, MAX, MIN, SUM, Engine
@@ -142,6 +146,7 @@ def init(args: list[str] | None = None, **overrides: Any) -> None:
         args = [a for a in sys.argv[1:] if "=" in a]
     config = Config(args, {k: str(v) for k, v in overrides.items()})
     pol = compress.configure(config)  # a bad policy fails before the engine starts
+    qpol = quorum.resolve(config)  # so does a typo'd rabit_quorum
     engine = create_engine(config)
     engine.init()
     _engine = engine
@@ -154,6 +159,9 @@ def init(args: list[str] | None = None, **overrides: Any) -> None:
                      checkpoint=pol.checkpoint or "identity",
                      fused=compress.fused_setting(config),
                      fused_chunk_kib=config.get_int("rabit_fused_chunk_kib", 256))
+    if qpol["quorum"]:
+        obs.record_event("quorum_policy", quorum=qpol["quorum"], wait_sec=qpol["wait_sec"],
+                         flag_after=qpol["flag_after"])
     obs.record_event("engine_ready", engine=type(engine).__name__,
                      rank=engine.get_rank(), world=engine.get_world_size())
     _ckpt_base = 0

@@ -128,6 +128,31 @@ DEFAULTS: dict[str, str] = {
     "rabit_diag_link_share": "0.5",
     "rabit_diag_hole_ratio": "0.25",
     "rabit_diag_storm_leases": "3",
+    # Quorum rounds (quorum): rabit_quorum is a fraction in (0, 1] of the
+    # current world or an integer count; a round of an ElasticWorker in
+    # quorum mode folds once that many contributions landed, and the late
+    # ones fold as corrections later ("" keeps the exact lockstep rounds,
+    # "1.0" runs the quorum wire but never excludes).  rabit_quorum_wait_sec
+    # is the worker's deadline a round before it reports a partial quorum
+    # and dials around a silent predecessor; rabit_quorum_flag_after flags a
+    # rank excluded that many rounds in a row for the schedule repair (0:
+    # never).
+    "rabit_quorum": "",
+    "rabit_quorum_wait_sec": "0.35",
+    "rabit_quorum_flag_after": "3",
+    # The HA control plane (ha): rabit_tracker_addrs lists the tracker's
+    # addresses, "host:port,host:port", the primary first and its warm
+    # standby after it (every tracker message rotates through them);
+    # rabit_ha_journal is the file the tracker journals every mutation to
+    # ("" = journaling off); rabit_ha_snapshot_every is the records between
+    # compactions; rabit_ha_takeover_sec the standby's takeover lease (how
+    # long the primary may stay silent); rabit_ha_tick_sec the primary's
+    # keepalive record cadence.
+    "rabit_tracker_addrs": "",
+    "rabit_ha_journal": "",
+    "rabit_ha_snapshot_every": "256",
+    "rabit_ha_takeover_sec": "1.0",
+    "rabit_ha_tick_sec": "0.25",
 }
 
 _UNIT = {"B": 1, "K": 1 << 10, "M": 1 << 20, "G": 1 << 30}

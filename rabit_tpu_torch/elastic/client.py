@@ -24,6 +24,23 @@ next wave's plan routes around.  ``advertise_port`` is the port peers are
 told to dial instead of the listen port (a ``chaos.ChaosProxy`` in front of
 it slows one link).
 
+Quorum rounds (``quorum=``, ``quorum``) replace the lockstep allgather with
+a straggler-tolerant round: tagged blocks ``(version, origin, payload)``
+flood the planned ring, with skip links around a predecessor silent past
+``quorum_wait`` (MAGIC_SKIP; the upstream rank tees its flow onto the
+dialer); each round asks the tracker for its frozen K-of-N exclusion record
+(``CMD_QUORUM``), waits for the blocks the record names and folds them in
+rank order, a straggler's late blocks after them as corrections.  The final
+round is always exact, and a rank the group has moved past skips its
+contribution to a round the record already excluded it from (the bounded
+catch-up).  Every fold is bitwise the same on every rank.
+
+``tracker`` is one address or a failover list (``rabit_tracker_addrs``: the
+primary, then its warm standby).  Check-ins rotate from the address that
+last answered, every message goes through ``tracker_rpc``'s rotation, and
+the shutdown's retries outlast a standby's takeover, so the death of the
+tracker is a retry, not a lost job.
+
 When a link fails mid-collective the epoch is abandoned: links close, the
 worker checks in again with ``CMD_RECOVER``, and the next wave (the same
 size after a spare's promotion, smaller after a shrink, larger after a
@@ -38,14 +55,15 @@ reply asks for it (a grow-back).  A worker parked because its slot was
 taken, and a spare never needed, end when the tracker releases them.
 
 Every socket operation is bounded, so being stuck is an error, not a
-hang.  Left out, and refused with ``NotImplementedError``: quorum rounds,
-the tracker failover list and the multi-job key (ROADMAP.md Queue 1,
-items 10c, 10d and 10g).
+hang.  Left out, and refused with ``NotImplementedError``: the multi-job key
+(ROADMAP.md Queue 1 item 10g).
 """
 
 from __future__ import annotations
 
+import json
 import pickle
+import select
 import socket
 import threading
 import time
@@ -99,6 +117,15 @@ class ElasticResult:
     wait_prev_s: float = 0.0
     #: slow_link reports this worker sent (at most one an epoch)
     slow_reports: int = 0
+    #: rounds folded under a tracker-agreed exclusion record
+    quorum_rounds: int = 0
+    #: rounds whose record excluded at least one rank
+    excluded_rounds: int = 0
+    #: late blocks (corrections) this worker folded
+    corrections_folded: int = 0
+    #: rounds this worker did not contribute to while catching up (the
+    #: group's record had already excluded it)
+    skipped_contributions: int = 0
     #: time.monotonic() of each version's commit
     commit_times: dict = field(default_factory=dict)
 
@@ -119,7 +146,10 @@ class ElasticWorker:
     leaves silently before contributing to version ``v``;
     ``("die_parked",)`` is a spare that dies in the pool;
     ``("die_promoted",)`` a spare that dies the moment it is promoted,
-    before any link is up.
+    before any link is up.  ``tracker`` is ``(host, port)`` or a failover
+    list of them; ``quorum`` is a ``rabit_quorum`` spec ("" for the exact
+    rounds) and ``quorum_wait`` the round's deadline before a partial
+    report and a skip dial.
     """
 
     def __init__(
@@ -139,15 +169,22 @@ class ElasticWorker:
         slow_report_share: float = 0.0,
         codec: str = "",
         quorum: str = "",
+        quorum_wait: float = 0.35,
         job: str = "",
     ):
-        if tracker and isinstance(tracker[0], (tuple, list)):
-            _refuse("with a tracker failover list", "10d")
-        if quorum:
-            _refuse("quorum rounds (quorum=)", "10c")
         if job:
             _refuse("with a multi-job key (job=)", "10g")
-        self.tracker = (tracker[0], int(tracker[1]))
+        self.quorum_spec = str(quorum or "")
+        if self.quorum_spec:
+            from rabit_tpu_torch.quorum import parse_spec
+
+            parse_spec(self.quorum_spec)  # a typo'd quorum fails before any socket
+        if tracker and isinstance(tracker[0], (tuple, list)):
+            self.addrs = [(t[0], int(t[1])) for t in tracker]
+        else:
+            self.addrs = [(tracker[0], int(tracker[1]))]
+        self.tracker = self.addrs[0]
+        self._active = 0  # the address that last answered a check-in
         self.task_id = task_id
         self.contribution = contribution
         self.niter = int(niter)
@@ -191,6 +228,21 @@ class ElasticWorker:
             from rabit_tpu_torch.compress import get_codec
 
             self._codec = get_codec(self.codec_name)
+        # quorum mode: the round's deadline, and the round state of the epoch
+        # (cleared with the links)
+        self.quorum_wait = float(quorum_wait)
+        self._qframes: dict[tuple[int, int], bytes] = {}  # (version, origin) -> payload
+        self._qseen: set[tuple[int, int]] = set()
+        self._qagreed_prev: set[tuple[int, int]] = set()
+        self._known_late: set[int] = set()
+        self._skip_in: list[socket.socket] = []   # dialed around a silent predecessor
+        self._tee_out: list[socket.socket] = []   # dialed by someone routing around ours
+        self._skip_from = -1
+        self._qlike: np.ndarray | None = None     # the decode template
+        self._q_rounds = 0
+        self._q_excluded_rounds = 0
+        self._q_corrections = 0
+        self._q_skipped = 0
         self._commit_times: dict[int, float] = {}
         self._version = 0
         self._state: np.ndarray | None = None
@@ -209,7 +261,19 @@ class ElasticWorker:
     # -- tracker messages ----------------------------------------------------
 
     def _connect(self) -> socket.socket:
-        return socket.create_connection(self.tracker, timeout=_RPC_TIMEOUT)
+        """Dial the tracker, through the failover list from the address that
+        last answered; raises the last OSError when none answers."""
+        last: Exception | None = None
+        for i in range(len(self.addrs)):
+            idx = (self._active + i) % len(self.addrs)
+            try:
+                sock = socket.create_connection(self.addrs[idx], timeout=_RPC_TIMEOUT)
+            except OSError as exc:
+                last = exc
+                continue
+            self._active = idx
+            return sock
+        raise last if last is not None else OSError("no tracker address")
 
     def _checkin(self, cmd: int, prev_rank: int) -> P.Assignment:
         """A START or RECOVER check-in on a socket of its own.  The reply is
@@ -318,7 +382,7 @@ class ElasticWorker:
         try:
             P.tracker_rpc(self.tracker[0], self.tracker[1], P.CMD_PRINT, self.task_id,
                           prev_rank=asg.rank, message=line, timeout=_RPC_TIMEOUT,
-                          retries=1)
+                          retries=1, addrs=self.addrs)
         except (P.TrackerUnreachable, ValueError):
             pass  # a report must never fail the job
 
@@ -327,7 +391,7 @@ class ElasticWorker:
             info = P.tracker_rpc(self.tracker[0], self.tracker[1], P.CMD_EPOCH,
                                  self.task_id, prev_rank=self._rank,
                                  message=str(self._version), timeout=_RPC_TIMEOUT,
-                                 retries=1)
+                                 retries=1, addrs=self.addrs)
             return info if isinstance(info, dict) else None
         except (P.TrackerUnreachable, ValueError):
             return None
@@ -335,16 +399,19 @@ class ElasticWorker:
     def _ship_blob(self) -> None:
         """Rank 0 hands the tracker its state after each commit, as the
         blob a parked spare starts from: the pickled (version, state),
-        zlib-compressed as the durable store's frames are.  Best effort."""
+        zlib-compressed as the durable store's frames are.  Best effort, on
+        one connection from the address that last answered."""
         from rabit_tpu_torch.compress import get_codec
 
         blob = get_codec("zlib").encode_bytes(
             pickle.dumps((self._version, self._state), protocol=pickle.HIGHEST_PROTOCOL))
         try:
-            P.tracker_rpc(self.tracker[0], self.tracker[1], P.CMD_BLOB, self.task_id,
-                          prev_rank=self._rank, blob=blob, blob_version=self._version,
-                          timeout=_RPC_TIMEOUT, retries=0)
-        except (P.TrackerUnreachable, ValueError):
+            with self._connect() as sock:
+                sock.settimeout(_RPC_TIMEOUT)
+                P.send_hello(sock, P.CMD_BLOB, self.task_id, prev_rank=self._rank,
+                             blob=blob, blob_version=self._version)
+                P.get_u32(sock)  # the ACK
+        except (OSError, ConnectionError, ValueError):
             pass
 
     def _note_blob(self, version: int, blob: bytes) -> None:
@@ -430,6 +497,21 @@ class ElasticWorker:
             except OSError:
                 pass
         self._links.clear()
+        # The quorum round state belongs to the epoch: the skip and tee
+        # sockets go with the ring links, and no block or record survives a
+        # wave (ranks renumber).
+        for s in self._skip_in + self._tee_out:
+            try:
+                s.close()
+            except OSError:
+                pass
+        self._skip_in = []
+        self._tee_out = []
+        self._qframes.clear()
+        self._qseen.clear()
+        self._qagreed_prev.clear()
+        self._known_late.clear()
+        self._skip_from = -1
 
     @staticmethod
     def _send_frame(sock: socket.socket, payload: bytes) -> None:
@@ -527,6 +609,247 @@ class ElasticWorker:
         parts = self._ring_allgather(asg, self._encode_block(contrib))
         return refold([self._decode_block(b, contrib) for b in parts])
 
+    # -- quorum rounds ---------------------------------------------------------
+    #
+    # A quorum round floods tagged blocks (version, origin, payload) over the
+    # planned ring and its skip links: a block seen for the first time is
+    # kept and passed to the ring's next rank and every tee, so a duplicate
+    # is harmless and the flow goes around a straggler.  The round then asks
+    # the tracker for its frozen record (one CMD_QUORUM), waits for every
+    # block and correction the record names, and folds them in rank order.
+
+    def _quorum_on(self) -> bool:
+        return bool(self.quorum_spec)
+
+    def _q_have(self, v: int) -> set[int]:
+        """Ranks whose version-``v`` block this worker holds."""
+        return {r for (vv, r) in self._qframes if vv == v}
+
+    def _qpost(self, asg: P.Assignment, v: int, origin: int, payload: bytes) -> bool:
+        """Keep a tagged block the first time it is seen and pass it on to
+        the ring's next rank and every tee; True when it was new."""
+        key = (v, origin)
+        if key in self._qseen:
+            return False
+        self._qseen.add(key)
+        self._qframes[key] = payload
+        frame = P.put_block_frame(v, origin, payload)
+        if asg.world_size > 1 and self._ring_next in self._links:
+            self._send_frame(self._links[self._ring_next], frame)
+        for s in list(self._tee_out):
+            try:
+                s.sendall(P.put_u32(len(frame)) + frame)
+            except OSError:
+                self._drop_tee(s)
+        return True
+
+    def _drop_tee(self, s: socket.socket) -> None:
+        s.close()
+        if s in self._tee_out:
+            self._tee_out.remove(s)
+
+    def _drop_skip(self, s: socket.socket) -> None:
+        s.close()
+        if s in self._skip_in:
+            self._skip_in.remove(s)
+
+    def _q_accept(self, asg: P.Assignment) -> None:
+        """Take one dial made mid-round: a MAGIC_SKIP hello of this epoch
+        becomes a tee (the dialer routes around our silent successor) and
+        is sent every block kept; anything else (a dialer of a dead epoch)
+        is dropped."""
+        self._listen.settimeout(0.2)
+        try:
+            s, _ = self._listen.accept()
+        except OSError:  # socket.timeout included
+            return
+        try:
+            s.settimeout(self.link_timeout)
+            if P.get_u32(s) != P.MAGIC_SKIP:
+                s.close()
+                return
+            _peer, epoch, _since = P.read_skip_frame(s)
+        except (ConnectionError, OSError, ValueError):
+            s.close()
+            return
+        if epoch != asg.epoch:
+            s.close()
+            return
+        try:
+            for (v, origin) in sorted(self._qframes):
+                frame = P.put_block_frame(v, origin, self._qframes[(v, origin)])
+                s.sendall(P.put_u32(len(frame)) + frame)
+        except OSError:
+            s.close()
+            return
+        self._tee_out.append(s)
+
+    def _q_skip_dial(self, asg: P.Assignment, v: int) -> None:
+        """Route around a silent upstream: dial the ring predecessor of the
+        current source and take the flow from there.  Each stall walks one
+        rank further back, so two adjacent stragglers are passed one dial
+        at a time."""
+        world = asg.world_size
+        if world <= 2:
+            return  # no third rank to route through
+        cur = self._skip_from if self._skip_from >= 0 else self._ring_prev
+        pos = self._order.index(cur)
+        target = self._order[(pos - 1) % world]
+        if target == asg.rank or target == cur:
+            return
+        self._skip_from = target  # the next stall walks further back
+        try:
+            host, port = asg.peers[target]
+            s = socket.create_connection((host, port), timeout=self.link_timeout)
+            s.settimeout(self.link_timeout)
+            s.sendall(P.put_skip_frame(asg.rank, asg.epoch, v))
+        except (OSError, KeyError):
+            return
+        self._skip_in.append(s)
+
+    def _qpump(self, asg: P.Assignment, tick: float = 0.05) -> bool:
+        """One bounded pass over every inbound source (the ring's previous
+        rank, the skip links, the listen socket for dials around our
+        neighbour); True when a new block landed."""
+        ins: list[socket.socket] = []
+        if asg.world_size > 1 and self._ring_prev in self._links:
+            ins.append(self._links[self._ring_prev])
+        ins += self._skip_in
+        ins.append(self._listen)
+        try:
+            readable, _, _ = select.select(ins, [], [], tick)
+        except (OSError, ValueError):
+            raise EpochBroken("select failed on ring sockets")
+        progress = False
+        for s in readable:
+            if s is self._listen:
+                self._q_accept(asg)
+                continue
+            try:
+                data = self._recv_frame(s)
+            except EpochBroken:
+                if s in self._skip_in:
+                    self._drop_skip(s)  # a redundant path died; the ring remains
+                    continue
+                raise
+            try:
+                v, origin, payload = P.read_block_frame(data)
+            except ValueError:
+                continue  # a torn or foreign frame
+            if 0 <= origin < asg.world_size and self._qpost(asg, v, origin, payload):
+                progress = True
+        return progress
+
+    def _q_rpc(self, asg: P.Assignment, v: int, have: list[int],
+               held: list[tuple[int, int]]) -> dict | None:
+        """One CMD_QUORUM report (canonical JSON); the reply, or None when
+        the transport missed (the caller's bounded loop asks again)."""
+        msg = json.dumps({"epoch": asg.epoch, "v": v, "have": have,
+                          "held": [list(t) for t in held]},
+                         sort_keys=True, separators=(",", ":"))
+        try:
+            reply = P.tracker_rpc(self.tracker[0], self.tracker[1], P.CMD_QUORUM,
+                                  self.task_id, prev_rank=asg.rank, message=msg,
+                                  timeout=_RPC_TIMEOUT, retries=1, addrs=self.addrs)
+            return reply if isinstance(reply, dict) else None
+        except (P.TrackerUnreachable, ValueError):
+            return None
+
+    def _q_wait_pass(self, asg: P.Assignment, v: int, last_progress: float) -> float:
+        """One pass of a round's waiting: pump, and past ``quorum_wait``
+        without a new block dial around the silent source.  Returns the
+        time of the last progress."""
+        if self._qpump(asg):
+            return time.monotonic()
+        if time.monotonic() - last_progress > self.quorum_wait:
+            self._q_skip_dial(asg, v)
+            return time.monotonic()
+        return last_progress
+
+    def _quorum_allreduce(self, asg: P.Assignment, v: int,
+                          contrib: np.ndarray | None) -> np.ndarray:
+        """One K-of-N round: collect, agree, drain, fold.  ``contrib=None``
+        is the catch-up: the group's record for this round was decided
+        without us (blocks of a later round prove it), so the frozen record
+        is folded and the worker moves on.  The final round is exact."""
+        from rabit_tpu_torch.quorum import quorum_count
+
+        world = asg.world_size
+        k = quorum_count(world, self.quorum_spec)
+        all_ranks = set(range(world))
+        exact = k >= world or v >= self.niter
+        if contrib is not None:
+            self._qpost(asg, v, asg.rank, self._encode_block(contrib))
+        if self._qlike is None:
+            if contrib is None:
+                raise EpochBroken("quorum catch-up before any contribution")
+            self._qlike = np.zeros_like(contrib)
+        deadline = min(time.monotonic() + self.wave_timeout, self.deadline)
+        # collect until the expected blocks landed (a rank known late is not
+        # waited for) or the quorum deadline passed
+        expected = set(all_ranks) if exact else all_ranks - self._known_late
+        if contrib is not None:
+            expected.add(asg.rank)
+        else:
+            expected.discard(asg.rank)
+        qdl = time.monotonic() + self.quorum_wait
+        last_progress = time.monotonic()
+        while not expected <= self._q_have(v):
+            self._check_deadline()
+            if time.monotonic() > deadline:
+                raise EpochBroken(f"quorum round v{v}: collect timed out")
+            last_progress = self._q_wait_pass(asg, v, last_progress)
+            if not exact and time.monotonic() > qdl:
+                break
+        # agree: every rank asks every round, since a slower reporter may
+        # have frozen a smaller fold than what this rank collected
+        rec: dict | None = None
+        while rec is None:
+            self._check_deadline()
+            if time.monotonic() > deadline:
+                raise EpochBroken(f"quorum round v{v}: no record within bound")
+            held = sorted((sv, r) for (sv, r) in self._qframes if sv < v)
+            reply = self._q_rpc(asg, v, sorted(self._q_have(v)), held)
+            if reply is not None:
+                if reply.get("disabled"):
+                    raise EpochBroken("worker runs quorum mode but the tracker has no quorum "
+                                      "table (set Tracker(quorum=...))")
+                if reply.get("stale_epoch"):
+                    raise EpochBroken("quorum report hit a newer epoch")
+                if reply.get("decided"):
+                    rec = reply
+                    break
+            last_progress = self._q_wait_pass(asg, v, last_progress)
+        excluded = {int(r) for r in rec.get("excluded", ())}
+        corrections = sorted((int(sv), int(r)) for sv, r in rec.get("corrections", ()))
+        # drain: the record is law; hold every block and correction it names
+        need = {(v, r) for r in all_ranks - excluded} | set(corrections)
+        while not need <= set(self._qframes):
+            self._check_deadline()
+            if time.monotonic() > deadline:
+                raise EpochBroken(f"quorum round v{v}: agreed blocks never arrived: "
+                                  f"{sorted(need - set(self._qframes))}")
+            last_progress = self._q_wait_pass(asg, v, last_progress)
+        # fold in rank order, the corrections after the round's blocks in
+        # (src_version, rank) order: the same bits on every rank
+        agreed = sorted(all_ranks - excluded)
+        parts = [self._decode_block(self._qframes[(v, r)], self._qlike) for r in agreed]
+        parts += [self._decode_block(self._qframes[key], self._qlike) for key in corrections]
+        total = refold(parts)
+        self._q_rounds += 1
+        if excluded:
+            self._q_excluded_rounds += 1
+        self._q_corrections += len(corrections)
+        self._known_late = set(excluded)
+        # the folded corrections go, and one round of payloads is kept for a
+        # skip dialer's catch-up
+        for key in corrections:
+            self._qframes.pop(key, None)
+        for key in self._qagreed_prev:
+            self._qframes.pop(key, None)
+        self._qagreed_prev = {(v, r) for r in agreed}
+        return total
+
     def _sync_state(self, asg: P.Assignment) -> None:
         """After a wave: agree on the newest committed version, and bring
         every rank behind it up to date from the lowest rank that holds it
@@ -553,7 +876,8 @@ class ElasticWorker:
         def tick() -> bool:
             if self._stop.is_set():
                 return False
-            ok = renew_lease(host, port, self.task_id, self.heartbeat_sec, rank=self._rank)
+            ok = renew_lease(host, port, self.task_id, self.heartbeat_sec, rank=self._rank,
+                             addrs=self.addrs)
             rank = self._rank
             if rank >= 0:  # the tracker refuses a snapshot of no rank
                 delta = self._delta_src.take()
@@ -561,7 +885,7 @@ class ElasticWorker:
                     snap = build_snapshot(self._metrics_reg, rank, self.task_id,
                                           extra={"delta": delta})
                     ship_snapshot(snap, host, port, self.task_id,
-                                  timeout=max(self.heartbeat_sec, 0.2))
+                                  timeout=max(self.heartbeat_sec, 0.2), addrs=self.addrs)
             return ok
 
         self._hb = Heartbeat(self.heartbeat_sec, tick, immediate=True).start()
@@ -595,6 +919,10 @@ class ElasticWorker:
         finally:
             res.wait_prev_s = round(self._wait_total_s, 6)
             res.slow_reports = self._n_slow_reports
+            res.quorum_rounds = self._q_rounds
+            res.excluded_rounds = self._q_excluded_rounds
+            res.corrections_folded = self._q_corrections
+            res.skipped_contributions = self._q_skipped
             res.commit_times = dict(self._commit_times)
             self._stop_heartbeat()
             self._close_links()
@@ -635,9 +963,27 @@ class ElasticWorker:
                         res.state = self._state
                         return res
                     self._check_deadline()
-                    contrib = np.ascontiguousarray(
-                        self.contribution(v, asg.world_size, asg.rank))
-                    total = self._allreduce_sum(asg, contrib)
+                    if self._quorum_on():
+                        # The bounded catch-up: a block of a later round
+                        # proves round v's record froze without ours, so the
+                        # record is folded instead of a round the job has
+                        # moved past.  The backlog is drained first: a rank
+                        # back from a slow contribution has not read its
+                        # sockets since the round began.
+                        while self._qpump(asg, tick=0.0):
+                            pass
+                        ahead = max((vv for (vv, _r) in self._qseen), default=0)
+                        contrib = None
+                        if ahead <= v:
+                            contrib = np.ascontiguousarray(
+                                self.contribution(v, asg.world_size, asg.rank))
+                        else:
+                            self._q_skipped += 1
+                        total = self._quorum_allreduce(asg, v, contrib)
+                    else:
+                        contrib = np.ascontiguousarray(
+                            self.contribution(v, asg.world_size, asg.rank))
+                        total = self._allreduce_sum(asg, contrib)
                     self._state = total if self._state is None else self._state + total
                     self._version = v
                     self._commit_times[v] = time.monotonic()
@@ -658,9 +1004,12 @@ class ElasticWorker:
                 asg = self._checkin(P.CMD_RECOVER, asg.rank)
         self._stop_heartbeat()
         try:
+            # with a failover list the retries outlast a standby's takeover
+            # lease, or the job's completion misses this clean exit
             P.tracker_rpc(self.tracker[0], self.tracker[1], P.CMD_SHUTDOWN, self.task_id,
-                          prev_rank=asg.rank, timeout=_RPC_TIMEOUT, retries=1,
-                          backoff_cap=0.5)
+                          prev_rank=asg.rank, timeout=_RPC_TIMEOUT,
+                          retries=7 if len(self.addrs) > 1 else 1, backoff_cap=0.5,
+                          addrs=self.addrs)
         except (P.TrackerUnreachable, ValueError):
             pass
         res.completed = True

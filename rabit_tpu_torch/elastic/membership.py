@@ -92,6 +92,18 @@ class MembershipManager:
         re-enter a wave at their next version boundary."""
         return n_spares > 0 and self.world < self.base_world
 
+    def restore(self, epoch: int, world_size: int, rank_map: Mapping[str, int],
+                history: list[tuple[int, int]] | None = None) -> None:
+        """Adopt a replayed epoch line (a standby's takeover, ``ha``): the
+        promoted tracker continues the same rising numbering, since a
+        reused epoch would let stale links and quorum records pass for
+        fresh ones.  ``history`` rebuilds the timeline from ``(epoch,
+        world)`` pairs (the journal keeps no rank map of a past epoch)."""
+        self.current = WorldEpoch(int(epoch), int(world_size), dict(rank_map))
+        self.history = [WorldEpoch(int(e), int(w), {}) for e, w in (history or [])]
+        if self.history and self.history[-1].epoch == self.current.epoch:
+            self.history[-1] = self.current  # the newest entry keeps its map
+
     def decide(self, n_pending: int, n_spares: int, wave_age: float) -> WaveDecision:
         """Close, promote and close, shrink and close, or wait, for a wave
         of ``n_pending`` live check-ins with ``n_spares`` parked spares,

@@ -130,9 +130,20 @@ class _ObsState:
         # rabit_trace_exit, rabit_trace_clock_pings
         self.trace_exit = False
         self.trace_clock_pings = 2
+        # the failover list (rabit_tracker_addrs): the tracker addresses
+        # every shipped message rotates through after the primary
+        self.tracker_addrs: list = []
 
 
 _STATE = _ObsState()
+
+
+def _parse_tracker_addrs(spec: str) -> list:
+    """``protocol.parse_addrs``, imported at the call: the tracker package
+    imports this one."""
+    from rabit_tpu_torch.tracker.protocol import parse_addrs
+
+    return parse_addrs(spec)
 
 
 def configure(config, rank: int = -1) -> None:
@@ -145,7 +156,8 @@ def configure(config, rank: int = -1) -> None:
     ``rabit_obs_hang_sec``, ``rabit_obs_heartbeat_sec``,
     ``rabit_obs_spill_sec``, ``rabit_obs_max_files``,
     ``rabit_hang_abort_sec``, ``rabit_heartbeat_sec``,
-    ``rabit_trace_exit``, ``rabit_trace_clock_pings``.
+    ``rabit_trace_exit``, ``rabit_trace_clock_pings``,
+    ``rabit_tracker_addrs``.
     """
     obs_dir = (config.get("rabit_obs_dir", "") or
                os.environ.get("RABIT_OBS_DIR", "") or "")
@@ -191,6 +203,9 @@ def configure(config, rank: int = -1) -> None:
             _STATE.tracker = (
                 tracker_uri, config.get_int("rabit_tracker_port", 9091)
             )
+        # the primary tuple above stays first in every rotation
+        _STATE.tracker_addrs = _parse_tracker_addrs(
+            config.get("rabit_tracker_addrs", "") or "")
     # A re-init may point at a different tracker; offset samples against
     # the old one are meaningless on the new timeline.
     GLOBAL_CLOCK.reset()
@@ -481,10 +496,11 @@ def _ship_metrics_snapshot() -> bool:
     """One metrics-heartbeat tick (runs on the heartbeat thread)."""
     with _STATE.lock:
         tracker, task_id = _STATE.tracker, _STATE.task_id
+        addrs = list(_STATE.tracker_addrs)
     if tracker is None:
         return False
     return _ship.ship_snapshot(_make_snapshot(), tracker[0], tracker[1],
-                               task_id)
+                               task_id, addrs=addrs)
 
 
 def _renew_lease() -> bool:
@@ -499,10 +515,11 @@ def _renew_lease() -> bool:
         rank, task_id = _STATE.rank, _STATE.task_id
         interval = _STATE.heartbeat_sec
         hung = _STATE.hang_dumped
+        addrs = list(_STATE.tracker_addrs)
     if tracker is None or hung:
         return False
     return _ship.renew_lease(tracker[0], tracker[1], task_id, interval,
-                             rank=rank)
+                             rank=rank, addrs=addrs)
 
 
 def stop_heartbeat() -> None:
@@ -526,15 +543,17 @@ def ship_final_snapshot() -> bool:
     with _STATE.lock:
         tracker, task_id = _STATE.tracker, _STATE.task_id
         pings = _STATE.trace_clock_pings
+        addrs = list(_STATE.tracker_addrs)
     if tracker is None:
         return False
     # Tighten (or bootstrap — a job that never enabled heartbeats has no
     # samples yet) the clock estimate before it is frozen into the final
     # snapshot: each ping is one timestamped round-trip, no lease effect.
     if pings > 0:
-        _ship.clock_ping(tracker[0], tracker[1], task_id, samples=pings)
+        _ship.clock_ping(tracker[0], tracker[1], task_id, samples=pings,
+                         addrs=addrs)
     return _ship.ship_snapshot(_make_snapshot(), tracker[0], tracker[1],
-                               task_id)
+                               task_id, addrs=addrs)
 
 
 def dump_final() -> str | None:

@@ -31,6 +31,111 @@ DEFAULT_CAPACITY = 2048
 _RESERVED = ("ts", "kind")
 
 
+#: The event-kind registry: every ``kind`` of ``rabit_tpu``'s registry
+#: (``rabit_tpu/obs/events.py`` ``KINDS``) that a plane of the port can
+#: record, with the same one-line meaning (the relay, service and delivery
+#: planes' kinds wait for their port).  A kind is added here in the change
+#: that adds its producer.
+KINDS: dict[str, str] = {
+    # envelope / ring
+    "flight_dump": "dump header line: pid, rank, reason, n_events, dropped",
+    # collective spans (obs.collective; paired into trace spans)
+    "op_begin": "collective entered: op, nbytes, cache_key, version, seqno",
+    "op_end": "collective completed: adds seconds; pairs with op_begin",
+    "op_inflight": "dump-time marker: op stuck in flight, stuck_seconds",
+    # engine lifecycle (api.py / engine bridge)
+    "engine_ready": "init() complete: engine class, rank, world",
+    "engine_init": "native bridge entering RabitInit",
+    "bootstrap_done": "(re)bootstrap complete: rank, world, attempt, seconds",
+    "engine_shutdown": "native bridge entering RabitFinalize",
+    "engine_finalize": "rabit_tpu.finalize() reached (pre-shutdown)",
+    "engine_error": "native call failed: what, error (pre-exception)",
+    "init_after_exception": "robust re-init after a caught exception",
+    # compression (compress)
+    "compress_policy": "codec policy resolved at init: allreduce codec, "
+                       "min_bytes, checkpoint codec, deflate stage",
+    "recovery_blob_compressed": "disk-resume blob served over the wire "
+                                "zlib-compressed: raw, wire, version",
+    # checkpoint line (api.py / native bridge)
+    "checkpoint_commit": "version bump committed: version, nbytes",
+    "checkpoint_loaded": "bridge served a peer-recovered blob: version",
+    "load_checkpoint": "api load_checkpoint returned: version, recovered",
+    "version_bump": "native checkpoint committed: version",
+    # hang watchdog (obs.__init__)
+    "hang_detected": "collective stuck past rabit_obs_hang_sec",
+    "hang_recovered": "declared-hung op completed; lease renewals resume",
+    "hang_abort": "dump-then-die escalation firing (exit 11)",
+    # the stats-line bridge (event_from_stats_line) and the tracker
+    "recover_stats": "robust engine per-recovery counters (from prints)",
+    "recover_stats_final": "robust engine shutdown-time counters",
+    "failure_detected": "robust engine noticed a dead peer: at=",
+    "worker_recovered": "workload's recovered_at= stamp (in-job recovery)",
+    "disk_resume": "workload resumed from durable spill: version",
+    # tracker telemetry (tracker.py)
+    "wave": "bootstrap/recovery wave assigned: epoch, assignments",
+    "wave_purged": "dead pending connections dropped at wave fill",
+    "lease_expired": "heartbeat lease lapsed: task_id, rank, overdue",
+    "snapshot_rejected": "CMD_METRICS snapshot with out-of-range rank",
+    "metrics_snapshot": "CMD_METRICS snapshot accepted: rank, task_id",
+    # the live telemetry plane (obs.stream)
+    "obs_scrape": "first CMD_OBS scrape served this tracker lifetime "
+                  "(per-scrape counts live in serve_stats.obs_scrapes)",
+    "metrics_delta_folded": "first streamed metric delta folded for a "
+                            "rank: rank (per-delta counts live in the "
+                            "rollup's n_folds)",
+    "obs_evicted": "flight-dump retention removed oldest dumps: n, "
+                   "max_files (rabit_obs_max_files)",
+    # elastic worlds (elastic)
+    "spare_parked": "hot spare checked in and parked: task_id, blob_version",
+    "spare_dropped": "parked spare hung up; removed from the pool",
+    "spare_promoted": "spare filled a dead rank's slot: task_id, rank, epoch",
+    "world_shrunk": "wave closed below the previous world: from, to, lost",
+    "world_grown": "wave closed above the previous world: from, to, joined",
+    "bootstrap_blob": "tracker cached a spare bootstrap blob: version, nbytes",
+    "epoch_changed": "worker adopted a new world epoch: epoch, world",
+    "shard_rebalanced": "shard-rebalance callbacks ran for a resize",
+    # quorum rounds (quorum)
+    "quorum_policy": "quorum policy resolved at init: spec, wait_sec, "
+                     "flag_after",
+    "quorum_met": "round decided with exclusions: epoch, version, k, "
+                  "world, n_have, excluded",
+    "contribution_late": "an excluded round's block was delivered: "
+                         "src_version, rank",
+    "correction_folded": "a late block folded into a later round: "
+                         "version, src_version, rank",
+    "correction_dropped": "epoch boundary dropped an undelivered "
+                          "correction: src_version, rank, world",
+    # the bounded print log
+    "messages_dropped": "the bounded worker-print log overflowed: cap "
+                        "(total drops in telemetry.json)",
+    # the HA control plane (ha)
+    "journal_snapshot": "journal compacted to one snapshot record: n, "
+                        "nbytes",
+    "journal_gap": "journal replay hit a torn/divergent stretch "
+                   "(truncated or healed from a snapshot): error",
+    "standby_synced": "standby replayed to a consistent state: epoch, "
+                      "world",
+    "tracker_failover": "standby promoted itself over the dead primary: "
+                        "standby, epoch, world, synced",
+    # collective schedules (sched)
+    "schedule_planned": "tracker planned a wave's schedule: epoch, algo, "
+                        "ring_order, n_avoided",
+    "schedule_repaired": "plan rewritten around degraded links: epoch, "
+                         "avoided, residual",
+    "link_degraded": "worker slow_link report (from prints): src, dst, "
+                     "wait, share",
+    # the diagnosis plane (obs.diagnose)
+    "incident_opened": "HealthMonitor opened an incident: incident, "
+                       "class, + the subject fields (src/dst, rank, "
+                       "relay...)",
+    "incident_resolved": "an open incident went quiet past the "
+                         "hysteresis bar: incident, class, + subject",
+    "critical_path_folded": "trace_tool diagnose folded a critical-path "
+                            "report into telemetry.json: rounds, links, "
+                            "ranks",
+}
+
+
 @dataclass(frozen=True)
 class Event:
     ts: float

@@ -54,12 +54,14 @@ def build_snapshot(registry, rank: int, task_id: str, host: str = "",
 
 
 def ship_snapshot(snapshot: dict, tracker_host: str, tracker_port: int,
-                  task_id: str, timeout: float = 5.0, retries: int = 0) -> bool:
-    """Send one snapshot; True on ACK.  Raises nothing."""
+                  task_id: str, timeout: float = 5.0, retries: int = 0,
+                  addrs: list | None = None) -> bool:
+    """Send one snapshot; True on ACK.  Raises nothing.  ``addrs`` is the
+    failover list (``rabit_tracker_addrs``)."""
     try:
         reply = P.tracker_rpc(tracker_host, tracker_port, P.CMD_METRICS, task_id,
                               message=json.dumps(snapshot), timeout=timeout,
-                              retries=retries)
+                              retries=retries, addrs=addrs)
     except (P.TrackerUnreachable, ValueError):
         return False
     _note_clock(reply)
@@ -68,18 +70,20 @@ def ship_snapshot(snapshot: dict, tracker_host: str, tracker_port: int,
 
 def renew_lease(tracker_host: str, tracker_port: int, task_id: str,
                 interval: float, rank: int = -1,
-                timeout: float | None = None) -> bool:
+                timeout: float | None = None, addrs: list | None = None) -> bool:
     """Renew this worker's heartbeat lease; True on ACK.  Raises nothing.
 
     No retries: a renewal that misses its window is worthless, the next
     tick is the retry, and the tracker's lease tolerates one miss
     (``LEASE_FACTOR``).  The send is bounded by ``timeout`` (default: one
-    interval) so a wedged tracker cannot back the sender up."""
+    interval) so a wedged tracker cannot back the sender up.  With an
+    ``addrs`` failover list one retry is allowed: the rotation lands it on
+    the standby, so a lease taken over is renewed within the same tick."""
     try:
         reply = P.tracker_rpc(tracker_host, tracker_port, P.CMD_HEARTBEAT, task_id,
                               prev_rank=rank, message=repr(float(interval)),
                               timeout=timeout if timeout is not None else max(interval, 0.2),
-                              retries=0)
+                              retries=1 if addrs else 0, addrs=addrs)
     except (P.TrackerUnreachable, ValueError):
         return False
     _note_clock(reply)
@@ -87,7 +91,7 @@ def renew_lease(tracker_host: str, tracker_port: int, task_id: str,
 
 
 def clock_ping(tracker_host: str, tracker_port: int, task_id: str,
-               samples: int = 2, timeout: float = 2.0) -> int:
+               samples: int = 2, timeout: float = 2.0, addrs: list | None = None) -> int:
     """Collect clock-offset samples with no other effect: a heartbeat of
     interval 0 grants no lease, but its reply carries the tracker's clock.
     Used at finalize, so a job that never renewed leases still ships a
@@ -96,7 +100,7 @@ def clock_ping(tracker_host: str, tracker_port: int, task_id: str,
     for _ in range(max(samples, 0)):
         try:
             reply = P.tracker_rpc(tracker_host, tracker_port, P.CMD_HEARTBEAT, task_id,
-                                  message="0", timeout=timeout, retries=0)
+                                  message="0", timeout=timeout, retries=0, addrs=addrs)
         except (P.TrackerUnreachable, ValueError):
             return got
         _note_clock(reply)

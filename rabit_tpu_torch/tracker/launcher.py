@@ -30,9 +30,21 @@ started again and does not hold the job open; a restarted worker whose
 slot a spare took parks as a spare and is released when the job ends.
 Bookkeeping is keyed by task id.
 
+High availability (``ha``): ``standby=True`` (``--standby``) journals the
+tracker's every mutation (to ``ha_journal`` when set, else in memory,
+streamed over ``CMD_JOURNAL``) and runs a warm ``ha.Standby`` in this
+process; the workers get both addresses as ``rabit_tracker_addrs``
+(``RABIT_TPU_RABIT_TRACKER_ADDRS``).  ``run(kill_tracker_after=SEC)``
+(``--kill-tracker-after``) kills the primary tracker abruptly that many
+seconds in: the standby takes over within ``takeover_sec``
+(``--takeover-sec``), the workers fail over to it, and the launcher's
+bookkeeping follows the promoted tracker.
+
 Usage:
     python -m rabit_tpu_torch.tracker.launcher --num-workers 4 \\
         [--max-restarts 20] [--spares K] [--shrink-after SEC] \\
+        [--standby [--ha-journal PATH] [--takeover-sec SEC]] \\
+        [--kill-tracker-after SEC] \\
         [--preempt DELAY:TASK] [--wedge DELAY:TASK] \\
         -- python worker.py rabit_heartbeat_sec=0.5 [args...]
 """
@@ -48,6 +60,7 @@ import threading
 import time
 from typing import Callable
 
+from rabit_tpu_torch.config import Config
 from rabit_tpu_torch.tracker.tracker import Tracker
 
 
@@ -64,7 +77,8 @@ def spare_task_id(i: int) -> str:
 class LocalCluster:
     def __init__(self, num_workers: int, max_restarts: int = 0, quiet: bool = False,
                  extra_env: dict[str, str] | None = None, spares: int = 0,
-                 shrink_after_sec: float = 0.0):
+                 shrink_after_sec: float = 0.0, standby: bool = False, ha_journal: str = "",
+                 takeover_sec: float = 1.0):
         self.num_workers = num_workers
         self.max_restarts = max_restarts
         self.quiet = quiet
@@ -95,6 +109,14 @@ class LocalCluster:
         self._suspects: list[tuple[str, float]] = []
         self._suspect_lock = threading.Lock()
         self._spawned: dict[str, float] = {}  # task id -> time.monotonic() of its life's start
+        #: the HA plane: a warm standby beside the tracker (the workers get
+        #: both addresses), the journal file ("" = in memory) and the
+        #: standby's takeover lease
+        self.use_standby = bool(standby)
+        self.ha_journal = str(ha_journal or "")
+        self.takeover_sec = float(takeover_sec)
+        self.standby = None
+        self._worker_addrs: list[tuple[str, int]] = []
 
     def _on_suspect(self, task_id: str) -> None:
         """The tracker's lease-expiry callback (on its monitor thread)."""
@@ -108,25 +130,51 @@ class LocalCluster:
                    DMLC_TASK_ID=task_id, DMLC_NUM_ATTEMPT=str(self.restarts[task_id]))
         if not task_id.isdigit():
             env["RABIT_TPU_RABIT_SPARE"] = "1"  # config's environment layer: rabit_spare=1
+        if self._worker_addrs:
+            # the failover list: the primary first, then the standby
+            env["RABIT_TPU_RABIT_TRACKER_ADDRS"] = ",".join(
+                f"{h}:{p}" for h, p in self._worker_addrs)
         self._spawned[task_id] = time.monotonic()
         return subprocess.Popen(cmd, env=env)
 
     def run(self, cmd: list[str], timeout: float = 300.0,
             preempt: list[tuple[float, int]] | None = None,
             wedge: list[tuple[float, int]] | None = None,
-            start_when: Callable[[list[dict]], bool] | None = None) -> int:
+            start_when: Callable[[list[dict]], bool] | None = None,
+            kill_tracker_after: float | None = None) -> int:
         """Run ``cmd`` x num_workers (and the spares) under a fresh
         tracker; returns 0 when every worker has exited cleanly.  Raises
         when a task id's restart budget is spent or ``timeout`` seconds
         pass; every process still running then is killed.  A suspect of the
         lease monitor is SIGKILLed and restarted from the same budget.  The
         delays of ``preempt`` and ``wedge`` count from launch, or from the
-        first time ``start_when(events)`` holds for the tracker's events."""
+        first time ``start_when(events)`` holds for the tracker's events.
+        ``kill_tracker_after`` kills the primary tracker (``Tracker.kill``)
+        that many seconds after launch; with ``standby=True`` the job fails
+        over, and after the run ``events`` are the primary's up to the cut
+        and the promoted tracker's after it."""
         self._suspects = []
-        tracker = Tracker(self.num_workers, quiet=self.quiet, on_suspect=self._on_suspect,
-                          shrink_after_sec=self.shrink_after_sec).start()
+        tracker_kwargs = dict(quiet=self.quiet, on_suspect=self._on_suspect,
+                              shrink_after_sec=self.shrink_after_sec)
+        journal = None
+        if self.use_standby:
+            from rabit_tpu_torch.ha import Journal
+
+            journal = self.ha_journal or Journal(None)
+        tracker = Tracker(self.num_workers, journal=journal, **tracker_kwargs).start()
         self.messages = tracker.messages
         self.events = tracker.events
+        self._worker_addrs = []
+        if self.use_standby:
+            from rabit_tpu_torch.ha import Standby
+
+            self.standby = Standby(primary=(tracker.host, tracker.port),
+                                   takeover_sec=self.takeover_sec,
+                                   journal=self.ha_journal or None,
+                                   tracker_kwargs=tracker_kwargs, quiet=self.quiet).start()
+            self._worker_addrs = [(tracker.host, tracker.port),
+                                  (self.standby.host, self.standby.port)]
+        primary = tracker
         procs: dict[str, subprocess.Popen | None] = {
             t: self._spawn(cmd, tracker, t) for t in self.restarts}
         launched = time.monotonic()
@@ -139,6 +187,16 @@ class LocalCluster:
             while True:
                 if time.monotonic() - launched > timeout:
                     raise TimeoutError(f"cluster did not finish within {timeout}s")
+                if (kill_tracker_after is not None and not primary._killed
+                        and time.monotonic() - launched >= kill_tracker_after):
+                    primary.kill()
+                    if not self.quiet:
+                        print("[launcher] primary tracker killed (abrupt; standby takeover "
+                              "pending)", flush=True)
+                if (tracker is primary and self.standby is not None
+                        and self.standby.promoted.is_set()):
+                    # the promoted standby is the job's tracker from here on
+                    tracker = self.standby.tracker
                 if start is None and start_when(list(tracker.events)):
                     start = time.monotonic()
                 elapsed = time.monotonic() - start if start is not None else -1.0
@@ -224,7 +282,7 @@ class LocalCluster:
                                   f"{self.restarts[tid]}/{self.max_restarts}", flush=True)
                         procs[tid] = self._spawn(cmd, tracker, tid)
                         alive += 1
-                if tracker.wait(0) and done_at is None:
+                if tracker.wait(0) and not tracker._killed and done_at is None:
                     done_at = time.monotonic()
                 # A spare holds the run open while it may still be working
                 # (promoted) and, once the job is done, while it leaves the
@@ -238,8 +296,16 @@ class LocalCluster:
                 if proc is not None and proc.poll() is None:
                     proc.kill()
                     proc.wait()
-            tracker.stop()  # writes telemetry.json if the job's end did not
-            self.telemetry = tracker.telemetry
+            promoted = (self.standby.tracker if self.standby is not None
+                        and self.standby.promoted.is_set() else None)
+            if self.standby is not None:
+                self.standby.stop()  # and the promoted tracker, writing its telemetry
+            primary.stop()  # writes telemetry.json if the job's end did not
+            if promoted is not None:
+                self.telemetry = promoted.telemetry
+                self.events = list(primary.events) + list(promoted.events)
+            else:
+                self.telemetry = primary.telemetry
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -261,6 +327,21 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--shrink-after", type=float, default=0.0, metavar="SEC",
                     help="let a recovery wave close with the survivors when no spare "
                          "fills it within SEC seconds (0: wait for a full wave)")
+    ap.add_argument("--standby", action="store_true",
+                    help="run a warm-standby tracker in this process: the primary journals "
+                         "every control-plane mutation, the workers get both addresses "
+                         "(rabit_tracker_addrs), and a primary's death fails over within "
+                         "--takeover-sec")
+    ap.add_argument("--ha-journal", default="", metavar="PATH",
+                    help="journal file of the HA control plane (default: the "
+                         "rabit_ha_journal config key; empty: in memory, streamed to the "
+                         "standby over CMD_JOURNAL)")
+    ap.add_argument("--takeover-sec", type=float, default=None, metavar="SEC",
+                    help="the standby's takeover lease (default: the rabit_ha_takeover_sec "
+                         "config key)")
+    ap.add_argument("--kill-tracker-after", type=float, default=None, metavar="SEC",
+                    help="kill the primary tracker abruptly SEC seconds in (with --standby "
+                         "the job fails over; without, it is lost)")
     ap.add_argument("cmd", nargs=argparse.REMAINDER)
     args = ap.parse_args(argv)
     cmd = args.cmd[1:] if args.cmd[:1] == ["--"] else args.cmd
@@ -277,10 +358,17 @@ def main(argv: list[str] | None = None) -> int:
                 ap.error(f"{flag} wants DELAY:TASK pairs, got {s!r}")
         return out
 
+    cfg = Config()
+    takeover = (args.takeover_sec if args.takeover_sec is not None
+                else float(cfg.get("rabit_ha_takeover_sec", "1.0") or "1.0"))
     cluster = LocalCluster(args.num_workers, args.max_restarts, quiet=args.quiet,
-                           spares=args.spares, shrink_after_sec=args.shrink_after)
+                           spares=args.spares, shrink_after_sec=args.shrink_after,
+                           standby=args.standby,
+                           ha_journal=args.ha_journal or cfg.get("rabit_ha_journal", "") or "",
+                           takeover_sec=takeover)
     return cluster.run(cmd, timeout=args.timeout, preempt=schedule(args.preempt, "--preempt"),
-                       wedge=schedule(args.wedge, "--wedge"))
+                       wedge=schedule(args.wedge, "--wedge"),
+                       kill_tracker_after=args.kill_tracker_after)
 
 
 if __name__ == "__main__":

@@ -57,16 +57,46 @@ The live scrape (``obs.top``):
                                u32 ACK and a str JSON scrape document
                                (``Tracker.build_scrape``).
 
+Quorum rounds (``quorum``):
+
+      CMD_QUORUM:              str JSON report ``{"epoch": E, "v": V, "have":
+                               [ranks], "held": [[src_v, rank], ...]}`` (the
+                               ranks whose version-V blocks the worker holds,
+                               and the late blocks of earlier rounds it could
+                               fold); answered with u32 ACK and a str JSON
+                               record: ``{"decided": true, "epoch", "version",
+                               "k", "excluded", "corrections"}``, frozen by the
+                               first report that meets the quorum, or
+                               ``{"decided": false, ...}`` (``disabled`` with
+                               no quorum table, ``stale_epoch`` for a report
+                               of another epoch).
+
+The HA standby's channel (``ha``):
+
+      CMD_JOURNAL:             nothing more; answered with u32 ACK and then a
+                               stream of journal frames (``put_journal_frame``:
+                               the RJL1 header, a crc over the encoded payload,
+                               the codec-compressed JSON record), a snapshot of
+                               the control state first, then every mutation
+                               as it commits and a ``tick`` every
+                               ``rabit_ha_tick_sec``.  A tracker that journals
+                               nothing closes the connection unanswered.
+
 A START or RECOVER check-in that the wave has no slot for is answered with
 a blob frame too: it is parked as a spare on the same socket.  Workers of
 an elastic job link to their ring neighbours with the handshake u32
-MAGIC_LINK, i32 rank, u32 epoch (a dialer of another epoch is dropped).
-``Assignment`` reads a whole Assignment back.  ``put_block_frame`` tags a
-payload with (version, origin rank) as ``rabit_tpu``'s quorum rounds do.
+MAGIC_LINK, i32 rank, u32 epoch (a dialer of another epoch is dropped).  A
+quorum round's successor that waited past its deadline dials around its
+silent predecessor with u32 MAGIC_SKIP, i32 rank, u32 epoch, u32 version
+(``put_skip_frame``), and the acceptor tees every tagged block onto that
+socket.  ``Assignment`` reads a whole Assignment back.  ``put_block_frame``
+tags a quorum round's payload with (version, origin rank).
 
 Python-side messages go through ``tracker_rpc``: one connection each,
 every socket operation bounded, transport failures retried with jittered
-exponential backoff.
+exponential backoff, rotating through the failover list ``addrs``
+(``rabit_tracker_addrs``: the primary first, then its warm standby;
+``parse_addrs``).
 """
 
 from __future__ import annotations
@@ -76,12 +106,14 @@ import random
 import socket
 import struct
 import time
+import zlib
 from dataclasses import dataclass, field
 
 MAGIC_HELLO = 0x7AB17001
 MAGIC_ASSIGN = 0x7AB17002
 MAGIC_LINK = 0x7AB17003
 MAGIC_BLOB = 0x7AB17004
+MAGIC_SKIP = 0x7AB17005
 ACK = 0
 
 CMD_START = 1
@@ -93,6 +125,9 @@ CMD_HEARTBEAT = 6
 CMD_SPARE = 7
 CMD_EPOCH = 8
 CMD_BLOB = 9
+CMD_QUORUM = 10
+#: A warm standby asking to tail the tracker's control-plane journal.
+CMD_JOURNAL = 13
 #: The live-telemetry scrape (the hello only: ``rabit_tpu``'s relays also
 #: carry CMD_OBS delta frames, which wait for the relays' port).
 CMD_OBS = 14
@@ -269,6 +304,115 @@ def read_block_frame(data: bytes) -> tuple[int, int, bytes]:
     return _U32.unpack_from(data, 0)[0], _I32.unpack_from(data, 4)[0], data[8:]
 
 
+def put_skip_frame(rank: int, epoch: int, version: int) -> bytes:
+    """The quorum skip handshake: MAGIC_SKIP, the dialer's rank, its epoch
+    and the round it is stuck on."""
+    return b"".join([put_u32(MAGIC_SKIP), put_i32(rank), put_u32(epoch), put_u32(version)])
+
+
+def read_skip_frame(sock) -> tuple[int, int, int]:
+    """Read the skip handshake after the caller consumed MAGIC_SKIP;
+    returns (dialer_rank, epoch, version)."""
+    rank = get_i32(sock)
+    epoch = get_u32(sock)
+    version = get_u32(sock)
+    return rank, epoch, version
+
+
+#: The journal frame's header (``ha``): magic, codec id (``compress``'s ids,
+#: 0 the identity), three pad bytes, crc32 over the ENCODED payload, its
+#: length.  The crc is checked before any decode, so a torn tail record
+#: reads as absent.
+JOURNAL_MAGIC = b"RJL1"
+_JHDR = struct.Struct("<4sBxxxII")
+
+
+def put_journal_frame(kind: str, fields: dict | None = None, codec: str = "zlib") -> bytes:
+    """One control-plane journal record, ``{"kind": .., <fields>}`` as
+    sorted-key compact JSON, through ``codec`` behind the crc'd RJL1
+    header.  The same bytes go to a journal file and a CMD_JOURNAL
+    channel."""
+    payload = json.dumps({"kind": kind, **(fields or {})}, sort_keys=True,
+                         separators=(",", ":")).encode()
+    codec_id = 0
+    if codec and codec != "identity":
+        from rabit_tpu_torch.compress import get_codec
+
+        c = get_codec(codec)
+        payload = c.encode_bytes(payload)
+        codec_id = c.codec_id
+    return _JHDR.pack(JOURNAL_MAGIC, codec_id, zlib.crc32(payload), len(payload)) + payload
+
+
+def read_journal_frame(sock) -> tuple[str, dict]:
+    """Read one journal frame off a blocking socket; returns ``(kind,
+    fields)``.  Raises ValueError on a bad magic, a crc mismatch or an
+    undecodable payload, ConnectionError at EOF."""
+    magic, codec_id, crc, n = _JHDR.unpack(recv_exact(sock, _JHDR.size))
+    if magic != JOURNAL_MAGIC:
+        raise ValueError(f"bad journal magic {magic!r}")
+    return decode_journal_payload(codec_id, crc, recv_exact(sock, n) if n else b"")
+
+
+def decode_journal_payload(codec_id: int, crc: int, payload: bytes) -> tuple[str, dict]:
+    """Check one journal payload's crc, then decode it to ``(kind,
+    fields)``; raises ValueError when it is damaged."""
+    if zlib.crc32(payload) != crc:
+        raise ValueError("journal frame crc mismatch")
+    if codec_id != 0:
+        from rabit_tpu_torch.compress import get_codec_by_id
+
+        try:
+            payload = get_codec_by_id(codec_id).decode_bytes(payload)
+        except Exception as exc:  # noqa: BLE001 (an unknown codec or a torn stream)
+            raise ValueError(f"journal frame undecodable: {exc!r}")
+    try:
+        obj = json.loads(payload.decode())
+        kind = str(obj.pop("kind"))
+    except (ValueError, KeyError, UnicodeDecodeError) as exc:
+        raise ValueError(f"journal record malformed: {exc!r}")
+    return kind, obj
+
+
+def journal_frames_from_buffer(buf: bytes) -> tuple[list[tuple[str, dict]], int, str | None]:
+    """Every complete journal frame at the head of ``buf``: returns
+    ``(records, consumed_bytes, error)``.  A partial tail frame is left
+    unconsumed (more bytes may come); a damaged frame stops the parse with
+    ``error`` set and nothing past the last good record consumed."""
+    records: list[tuple[str, dict]] = []
+    off = 0
+    while len(buf) - off >= _JHDR.size:
+        magic, codec_id, crc, n = _JHDR.unpack_from(buf, off)
+        if magic != JOURNAL_MAGIC:
+            return records, off, f"bad journal magic {magic!r}"
+        if len(buf) - off - _JHDR.size < n:
+            break  # a partial tail frame
+        payload = bytes(buf[off + _JHDR.size:off + _JHDR.size + n])
+        try:
+            records.append(decode_journal_payload(codec_id, crc, payload))
+        except ValueError as exc:
+            return records, off, str(exc)
+        off += _JHDR.size + n
+    return records, off, None
+
+
+def parse_addrs(spec: str) -> list[tuple[str, int]]:
+    """A ``rabit_tracker_addrs`` value ("host:port,host:port", the primary
+    first) as an address list for ``tracker_rpc``; malformed entries are
+    skipped, so a bad value falls back to the primary address."""
+    out: list[tuple[str, int]] = []
+    for part in (spec or "").split(","):
+        part = part.strip()
+        if not part or ":" not in part:
+            continue
+        host, _, port_s = part.rpartition(":")
+        try:
+            out.append((host, int(port_s)))
+        except ValueError:
+            continue
+    return out
+
+
 def tree_topology(rank: int, world: int) -> tuple[int, list[int]]:
     """Balanced binary heap tree: parent (r-1)//2, children 2r+1 / 2r+2."""
     parent = (rank - 1) // 2 if rank > 0 else -1
@@ -283,7 +427,7 @@ def send_hello(sock, cmd: int, task_id: str, prev_rank: int = -1,
     out = [put_u32(MAGIC_HELLO), put_u32(cmd), put_i32(prev_rank), put_str(task_id)]
     if cmd in (CMD_START, CMD_RECOVER, CMD_SPARE):
         out.append(put_u32(listen_port))
-    elif cmd in (CMD_PRINT, CMD_METRICS, CMD_HEARTBEAT, CMD_EPOCH, CMD_OBS):
+    elif cmd in (CMD_PRINT, CMD_METRICS, CMD_HEARTBEAT, CMD_EPOCH, CMD_QUORUM, CMD_OBS):
         out.append(put_str(message))
     elif cmd == CMD_BLOB:
         out += [put_u32(blob_version), put_u32(len(blob)), blob]
@@ -331,29 +475,39 @@ class TrackerUnreachable(ConnectionError):
 def tracker_rpc(host: str, port: int, cmd: int, task_id: str, *,
                 prev_rank: int = -1, message: str = "", blob: bytes = b"",
                 blob_version: int = 0, timeout: float = 10.0,
-                retries: int = 5, backoff: float = 0.1, backoff_cap: float = 2.0):
+                retries: int = 5, backoff: float = 0.1, backoff_cap: float = 2.0,
+                addrs: list[tuple[str, int]] | None = None):
     """One Python-side tracker message (print, metrics, heartbeat,
-    shutdown, epoch poll, blob upload, scrape), the counterpart of
-    ``rabit_tpu.tracker.protocol.tracker_rpc`` for one tracker address.
-    Check-ins are refused here: the native engine and ``ElasticWorker``
-    make them on sockets of their own, and a spare's stays open.
+    shutdown, epoch poll, blob upload, quorum report, scrape), the
+    counterpart of ``rabit_tpu.tracker.protocol.tracker_rpc``.  Check-ins
+    are refused here: the native engine and ``ElasticWorker`` make them on
+    sockets of their own, and a spare's stays open.
 
     One RPC is a fresh connection, the hello and the reply; ``timeout``
     bounds the connect and every read.  Transport failures (refused, reset,
     a torn reply, a timed-out read) are retried up to ``retries`` more
     times after ``backoff * 2^attempt`` seconds (capped at ``backoff_cap``, scaled by
     a uniform 0.5-1.0 so a restart wave does not stampede the tracker);
-    when the budget is spent, :class:`TrackerUnreachable`.
+    when the budget is spent, :class:`TrackerUnreachable`.  ``addrs`` is the
+    failover list (``rabit_tracker_addrs``): attempt i goes to candidate
+    i mod n of ``(host, port)`` followed by the new addresses of ``addrs``,
+    so a dead primary costs one attempt and the next lands on its standby.
 
     Returns the ACK, as a :class:`TimedAck` for METRICS and HEARTBEAT, and
-    the reply's dict for EPOCH (``{"epoch", "world", "rewave"}``) and OBS
-    (the scrape document)."""
+    the reply's dict for EPOCH (``{"epoch", "world", "rewave"}``), QUORUM
+    (the round's record) and OBS (the scrape document)."""
     if cmd not in (CMD_PRINT, CMD_SHUTDOWN, CMD_METRICS, CMD_HEARTBEAT, CMD_EPOCH,
-                   CMD_BLOB, CMD_OBS):
+                   CMD_BLOB, CMD_QUORUM, CMD_OBS):
         raise ValueError(f"tracker_rpc does not send command {cmd}")
     retries = max(int(retries), 0)
+    cands = [(host, int(port))]
+    for a in addrs or []:
+        t = (a[0], int(a[1]))
+        if t not in cands:
+            cands.append(t)
     last_err: Exception | None = None
     for attempt in range(retries + 1):
+        host, port = cands[attempt % len(cands)]
         try:
             with socket.create_connection((host, int(port)), timeout=timeout) as sock:
                 sock.settimeout(timeout)
@@ -364,7 +518,7 @@ def tracker_rpc(host: str, port: int, cmd: int, task_id: str, *,
                 if cmd in (CMD_METRICS, CMD_HEARTBEAT):
                     server_ts = float(get_str(sock))
                     return TimedAck(ack, server_ts, t_send, time.time())
-                if cmd in (CMD_EPOCH, CMD_OBS):
+                if cmd in (CMD_EPOCH, CMD_QUORUM, CMD_OBS):
                     return json.loads(get_str(sock))
                 return ack
         except (ConnectionError, OSError) as exc:  # socket.timeout is an OSError

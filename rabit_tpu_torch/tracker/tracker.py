@@ -47,13 +47,33 @@ auto|tree|ring|swing).  A degraded link, flagged by a confirmed
 version boundary, as for a grow-back, and that wave's plan routes the ring
 around the link (``schedule_repaired``).
 
+Quorum rounds (``quorum``): with ``quorum=`` set the tracker owns each
+round's exclusion record.  ``CMD_QUORUM`` reports name the blocks a rank
+holds; the first report that meets the K-of-N quorum freezes ``(epoch,
+version) -> (excluded, corrections)`` (``quorum_met``), and every later
+report of the round, the straggler's included, gets the same record.  A
+late block folds as a correction at the next record that holds it
+(``contribution_late``, ``correction_folded``); a wave drops the corrections
+still outstanding (``correction_dropped``); a rank excluded
+``quorum_flag_after`` rounds in a row has its incoming ring link flagged
+(``link_degraded`` with ``via: "quorum"``) for the schedule repair.
+
+High availability (``ha``): with ``journal=`` (a ``ha.Journal``, or a path)
+every mutation of the control state is journaled, with ``rabit_tpu``'s
+record kinds and fields, and ``CMD_JOURNAL`` streams the journal to a warm
+standby (refused when nothing is journaled).  ``kill`` is the in-process
+SIGKILL.  A standby's promoted tracker is built on its pre-bound socket
+(``listen_sock=``) from the replayed state (``resume_from=``): ranks, epoch
+line, shutdowns, flagged links, planned ring and frozen quorum records carry
+over, and the journaled leases re-arm with fresh deadlines.
+
 Telemetry: ``CMD_METRICS`` snapshots (the newest a rank; their streamed
 ``delta`` windows folded into a rollup), the waves, the leases, the
-restarts, the promotions and resizes, the schedule repairs and the
-incidents make the job's telemetry document (``build_telemetry``), written
-atomically to ``<obs_dir>/telemetry.json`` when the job ends or the
-tracker stops.  Its keys are ``rabit_tpu``'s, less those of the planes not
-ported (quorum, relays and the serving stats).
+restarts, the promotions and resizes, the schedule repairs, the quorum
+records and the incidents make the job's telemetry document
+(``build_telemetry``), written atomically to ``<obs_dir>/telemetry.json``
+when the job ends or the tracker stops.  Its keys are ``rabit_tpu``'s, less
+those of the relays and the serving stats, which are not ported.
 
 Diagnosis: once a ``rabit_diag_window_sec`` window, the lease thread hands
 the rollup and the window's new events to an ``obs.diagnose.HealthMonitor``,
@@ -64,8 +84,9 @@ state, the rollup, the incidents and this process's metrics registry, the
 document ``obs.top`` renders.
 
 One thread accepts; each connection is served on a thread of its own, one
-more scans the leases (and runs the diagnosis windows) and one the forming
-wave.  Quorum records, relays, the HA standby and delivery are
+more scans the leases (and runs the diagnosis windows and the journal's
+keepalive) and one the forming wave.  Relays, a quorum report inside a
+relay batch, the headless service partition and delivery are
 ``rabit_tpu``'s and not ported; the scrape gives their sections the values
 ``rabit_tpu``'s gives with those planes off.
 """
@@ -74,6 +95,7 @@ from __future__ import annotations
 
 import json
 import os
+import queue
 import socket
 import threading
 import time
@@ -82,11 +104,13 @@ from dataclasses import dataclass
 from typing import Callable
 
 from rabit_tpu_torch import sched
+from rabit_tpu_torch.config import Config
 from rabit_tpu_torch.elastic.membership import CLOSE, MembershipManager
 from rabit_tpu_torch.obs import diagnose as obs_diagnose
 from rabit_tpu_torch.obs import stream as obs_stream
 from rabit_tpu_torch.obs.events import event_from_stats_line
 from rabit_tpu_torch.obs.metrics import GLOBAL_REGISTRY
+from rabit_tpu_torch.quorum import QuorumTable
 from rabit_tpu_torch.tracker import protocol as P
 
 HELLO_TIMEOUT_SEC = 60.0  # a torn hello must not pin its thread and socket forever
@@ -188,14 +212,21 @@ class Tracker:
     thread when a lease expires (its exceptions are swallowed).
     ``shrink_after_sec``, ``min_world`` and ``promote_after_sec`` are the
     elastic knobs (``elastic.settings``); ``world_size`` is the current
-    world, ``base_world`` the launch size."""
+    world, ``base_world`` the launch size.  ``quorum`` (a ``rabit_quorum``
+    spec, "" for none) and ``quorum_flag_after`` set up the quorum records;
+    ``journal`` (a ``ha.Journal`` or a path), ``resume_from`` (a replayed
+    ``ha.ControlState``), ``listen_sock`` (a bound socket to listen on
+    instead of ``host:port``) and ``ha_tick_sec`` (the journal's keepalive
+    cadence, default ``rabit_ha_tick_sec``) are the HA plane's."""
 
     def __init__(self, world_size: int, host: str = "127.0.0.1", port: int = 0,
                  quiet: bool = False, obs_dir: str | None = None,
                  on_suspect: Callable[[str], None] | None = None,
                  shrink_after_sec: float = 0.0, min_world: int = 1,
                  promote_after_sec: float = 0.25, schedule: str = "auto",
-                 sched_repair: bool = True):
+                 sched_repair: bool = True, quorum: str = "", quorum_flag_after: int = 3,
+                 journal=None, resume_from=None, listen_sock: socket.socket | None = None,
+                 ha_tick_sec: float | None = None):
         if world_size < 1:
             raise ValueError(f"world_size must be >= 1, got {world_size}")
         if schedule not in sched.ALGOS:
@@ -220,6 +251,10 @@ class Tracker:
         self.sched_repair = bool(sched_repair)
         self._link_flags: set[tuple[str, str]] = set()  # (src task, dst task)
         self._repair_wanted = False
+        # the quorum records (None: quorum mode off), and the newest planned
+        # ring, whose predecessor of a persistent straggler is flagged
+        self._quorum = QuorumTable(quorum, flag_after=quorum_flag_after) if quorum else None
+        self._last_ring: list[int] = []
         self.snapshots: dict[int, dict] = {}  # rank -> newest shipped snapshot
         self.telemetry: dict | None = None
         self._stream = obs_stream.StreamRollup()
@@ -239,9 +274,14 @@ class Tracker:
         self._started_at = time.time()
         self._telemetry_written = False
         self._telemetry_flushed = threading.Event()
-        self._srv = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
-        self._srv.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
-        self._srv.bind((host, port))
+        if listen_sock is not None:
+            # a standby's takeover: it bound its advertised address long
+            # ago, and listens only now
+            self._srv = listen_sock
+        else:
+            self._srv = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+            self._srv.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+            self._srv.bind((host, port))
         self._srv.listen(LISTEN_BACKLOG)
         self.host, self.port = self._srv.getsockname()
         self._lock = threading.Lock()
@@ -255,6 +295,68 @@ class Tracker:
         self._shutdown_tasks: set[str] = set()
         self._done = threading.Event()
         self._thread: threading.Thread | None = None
+        # The HA plane: the journal (None: nothing journaled, and a standby's
+        # CMD_JOURNAL is refused), the standbys' channels, kill()'s flag.
+        self._killed = False
+        self._journal_conns: list[socket.socket] = []
+        if isinstance(journal, str):
+            from rabit_tpu_torch.ha.journal import Journal
+
+            journal = Journal(journal, snapshot_every=Config().get_int(
+                "rabit_ha_snapshot_every", 256))
+        self.journal = journal
+        if self.journal is not None:
+            self.journal.on_event = self._journal_event
+        self._ha_tick_sec = (float(ha_tick_sec) if ha_tick_sec is not None
+                             else float(Config().get("rabit_ha_tick_sec", "0.25") or "0.25"))
+        if resume_from is not None:
+            self._adopt_state(resume_from)
+        self._journal("init", base_world=self.base_world)
+
+    # -- the HA journal ------------------------------------------------------
+
+    def _journal(self, kind: str, **fields) -> None:
+        """Append one mutation record; non-blocking, so safe under the
+        lock."""
+        if self.journal is not None:
+            self.journal.append(kind, **fields)
+
+    def _journal_event(self, ev: dict) -> None:
+        """The journal writer's events (journal_snapshot, journal_gap), into
+        the timeline."""
+        with self._lock:
+            self.events.append({"ts": round(time.time(), 6), **ev})
+
+    def _adopt_state(self, st) -> None:
+        """Seed this tracker from a replayed ``ha.ControlState`` (a
+        standby's takeover), so that every wave it closes is the one the
+        dead primary would have closed.  Journaled leases re-arm with fresh
+        deadlines: a worker that died in the cut is still suspected, a live
+        one renews long before."""
+        self.base_world = int(st.base_world) or self.base_world
+        self.world_size = int(st.world) or self.world_size
+        self.elastic.base_world = self.base_world
+        if st.epoch >= 0:
+            self.elastic.restore(st.epoch, st.world, st.rank_map,
+                                 history=[tuple(e) for e in st.epochs])
+        self._ranks.update(st.ranks)
+        self._n_starts.update(st.n_starts)
+        self._shutdown_tasks |= set(st.shutdown)
+        self._link_flags |= {tuple(p) for p in st.link_flags}
+        self._last_ring = list(st.last_ring)
+        if self._quorum is not None:
+            self._quorum.seed(st.quorum_seed())
+        now = time.monotonic()
+        for task_id, (interval, rank) in sorted(st.leases.items()):
+            if task_id not in self._shutdown_tasks:
+                self._leases[task_id] = _Lease(now + P.LEASE_FACTOR * float(interval),
+                                               float(interval), int(rank))
+
+    def _drop_lease_locked(self, task_id: str) -> None:
+        """Drop a lease, and journal the drop when there was one.  The
+        caller holds the lock."""
+        if self._leases.pop(task_id, None) is not None:
+            self._journal("lease_drop", task_id=task_id)
 
     @property
     def epoch(self) -> int:
@@ -290,18 +392,51 @@ class Tracker:
         self._srv.close()
         with self._lock:
             held, self._pending = self._pending, []
+            jconns, self._journal_conns = self._journal_conns, []
         for p in held:
             p.conn.close()
+        for conn in jconns:
+            conn.close()
         self._release_spares()
         if self._thread is not None:
             self._thread.join(timeout=5)
         self.write_telemetry()
+        if self.journal is not None:
+            self.journal.close()
+
+    def kill(self) -> None:
+        """An abrupt death, the in-process SIGKILL: every socket drops with
+        no goodbye (the forming wave, the spares, the standbys' channels,
+        the listener), no telemetry is written, and the journal stops where
+        it is.  Workers fail over through their address lists; a standby's
+        channel sees EOF and its takeover lease starts to run."""
+        self._killed = True
+        with self._lock:
+            self._telemetry_written = True  # a SIGKILL leaves no telemetry
+        self._telemetry_flushed.set()
+        self._done.set()
+        try:
+            self._srv.shutdown(socket.SHUT_RDWR)
+        except OSError:
+            pass
+        self._srv.close()
+        with self._lock:
+            jconns, self._journal_conns = self._journal_conns, []
+            held = [p.conn for p in self._pending] + [s.conn for s in self._spares]
+            self._pending, self._spares = [], []
+        for conn in jconns + held:
+            conn.close()
+        if self.journal is not None:
+            self.journal.close()
 
     def _release_spares(self) -> None:
         """Close every parked spare's warm socket: the spare sees EOF and
-        leaves its park.  Runs when the job is done and at ``stop``."""
+        leaves its park.  Runs when the job is done and at ``stop``; the
+        release is journaled as a ``spare_drop``."""
         with self._lock:
             spares, self._spares = self._spares, []
+            if spares:
+                self._journal("spare_drop", task_ids=sorted(sp.task_id for sp in spares))
         for sp in spares:
             sp.conn.close()
 
@@ -340,6 +475,13 @@ class Tracker:
             cmd = P.get_u32(conn)
             prev_rank = P.get_i32(conn)  # a task id keys the ranks; leases record it
             task_id = P.get_str(conn)
+            if self._killed:
+                conn.close()  # a dead tracker answers nothing
+                return
+            if cmd == P.CMD_JOURNAL:
+                conn.settimeout(None)  # this thread streams the journal
+                self._serve_journal(conn, task_id)
+                return
             if cmd in (P.CMD_START, P.CMD_RECOVER, P.CMD_SPARE):
                 listen_port = P.get_u32(conn)
                 conn.settimeout(None)  # held until the wave closes
@@ -347,7 +489,7 @@ class Tracker:
                     # A check-in supersedes the previous life's lease: the
                     # fresh worker renews once it is up, and a stale lease
                     # must not suspect it mid-bootstrap.
-                    self._leases.pop(task_id, None)
+                    self._drop_lease_locked(task_id)
                 p = _Pending(conn, task_id, listen_port, addr[0], cmd)
                 if cmd == P.CMD_SPARE or self._done.is_set():
                     # the socket stays open until a promotion answers it, or
@@ -368,6 +510,9 @@ class Tracker:
                 nbytes = P.get_u32(conn)
                 self._keep_blob(task_id, version, P.recv_exact(conn, nbytes) if nbytes else b"")
                 conn.sendall(P.put_u32(P.ACK))
+            elif cmd == P.CMD_QUORUM:
+                conn.sendall(P.put_u32(P.ACK) + P.put_str(json.dumps(
+                    self._quorum_report(P.get_str(conn)))))
             elif cmd == P.CMD_PRINT:
                 self._log_print(P.get_str(conn))
                 conn.sendall(P.put_u32(P.ACK))
@@ -380,7 +525,7 @@ class Tracker:
             elif cmd == P.CMD_SHUTDOWN:
                 with self._lock:
                     # dropped before the ACK: a clean exit is never suspected
-                    self._leases.pop(task_id, None)
+                    self._drop_lease_locked(task_id)
                 conn.sendall(P.put_u32(P.ACK))
                 self._note_shutdown(task_id)
             elif cmd == P.CMD_OBS:
@@ -388,6 +533,44 @@ class Tracker:
                     self._scrape(task_id, P.get_str(conn)))))
             conn.close()  # and any command the core tracker does not serve
         except (ConnectionError, OSError, ValueError):
+            conn.close()
+
+    def _serve_journal(self, conn: socket.socket, standby_id: str) -> None:
+        """Stream the journal to a warm standby: ACK, then every frame the
+        journal's writer hands this subscription (a snapshot first, then
+        each record in commit order; the ``tick`` records are the standby's
+        keepalive).  With no journal the channel is refused (closed with no
+        ACK): a misconfigured standby must not sync an empty state."""
+        if self.journal is None:
+            if not self.quiet:
+                print(f"[tracker] standby {standby_id} asked for the journal but journaling "
+                      "is off (pass journal= or rabit_ha_journal); refusing", flush=True)
+            conn.close()
+            return
+        try:
+            conn.sendall(P.put_u32(P.ACK))
+        except OSError:
+            conn.close()
+            return
+        sub = self.journal.subscribe()
+        with self._lock:
+            self._journal_conns.append(conn)
+        if not self.quiet:
+            print(f"[tracker] standby {standby_id} journal channel up", flush=True)
+        try:
+            while not self._done.is_set():
+                try:
+                    frame = sub.get(timeout=0.25)
+                except queue.Empty:
+                    continue
+                conn.sendall(frame)
+        except OSError:
+            pass
+        finally:
+            self.journal.unsubscribe(sub)
+            with self._lock:
+                if conn in self._journal_conns:
+                    self._journal_conns.remove(conn)
             conn.close()
 
     @staticmethod
@@ -421,7 +604,9 @@ class Tracker:
 
     def _note_shutdown(self, task_id: str) -> None:
         with self._lock:
-            self._shutdown_tasks.add(task_id)
+            if task_id not in self._shutdown_tasks:  # journaled once a task
+                self._shutdown_tasks.add(task_id)
+                self._journal("shutdown", task_id=task_id)
             done = self._complete_locked()
         if done:
             self._finalize_done()
@@ -457,6 +642,7 @@ class Tracker:
         with self._lock:
             if self._blob is None or version >= self._blob[0]:
                 self._blob = (version, blob)
+                self._journal("blob", version=version)
             self.events.append({"ts": round(time.time(), 6), "kind": "bootstrap_blob",
                                 "task_id": task_id, "version": version,
                                 "nbytes": len(blob)})
@@ -474,12 +660,24 @@ class Tracker:
         if not 0 < interval < 86400:
             return
         with self._lock:
+            prev = self._leases.get(task_id)
             self._leases[task_id] = _Lease(
                 time.monotonic() + P.LEASE_FACTOR * interval, interval, rank)
+            # Grants and changes are journaled, not renewals: the deadline is
+            # wall-clock and re-arms fresh at a takeover.
+            if prev is None or prev.interval != interval or prev.rank != rank:
+                self._journal("lease", task_id=task_id, interval=interval, rank=rank)
 
     def _lease_monitor(self) -> None:
+        next_tick = time.monotonic() + self._ha_tick_sec
         while not self._done.wait(0.05):
-            self._lease_tick(time.monotonic())
+            now = time.monotonic()
+            if self.journal is not None and now >= next_tick:
+                # the keepalive: an idle primary must not look dead to its
+                # standby
+                next_tick = now + self._ha_tick_sec
+                self._journal("tick")
+            self._lease_tick(now)
 
     def _lease_tick(self, now: float) -> None:
         """One scan: an expired lease is removed before ``on_suspect``
@@ -490,6 +688,7 @@ class Tracker:
             for task_id, lease in list(self._leases.items()):
                 if now >= lease.expires:
                     del self._leases[task_id]
+                    self._journal("lease_drop", task_id=task_id)
                     expired.append((task_id, lease))
             for task_id, lease in expired:
                 self.events.append({
@@ -584,8 +783,9 @@ class Tracker:
     def _scrape_job_state(self) -> dict:
         """The job's live scrape section, from copies of the control state
         taken under the lock: membership, leases, spares, the forming wave,
-        the link flags, the rollup and the incidents.  ``quorum_outstanding``
-        and ``delivery`` carry ``rabit_tpu``'s values with those planes off."""
+        the link flags, the quorum records still owed, the rollup and the
+        incidents.  ``delivery`` carries ``rabit_tpu``'s value with that
+        plane off."""
         with self._lock:
             live = {
                 "epoch": self.elastic.epoch,
@@ -596,7 +796,8 @@ class Tracker:
                 "pending": len(self._pending),
                 "n_shutdown": len(self._shutdown_tasks),
                 "restarts": sum(n - 1 for n in self._n_starts.values() if n > 1),
-                "quorum_outstanding": 0,
+                "quorum_outstanding": (len(self._quorum.outstanding())
+                                       if self._quorum is not None else 0),
                 "link_flags": len(self._link_flags),
                 "n_events": len(self.events),
                 "n_snapshots": len(self.snapshots),
@@ -661,9 +862,9 @@ class Tracker:
     def build_telemetry(self) -> dict:
         """The job's telemetry document: per-rank snapshots (op stats and
         latency percentiles), the waves and epochs, lease expiries,
-        restarts, promotions, resizes and schedule repairs, clock offsets,
-        the streamed rollup and the incidents, under ``rabit_tpu``'s key
-        names."""
+        restarts, promotions, resizes and schedule repairs, the quorum
+        records, clock offsets, the streamed rollup and the incidents, under
+        ``rabit_tpu``'s key names."""
         with self._lock:
             events = list(self.events)
             snapshots = {str(r): s for r, s in sorted(self.snapshots.items())}
@@ -671,6 +872,8 @@ class Tracker:
             epochs = [{"epoch": we.epoch, "world": we.world_size}
                       for we in self.elastic.history]
             dropped = self.messages_dropped
+            q_outstanding = ([list(t) for t in self._quorum.outstanding()]
+                             if self._quorum is not None else [])
         waves = [e for e in events if e["kind"] == "wave"]
         clocks = {r: s["clock"] for r, s in snapshots.items()
                   if isinstance(s, dict) and s.get("clock")}
@@ -690,6 +893,14 @@ class Tracker:
             "schedule": self.schedule,
             "n_schedule_repaired": sum(1 for e in events
                                        if e["kind"] == "schedule_repaired"),
+            "quorum": self._quorum.spec if self._quorum is not None else "",
+            "n_quorum_met": sum(1 for e in events if e["kind"] == "quorum_met"),
+            "n_corrections_folded": sum(1 for e in events
+                                        if e["kind"] == "correction_folded"),
+            "n_corrections_dropped": sum(1 for e in events
+                                         if e["kind"] == "correction_dropped"),
+            # the exclusions still undelivered, [src_version, rank, world]
+            "quorum_outstanding": q_outstanding,
             "messages_dropped": dropped,
             "epochs": epochs,
             "restarts": restarts,
@@ -758,7 +969,7 @@ class Tracker:
         socket in the pool, where a promotion answers it with an
         Assignment."""
         with self._lock:
-            self._leases.pop(p.task_id, None)
+            self._drop_lease_locked(p.task_id)
             version, blob = self._blob if self._blob is not None else (0, b"")
         try:
             p.conn.sendall(P.put_blob_frame(version, blob))
@@ -773,6 +984,7 @@ class Tracker:
             self._spares.append(p)
             self._spares_seen = True
             pool = len(self._spares)
+            self._journal("spare_park", task_id=p.task_id, blob_version=version)
             self.events.append({"ts": round(time.time(), 6), "kind": "spare_parked",
                                 "task_id": p.task_id, "blob_version": version,
                                 "pool": pool})
@@ -804,6 +1016,7 @@ class Tracker:
         for s in dead:
             s.conn.close()
         self._spares = [s for s in self._spares if s not in dead]
+        self._journal("spare_drop", task_ids=sorted(s.task_id for s in dead))
         self.events.append({"ts": round(time.time(), 6), "kind": "spare_dropped",
                             "dropped": sorted(s.task_id for s in dead)})
 
@@ -862,13 +1075,20 @@ class Tracker:
         prev_map = dict(self.elastic.current.rank_map)
         wepoch, delta = self.elastic.commit(rank_map, world)
         self.world_size = world
+        ts = round(time.time(), 6)
+        if self._quorum is not None:
+            # The epoch boundary drops the corrections still owed: ranks
+            # renumber and shards re-cut, so an old block can never fold.
+            for sv, r, w in self._quorum.epoch_changed(wepoch.epoch):
+                self.events.append({"ts": ts, "kind": "correction_dropped",
+                                    "epoch": wepoch.epoch, "src_version": sv, "rank": r,
+                                    "world": w})
         restarted = []
         for p in members:
             if p.cmd == P.CMD_START:
                 if self._n_starts.get(p.task_id, 0) > 0:
                     restarted.append(p.task_id)
                 self._n_starts[p.task_id] = self._n_starts.get(p.task_id, 0) + 1
-        ts = round(time.time(), 6)
         self.events.append({
             "ts": ts, "kind": "wave", "epoch": wepoch.epoch,
             "world": world, "assignments": dict(rank_map),
@@ -885,6 +1105,12 @@ class Tracker:
             self.events.append({"ts": ts, "kind": "world_grown", "epoch": wepoch.epoch,
                                 "from": prev_world, "to": world,
                                 "joined": sorted(delta["joined"])})
+        # The wave is the control plane's commit: one record carries what a
+        # standby needs to close the same waves, and its epoch boundary
+        # settles the replayed quorum ledger as epoch_changed did this one.
+        self._journal("wave", epoch=wepoch.epoch, world=world, rank_map=dict(rank_map),
+                      started=sorted(p.task_id for p in members if p.cmd == P.CMD_START),
+                      promoted=sorted(promoted))
         return {"members": members, "world": world, "epoch": wepoch.epoch,
                 "rank_map": rank_map, "surplus": surplus}
 
@@ -905,7 +1131,7 @@ class Tracker:
         (a dead life's lease must not suspect the next life while it
         starts), and a parked spare takes its slot at once (``note_dead``)."""
         with self._lock:
-            self._leases.pop(task_id, None)
+            self._drop_lease_locked(task_id)
         self.note_dead(task_id)
 
     def note_dead(self, task_id: str) -> None:
@@ -944,9 +1170,61 @@ class Tracker:
                 return
             self._link_flags |= fresh
             self._repair_wanted = True
+            for src_t, dst_t in sorted(fresh):
+                self._journal("link_flag", src=src_t, dst=dst_t)
         if not self.quiet:
             print(f"[tracker] link {src}->{dst} flagged degraded; repair replan armed",
                   flush=True)
+
+    def _quorum_report(self, payload: str) -> dict:
+        """Fold one ``CMD_QUORUM`` report into the records, record the
+        table's events, journal a freeze (once a round) and a late delivery,
+        and flag the incoming ring link of a rank late ``quorum_flag_after``
+        rounds in a row (outside the lock: ``flag_link`` takes it)."""
+        try:
+            req = json.loads(payload)
+            epoch = int(req["epoch"])
+            version = int(req["v"])
+            have = [int(r) for r in req.get("have", ())]
+            held = [(int(sv), int(r)) for sv, r in req.get("held", ())]
+        except (ValueError, TypeError, KeyError):
+            return {"decided": False, "error": "malformed report"}
+        late_links: list[tuple[int, int]] = []
+        with self._lock:
+            if self._quorum is None:
+                return {"decided": False, "disabled": True}
+            if epoch != self.elastic.epoch:
+                # a worker a wave behind: its round is redone in the new
+                # epoch, never decided against a stale world
+                return {"decided": False, "stale_epoch": True}
+            known = self._quorum.has_record(epoch, version)
+            rec, events, flag_ranks = self._quorum.report(epoch, version, self.world_size,
+                                                          have, held)
+            ts = round(time.time(), 6)
+            for ev in events:
+                self.events.append({"ts": ts, **ev})
+                if ev["kind"] == "contribution_late":
+                    self._journal("quorum_late", src_version=ev["src_version"],
+                                  rank=ev["rank"])
+            if not known and rec.get("decided"):
+                # This report froze the record, which every rank folds by: it
+                # must survive a failover byte for byte.
+                self._journal("quorum_freeze", epoch=epoch, version=version,
+                              world=self.world_size, record=dict(rec))
+            order = self._last_ring or list(range(self.world_size))
+            pos = {r: i for i, r in enumerate(order)}
+            for r in flag_ranks:
+                if r in pos and len(order) >= 2:
+                    late_links.append((order[(pos[r] - 1) % len(order)], r))
+        for src, dst in late_links:
+            with self._lock:
+                self.events.append({"ts": round(time.time(), 6), "kind": "link_degraded",
+                                    "rank": dst, "src": src, "dst": dst, "via": "quorum"})
+            if not self.quiet:
+                print(f"[tracker] rank {dst} persistently late under quorum; flagging "
+                      f"incoming link {src}->{dst} for repair", flush=True)
+            self.flag_link(src, dst)
+        return rec
 
     def flag_link(self, src: int, dst: int) -> None:
         """Flag a degraded link directly (a confirmed incident, or an
@@ -970,6 +1248,9 @@ class Tracker:
         splan = self._plan_schedule(world, rank_map)
         ts = round(time.time(), 6)
         with self._lock:
+            self._last_ring = list(splan.ring_order) or list(range(world))
+            self._journal("sched", epoch=wave["epoch"], algo=splan.algo,
+                          ring=list(self._last_ring))
             self.events.append({
                 "ts": ts, "kind": "schedule_planned",
                 "epoch": wave["epoch"], "algo": splan.algo, "world": world,

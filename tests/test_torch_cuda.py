@@ -1315,3 +1315,81 @@ def test_trace_of_a_native_gbdt_job_on_the_card(cuda, tmp_path, monkeypatch):
     assert set(job.clocks) == {0, 1} and job.max_clock_err() < 0.5
     assert report["top_stragglers"][0]["rank"] == 0
     assert critical.critical_path_report(job)["top_gating_ranks"][0]["rank"] == 0
+
+
+# -- quorum rounds and the HA control plane on the card --------------------------
+
+def _card_job_work(ew, rows, nodes, bins):
+    """The card's contribution (node_histograms_kernel, one launch at a time
+    across the worker threads, counted), and the plain per-contribution
+    histogram in numpy for the accounting."""
+    import threading
+
+    from rabit_tpu_torch.elastic import shard_slice
+
+    xb, node = ew.make_bins(rows, bins), ew.row_nodes(rows, nodes)
+    card, boost_mod = ew.card_contribution(xb, node, nodes, bins)
+    lock = threading.Lock()
+
+    def work(v, world, rank):
+        with lock:
+            return card(v, world, rank)
+
+    def per(v, world, rank):
+        sl = shard_slice(rows, world, rank)
+        return ew.numpy_hist(xb[sl], node[sl], ew.row_grads(sl.start, sl.stop, v), nodes, bins)
+
+    return work, per, (lambda n: ew.expected_totals(xb, node, n, nodes, bins)), boost_mod
+
+
+@pytest.mark.gpu
+def test_quorum_healing_straggler_with_card_contributions(cuda):
+    """chip_smoke.py's quorum run (b) at a small size: world 3, quorum 0.6,
+    rank 2 0.4 s late up to version 3; every contribution launches
+    node_histograms_kernel on card tensors (skipped ones do not); every
+    quorum_met excludes [2], a late block folds as a correction, and the
+    states are bitwise equal and equal the record-adjusted totals."""
+    ew, dj = _worker_module("torch_elastic_worker"), _worker_module("torch_diag_job")
+    work, per, totals, boost_mod = _card_job_work(ew, 4000, 4, 16)
+    boost_mod.launches.clear()
+    niter = 8
+    out = dj.run_job(3, niter, work, quorum="0.6", quorum_wait=0.12, quorum_flag_after=0,
+                     straggler=(2, 0.4, 3), iter_sleep=0.05, deadline_sec=90.0)
+    res = out["results"]
+    states = [res[t].state for t in sorted(res)]
+    assert all(r.completed for r in res.values()), {t: r.error for t, r in res.items()}
+    assert all(np.array_equal(states[0], s) for s in states[1:])
+    qm = [e for e in out["events"] if e["kind"] == "quorum_met"]
+    assert qm and all(e["excluded"] == [2] for e in qm) and max(e["version"] for e in qm) < niter
+    folded = {(e["src_version"], e["rank"]) for e in out["events"]
+              if e["kind"] == "correction_folded"}
+    assert folded and any(e["kind"] == "contribution_late" for e in out["events"])
+    want = totals(niter)
+    for e in qm:
+        for r in e["excluded"]:
+            if (e["version"], r) not in folded:
+                want = want - per(e["version"], e["world"], r)
+    assert np.array_equal(states[0], want)
+    skipped = sum(r.skipped_contributions for r in res.values())
+    assert boost_mod.launches.get("node_histograms_kernel", 0) == 3 * niter - skipped
+
+
+@pytest.mark.gpu
+def test_failover_mid_wave_with_card_contributions(cuda):
+    """chip_smoke.py's failover run (a) at a small size: workers 0 and 1
+    check in, the primary dies after 0.3 s, worker 2 starts; the wave closes
+    on the promoted standby (one tracker_failover, no lease_expired) and
+    every state is bitwise the world-1 totals of the card's histograms."""
+    ew, dj = _worker_module("torch_elastic_worker"), _worker_module("torch_diag_job")
+    work, _per, totals, boost_mod = _card_job_work(ew, 4000, 4, 16)
+    boost_mod.launches.clear()
+    niter = 4
+    out = dj.run_job(3, niter, work, standby=True, kill_primary=0.3, hold_back=(2,),
+                     iter_sleep=0.05, deadline_sec=90.0)
+    want = totals(niter)
+    for res in out["results"].values():
+        assert res.completed and np.array_equal(res.state, want), res.error
+    kinds = [e["kind"] for e in out["promoted_events"]]
+    assert kinds.count("tracker_failover") == 1 and "wave" in kinds
+    assert not any(e["kind"] == "lease_expired" for e in out["events"])
+    assert boost_mod.launches.get("node_histograms_kernel", 0) == 3 * niter

@@ -480,19 +480,23 @@ def test_codec_job_bitwise_against_jax(codec, direction):
 
 
 @pytest.mark.parametrize("kw,item", [
-    ({"quorum": "2of3"}, "10c"), ({"job": "j"}, "10g"), ({"slow_report_share": 0.3}, "10b"),
+    ({"quorum": "2"}, "10c"), ({"job": "j"}, "10g"), ({"slow_report_share": 0.3}, "10b"),
 ])
 def test_unported_arguments_name_their_item(kw, item):
-    if item == "10b":  # the slow-link report is ported (item 10b): accepted, never refused
+    if item in ("10b", "10c"):  # the slow-link report and quorum rounds are ported: accepted
         w = ElasticWorker(("127.0.0.1", 1), "0", lambda v, w, r: np.zeros(1), 1, **kw)
-        assert w.slow_report_share == kw["slow_report_share"]
+        if item == "10b":
+            assert w.slow_report_share == kw["slow_report_share"]
+        else:
+            assert w.quorum_spec == kw["quorum"]
         w._listen.close()
     else:
         with pytest.raises(NotImplementedError, match=item):
             ElasticWorker(("127.0.0.1", 1), "0", lambda v, w, r: np.zeros(1), 1, **kw)
-    with pytest.raises(NotImplementedError, match="10d"):
-        ElasticWorker([("127.0.0.1", 1), ("127.0.0.1", 2)], "0",
-                      lambda v, w, r: np.zeros(1), 1)
+    # the tracker failover list is ported (item 10d): accepted, never refused
+    w = ElasticWorker([("127.0.0.1", 1), ("127.0.0.1", 2)], "0", lambda v, w, r: np.zeros(1), 1)
+    assert w.addrs == [("127.0.0.1", 1), ("127.0.0.1", 2)] and w.tracker == ("127.0.0.1", 1)
+    w._listen.close()
 
 
 # -- processes under the launcher ---------------------------------------------

@@ -288,7 +288,11 @@ def test_port_imports_no_jax():
         "          'rabit_tpu_torch.elastic.membership',\n"
         "          'rabit_tpu_torch.elastic.rebalance', 'rabit_tpu_torch.obs.critical',\n"
         "          'rabit_tpu_torch.obs.diagnose', 'rabit_tpu_torch.obs.top',\n"
-        "          'rabit_tpu_torch.sched.repair', 'rabit_tpu_torch.chaos'):\n"
+        "          'rabit_tpu_torch.sched.repair', 'rabit_tpu_torch.chaos',\n"
+        "          'rabit_tpu_torch.quorum', 'rabit_tpu_torch.quorum.policy',\n"
+        "          'rabit_tpu_torch.quorum.table', 'rabit_tpu_torch.ha',\n"
+        "          'rabit_tpu_torch.ha.state', 'rabit_tpu_torch.ha.journal',\n"
+        "          'rabit_tpu_torch.ha.standby', 'rabit_tpu_torch.ha.__main__'):\n"
         "    assert m in sys.modules, m\n"
         "from rabit_tpu_torch.models import gbdt\n"
         "assert callable(gbdt.train_round_dp) and callable(gbdt.train_round_dp_fused)\n"

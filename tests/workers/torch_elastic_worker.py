@@ -169,20 +169,24 @@ def main() -> int:
         time.sleep(sleep)
         return work(version, world, rank)
 
+    # The failover list: the launcher's --standby exports rabit_tracker_addrs
+    # (the primary first, then the warm standby), and the worker rotates
+    # through it.
+    addrs = P.parse_addrs(Config(sys.argv[1:]).get("rabit_tracker_addrs", "") or "")
     if knobs["spare"]:
         after_shrink = getarg("park_after_shrink", "0") == "1"
         base = int(getarg("world", "2"))
         end = time.monotonic() + deadline
         while time.monotonic() < end:
             info = P.tracker_rpc(host, port, P.CMD_EPOCH, task_id, message="0",
-                                 timeout=2.0, retries=3)
+                                 timeout=2.0, retries=3, addrs=addrs)
             if info["world"] < base if after_shrink else info["epoch"] >= 0:
                 break
             time.sleep(0.05)
 
     if int(os.environ.get("DMLC_NUM_ATTEMPT", "0")) > 0:
         time.sleep(float(getarg("restart_delay", "0")))
-    worker = ElasticWorker((host, port), task_id, contribution, niter,
+    worker = ElasticWorker(addrs or (host, port), task_id, contribution, niter,
                            spare=knobs["spare"], heartbeat_sec=hb,
                            deadline_sec=deadline, fail=fail)
     res = worker.run()

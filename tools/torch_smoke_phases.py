@@ -3,12 +3,16 @@ the card, for a same-call A/B of two checkouts.
 
     python3 tools/torch_smoke_phases.py                   # this checkout
     python3 tools/torch_smoke_phases.py --tree _tree/parent
+    python3 tools/torch_smoke_phases.py --phases quorum,failover
 
 Builds the kernels and the native engine, then runs, in chip_smoke.py's
 order and with its checks, the phases dp, engine, compress, hybrid and
 recover of the checkout at ``--tree`` (default: the repository this file
 is in), and its diagnose phase where that checkout's chip_smoke.py has
-one.  Prints the card's name and power limit (``nvidia-smi``) and one
+one.  ``--phases`` runs the named phases instead, in the order given
+(any ``Smoke.<name>_phase`` that needs no earlier phase: ``quorum``,
+``failover``, ``elastic``, ...).  Prints the card's name and power limit
+(``nvidia-smi``) and one
 ``[phases] <tree> {...}`` line: each phase's wall seconds, the build and
 the data set-up apart, and ``changed``, the sum of the phases.  Two whole
 runs of chip_smoke.py back to back take longer than a machine with the
@@ -29,6 +33,8 @@ def main() -> int:
     ap.add_argument("--tree", default=str(Path(__file__).resolve().parents[1]),
                     help="the checkout whose chip_smoke.py runs (default: this one)")
     ap.add_argument("--rows", type=int, default=1_000_000)
+    ap.add_argument("--phases", default="",
+                    help="comma-separated phases to run instead of the default set")
     args = ap.parse_args()
     tree = os.path.abspath(args.tree)
     os.chdir(tree)
@@ -59,20 +65,25 @@ def main() -> int:
         lap("build")
         smoke = cs.Smoke(torch, boost, hist, gbdt, args.rows)
         lap("setup")
-        smoke.dp_single()
-        smoke.dp_two_ranks()
-        lap("dp")
-        smoke.engine_phase()
-        lap("engine")
-        smoke.compress_phase()
-        lap("compress")
-        smoke.hybrid_phase()
-        lap("hybrid")
-        smoke.recover_phase()
-        lap("recover")
-        if hasattr(smoke, "diagnose_phase"):
-            smoke.diagnose_phase()
-            lap("diagnose")
+        if args.phases:
+            for name in args.phases.split(","):
+                print(f"[{name}] " + json.dumps(getattr(smoke, f"{name}_phase")()), flush=True)
+                lap(name)
+        else:
+            smoke.dp_single()
+            smoke.dp_two_ranks()
+            lap("dp")
+            smoke.engine_phase()
+            lap("engine")
+            smoke.compress_phase()
+            lap("compress")
+            smoke.hybrid_phase()
+            lap("hybrid")
+            smoke.recover_phase()
+            lap("recover")
+            if hasattr(smoke, "diagnose_phase"):
+                smoke.diagnose_phase()
+                lap("diagnose")
     except cs.PhaseFailed as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
