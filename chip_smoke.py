@@ -185,18 +185,43 @@ Phases, each of which exits non-zero when it fails:
               to the next commit; (c) as (a) with a file journal that the
               standby tails: the states the totals, and its state at the
               takeover bitwise read_journal + replay of the file.
-17. linear -- models.linear at the headline size (X = bins / 256, f32;
+17. relay  -- the reactor and the relay tier on the card, phase 15's
+              contribution: (a) phase 15's job (a) (world 3, quorum 1.0,
+              10 versions) on the tracker's reactor and on its threaded
+              path: the states bitwise equal and the world-1 totals, the
+              event-kind tallies equal, no handler thread on the reactor and
+              one or more threaded; each run's wall time and rank 0's
+              cadence.  (b) the same job behind 2 relays, heartbeats 0.3 s,
+              the quorum reports riding the batches: the states the totals,
+              2 relays up, batch messages >= world x versions, root accepts
+              <= 2 + versions, no lease_expired; the relays' stats, their
+              clock error and a relayed rank's clock estimate.  (c) 20
+              versions behind 2 relays, relay 0 stopped 0.5 s in and a new
+              one on its port 0.4 s later, rabit_diag_window_sec 0.1: no
+              lease_expired, relay_lost then relay_up, one lost-relay
+              incident opened and resolved, the states the totals; the
+              seconds from the stop to relay_up.  (d) phase 11's gbdt job
+              with its mid-tree mock kill (mock=1,1,2,0) behind 2 relays
+              (LocalCluster(relays=2)): the forest byte-identical to phase
+              11's clean gbdt forest, one restart, 2 relays up, root accepts
+              <= 4, node_histograms_kernel's launches phase 11's kill run's;
+              the seconds from the death to the next commit beside phase
+              11's.  (e) tools/torch_scale_sweep.py at world 256, its three
+              arms: the relayed tracker accepts <= 8, the direct ones >= 256;
+              each arm's accepts, handler-thread peak, heartbeat p99 and wave
+              seconds.
+18. linear -- models.linear at the headline size (X = bins / 256, f32;
               logistic, the LinearConfig defaults, 50 steps): LinearModel.fit
               on the card bitwise its train_step loop, steps 0, 25, 49 held
               teacher-forced against the CPU (tests/test_models.py's rtol
               2e-4, atol 2e-5); train_step_dp on an NCCL group of one
               bitwise the loop; then a gloo world of two processes sharing
-              the card (500k rows each; spawned once, it also runs phases 18
-              and 19's two-process parts): train_step_dp, every step
+              the card (500k rows each; spawned once, it also runs phases 19
+              and 20's two-process parts): train_step_dp, every step
               teacher-forced against the single-process step, and
               LinearModel(engine_allreduce=api.allreduce) through TorchEngine,
               bitwise the dp weights; ms/step of each.
-18. kmeans -- models.kmeans on the same data, K = 64, 20 iterations, the
+19. kmeans -- models.kmeans on the same data, K = 64, 20 iterations, the
               init drawn by KMeans(seed=0): KMeans.fit bitwise its
               train_iter loop, iterations 0, 10, 19 teacher-forced against
               the CPU (assignments equal but for near ties within
@@ -207,7 +232,7 @@ Phases, each of which exits non-zero when it fails:
               the new centers within 2^-21 of the f64 means) and
               KMeans(engine_allreduce=...) bitwise the dp centers; ms/iteration
               and the f64 one-hot segment_sum's time.
-19. attention -- ring_attention and ulysses_attention at sequence 8192, 32
+20. attention -- ring_attention and ulysses_attention at sequence 8192, 32
               heads of 128, f32 and bf16, causal and not, on an NCCL group of
               one and on the gloo world (block 4096; k/v hops and Ulysses'
               all-to-alls through host memory), each against
@@ -215,14 +240,14 @@ Phases, each of which exits non-zero when it fails:
               a time (tests/test_parallel.py's rtol 2e-4, atol 2e-5; bf16 adds
               the output's half-ulp rounding, 2^-8); ms a call and the
               hops' share.
-20. durable -- the api's durable spill (rabit_checkpoint_dir) in two-process
+21. durable -- the api's durable spill (rabit_checkpoint_dir) in two-process
               gloo jobs on the card, each fitting the linear model with a
               checkpoint a step (tests/workers/torch_durable_worker.py): a job
               stopped at version 3 of 6 and resumed by a fresh job, and again
               with rank 1's global files deleted (served by rank 0's
               broadcast), both bit for bit the weights of a job never
               stopped; the frames' bytes and the jobs' times.
-21. report -- per-level times of the histogram kernels (d = 0..7, bf16
+22. report -- per-level times of the histogram kernels (d = 0..7, bf16
               and i8) and of the helpers, and a {"kernels": [...]} line
               with each kernel's time (CUDA events over back-to-back
               calls, "ms"; and the device time of the kernels a call
@@ -233,16 +258,16 @@ Phases, each of which exits non-zero when it fails:
               long run the card's profiler keeps only part of the launches
               (kernel_ms), and earlier its sessions would slow the launches
               of the phases after them.
-22. trace  -- one warm fused and one warm hook-based bf16 round under
+23. trace  -- one warm fused and one warm hook-based bf16 round under
               profile.device_trace (a Chrome trace under --trace-dir): each
               round's wall time, the device time of the port's kernels, of
               every other kernel by the top aten op that launched it, and
               the device's idle time inside the round.
 
-Launches are counted per path (phases 4-7, 14-16 and 22, and 7, 10, 11, 12 and
-13 in their processes), each run with the counts set to 0 just before it and read just
-after; the phase-3 and phase-13 to phase-16 comparisons and the phase-21 timings do not
-count.  Phases 17-20 run no kernel of the port (their products are torch matmuls
+Launches are counted per path (phases 4-7, 14-17 and 23, and 7, 10, 11, 12,
+13 and 17 in their processes), each run with the counts set to 0 just before it and read
+just after; the phase-3 and phase-13 to phase-17 comparisons and the phase-22 timings do
+not count.  Phases 18-21 run no kernel of the port (their products are torch matmuls
 and einsums, as in the JAX package, in f32 with TF32 off).  Each phase
 prints its wall time.  The histogram kernels count in
 boost.launches, their helpers (one hist_prep and one hist_partition a
@@ -332,6 +357,12 @@ FAILOVER_VERSIONS = {"mid-wave": 4, "mid-run": 10, "file": 4}
 FAILOVER_SLEEP = 0.05       # s a failover-phase worker waits before each contribution
 FAILOVER_KILL = 0.3         # s after the start the primary dies in runs (a) and (c)
 FAILOVER_FREEZES = 3        # quorum records the primary freezes before run (b) kills it
+RELAY_VERSIONS = {"serving": 10, "relayed": 10, "bounce": 20}  # versions a relay-phase job
+RELAY_HB = 0.3              # heartbeat interval of the relayed jobs
+RELAY_BOUNCE = (0.5, 0.4)   # relay 0 stopped this many s in, a new one this many s later
+RELAY_BOUNCE_SLEEP = 0.1    # s a bounce-run worker waits before each contribution
+RELAY_DIAG_WINDOW = "0.1"   # rabit_diag_window_sec of the bounce run
+RELAY_WORLD = 256           # the scale sweep's world
 REPLACES = {
     "hist_level0": "rabit_tpu/ops/boost.py:341",
     "hist_level": "rabit_tpu/ops/boost.py:374",
@@ -529,15 +560,25 @@ def worker_path(name: str) -> str:
                         f"{name}.py")
 
 
-def worker_module(name: str):
-    """tests/workers/<name>.py as a module."""
+def load_module(name: str, path: str):
+    """The file at ``path`` as a module named ``name``."""
     import importlib.util
 
-    path = worker_path(name)
     spec = importlib.util.spec_from_file_location(name, path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def worker_module(name: str):
+    """tests/workers/<name>.py as a module."""
+    return load_module(name, worker_path(name))
+
+
+def scale_sweep_module():
+    """tools/torch_scale_sweep.py of this checkout as a module."""
+    return load_module("torch_scale_sweep", os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "tools", "torch_scale_sweep.py"))
 
 
 def basic_worker():
@@ -758,7 +799,7 @@ def _compress_part(rank: int, world: int, tmp: str) -> dict:
         dist.destroy_process_group()
 
 
-# -- phases 17-20: the linear and k-means models, attention, the durable spill ----
+# -- phases 18-21: the linear and k-means models, attention, the durable spill ----
 
 
 def slice_data(n_rows: int):
@@ -840,7 +881,7 @@ def attention_cases(torch, ring, rank: int, world: int, out: dict) -> None:
 
 
 def _slice_rank(rank: int, world: int, tmp: str, n_rows: int) -> None:
-    """One process of the gloo world of phases 17-19, on the card, on this
+    """One process of the gloo world of phases 18-20, on the card, on this
     rank's elastic shard: linear.train_step_dp and kmeans.train_iter_dp
     over the group (every step's weights; the iterations' centers, and the
     assignments at the checked ones), the engine-hook fits (LinearModel,
@@ -2110,7 +2151,8 @@ class Smoke:
 
     # -- phase 11 -----------------------------------------------------------------
     def recover_run(self, mode: str, *args: str, preempt=None, wedge=None,
-                    engine: str = "mock", obs: bool = False, keep_obs: str = "") -> dict:
+                    engine: str = "mock", obs: bool = False, keep_obs: str = "",
+                    relays: int = 0) -> dict:
         """DP_RANKS workers of tests/workers/torch_gbdt_native_worker.py on
         the card under the port's LocalCluster, rabit_engine=``engine``:
         each trains RECOVER_TREES trees of the headline data (its elastic
@@ -2123,7 +2165,8 @@ class Smoke:
         copy of the obs dir past the run.  The delays of ``preempt`` and
         ``wedge`` count from the run's first commit of version 1 (a
         worker's print to the tracker), not from launch: a process's start
-        on the card varies by seconds between runs."""
+        on the card varies by seconds between runs.  ``relays`` puts that many
+        relays between the workers and the tracker."""
         from rabit_tpu_torch.tracker.launcher import LocalCluster
 
         with tempfile.TemporaryDirectory() as tmp:
@@ -2132,7 +2175,7 @@ class Smoke:
                    f"rabit_engine={engine}", f"mode={mode}", "device=cuda",
                    f"rows={self.n_rows}", f"ntrees={RECOVER_TREES}",
                    f"out={os.path.join(tmp, 'forest')}", f"stats={tmp}", *args]
-            cluster = LocalCluster(DP_RANKS, max_restarts=2, quiet=True)
+            cluster = LocalCluster(DP_RANKS, max_restarts=2, quiet=True, relays=relays)
             t0 = time.time()
             if obs:
                 os.environ["RABIT_OBS_DIR"] = obs_dir  # the tracker's too
@@ -2233,6 +2276,9 @@ class Smoke:
             require(run["restarts"] == 1 and run["preempts"] == (1 if preempt else 0),
                     f"{what}: {run['restarts']} restarts, {run['preempts']} preemptions")
             out["recovery_s"][what] = self.recovery_s(run)
+            if traced:  # the relay phase's run (d) is this kill behind relays
+                self.mid_tree_kill = {"launches": run["launches"],
+                                      "recovery_s": out["recovery_s"][what]}
             print(f"  {what} ({mode}): forest byte-identical to the clean run's; restarts "
                   f"{run['restarts']}; from the death to the restarted worker's next "
                   f"commit {out['recovery_s'][what]:.2f} s; run {run['wall_s']:.1f} s")
@@ -2498,10 +2544,14 @@ class Smoke:
         out = {}
         clean = self.elastic_run("clean", "sleep=0")  # no kill to land: no pause
         done = self.elastic_check(clean, "(a) clean", want)
+        evidence = [{k: e[k] for k in ("ts", "kind", "class", "src", "dst", "rank") if k in e}
+                    for e in clean["events"] if e["kind"] in (
+                        "wave", "incident_opened", "link_degraded", "schedule_repaired",
+                        "lease_expired", "wave_purged")]
         require(len(done) == DP_RANKS and all(list(d["worlds"]) == [DP_RANKS] for d in done)
                 and clean["launches"]["node_histograms_kernel"] == DP_RANKS * ELASTIC_VERSIONS,
                 f"(a) clean: worlds {[list(d['worlds']) for d in done]}, launches "
-                f"{clean['launches']}")
+                f"{clean['launches']}; the tracker's waves, incidents and flags {evidence}")
         print(f"  (a) clean: {clean['wall_s']:.1f} s incl. start-up; states bitwise the "
               f"world-1 totals; launches {clean['launches']}")
 
@@ -2602,7 +2652,7 @@ class Smoke:
 
         whole = slice(0, self.n_rows)
         per_version = []
-        for v in range(1, max(DIAG_VERSIONS.values()) + 1):
+        for v in range(1, max(*DIAG_VERSIONS.values(), *RELAY_VERSIONS.values()) + 1):
             hv = hist(v, whole, self.hist.node_histograms_kernel)
             if v == 1:
                 g = ew.row_grads(0, self.n_rows, v)
@@ -2840,10 +2890,10 @@ class Smoke:
         return [e for e in events if e["kind"] == kind]
 
     @staticmethod
-    def cadence_ms(out) -> float:
-        """Rank 0's mean commit interval over versions 1 to 9, in ms."""
+    def cadence_ms(out, last: int = 9) -> float:
+        """Rank 0's mean commit interval over versions 1 to ``last``, in ms."""
         ct = out["results"]["0"].commit_times
-        return 1e3 * (ct[9] - ct[1]) / 8
+        return 1e3 * (ct[last] - ct[1]) / (last - 1)
 
     def quorum_phase(self):
         """Quorum rounds on the card (phase 15 of the module docstring)."""
@@ -2997,14 +3047,172 @@ class Smoke:
         print(f"  failover phase: {out['wall_s']:.1f} s", flush=True)
         return out
 
-    # -- phases 17-20 -------------------------------------------------------------
+    # -- phase 17 -----------------------------------------------------------------
+    def relay_phase(self):
+        """The reactor and the relay tier on the card (phase 17 of the module
+        docstring)."""
+        from collections import Counter
+
+        ew = worker_module("torch_elastic_worker")
+        dj = worker_module("torch_diag_job")
+        work, want, _plain = self.diag_work(ew)
+        out = {}
+        t0 = time.perf_counter()
+
+        n = RELAY_VERSIONS["serving"]
+        ab = {}
+        for reactor in (True, False):
+            what = f"relay (a) {'reactor' if reactor else 'threaded'}"
+            run = self.job_run(dj, what, n, work, quorum="1.0", iter_sleep=QUORUM_SLEEP,
+                               reactor=reactor)
+            require(np.array_equal(self.equal_states(run, what), want(n)),
+                    f"{what}: the state differs from the world-1 totals")
+            ab[reactor] = run
+        tallies = {r: Counter(e["kind"] for e in ab[r]["telemetry"]["events"]) for r in ab}
+        serving = {r: ab[r]["telemetry"]["serving"] for r in ab}
+        require(tallies[True] == tallies[False],
+                f"(a) the event kinds differ: reactor {dict(tallies[True])}, threaded "
+                f"{dict(tallies[False])}")
+        require(serving[True]["handler_threads_hwm"] == 0
+                and serving[False]["handler_threads_hwm"] >= 1,
+                f"(a) handler threads: reactor {serving[True]['handler_threads_hwm']}, "
+                f"threaded {serving[False]['handler_threads_hwm']}")
+        cad = {r: self.cadence_ms(ab[r]) for r in ab}
+        print(f"  (a) world 3, quorum 1.0, {n} versions on each serving path: states bitwise "
+              f"the world-1 totals, event kinds equal ({sum(tallies[True].values())} events); "
+              f"reactor {ab[True]['elapsed']:.2f} s, rank 0's cadence {cad[True]:.1f} ms, "
+              f"{serving[True]['accepts']} accepts, loop peak "
+              f"{serving[True]['reactor_conns_hwm']}, 0 handler threads; threaded "
+              f"{ab[False]['elapsed']:.2f} s, cadence {cad[False]:.1f} ms, "
+              f"{serving[False]['accepts']} accepts, handler-thread peak "
+              f"{serving[False]['handler_threads_hwm']}; launches {ab[True]['launches']} and "
+              f"{ab[False]['launches']}")
+
+        n = RELAY_VERSIONS["relayed"]
+        rel = self.job_run(dj, "relay (b) relayed", n, work, quorum="1.0",
+                           iter_sleep=QUORUM_SLEEP, relays=2, heartbeat_sec=RELAY_HB)
+        tel = rel["telemetry"]
+        require(np.array_equal(self.equal_states(rel, "(b)"), want(n)),
+                "(b) relayed: the state differs from the world-1 totals")
+        require(tel["n_relays_up"] == 2 and tel["serving"]["batch_msgs"] >= 3 * n
+                and tel["serving"]["accepts"] <= 2 + n and tel["n_lease_expired"] == 0,
+                f"(b) relayed: n_relays_up {tel['n_relays_up']}, serving {tel['serving']}, "
+                f"n_lease_expired {tel['n_lease_expired']}")
+        cad_b = self.cadence_ms(rel)
+        clocks = {r["relay"]: r["rank_clock"] for r in rel["relays"]}
+        require(all(c is not None and abs(c[0]) < 0.05 for c in clocks.values()),
+                f"(b) relayed: a relayed rank's clock estimate is off the tracker's: {clocks}")
+        print(f"  (b) world 3 behind 2 relays, quorum 1.0 (the reports ride the batches), "
+              f"heartbeats {RELAY_HB} s, {n} versions: states bitwise the totals; root "
+              f"accepts {tel['serving']['accepts']} (bound {2 + n}), {tel['serving']['batches']} "
+              f"batches of {tel['serving']['batch_msgs']} messages, no lease_expired; rank 0's "
+              f"cadence {cad_b:.1f} ms (direct {cad[True]:.1f} ms); {rel['elapsed']:.2f} s; "
+              f"launches {rel['launches']}")
+        for r in rel["relays"]:
+            off, err = r["rank_clock"]
+            print(f"      {r['relay']}: {json.dumps(r['stats'])}; its tracker-clock estimate "
+                  f"err {1e3 * r['clock_err']:.3f} ms; a relayed rank's ClockSync offset "
+                  f"{1e3 * off:.3f} ms, err {1e3 * err:.3f} ms (one host: the true offset is 0)")
+
+        n = RELAY_VERSIONS["bounce"]
+        os.environ["RABIT_TPU_RABIT_DIAG_WINDOW_SEC"] = RELAY_DIAG_WINDOW
+        try:
+            bounce = self.job_run(dj, "relay (c) bounce", n, work, iter_sleep=RELAY_BOUNCE_SLEEP,
+                                  relays=2, heartbeat_sec=RELAY_HB, relay_bounce=RELAY_BOUNCE)
+        finally:
+            os.environ.pop("RABIT_TPU_RABIT_DIAG_WINDOW_SEC", None)
+        ev = bounce["events"]
+        require(np.array_equal(self.equal_states(bounce, "(c)"), want(n)),
+                "(c) relay bounce: the state differs from the world-1 totals")
+        t_stop = bounce["t_bounce_wall"]
+        lost = [e for e in ev if e["kind"] == "relay_lost" and e["relay"] == "relay0"]
+        up = [e for e in ev if e["kind"] == "relay_up" and e["relay"] == "relay0"
+              and lost and e["ts"] > lost[0]["ts"]]
+        # (a 0.1 s window may also see the link-wait noise of a loaded host:
+        # other incidents are printed, the lost relay's is required)
+        opened = [e for e in ev if e["kind"] == "incident_opened"]
+        lost_inc = [e for e in opened if (e["class"], e.get("relay")) == ("lost-relay", "relay0")]
+        resolved = [e for e in ev if e["kind"] == "incident_resolved"
+                    and lost_inc and e["incident"] == lost_inc[0]["incident"]]
+        require(bool(lost) and bool(up) and not self.kinds(ev, "lease_expired")
+                and len(lost_inc) == 1 and len(resolved) == 1,
+                f"(c) relay bounce: {len(lost)} relay_lost, {len(up)} relay_up after it, "
+                f"{len(self.kinds(ev, 'lease_expired'))} lease_expired, incidents opened "
+                f"{[(e['class'], e.get('relay')) for e in opened]}, the lost relay's resolved "
+                f"{len(resolved)} time(s)")
+        to_up = up[0]["ts"] - t_stop
+        inc = lost_inc[0]
+        others = [(e["class"], {k: e[k] for k in ("src", "dst", "rank") if k in e})
+                  for e in opened if e is not inc]
+        print(f"  (c) world 3 behind 2 relays, {n} versions, relay 0 stopped "
+              f"{RELAY_BOUNCE[0]} s in and a new one on its port {RELAY_BOUNCE[1]} s later: "
+              f"states bitwise the totals, no lease_expired; from the stop "
+              f"{lost[0]['ts'] - t_stop:.3f} s to relay_lost, {to_up:.3f} s to relay_up; the "
+              f"lost-relay incident opened {inc['ts'] - t_stop:.3f} s and resolved "
+              f"{resolved[0]['ts'] - t_stop:.3f} s after the stop "
+              f"(rabit_diag_window_sec {RELAY_DIAG_WINDOW}); other incidents {others}; "
+              f"launches {bounce['launches']}; {bounce['elapsed']:.2f} s")
+
+        ref = getattr(self, "mid_tree_kill", None)
+        if ref is None:  # a run of this phase alone: the recover phase's runs, here
+            self.clean_gbdt = self.recover_run("gbdt", "time_hop=1")
+            run = self.recover_run("gbdt", "mock=1,1,2,0")
+            ref = {"launches": run["launches"], "recovery_s": self.recovery_s(run)}
+        relayed = self.recover_run("gbdt", "mock=1,1,2,0", relays=2)
+        rt = relayed["telemetry"]
+        require(np.array_equal(relayed["forest"], self.clean_gbdt["forest"]),
+                "(d) native GBDT behind relays: the forest differs from the clean gbdt run's")
+        require(relayed["restarts"] == 1 and rt["n_relays_up"] == 2
+                and rt["serving"]["accepts"] <= 4 and relayed["launches"] == ref["launches"],
+                f"(d) native GBDT behind relays: restarts {relayed['restarts']}, n_relays_up "
+                f"{rt['n_relays_up']}, serving {rt['serving']}, launches {relayed['launches']} "
+                f"(the recover phase's {ref['launches']})")
+        rec_s = self.recovery_s(relayed)
+        rclocks = {r: (c.get("offset_s"), c.get("err_s")) for r, c in rt["clocks"].items()}
+        print(f"  (d) the recover phase's gbdt job, {DP_RANKS} native workers behind 2 relays, "
+              f"mock kill of rank 1 mid-tree: forest byte-identical to the clean gbdt run's; "
+              f"restarts 1; root accepts {rt['serving']['accepts']}, {rt['serving']['batches']} "
+              f"batches; launches equal the recover phase's kill run's {ref['launches']}; from "
+              f"the death to the restarted worker's next commit {rec_s:.2f} s (direct, recover "
+              f"phase: {ref['recovery_s']:.2f} s); the ranks' clock estimates through the relays "
+              f"{rclocks}; run {relayed['wall_s']:.1f} s")
+
+        sweep = scale_sweep_module()
+        recs = {r["arm"]: r for r in sweep.scale_sweep([RELAY_WORLD], hb_interval=0.4,
+                                                       hb_beats=2, deadline_sec=60.0,
+                                                       relays_for=lambda w: 2, emit=None)}
+        acc = {a: r["tracker"]["accepts"] for a, r in recs.items()}
+        require(set(recs) == set(sweep.ARMS) and acc["relayed"] <= 8
+                and acc["threaded_direct"] >= RELAY_WORLD and acc["reactor_direct"] >= RELAY_WORLD
+                and all(r["bootstrap"]["wave_completed"] == RELAY_WORLD
+                        and r["recovery"]["wave_completed"] == RELAY_WORLD for r in recs.values()),
+                f"(e) scale sweep: accepts {acc}")
+        for arm, r in recs.items():
+            print(f"  (e) world {RELAY_WORLD}, {arm}: accepts {acc[arm]}, handler-thread peak "
+                  f"{r['tracker']['handler_threads_hwm']}, loop peak "
+                  f"{r['tracker']['reactor_conns_hwm']}, heartbeat p99 "
+                  f"{r['liveness']['rpc_p99_ms']} ms, bootstrap wave "
+                  f"{r['bootstrap']['wave_latency_s']} s, recovery wave "
+                  f"{r['recovery']['wave_latency_s']} s, lease_expired {r['lease_expired']}")
+        out.update(cadence_ms={"reactor": cad[True], "threaded": cad[False], "relayed": cad_b},
+                   bounce_to_relay_up_s=to_up, relayed_recovery_s=rec_s,
+                   direct_recovery_s=ref["recovery_s"],
+                   sweep={a: {"accepts": acc[a], "hb_p99_ms": r["liveness"]["rpc_p99_ms"],
+                              "bootstrap_s": r["bootstrap"]["wave_latency_s"],
+                              "recovery_s": r["recovery"]["wave_latency_s"]}
+                          for a, r in recs.items()},
+                   wall_s=time.perf_counter() - t0)
+        print(f"  relay phase: {out['wall_s']:.1f} s", flush=True)
+        return out
+
+    # -- phases 18-21 -------------------------------------------------------------
     @functools.cached_property
     def X(self):
         """slice_data's features on the card."""
         return self.xb.float() / 256
 
     def slice_world(self):
-        """The gloo world of phases 17-19 (DP_RANKS processes on the card,
+        """The gloo world of phases 18-20 (DP_RANKS processes on the card,
         _slice_rank), spawned once; its results are read by each phase."""
         t0 = time.perf_counter()
         self.slice_runs = run_ranks(_slice_rank, DP_RANKS, self.n_rows)
@@ -3266,7 +3474,7 @@ class Smoke:
               "stop " + json.dumps(frames))
         print("  durable " + json.dumps(self.slice_ms["durable"]))
 
-    # -- phase 22 -----------------------------------------------------------------
+    # -- phase 23 -----------------------------------------------------------------
     def trace_phase(self, logdir: str):
         """One warm fused bf16 round and one warm hook-based bf16 round under
         profile.device_trace: each round's wall time, the device time in
@@ -3327,7 +3535,7 @@ class Smoke:
         print(f"  Chrome trace under {logdir}")
         return out
 
-    # -- phase 21 -----------------------------------------------------------------
+    # -- phase 22 -----------------------------------------------------------------
     def measure(self):
         torch, boost = self.torch, self.boost
         xb3, g3, h3 = self.xb3, self.g3, self.h3
@@ -3545,7 +3753,7 @@ def main() -> int:
     except ImportError as e:
         print(f"FAIL: run from the root of a checkout ({e})", file=sys.stderr)
         return 2
-    # the plain versions' matmuls, and the products of phases 17-19 (exact f32)
+    # the plain versions' matmuls, and the products of phases 18-20 (exact f32)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     phase, t_phase = "device", time.perf_counter()
@@ -3648,6 +3856,9 @@ def main() -> int:
 
         phase = next_phase("failover")
         print("[failover] " + json.dumps(smoke.failover_phase()), flush=True)
+
+        phase = next_phase("relay")
+        print("[relay] " + json.dumps(smoke.relay_phase()), flush=True)
 
         phase = next_phase("linear")
         smoke.slice_world()

@@ -153,6 +153,13 @@ DEFAULTS: dict[str, str] = {
     "rabit_ha_snapshot_every": "256",
     "rabit_ha_takeover_sec": "1.0",
     "rabit_ha_tick_sec": "0.25",
+    # Serving (tracker, relay): rabit_tracker_backlog is the tracker's
+    # listen(2) backlog (a bootstrap wave is world_size connects at once,
+    # and an overflowing backlog turns into SYN-retransmit latency);
+    # rabit_relay_cache_bytes is each relay's blob cache budget (least
+    # recently used beyond it).
+    "rabit_tracker_backlog": "1024",
+    "rabit_relay_cache_bytes": "256M",
 }
 
 _UNIT = {"B": 1, "K": 1 << 10, "M": 1 << 20, "G": 1 << 30}

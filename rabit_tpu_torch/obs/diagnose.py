@@ -27,10 +27,11 @@ show as ring wait, with opposite shapes:
 Hysteresis: a rule must fire ``rabit_diag_open_windows`` windows in a row
 before an incident opens, and stay quiet ``rabit_diag_resolve_windows``
 windows before it resolves.  A confirmed ``degraded-link`` incident feeds
-the tracker's avoid-set repair (``Tracker.flag_link``).  The relay rules
-read ``relay_lost`` / ``relay_up`` events, which no port tracker emits
-until the relays are ported.  Everything here is dict math over state the
-caller assembled: no IO, no sockets.
+the tracker's avoid-set repair (``Tracker.flag_link``).  The lost-relay
+rule reads the tracker's ``relay_lost`` / ``relay_up`` events: a relay
+whose channel stays down opens an incident, and its reconnect resolves it.
+Everything here is dict math over state the caller assembled: no IO, no
+sockets.
 """
 
 from __future__ import annotations

@@ -33,9 +33,9 @@ _RESERVED = ("ts", "kind")
 
 #: The event-kind registry: every ``kind`` of ``rabit_tpu``'s registry
 #: (``rabit_tpu/obs/events.py`` ``KINDS``) that a plane of the port can
-#: record, with the same one-line meaning (the relay, service and delivery
-#: planes' kinds wait for their port).  A kind is added here in the change
-#: that adds its producer.
+#: record, with the same one-line meaning (the service and delivery planes'
+#: kinds wait for their port).  A kind is added here in the change that adds
+#: its producer.
 KINDS: dict[str, str] = {
     # envelope / ring
     "flight_dump": "dump header line: pid, rank, reason, n_events, dropped",
@@ -117,6 +117,16 @@ KINDS: dict[str, str] = {
                       "world",
     "tracker_failover": "standby promoted itself over the dead primary: "
                         "standby, epoch, world, synced",
+    # serving at scale (the tracker's reactor and the relay tier)
+    "relay_up": "a relay's persistent CMD_BATCH channel registered: "
+                "relay, host",
+    "relay_lost": "a relay channel died (stateless fan-in: children "
+                  "reconnect): relay",
+    "batch_folded": "one coalesced relay envelope folded: relay, n "
+                    "sub-messages",
+    "blob_cache_evicted": "a relay's digest-keyed snapshot cache dropped "
+                          "an entry: digest, nbytes, reason "
+                          "(lru|superseded|job_retired)",
     # collective schedules (sched)
     "schedule_planned": "tracker planned a wave's schedule: epoch, algo, "
                         "ring_order, n_avoided",

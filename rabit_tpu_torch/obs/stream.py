@@ -16,8 +16,8 @@ same table with a static lint; the port checks at the call.
 
 Labeled series are flat registry names, ``wire_bytes{codec=i8,fused=1}``
 (:func:`series_name`).  :func:`delta_doc` / :func:`merge_delta_doc` are the
-per-job delta envelope a relay coalesces (the relays themselves are not
-ported); :func:`wire_bytes_by_codec` reads the codec split out of a
+per-job delta envelope a relay coalesces (``relay``: one CMD_OBS delta frame
+a job a flush); :func:`wire_bytes_by_codec` reads the codec split out of a
 rendered rollup, as the ``CMD_OBS`` scrape's readers do.
 """
 

@@ -40,9 +40,17 @@ seconds in: the standby takes over within ``takeover_sec``
 (``--takeover-sec``), the workers fail over to it, and the launcher's
 bookkeeping follows the promoted tracker.
 
+Relays (``relay``): ``relays=R`` (``--relays R``) runs R relays in this
+process in front of the tracker (``relay_flush_sec`` their batch cadence),
+and worker i dials relay ``i % R`` (a spare ``s<i>`` too; stable per task
+id, so a restarted life lands on its relay): the tracker accepts O(R)
+connections, not one a worker and message.  With ``standby=True`` the
+relays get the failover list and rotate to the standby; the relayed
+workers keep their relay's address.  The relays stop when the run ends.
+
 Usage:
     python -m rabit_tpu_torch.tracker.launcher --num-workers 4 \\
-        [--max-restarts 20] [--spares K] [--shrink-after SEC] \\
+        [--max-restarts 20] [--spares K] [--shrink-after SEC] [--relays R] \\
         [--standby [--ha-journal PATH] [--takeover-sec SEC]] \\
         [--kill-tracker-after SEC] \\
         [--preempt DELAY:TASK] [--wedge DELAY:TASK] \\
@@ -66,6 +74,9 @@ from rabit_tpu_torch.tracker.tracker import Tracker
 
 #: Seconds a released spare has to leave before the run kills it.
 SPARE_EXIT_SEC = 10.0
+#: Seconds a relayed run waits, once its workers are gone, for the shutdowns
+#: still in its relays to reach the tracker.
+RELAY_DRAIN_SEC = 5.0
 
 
 def spare_task_id(i: int) -> str:
@@ -78,7 +89,7 @@ class LocalCluster:
     def __init__(self, num_workers: int, max_restarts: int = 0, quiet: bool = False,
                  extra_env: dict[str, str] | None = None, spares: int = 0,
                  shrink_after_sec: float = 0.0, standby: bool = False, ha_journal: str = "",
-                 takeover_sec: float = 1.0):
+                 takeover_sec: float = 1.0, relays: int = 0, relay_flush_sec: float = 0.25):
         self.num_workers = num_workers
         self.max_restarts = max_restarts
         self.quiet = quiet
@@ -117,21 +128,41 @@ class LocalCluster:
         self.takeover_sec = float(takeover_sec)
         self.standby = None
         self._worker_addrs: list[tuple[str, int]] = []
+        #: the relay tier: R relays of this process, the workers spread over
+        #: them by task id (the list holds the last run's, stopped)
+        self.num_relays = int(relays)
+        self.relay_flush_sec = float(relay_flush_sec)
+        self.relays: list = []
 
     def _on_suspect(self, task_id: str) -> None:
         """The tracker's lease-expiry callback (on its monitor thread)."""
         with self._suspect_lock:
             self._suspects.append((task_id, time.monotonic()))
 
+    def _target_addr(self, tracker: Tracker, task_id: str) -> tuple[str, int]:
+        """The address ``task_id`` dials: the tracker, or relay ``i % R``
+        for task "i" or spare "s<i>" (any other id by the sum of its
+        bytes)."""
+        if not self.relays:
+            return tracker.host, tracker.port
+        try:
+            idx = int(task_id.lstrip("s"))
+        except ValueError:
+            idx = sum(task_id.encode())
+        relay = self.relays[idx % len(self.relays)]
+        return relay.host, relay.port
+
     def _spawn(self, cmd: list[str], tracker: Tracker, task_id: str) -> subprocess.Popen:
+        host, port = self._target_addr(tracker, task_id)
         env = dict(os.environ)
         env.update(self.extra_env)
-        env.update(DMLC_TRACKER_URI=tracker.host, DMLC_TRACKER_PORT=str(tracker.port),
+        env.update(DMLC_TRACKER_URI=host, DMLC_TRACKER_PORT=str(port),
                    DMLC_TASK_ID=task_id, DMLC_NUM_ATTEMPT=str(self.restarts[task_id]))
         if not task_id.isdigit():
             env["RABIT_TPU_RABIT_SPARE"] = "1"  # config's environment layer: rabit_spare=1
-        if self._worker_addrs:
-            # the failover list: the primary first, then the standby
+        if self._worker_addrs and not self.relays:
+            # the failover list: the primary first, then the standby (a
+            # relayed worker keeps its relay's address; the relay rotates)
             env["RABIT_TPU_RABIT_TRACKER_ADDRS"] = ",".join(
                 f"{h}:{p}" for h, p in self._worker_addrs)
         self._spawned[task_id] = time.monotonic()
@@ -174,6 +205,12 @@ class LocalCluster:
                                    tracker_kwargs=tracker_kwargs, quiet=self.quiet).start()
             self._worker_addrs = [(tracker.host, tracker.port),
                                   (self.standby.host, self.standby.port)]
+        if self.num_relays > 0:
+            from rabit_tpu_torch.relay import Relay
+
+            target = self._worker_addrs or (tracker.host, tracker.port)
+            self.relays = [Relay(target, relay_id=f"relay{i}", flush_sec=self.relay_flush_sec,
+                                 quiet=self.quiet).start() for i in range(self.num_relays)]
         primary = tracker
         procs: dict[str, subprocess.Popen | None] = {
             t: self._spawn(cmd, tracker, t) for t in self.restarts}
@@ -289,6 +326,10 @@ class LocalCluster:
                 # pool it was released from (SPARE_EXIT_SEC at most).
                 if alive == 0 and (spares_alive == 0 or (
                         done_at is not None and time.monotonic() - done_at > SPARE_EXIT_SEC)):
+                    if self.relays and not tracker._killed:
+                        # a relay ACKs a shutdown itself and forwards it at
+                        # its next flush: let the tracker see the job's end
+                        tracker.wait(RELAY_DRAIN_SEC)
                     return 0
                 time.sleep(0.02)
         finally:
@@ -296,6 +337,8 @@ class LocalCluster:
                 if proc is not None and proc.poll() is None:
                     proc.kill()
                     proc.wait()
+            for relay in self.relays:
+                relay.stop()
             promoted = (self.standby.tracker if self.standby is not None
                         and self.standby.promoted.is_set() else None)
             if self.standby is not None:
@@ -339,6 +382,9 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--takeover-sec", type=float, default=None, metavar="SEC",
                     help="the standby's takeover lease (default: the rabit_ha_takeover_sec "
                          "config key)")
+    ap.add_argument("--relays", type=int, default=0, metavar="R",
+                    help="run R relays in front of the tracker; worker i dials relay i %% R, "
+                         "and the tracker accepts O(R) connections")
     ap.add_argument("--kill-tracker-after", type=float, default=None, metavar="SEC",
                     help="kill the primary tracker abruptly SEC seconds in (with --standby "
                          "the job fails over; without, it is lost)")
@@ -365,7 +411,7 @@ def main(argv: list[str] | None = None) -> int:
                            spares=args.spares, shrink_after_sec=args.shrink_after,
                            standby=args.standby,
                            ha_journal=args.ha_journal or cfg.get("rabit_ha_journal", "") or "",
-                           takeover_sec=takeover)
+                           takeover_sec=takeover, relays=args.relays)
     return cluster.run(cmd, timeout=args.timeout, preempt=schedule(args.preempt, "--preempt"),
                        wedge=schedule(args.wedge, "--wedge"),
                        kill_tracker_after=args.kill_tracker_after)

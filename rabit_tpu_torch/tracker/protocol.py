@@ -82,6 +82,33 @@ The HA standby's channel (``ha``):
                                ``rabit_ha_tick_sec``.  A tracker that journals
                                nothing closes the connection unanswered.
 
+The relay tier (``relay``): a relay checks in with ``CMD_BATCH`` (its id as
+the task id, nothing more), is answered with u32 ACK, and the connection
+then carries framed traffic both ways:
+
+      relay -> tracker:        one batch envelope a flush (``put_batch_frame``:
+                               u32 n, then per sub-message str task_id, u32
+                               cmd, i32 prev_rank, str host (the child's, for
+                               the peer table), u32 listen_port, u32 nbytes +
+                               payload, str recv_ts).  Heartbeats, metrics,
+                               prints and shutdowns the relay terminated,
+                               parked START / RECOVER / SPARE check-ins, quorum
+                               reports (under ``q#<task id>``), one CMD_OBS
+                               delta frame a job (``put_delta_frame``, under
+                               ``<job>/#delta``) and ``CMD_HANGUP``, a parked
+                               child's EOF;
+      tracker -> relay:        route frames (``put_route_frame``: str task_id,
+                               u32 flags, u32 nbytes + payload) that deliver a
+                               reply (an Assignment, a park frame, a quorum
+                               record) to the parked child, closing it when
+                               ``flags & ROUTE_CLOSE``; task id "" is the batch
+                               ACK, JSON ``{"server_ts", "acks", "epoch",
+                               "world", "rewave"}``.
+
+The event-loop serving paths (the tracker's reactor, the relay's child loop)
+parse a hello incrementally: ``hello_parser`` under a ``StreamParser``, whose
+``rest()`` carries the bytes a client pipelined behind its hello.
+
 A START or RECOVER check-in that the wave has no slot for is answered with
 a blob frame too: it is parked as a spare on the same socket.  Workers of
 an elastic job link to their ring neighbours with the handshake u32
@@ -114,6 +141,7 @@ MAGIC_ASSIGN = 0x7AB17002
 MAGIC_LINK = 0x7AB17003
 MAGIC_BLOB = 0x7AB17004
 MAGIC_SKIP = 0x7AB17005
+MAGIC_DELTA = 0x7AB17006
 ACK = 0
 
 CMD_START = 1
@@ -128,9 +156,43 @@ CMD_BLOB = 9
 CMD_QUORUM = 10
 #: A warm standby asking to tail the tracker's control-plane journal.
 CMD_JOURNAL = 13
-#: The live-telemetry scrape (the hello only: ``rabit_tpu``'s relays also
-#: carry CMD_OBS delta frames, which wait for the relays' port).
+#: A relay's persistent channel (its hello; then batch and route frames).
+CMD_BATCH = 11
+#: A relay's sub-message only, never a hello: a parked child hung up, so its
+#: virtual connection at the tracker reads as EOF.
+CMD_HANGUP = 12
+#: As a hello, the live-telemetry scrape; as a relay's sub-message, one
+#: coalesced metric-delta frame to fold into the rollup.
 CMD_OBS = 14
+#: The delivery plane's version-line poll and snapshot fetch.  The port
+#: serves neither; the hello parser reads their message field as
+#: ``rabit_tpu``'s does, so a byte stream that carries one stays in step.
+CMD_SUB = 15
+CMD_SNAP = 16
+
+#: Route-frame flag: close the parked child's connection after delivering.
+ROUTE_CLOSE = 1
+
+#: Commands one serving path handles and another does not, by design (the
+#: threaded handler and the reactor serve the same set; the relay's batch
+#: fold is the one with exceptions), limited to the commands the port
+#: defines.
+PARITY_EXEMPT = {
+    "relay-fold": {
+        "CMD_EPOCH": "never rides a batch: the relay answers epoch polls from its "
+                     "ack-refreshed cache",
+        "CMD_BLOB": "proxied straight through by the relay: blob uploads are large and "
+                    "rare and keep the synchronous path",
+        "CMD_BATCH": "a batch cannot nest inside a batch: the envelope is the relay "
+                     "channel itself",
+        "CMD_JOURNAL": "a standby tails the journal over a direct socket, never through "
+                       "a relay",
+    },
+}
+
+#: The job key's separator inside a wire task id, ``"<job>/<task>"``; a bare
+#: task id belongs to the job "".
+JOB_SEP = "/"
 
 #: How many renewal intervals a lease survives without a renewal.  2 means
 #: one lost or late heartbeat is tolerated; the second expires the lease, so
@@ -432,6 +494,205 @@ def send_hello(sock, cmd: int, task_id: str, prev_rank: int = -1,
     elif cmd == CMD_BLOB:
         out += [put_u32(blob_version), put_u32(len(blob)), blob]
     sock.sendall(b"".join(out))
+
+
+def join_job(job: str, task_id: str) -> str:
+    """The wire task id of ``task_id`` in job ``job`` (unchanged for "")."""
+    return f"{job}{JOB_SEP}{task_id}" if job else task_id
+
+
+def split_job(task_id: str) -> tuple[str, str]:
+    """``(job, local task id)`` of a wire task id; ``("", task_id)`` when it
+    carries no job key."""
+    job, sep, rest = task_id.partition(JOB_SEP)
+    return (job, rest) if sep else ("", task_id)
+
+
+@dataclass
+class BatchMsg:
+    """One sub-message of a relay's batch envelope: the child's hello fields,
+    the child's host as the relay saw it, the payload and the relay's clock
+    when the child's message landed."""
+
+    task_id: str
+    cmd: int
+    prev_rank: int = -1
+    host: str = ""
+    listen_port: int = 0
+    payload: bytes = b""
+    recv_ts: float = 0.0
+
+
+def put_batch_frame(msgs: list[BatchMsg]) -> bytes:
+    """One batch envelope (relay -> tracker)."""
+    out = [put_u32(len(msgs))]
+    for m in msgs:
+        out += [put_str(m.task_id), put_u32(m.cmd), put_i32(m.prev_rank), put_str(m.host),
+                put_u32(m.listen_port), put_u32(len(m.payload)), m.payload,
+                put_str(f"{m.recv_ts:.6f}")]
+    return b"".join(out)
+
+
+def read_batch_frame(sock) -> list[BatchMsg]:
+    """Read one batch envelope off a relay's channel."""
+    msgs = []
+    for _ in range(get_u32(sock)):
+        task_id = get_str(sock)
+        cmd = get_u32(sock)
+        prev_rank = get_i32(sock)
+        host = get_str(sock)
+        listen_port = get_u32(sock)
+        n = get_u32(sock)
+        payload = recv_exact(sock, n) if n else b""
+        recv_ts = float(get_str(sock) or "0")
+        msgs.append(BatchMsg(task_id, cmd, prev_rank, host, listen_port, payload, recv_ts))
+    return msgs
+
+
+def put_route_frame(task_id: str, flags: int, payload: bytes) -> bytes:
+    """One routed reply (tracker -> relay) for the child parked as
+    ``task_id``; task id "" is the batch ACK."""
+    return b"".join([put_str(task_id), put_u32(flags), put_u32(len(payload)), payload])
+
+
+def read_route_frame(sock) -> tuple[str, int, bytes]:
+    """Read one routed reply; returns ``(task_id, flags, payload)``."""
+    task_id = get_str(sock)
+    flags = get_u32(sock)
+    n = get_u32(sock)
+    return task_id, flags, recv_exact(sock, n) if n else b""
+
+
+#: The most bytes one encoded delta frame may hold: a delta is a few counters
+#: and fixed-bucket histograms a rank, so a larger one is torn or foreign.
+DELTA_MAX_BYTES = 4 << 20
+
+
+def put_delta_frame(doc: dict) -> bytes:
+    """A coalesced delta document (``obs.stream.delta_doc``) as MAGIC_DELTA,
+    the encoded length and zlib-compressed sorted-key compact JSON."""
+    payload = zlib.compress(json.dumps(doc, sort_keys=True, separators=(",", ":")).encode())
+    if len(payload) > DELTA_MAX_BYTES:
+        raise ValueError(f"oversized delta frame ({len(payload)} bytes)")
+    return put_u32(MAGIC_DELTA) + put_u32(len(payload)) + payload
+
+
+def read_delta_frame(sock) -> dict:
+    """Read one delta frame off a blocking stream; ValueError when it is
+    torn or foreign, ConnectionError at EOF."""
+    magic = get_u32(sock)
+    if magic != MAGIC_DELTA:
+        raise ValueError(f"bad delta magic {magic:#x}")
+    n = get_u32(sock)
+    if n > DELTA_MAX_BYTES:
+        raise ValueError(f"oversized delta frame ({n} bytes)")
+    return _decode_delta_payload(recv_exact(sock, n) if n else b"")
+
+
+def delta_frame_from_bytes(data: bytes) -> dict:
+    """Parse one whole delta frame held in memory (a CMD_OBS sub-message's
+    payload); ValueError on a bad magic, a length the buffer disagrees with
+    or an undecodable payload."""
+    if len(data) < 8:
+        raise ValueError(f"short delta frame ({len(data)} bytes)")
+    magic, n = _U32.unpack_from(data, 0)[0], _U32.unpack_from(data, 4)[0]
+    if magic != MAGIC_DELTA:
+        raise ValueError(f"bad delta magic {magic:#x}")
+    if n > DELTA_MAX_BYTES:
+        raise ValueError(f"oversized delta frame ({n} bytes)")
+    if len(data) != 8 + n:
+        raise ValueError(f"torn delta frame ({len(data)} of {8 + n} bytes)")
+    return _decode_delta_payload(data[8:])
+
+
+def _decode_delta_payload(payload: bytes) -> dict:
+    try:
+        doc = json.loads(zlib.decompress(payload).decode())
+    except (ValueError, zlib.error, UnicodeDecodeError) as exc:
+        raise ValueError(f"delta frame undecodable: {exc!r}")
+    if not isinstance(doc, dict):
+        raise ValueError("delta frame payload is not an object")
+    return doc
+
+
+@dataclass
+class Hello:
+    """One parsed hello, the unit of work of the event-loop serving paths."""
+
+    cmd: int
+    prev_rank: int
+    task_id: str
+    listen_port: int = 0
+    message: str = ""
+    blob_version: int = 0
+    blob: bytes = b""
+
+
+def hello_parser():
+    """An incremental parser of one hello: a generator that yields the count
+    of bytes it needs next, is sent exactly that many (``StreamParser``) and
+    returns a ``Hello``; ValueError on a bad magic or an oversized field."""
+    magic = _U32.unpack((yield 4))[0]
+    if magic != MAGIC_HELLO:
+        raise ValueError(f"bad hello magic {magic:#x}")
+    cmd = _U32.unpack((yield 4))[0]
+    prev_rank = _I32.unpack((yield 4))[0]
+    n = _U32.unpack((yield 4))[0]
+    if n > 1 << 16:
+        raise ValueError(f"oversized task_id ({n} bytes)")
+    task_id = (yield n).decode() if n else ""
+    if cmd in (CMD_START, CMD_RECOVER, CMD_SPARE):
+        return Hello(cmd, prev_rank, task_id, listen_port=_U32.unpack((yield 4))[0])
+    if cmd in (CMD_PRINT, CMD_METRICS, CMD_HEARTBEAT, CMD_EPOCH, CMD_QUORUM, CMD_OBS, CMD_SUB,
+               CMD_SNAP):
+        n = _U32.unpack((yield 4))[0]
+        if n > 64 << 20:
+            raise ValueError(f"oversized message ({n} bytes)")
+        return Hello(cmd, prev_rank, task_id, message=(yield n).decode() if n else "")
+    if cmd == CMD_BLOB:
+        version = _U32.unpack((yield 4))[0]
+        n = _U32.unpack((yield 4))[0]
+        if n > 1 << 30:
+            raise ValueError(f"oversized blob ({n} bytes)")
+        return Hello(cmd, prev_rank, task_id, blob_version=version,
+                     blob=(yield n) if n else b"")
+    # CMD_SHUTDOWN, CMD_BATCH, CMD_JOURNAL and any other: the base hello is all
+    return Hello(cmd, prev_rank, task_id)
+
+
+class StreamParser:
+    """Drives a byte-count parser (``hello_parser``) over a non-blocking
+    stream: ``feed`` the chunks as they arrive; once the parser returns,
+    ``done`` is set, ``result`` holds its value and ``rest()`` the bytes
+    received past the message."""
+
+    def __init__(self, gen):
+        self._gen = gen
+        self._need = next(gen)
+        self._buf = bytearray()
+        self.done = False
+        self.result = None
+
+    def feed(self, data: bytes) -> bool:
+        """Feed newly received bytes; True once the message is parsed."""
+        self._buf += data
+        if self.done:
+            return True
+        while len(self._buf) >= self._need:
+            chunk = bytes(self._buf[:self._need])
+            del self._buf[:self._need]
+            try:
+                self._need = self._gen.send(chunk)
+            except StopIteration as stop:
+                self.result = stop.value
+                self.done = True
+                return True
+        return False
+
+    def rest(self) -> bytes:
+        """The bytes received past the parsed message (a client that
+        pipelined its next bytes behind its hello)."""
+        return bytes(self._buf)
 
 
 class TimedAck(int):

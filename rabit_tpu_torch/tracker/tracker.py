@@ -70,25 +70,50 @@ over, and the journaled leases re-arm with fresh deadlines.
 Telemetry: ``CMD_METRICS`` snapshots (the newest a rank; their streamed
 ``delta`` windows folded into a rollup), the waves, the leases, the
 restarts, the promotions and resizes, the schedule repairs, the quorum
-records and the incidents make the job's telemetry document
-(``build_telemetry``), written atomically to ``<obs_dir>/telemetry.json``
-when the job ends or the tracker stops.  Its keys are ``rabit_tpu``'s, less
-those of the relays and the serving stats, which are not ported.
+records, the relay channels, the serving counters and the incidents make the
+job's telemetry document (``build_telemetry``), written atomically to
+``<obs_dir>/telemetry.json`` when the job ends or the tracker stops.  Its
+keys are ``rabit_tpu``'s.
 
 Diagnosis: once a ``rabit_diag_window_sec`` window, the lease thread hands
 the rollup and the window's new events to an ``obs.diagnose.HealthMonitor``,
 which opens and resolves incidents (``incident_opened`` /
-``incident_resolved``); a ``degraded-link`` incident flags its link.  A
-``CMD_OBS`` hello is answered with ``build_scrape``: the live control
-state, the rollup, the incidents and this process's metrics registry, the
-document ``obs.top`` renders.
+``incident_resolved``); a ``degraded-link`` incident flags its link, and a
+relay channel that stays down opens a ``lost-relay`` one.  A ``CMD_OBS``
+hello is answered with ``build_scrape``: the live control state, the
+serving counters, the rollup, the incidents and this process's metrics
+registry, the document ``obs.top`` renders.
 
-One thread accepts; each connection is served on a thread of its own, one
-more scans the leases (and runs the diagnosis windows and the journal's
-keepalive) and one the forming wave.  Relays, a quorum report inside a
-relay batch, the headless service partition and delivery are
-``rabit_tpu``'s and not ported; the scrape gives their sections the values
-``rabit_tpu``'s gives with those planes off.
+Serving (``reactor``, the default): one ``selectors`` loop accepts every
+connection, parses its hello incrementally (``protocol.hello_parser``) and
+answers every short RPC (heartbeat, metrics, epoch poll, quorum report,
+print, blob, shutdown, scrape) inline, from ``_short_rpc_reply``, which the
+threaded path and the relay fold share, so all three give the same bytes.
+A START / RECOVER check-in is registered on the loop and held off it; a wave
+it closes is sent from a thread of its own (``_send_wave_async``), as are a
+spare's park, a standby's journal stream and a relay's channel, so the loop
+never blocks on an O(world) broadcast, a large blob or a disk write.
+``reactor=False`` serves each connection on a thread of its own, the
+comparison arm.  The listen backlog is ``rabit_tracker_backlog``.  Either
+path serves until ``stop`` or ``kill``, past the job's end: a restarted
+worker that checks in then is parked and released.  One more thread scans
+the leases (and runs the diagnosis windows and the journal's keepalive) and
+one the forming wave.
+
+Relays (``relay``): a relay checks in with ``CMD_BATCH`` and holds one
+channel, on a thread of its own (``_serve_relay``): every batch envelope is
+folded (``_fold_batch_msg``: check-ins, spares, heartbeats, metrics, prints,
+shutdowns, quorum reports, delta frames and hang-ups) and answered with an
+ACK frame that carries the tracker's clock and the epoch line; a check-in's
+reply (an Assignment, a park frame) and a quorum record go back by task id
+on the same channel.  A relayed check-in is a virtual connection
+(``_RelayedConn``) that reads as hung up when its channel dies or the relay
+reports its child gone, so the wave purge and the spare reaping clean up
+after a relay as after a socket.  Relay channels are ``relay_up`` /
+``relay_lost`` events, not membership: the relay reconnects and its
+children never notice.  The headless service partition and the delivery
+plane are ``rabit_tpu``'s and not ported; the scrape gives their sections
+the values ``rabit_tpu``'s gives with those planes off.
 """
 
 from __future__ import annotations
@@ -96,6 +121,7 @@ from __future__ import annotations
 import json
 import os
 import queue
+import selectors
 import socket
 import threading
 import time
@@ -115,7 +141,6 @@ from rabit_tpu_torch.tracker import protocol as P
 
 HELLO_TIMEOUT_SEC = 60.0  # a torn hello must not pin its thread and socket forever
 MAX_MESSAGES = 4096       # the print log keeps the newest
-LISTEN_BACKLOG = 1024
 TELEMETRY_SCHEMA = 1
 
 
@@ -146,16 +171,132 @@ class _Lease:
     rank: int        # the rank the worker reported (-1 before its assignment)
 
 
-def _conn_dead(conn: socket.socket) -> bool:
+#: The hellos that carry a message string after the task id.
+_MESSAGE_CMDS = (P.CMD_PRINT, P.CMD_METRICS, P.CMD_HEARTBEAT, P.CMD_EPOCH, P.CMD_QUORUM,
+                 P.CMD_OBS, P.CMD_SUB, P.CMD_SNAP)
+
+
+def _conn_dead(conn) -> bool:
     """True when the worker of a held-open check-in has hung up (EOF or
     reset visible without consuming data): it sends nothing after its
-    hello, so a readable EOF means it left the wave."""
+    hello, so a readable EOF means it left the wave.  A relayed check-in's
+    ``_RelayedConn`` reads as EOF once its channel is dead or its relay
+    reported the child gone."""
     try:
         return conn.recv(1, socket.MSG_PEEK | socket.MSG_DONTWAIT) == b""
     except (BlockingIOError, InterruptedError):
         return False  # open and idle, the normal pending state
     except OSError:
         return True
+
+
+class _RelayChannel:
+    """One relay's channel.  Its batch frames are read on the channel's own
+    thread; its writes (routed replies, batch ACKs) go through a queue that
+    one writer thread drains, so any tracker thread can route a reply
+    without blocking or holding a lock around a send."""
+
+    def __init__(self, sock: socket.socket, relay_id: str):
+        self.sock = sock
+        self.relay_id = relay_id
+        self.dead = False
+        #: the live virtual connections by task id (a CMD_HANGUP marks one dead)
+        self.vconns: dict[str, _RelayedConn] = {}
+        self._q: queue.Queue = queue.Queue()
+        threading.Thread(target=self._drain, daemon=True,
+                         name=f"rabit-torch-relay-tx-{relay_id}").start()
+
+    def _drain(self) -> None:
+        while True:
+            frame = self._q.get()
+            if frame is None or self.dead:
+                break
+            try:
+                self.sock.sendall(frame)
+            except OSError:
+                self.dead = True
+                break
+
+    def send_route(self, task_id: str, flags: int, payload: bytes) -> bool:
+        """Queue one route frame; False when the channel is dead (the caller
+        treats the child as hung up)."""
+        if self.dead:
+            return False
+        self._q.put(P.put_route_frame(task_id, flags, payload))
+        return True
+
+    def close(self) -> None:
+        self.dead = True
+        self._q.put(None)
+        try:
+            self.sock.shutdown(socket.SHUT_RDWR)
+        except OSError:
+            pass
+        self.sock.close()
+
+
+class _RelayedConn:
+    """A check-in that rides a relay's channel: the few socket methods the
+    wave machinery calls (``sendall``, ``close``, ``recv`` for the
+    ``_conn_dead`` peek, ``settimeout``), routed to the child parked at the
+    relay."""
+
+    def __init__(self, channel: _RelayChannel, task_id: str):
+        self._channel = channel
+        self.task_id = task_id
+        self._closed = False
+        self.child_dead = False  # the relay reported the child hung up
+        channel.vconns[task_id] = self
+
+    def sendall(self, data: bytes) -> None:
+        if self.child_dead or not self._channel.send_route(self.task_id, 0, bytes(data)):
+            raise OSError("relay channel down")
+
+    def close(self) -> None:
+        if self._closed:
+            return
+        self._closed = True
+        if self._channel.vconns.get(self.task_id) is self:
+            del self._channel.vconns[self.task_id]
+        self._channel.send_route(self.task_id, P.ROUTE_CLOSE, b"")
+
+    def recv(self, n: int, flags: int = 0) -> bytes:
+        if self._channel.dead or self._closed or self.child_dead:
+            return b""  # reads as EOF: the purge and the reaping drop it
+        raise BlockingIOError  # open and idle
+
+    def settimeout(self, timeout) -> None:
+        pass
+
+
+class _BufferedSock:
+    """A ``recv`` that serves the bytes a client pipelined behind the hello
+    the reactor parsed before it reads the socket."""
+
+    def __init__(self, sock: socket.socket, rest: bytes):
+        self._sock = sock
+        self._rest = bytearray(rest)
+
+    def recv(self, n: int) -> bytes:
+        if self._rest:
+            out = bytes(self._rest[:n])
+            del self._rest[:n]
+            return out
+        return self._sock.recv(n)
+
+
+class _RConn:
+    """A connection on the reactor: its hello parser, the reply bytes not yet
+    sent and the deadline of a torn hello."""
+
+    __slots__ = ("sock", "addr", "parser", "out", "deadline")
+
+    def __init__(self, sock: socket.socket, addr, deadline: float):
+        self.sock = sock
+        self.addr = addr
+        self.parser = P.StreamParser(P.hello_parser())
+        self.out = bytearray()
+        self.deadline = deadline
 
 
 def assign_ranks(wave: list[tuple[str, str]], world_size: int,
@@ -217,7 +358,9 @@ class Tracker:
     ``journal`` (a ``ha.Journal`` or a path), ``resume_from`` (a replayed
     ``ha.ControlState``), ``listen_sock`` (a bound socket to listen on
     instead of ``host:port``) and ``ha_tick_sec`` (the journal's keepalive
-    cadence, default ``rabit_ha_tick_sec``) are the HA plane's."""
+    cadence, default ``rabit_ha_tick_sec``) are the HA plane's.  ``reactor``
+    serves on one selectors loop (False: a thread a connection), with a
+    listen backlog of ``backlog`` (default ``rabit_tracker_backlog``)."""
 
     def __init__(self, world_size: int, host: str = "127.0.0.1", port: int = 0,
                  quiet: bool = False, obs_dir: str | None = None,
@@ -226,7 +369,8 @@ class Tracker:
                  promote_after_sec: float = 0.25, schedule: str = "auto",
                  sched_repair: bool = True, quorum: str = "", quorum_flag_after: int = 3,
                  journal=None, resume_from=None, listen_sock: socket.socket | None = None,
-                 ha_tick_sec: float | None = None):
+                 ha_tick_sec: float | None = None, reactor: bool = True,
+                 backlog: int | None = None):
         if world_size < 1:
             raise ValueError(f"world_size must be >= 1, got {world_size}")
         if schedule not in sched.ALGOS:
@@ -263,13 +407,21 @@ class Tracker:
         self._diag_next = 0.0   # monotonic start of the next diagnosis window
         self._diag_ev_idx = 0   # events the past windows consumed
         self._obs_scraped = False  # the one obs_scrape event is recorded
-        #: the serving counters of the scrape's ``serving`` section (the
-        #: keys of rabit_tpu's; no reactor and no relay batches here)
+        #: the serving counters (the scrape's and telemetry's ``serving``):
+        #: connections accepted, short RPCs answered, the peak of live handler
+        #: threads (threaded path) and of connections on the loop (reactor),
+        #: relay envelopes folded and the sub-messages in them, scrapes
         self.serve_stats: dict[str, int] = {
             "accepts": 0, "rpcs": 0, "handler_threads_hwm": 0, "reactor_conns_hwm": 0,
             "batches": 0, "batch_msgs": 0, "obs_scrapes": 0}
         self._stats_lock = threading.Lock()
         self._handler_threads = 0
+        self._reactor = bool(reactor)
+        if backlog is None:
+            backlog = Config().get_int("rabit_tracker_backlog", 1024)
+        self.backlog = max(int(backlog), 1)
+        self._relay_channels: list[_RelayChannel] = []
+        self._stopping = threading.Event()  # stop() or kill(): serving ends
         self._leases: dict[str, _Lease] = {}
         self._started_at = time.time()
         self._telemetry_written = False
@@ -282,7 +434,7 @@ class Tracker:
             self._srv = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
             self._srv.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
             self._srv.bind((host, port))
-        self._srv.listen(LISTEN_BACKLOG)
+        self._srv.listen(self.backlog)
         self.host, self.port = self._srv.getsockname()
         self._lock = threading.Lock()
         self._pending: list[_Pending] = []
@@ -366,8 +518,8 @@ class Tracker:
     # -- lifecycle -----------------------------------------------------------
 
     def start(self) -> "Tracker":
-        self._thread = threading.Thread(target=self._serve, daemon=True,
-                                        name="rabit-torch-tracker")
+        serve = self._serve_reactor if self._reactor else self._serve
+        self._thread = threading.Thread(target=serve, daemon=True, name="rabit-torch-tracker")
         self._thread.start()
         threading.Thread(target=self._lease_monitor, daemon=True,
                          name="rabit-torch-tracker-leases").start()
@@ -379,53 +531,67 @@ class Tracker:
         """True once the job is done (telemetry.json is then written)."""
         return self._done.wait(timeout)
 
-    def stop(self) -> None:
-        """Stop serving, drop every held check-in, and write telemetry.json
-        with what the tracker has, if the job's end has not."""
-        self._done.set()
-        # shutdown() before close() wakes the accept() the serving thread
-        # is blocked in; close() alone would leave it listening.
+    def _close_listener(self) -> None:
+        """End serving: shutdown() before close() wakes an accept() the
+        threaded path is blocked in (close() alone would leave it
+        listening); the reactor's loop sees ``_stopping`` within a tick and
+        closes the connections it holds."""
+        self._stopping.set()
         try:
             self._srv.shutdown(socket.SHUT_RDWR)
         except OSError:
             pass
         self._srv.close()
+
+    def _join_serving(self) -> None:
+        if self._thread is not None and self._thread is not threading.current_thread():
+            self._thread.join(timeout=5)
+
+    def stop(self) -> None:
+        """Stop serving, drop every held check-in and relay channel, and
+        write telemetry.json with what the tracker has, if the job's end has
+        not."""
+        self._done.set()
+        self._close_listener()
         with self._lock:
             held, self._pending = self._pending, []
             jconns, self._journal_conns = self._journal_conns, []
+            channels, self._relay_channels = self._relay_channels, []
         for p in held:
             p.conn.close()
         for conn in jconns:
             conn.close()
+        for ch in channels:
+            ch.close()
         self._release_spares()
-        if self._thread is not None:
-            self._thread.join(timeout=5)
+        self._join_serving()
         self.write_telemetry()
         if self.journal is not None:
             self.journal.close()
 
     def kill(self) -> None:
         """An abrupt death, the in-process SIGKILL: every socket drops with
-        no goodbye (the forming wave, the spares, the standbys' channels,
-        the listener), no telemetry is written, and the journal stops where
-        it is.  Workers fail over through their address lists; a standby's
+        no goodbye (the forming wave, the spares, the standbys' and relays'
+        channels, the listener and the reactor's connections), no telemetry
+        is written, and the journal stops where it is.  Workers fail over
+        through their address lists and relays through theirs; a standby's
         channel sees EOF and its takeover lease starts to run."""
         self._killed = True
         with self._lock:
             self._telemetry_written = True  # a SIGKILL leaves no telemetry
         self._telemetry_flushed.set()
         self._done.set()
-        try:
-            self._srv.shutdown(socket.SHUT_RDWR)
-        except OSError:
-            pass
-        self._srv.close()
+        self._close_listener()
         with self._lock:
             jconns, self._journal_conns = self._journal_conns, []
+            channels, self._relay_channels = self._relay_channels, []
             held = [p.conn for p in self._pending] + [s.conn for s in self._spares]
             self._pending, self._spares = [], []
+        for ch in channels:
+            ch.close()
         for conn in jconns + held:
             conn.close()
+        self._join_serving()
         if self.journal is not None:
             self.journal.close()
 
@@ -443,8 +609,7 @@ class Tracker:
     # -- serving -------------------------------------------------------------
 
     def _serve(self) -> None:
-        # Serves until ``stop`` closes the socket, the job's end included: a
-        # restarted worker that checks in after it is parked and released.
+        """The threaded path (``reactor=False``): a thread a connection."""
         while True:
             try:
                 conn, addr = self._srv.accept()
@@ -472,68 +637,333 @@ class Tracker:
             if P.get_u32(conn) != P.MAGIC_HELLO:
                 conn.close()
                 return
-            cmd = P.get_u32(conn)
-            prev_rank = P.get_i32(conn)  # a task id keys the ranks; leases record it
-            task_id = P.get_str(conn)
+            h = P.Hello(P.get_u32(conn), P.get_i32(conn), P.get_str(conn))
+            if h.cmd in (P.CMD_START, P.CMD_RECOVER, P.CMD_SPARE):
+                h.listen_port = P.get_u32(conn)
+            elif h.cmd == P.CMD_BLOB:
+                h.blob_version = P.get_u32(conn)
+                nbytes = P.get_u32(conn)
+                h.blob = P.recv_exact(conn, nbytes) if nbytes else b""
+            elif h.cmd in _MESSAGE_CMDS:
+                h.message = P.get_str(conn)
             if self._killed:
                 conn.close()  # a dead tracker answers nothing
                 return
-            if cmd == P.CMD_JOURNAL:
-                conn.settimeout(None)  # this thread streams the journal
-                self._serve_journal(conn, task_id)
-                return
-            if cmd in (P.CMD_START, P.CMD_RECOVER, P.CMD_SPARE):
-                listen_port = P.get_u32(conn)
+            if h.cmd in (P.CMD_START, P.CMD_RECOVER, P.CMD_SPARE):
                 conn.settimeout(None)  # held until the wave closes
-                with self._lock:
-                    # A check-in supersedes the previous life's lease: the
-                    # fresh worker renews once it is up, and a stale lease
-                    # must not suspect it mid-bootstrap.
-                    self._drop_lease_locked(task_id)
-                p = _Pending(conn, task_id, listen_port, addr[0], cmd)
-                if cmd == P.CMD_SPARE or self._done.is_set():
-                    # the socket stays open until a promotion answers it, or
-                    # the release at the job's end
-                    self._park_spare(p)
-                    return
-                wave = self._register(p)
-                if wave is not None:
-                    self._send_wave(wave)
+                self._checkin(_Pending(conn, h.task_id, h.listen_port, addr[0], h.cmd),
+                              inline=True)
                 return
+            if h.cmd in (P.CMD_BATCH, P.CMD_JOURNAL):
+                conn.settimeout(None)  # this thread serves the channel
+                if h.cmd == P.CMD_BATCH:
+                    self._serve_relay(conn, h.task_id, addr)
+                else:
+                    self._serve_journal(conn, h.task_id)
+                return
+            reply, post = self._short_rpc_reply(h)
+            conn.sendall(reply)
+            if post is not None:
+                post()
+            conn.close()
+        except (ConnectionError, OSError, ValueError):
+            conn.close()  # and any command the tracker does not serve
+
+    def _checkin(self, p: _Pending, inline: bool) -> None:
+        """Admit one START / RECOVER / SPARE check-in, a socket or a relayed
+        child's virtual connection.  A check-in supersedes the previous
+        life's lease: the fresh worker renews once it is up, and a stale
+        lease must not suspect it mid-bootstrap.  A spare, and any check-in
+        after the job's end, parks (its socket stays open until a promotion
+        answers it, or the release at the job's end); the rest join the
+        forming wave.  ``inline`` sends a closed wave and a park reply on
+        this thread (the threaded path); else each goes out on a thread of
+        its own (the reactor and the relay fold must not block)."""
+        with self._lock:
+            self._drop_lease_locked(p.task_id)
+        if p.cmd == P.CMD_SPARE or self._done.is_set():
+            wave = {"members": [], "surplus": [p]}
+        else:
+            wave = self._register(p)
+        if wave is None:
+            return
+        if inline:
+            self._send_wave(wave)
+        else:
+            self._send_wave_async(wave)
+
+    def _short_rpc_reply(self, h: P.Hello, counted: bool = True
+                         ) -> tuple[bytes, Callable[[], None] | None]:
+        """Serve one short RPC: its effects now, and its reply bytes with the
+        work that must follow the ACK (a shutdown's completion check).  The
+        threaded path, the reactor and the relay fold all serve through this,
+        so their bytes are the same.  ``counted`` counts it in ``rpcs`` (a
+        relay's sub-message counts in ``batch_msgs`` instead).  ValueError
+        for a command the tracker does not serve."""
+        if counted:
             with self._stats_lock:
                 self.serve_stats["rpcs"] += 1
-            if cmd == P.CMD_EPOCH:
-                P.get_str(conn)  # the worker's committed version (informational)
-                conn.sendall(P.put_u32(P.ACK) + P.put_str(json.dumps(self._epoch_info())))
-            elif cmd == P.CMD_BLOB:
-                version = P.get_u32(conn)
-                nbytes = P.get_u32(conn)
-                self._keep_blob(task_id, version, P.recv_exact(conn, nbytes) if nbytes else b"")
-                conn.sendall(P.put_u32(P.ACK))
-            elif cmd == P.CMD_QUORUM:
-                conn.sendall(P.put_u32(P.ACK) + P.put_str(json.dumps(
-                    self._quorum_report(P.get_str(conn)))))
-            elif cmd == P.CMD_PRINT:
-                self._log_print(P.get_str(conn))
-                conn.sendall(P.put_u32(P.ACK))
-            elif cmd == P.CMD_METRICS:
-                self._accept_snapshot(P.get_str(conn))
-                conn.sendall(P.put_u32(P.ACK) + self._clock_stamp())
-            elif cmd == P.CMD_HEARTBEAT:
-                self._renew_lease(task_id, prev_rank, P.get_str(conn))
-                conn.sendall(P.put_u32(P.ACK) + self._clock_stamp())
-            elif cmd == P.CMD_SHUTDOWN:
-                with self._lock:
-                    # dropped before the ACK: a clean exit is never suspected
-                    self._drop_lease_locked(task_id)
-                conn.sendall(P.put_u32(P.ACK))
-                self._note_shutdown(task_id)
-            elif cmd == P.CMD_OBS:
-                conn.sendall(P.put_u32(P.ACK) + P.put_str(json.dumps(
-                    self._scrape(task_id, P.get_str(conn)))))
-            conn.close()  # and any command the core tracker does not serve
+        if h.cmd == P.CMD_EPOCH:
+            # the worker's committed version rides as the message (informational)
+            return P.put_u32(P.ACK) + P.put_str(json.dumps(self._epoch_info())), None
+        if h.cmd == P.CMD_BLOB:
+            self._keep_blob(h.task_id, h.blob_version, h.blob)
+            return P.put_u32(P.ACK), None
+        if h.cmd == P.CMD_QUORUM:
+            return P.put_u32(P.ACK) + P.put_str(json.dumps(self._quorum_report(h.message))), None
+        if h.cmd == P.CMD_PRINT:
+            self._log_print(h.message)
+            return P.put_u32(P.ACK), None
+        if h.cmd == P.CMD_METRICS:
+            self._accept_snapshot(h.message)
+            return P.put_u32(P.ACK) + self._clock_stamp(), None
+        if h.cmd == P.CMD_HEARTBEAT:
+            self._renew_lease(h.task_id, h.prev_rank, h.message)
+            return P.put_u32(P.ACK) + self._clock_stamp(), None
+        if h.cmd == P.CMD_SHUTDOWN:
+            with self._lock:
+                # dropped before the ACK: a clean exit is never suspected
+                self._drop_lease_locked(h.task_id)
+            return P.put_u32(P.ACK), lambda: self._note_shutdown(h.task_id)
+        if h.cmd == P.CMD_OBS:
+            return P.put_u32(P.ACK) + P.put_str(json.dumps(
+                self._scrape(h.task_id, h.message))), None
+        raise ValueError(f"command {h.cmd} is not served")
+
+    # -- the reactor -----------------------------------------------------------
+
+    def _serve_reactor(self) -> None:
+        """The default serving path: one selectors loop accepts, parses each
+        hello as its bytes come and answers every short RPC inline;
+        check-ins, spares, relay channels and journal channels leave the
+        loop once their hello is whole.  A hello torn past
+        HELLO_TIMEOUT_SEC is dropped."""
+        sel = selectors.DefaultSelector()
+        try:
+            self._srv.setblocking(False)
+            sel.register(self._srv, selectors.EVENT_READ, None)
+        except (OSError, ValueError):
+            sel.close()
+            return
+        conns: set[_RConn] = set()
+        next_sweep = time.monotonic() + 0.5
+        try:
+            while not self._stopping.is_set():
+                try:
+                    events = sel.select(0.05)
+                except OSError:
+                    break
+                for key, mask in events:
+                    if self._stopping.is_set():
+                        break
+                    if key.data is None:
+                        self._reactor_accept(sel, conns)
+                    elif mask & selectors.EVENT_READ:
+                        self._reactor_read(sel, conns, key.data)
+                    elif mask & selectors.EVENT_WRITE:
+                        self._reactor_flush(sel, conns, key.data)
+                now = time.monotonic()
+                if now >= next_sweep:
+                    next_sweep = now + 0.5
+                    for rc in [r for r in conns if now > r.deadline]:
+                        self._reactor_drop(sel, conns, rc)
+        finally:
+            for rc in list(conns):
+                self._reactor_drop(sel, conns, rc)
+            sel.close()
+
+    def _reactor_accept(self, sel, conns: set[_RConn]) -> None:
+        while True:
+            try:
+                conn, addr = self._srv.accept()
+            except OSError:  # BlockingIOError: nothing more to accept
+                return
+            conn.setblocking(False)
+            rc = _RConn(conn, addr, time.monotonic() + HELLO_TIMEOUT_SEC)
+            try:
+                sel.register(conn, selectors.EVENT_READ, rc)
+            except (OSError, ValueError):
+                conn.close()
+                continue
+            conns.add(rc)
+            with self._stats_lock:
+                self.serve_stats["accepts"] += 1
+                self.serve_stats["reactor_conns_hwm"] = max(
+                    self.serve_stats["reactor_conns_hwm"], len(conns))
+
+    def _reactor_drop(self, sel, conns: set[_RConn], rc: _RConn) -> None:
+        conns.discard(rc)
+        try:
+            sel.unregister(rc.sock)
+        except (KeyError, OSError, ValueError):
+            pass
+        rc.sock.close()
+
+    def _reactor_detach(self, sel, conns: set[_RConn], rc: _RConn) -> None:
+        """Hand a socket whose hello is whole off the loop (a held check-in,
+        a channel): unregistered here, on the loop's thread, before any
+        other thread may close it, and back to blocking mode."""
+        conns.discard(rc)
+        try:
+            sel.unregister(rc.sock)
+        except (KeyError, OSError, ValueError):
+            pass
+        rc.sock.setblocking(True)
+
+    def _reactor_read(self, sel, conns: set[_RConn], rc: _RConn) -> None:
+        try:
+            data = rc.sock.recv(65536)
+        except (BlockingIOError, InterruptedError):
+            return
+        except OSError:
+            self._reactor_drop(sel, conns, rc)
+            return
+        if not data:
+            self._reactor_drop(sel, conns, rc)
+            return
+        try:
+            if not rc.parser.feed(data):
+                return
+        except ValueError:
+            self._reactor_drop(sel, conns, rc)  # a bad magic, an oversized field
+            return
+        h: P.Hello = rc.parser.result
+        if self._killed:
+            self._reactor_drop(sel, conns, rc)  # a dead tracker answers nothing
+            return
+        if h.cmd in (P.CMD_START, P.CMD_RECOVER, P.CMD_SPARE):
+            self._reactor_detach(sel, conns, rc)
+            self._checkin(_Pending(rc.sock, h.task_id, h.listen_port, rc.addr[0], h.cmd),
+                          inline=False)
+            return
+        if h.cmd == P.CMD_BATCH:
+            self._reactor_detach(sel, conns, rc)
+            threading.Thread(target=self._serve_relay,
+                             args=(rc.sock, h.task_id, rc.addr, rc.parser.rest()),
+                             daemon=True, name=f"rabit-torch-relay-rx-{h.task_id}").start()
+            return
+        if h.cmd == P.CMD_JOURNAL:
+            self._reactor_detach(sel, conns, rc)
+            threading.Thread(target=self._serve_journal, args=(rc.sock, h.task_id),
+                             daemon=True, name=f"rabit-torch-ha-tx-{h.task_id}").start()
+            return
+        try:
+            reply, post = self._short_rpc_reply(h)
+        except (ValueError, OSError):
+            self._reactor_drop(sel, conns, rc)
+            return
+        rc.out += reply
+        self._reactor_flush(sel, conns, rc)
+        if post is not None:
+            post()
+
+    def _reactor_flush(self, sel, conns: set[_RConn], rc: _RConn) -> None:
+        """Send the reply without blocking the loop (a reply larger than the
+        socket's buffer waits for EVENT_WRITE); once it is out the
+        connection closes, one RPC a connection as on the threaded path."""
+        while rc.out:
+            try:
+                n = rc.sock.send(rc.out)
+            except (BlockingIOError, InterruptedError):
+                try:
+                    sel.modify(rc.sock, selectors.EVENT_WRITE, rc)
+                except (KeyError, OSError, ValueError):
+                    self._reactor_drop(sel, conns, rc)
+                return
+            except OSError:
+                self._reactor_drop(sel, conns, rc)
+                return
+            del rc.out[:n]
+        self._reactor_drop(sel, conns, rc)
+
+    # -- relay channels ----------------------------------------------------------
+
+    def _serve_relay(self, conn: socket.socket, relay_id: str, addr, rest: bytes = b"") -> None:
+        """Serve one relay's channel: ACK its hello, then fold its batch
+        envelopes until EOF or ``stop``, each answered with an ACK frame
+        (``_batch_ack_info`` and the tracker's clock at each sub-message's
+        fold).  A channel's death is no membership event: its virtual
+        connections read as hung up, and the relay reconnects."""
+        channel = _RelayChannel(conn, relay_id)
+        try:
+            conn.sendall(P.put_u32(P.ACK))
+        except OSError:
+            channel.close()
+            return
+        with self._lock:
+            self._relay_channels.append(channel)
+            self.events.append({"ts": round(time.time(), 6), "kind": "relay_up",
+                                "relay": relay_id, "host": addr[0]})
+        if not self.quiet:
+            print(f"[tracker] relay {relay_id} channel up ({addr[0]})", flush=True)
+        src = _BufferedSock(conn, rest) if rest else conn
+        try:
+            while not self._stopping.is_set():
+                msgs = P.read_batch_frame(src)
+                acks = [self._fold_batch_msg(channel, m) for m in msgs]
+                with self._stats_lock:
+                    self.serve_stats["batches"] += 1
+                    self.serve_stats["batch_msgs"] += len(msgs)
+                info = self._batch_ack_info()
+                info["acks"] = acks
+                if msgs:  # an empty keepalive refreshes the relay's caches only
+                    with self._lock:
+                        self.events.append({"ts": info["server_ts"], "kind": "batch_folded",
+                                            "relay": relay_id, "n": len(msgs)})
+                channel.send_route("", 0, json.dumps(info).encode())
         except (ConnectionError, OSError, ValueError):
-            conn.close()
+            pass
+        finally:
+            channel.close()
+            with self._lock:
+                if channel in self._relay_channels:
+                    self._relay_channels.remove(channel)
+                self.events.append({"ts": round(time.time(), 6), "kind": "relay_lost",
+                                    "relay": relay_id})
+            if not self.quiet and not self._stopping.is_set():
+                print(f"[tracker] relay {relay_id} channel lost (its children stay; the "
+                      "relay reconnects)", flush=True)
+
+    def _batch_ack_info(self) -> dict:
+        """The batch ACK's document: the tracker's clock and the epoch line
+        the relay answers its children's epoch polls from."""
+        info = {"server_ts": round(time.time(), 6)}
+        info.update(self._epoch_info())
+        return info
+
+    def _fold_batch_msg(self, channel: _RelayChannel, m: P.BatchMsg) -> float:
+        """Fold one relayed sub-message; returns the tracker's clock at the
+        fold, for the batch ACK's ``acks``.  A check-in becomes a virtual
+        connection; a quorum report's record goes back to the child parked
+        as ``q#<task id>`` in the direct path's bytes; a delta frame folds
+        into the rollup; a hang-up marks the child's virtual connection
+        dead.  Epoch polls never ride a batch (the relay answers them) and
+        blobs are proxied around it; a sub-message the tracker does not
+        serve (CMD_SUB) is ignored, as is a malformed one."""
+        ts = round(time.time(), 6)
+        try:
+            if m.cmd in (P.CMD_START, P.CMD_RECOVER, P.CMD_SPARE):
+                vconn = _RelayedConn(channel, m.task_id)
+                self._checkin(_Pending(vconn, m.task_id, m.listen_port, m.host, m.cmd),
+                              inline=False)
+            elif m.cmd == P.CMD_OBS:
+                self._fold_delta_frame(m.payload, ts)
+            elif m.cmd == P.CMD_HANGUP:
+                vconn = channel.vconns.get(m.task_id)
+                if vconn is not None:
+                    vconn.child_dead = True
+            elif m.cmd in (P.CMD_HEARTBEAT, P.CMD_METRICS, P.CMD_PRINT, P.CMD_SHUTDOWN,
+                           P.CMD_QUORUM):
+                reply, post = self._short_rpc_reply(
+                    P.Hello(m.cmd, m.prev_rank, m.task_id, message=m.payload.decode()),
+                    counted=False)
+                if m.cmd == P.CMD_QUORUM:
+                    channel.send_route(m.task_id, P.ROUTE_CLOSE, reply)
+                if post is not None:
+                    post()
+        except (ValueError, UnicodeDecodeError):
+            pass  # one malformed sub-message must not hurt the batch
+        return ts
 
     def _serve_journal(self, conn: socket.socket, standby_id: str) -> None:
         """Stream the journal to a warm standby: ACK, then every frame the
@@ -609,7 +1039,10 @@ class Tracker:
                 self._journal("shutdown", task_id=task_id)
             done = self._complete_locked()
         if done:
-            self._finalize_done()
+            # the finalizer writes telemetry.json: off the serving thread,
+            # which may be the reactor's loop or a relay's fold
+            threading.Thread(target=self._finalize_done, daemon=True,
+                             name="rabit-torch-tracker-finalize").start()
 
     def _complete_locked(self) -> bool:
         """The completion guard: as many task ids as the current world
@@ -819,7 +1252,7 @@ class Tracker:
             "schema": obs_stream.STREAM_SCHEMA,
             "ts": round(time.time(), 6),
             "started_at": round(self._started_at, 6),
-            "serving": {"reactor": False, "backlog": LISTEN_BACKLOG, **serve},
+            "serving": {"reactor": self._reactor, "backlog": self.backlog, **serve},
             "jobs": {"": self._scrape_job_state()},
         }
         doc["incidents"] = _aggregate_incidents(doc["jobs"])
@@ -851,10 +1284,26 @@ class Tracker:
             self.events.append({"ts": round(time.time(), 6), "kind": "metrics_snapshot",
                                 "rank": rank, "task_id": snap.get("task_id", "")})
         if isinstance(delta, dict) and delta:
-            stamp = round(time.time(), 6)
+            self._fold_delta_doc(obs_stream.delta_doc("", rank, delta))
+
+    def _fold_delta_frame(self, payload: bytes, ts: float | None = None) -> None:
+        """Fold one relay-coalesced CMD_OBS delta frame into the rollup."""
+        self._fold_delta_doc(P.delta_frame_from_bytes(payload), ts)
+
+    def _fold_delta_doc(self, doc: dict, ts: float | None = None) -> None:
+        """Fold one delta document (``{"schema", "job", "ranks": {rank:
+        delta}}``) into the rollup; a document of another schema is dropped
+        whole.  The first fold of a rank is a ``metrics_delta_folded``
+        event."""
+        if doc.get("schema") != obs_stream.STREAM_SCHEMA:
+            return
+        stamp = ts if ts is not None else round(time.time(), 6)
+        for rank, delta in doc.get("ranks", {}).items():
+            if not isinstance(delta, dict):
+                continue
             self._stream.fold(rank, delta, ts=stamp)
             with self._lock:
-                if str(rank) not in self._delta_ranks:  # the first fold a rank
+                if str(rank) not in self._delta_ranks:
                     self._delta_ranks.add(str(rank))
                     self.events.append({"ts": stamp, "kind": "metrics_delta_folded",
                                         "rank": str(rank)})
@@ -863,8 +1312,9 @@ class Tracker:
         """The job's telemetry document: per-rank snapshots (op stats and
         latency percentiles), the waves and epochs, lease expiries,
         restarts, promotions, resizes and schedule repairs, the quorum
-        records, clock offsets, the streamed rollup and the incidents, under
-        ``rabit_tpu``'s key names."""
+        records, the serving counters and relay channels, clock offsets, the
+        streamed rollup and the incidents, under ``rabit_tpu``'s key
+        names."""
         with self._lock:
             events = list(self.events)
             snapshots = {str(r): s for r, s in sorted(self.snapshots.items())}
@@ -874,6 +1324,8 @@ class Tracker:
             dropped = self.messages_dropped
             q_outstanding = ([list(t) for t in self._quorum.outstanding()]
                              if self._quorum is not None else [])
+        with self._stats_lock:
+            serve = dict(self.serve_stats)
         waves = [e for e in events if e["kind"] == "wave"]
         clocks = {r: s["clock"] for r, s in snapshots.items()
                   if isinstance(s, dict) and s.get("clock")}
@@ -901,7 +1353,12 @@ class Tracker:
                                          if e["kind"] == "correction_dropped"),
             # the exclusions still undelivered, [src_version, rank, world]
             "quorum_outstanding": q_outstanding,
+            # the serving path, its connection and thread peaks and the
+            # relays' batches
+            "serving": {"reactor": self._reactor, "backlog": self.backlog, **serve},
             "messages_dropped": dropped,
+            "n_relays_up": sum(1 for e in events if e["kind"] == "relay_up"),
+            "n_relays_lost": sum(1 for e in events if e["kind"] == "relay_lost"),
             "epochs": epochs,
             "restarts": restarts,
             "clocks": clocks,
@@ -947,7 +1404,8 @@ class Tracker:
         wave fills.  A check-in from a task id already pending replaces
         the stale one.  In an elastic job a fresh worker's check-in whose
         task id the current epoch does not hold, while no wave forms (a
-        spare took its slot), is parked as a spare."""
+        spare took its slot), is returned as a wave of no members that
+        parks it as a spare."""
         with self._lock:
             for stale in [q for q in self._pending if q.task_id == p.task_id]:
                 stale.conn.close()
@@ -961,8 +1419,7 @@ class Tracker:
                 if self._wave_started is None:
                     self._wave_started = time.monotonic()
                 return self._close_wave_locked(timer=False)
-        self._park_spare(p)
-        return None
+        return {"members": [], "surplus": [p]}
 
     def _park_spare(self, p: _Pending) -> None:
         """Park a spare: send it the cached bootstrap blob and keep its
@@ -1240,9 +1697,21 @@ class Tracker:
         return sched.plan(world, self.schedule, mesh=sched.mesh_for_world(world),
                           avoid=avoid)
 
+    def _send_wave_async(self, wave: dict) -> None:
+        """``_send_wave`` on a thread of its own (the reactor's and the
+        relay fold's callers)."""
+        threading.Thread(target=self._send_wave, args=(wave,), daemon=True,
+                         name="rabit-torch-tracker-wave-send").start()
+
     def _send_wave(self, wave: dict) -> None:
         """One Assignment a member, and a blob frame a surplus check-in
         (now parked), sent outside the lock."""
+        if wave["members"]:
+            self._send_assignments(wave)
+        for p in wave["surplus"]:
+            self._park_spare(p)
+
+    def _send_assignments(self, wave: dict) -> None:
         world, rank_map = wave["world"], wave["rank_map"]
         peers = {rank_map[p.task_id]: (p.host, p.listen_port) for p in wave["members"]}
         splan = self._plan_schedule(world, rank_map)
@@ -1278,5 +1747,3 @@ class Tracker:
                 pass  # the worker died mid-bootstrap; its peers' next wave covers it
             finally:
                 p.conn.close()
-        for p in wave["surplus"]:
-            self._park_spare(p)

@@ -1393,3 +1393,29 @@ def test_failover_mid_wave_with_card_contributions(cuda):
     assert kinds.count("tracker_failover") == 1 and "wave" in kinds
     assert not any(e["kind"] == "lease_expired" for e in out["events"])
     assert boost_mod.launches.get("node_histograms_kernel", 0) == 3 * niter
+
+
+# -- the relay tier on the card ---------------------------------------------------
+
+@pytest.mark.gpu
+def test_relayed_job_with_card_contributions(cuda):
+    """chip_smoke.py's relay run (b) at a small size: world 3 behind 2 port
+    relays, heartbeats every 0.3 s, quorum 1.0 (the reports ride the
+    batches); every contribution launches node_histograms_kernel on card
+    tensors; the states are bitwise the world-1 totals, both relays' channels
+    came up, the batches carried the quorum reports, the root accepted the
+    channels and rank 0's blob uploads only, and no lease expired."""
+    ew, dj = _worker_module("torch_elastic_worker"), _worker_module("torch_diag_job")
+    work, _per, totals, boost_mod = _card_job_work(ew, 4000, 4, 16)
+    boost_mod.launches.clear()
+    niter = 6
+    out = dj.run_job(3, niter, work, relays=2, heartbeat_sec=0.3, quorum="1.0",
+                     iter_sleep=0.05, deadline_sec=90.0)
+    want = totals(niter)
+    for res in out["results"].values():
+        assert res.completed and np.array_equal(res.state, want), res.error
+    tel = out["telemetry"]
+    assert tel["n_relays_up"] == 2 and tel["n_lease_expired"] == 0
+    assert tel["serving"]["batch_msgs"] >= 3 * niter
+    assert tel["serving"]["accepts"] <= 2 + niter
+    assert boost_mod.launches.get("node_histograms_kernel", 0) == 3 * niter

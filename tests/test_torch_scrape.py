@@ -10,8 +10,8 @@ against rabit_tpu's tracker.
   and keys; ``obs.top.render`` gives the same frame in both packages; the
   ``obs_scrape`` event is recorded once; ``python -m
   rabit_tpu_torch.obs.top`` polls a live tracker.
-* telemetry.json's keys differ from rabit_tpu's only by the 3 of the
-  planes not ported (relays, serving); the quorum keys are equal.
+* telemetry.json's keys equal rabit_tpu's (the serving section and the
+  relay counts included); the quorum keys are equal.
 * One scripted job on both trackers: an origin-stamped ``slow_link`` print
   flags the link, the ``epoch`` reply asks for a wave, and the wave's
   Assignments carry the same repaired ring; ``sched_repair=False`` keeps
@@ -118,7 +118,9 @@ def test_scrape_across_packages():
                 "n_snapshots", "messages_dropped"):
         assert mine[key] == theirs[key], key
     assert mine["stream"]["links"] == theirs["stream"]["links"]
-    assert docs["jax-reads-port"]["serving"]["reactor"] is False
+    assert docs["jax-reads-port"]["serving"]["reactor"] is docs["port-reads-jax"]["serving"][
+        "reactor"] is True  # both serve on the reactor by default
+    assert docs["jax-reads-port"]["serving"]["backlog"] == jax.backlog == port.backlog
     for doc in docs.values():
         assert top.render(doc) == jtop.render(doc)
     assert sum(1 for e in port.events if e["kind"] == "obs_scrape") == 1
@@ -157,18 +159,19 @@ def test_render_equal_to_jax_on_a_full_document():
         assert top.render(doc, p, top_links=1) == jtop.render(doc, p, top_links=1)
 
 
-JAX_ONLY = {"n_relays_up", "n_relays_lost", "serving"}
-
-
 def test_telemetry_keys_differ_only_by_unported_planes():
+    """The key sets are now equal: the serving section and the relay
+    counts are ported too."""
     port, jax = Tracker(2, quiet=True), JaxTracker(2, quiet=True)
     try:
         mine, theirs = port.build_telemetry(), jax.build_telemetry()
     finally:
         port.stop()
         jax.stop()
-    assert set(theirs) - set(mine) == JAX_ONLY and len(JAX_ONLY) == 3
-    assert set(mine) <= set(theirs)
+    assert set(mine) == set(theirs)
+    assert set(mine["serving"]) == set(theirs["serving"])
+    for key in ("n_relays_up", "n_relays_lost"):
+        assert mine[key] == theirs[key] == 0, key
     assert mine["incidents"] == theirs["incidents"]
     assert mine["n_schedule_repaired"] == theirs["n_schedule_repaired"] == 0
     for key in ("quorum", "n_quorum_met", "n_corrections_folded", "n_corrections_dropped",

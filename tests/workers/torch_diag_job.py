@@ -29,8 +29,15 @@ it has journaled n ``quorum_freeze`` records; the ranks of ``hold_back``
 start only after the kill.  ``kill_standby`` kills the standby instead,
 after that many seconds (the job must not notice).
 
-The tracker, worker, proxy and standby classes default to the port's; the
-tests pass ``rabit_tpu``'s to run the same job across the packages.
+Serving and relays: ``reactor`` picks the tracker's serving path;
+``relays=R`` puts R relays (``relay_flush`` their batch cadence, 0.05 s) in
+front of the tracker, worker i dialing relay i % R (with a standby the
+relays get the failover list, the workers only their relay).
+``relay_bounce=(at_s, down_s)`` stops relay 0 ``at_s`` seconds in and
+starts a new one on its port ``down_s`` seconds later.
+
+The tracker, worker, proxy, standby and relay classes default to the port's;
+the tests pass ``rabit_tpu``'s to run the same job across the packages.
 Imports the port only (numpy and the stdlib besides).
 """
 
@@ -45,6 +52,8 @@ from rabit_tpu_torch.chaos import ChaosProxy, FaultSpec  # noqa: E402
 from rabit_tpu_torch.elastic.client import ElasticWorker  # noqa: E402
 from rabit_tpu_torch.ha import ControlState, Journal, Standby, read_journal, replay  # noqa: E402
 from rabit_tpu_torch.obs import top  # noqa: E402
+from rabit_tpu_torch.obs.trace import ClockSync  # noqa: E402
+from rabit_tpu_torch.relay import Relay  # noqa: E402
 from rabit_tpu_torch.tracker import protocol as P  # noqa: E402
 from rabit_tpu_torch.tracker.tracker import Tracker  # noqa: E402
 
@@ -65,9 +74,11 @@ def run_job(world: int, niter: int, work, *, seed: int = 0, schedule: str = "aut
             takeover_sec: float = 0.5, poll_sec: float = 0.05, kill_primary=None,
             hold_back=(), kill_standby: float | None = None,
             journal_path: str | None = None, codec: str = "",
-            fails: dict | None = None,
+            fails: dict | None = None, reactor: bool = True, relays: int = 0,
+            relay_flush: float = 0.05, relay_bounce=None,
             tracker_cls=Tracker, worker_cls=ElasticWorker, proxy_cls=ChaosProxy,
-            spec_cls=FaultSpec, standby_cls=Standby, journal_cls=Journal) -> dict:
+            spec_cls=FaultSpec, standby_cls=Standby, journal_cls=Journal,
+            relay_cls=Relay) -> dict:
     """Run the job to its end (see the module docstring).  Returns each
     task's ``ElasticResult`` (``results``), the tracker's ``events`` (the
     primary's, then the promoted tracker's), its ``incidents`` section,
@@ -79,7 +90,9 @@ def run_job(world: int, niter: int, work, *, seed: int = 0, schedule: str = "aut
     version)), ``promoted_answers`` (the promoted tracker's reply to each of
     those rounds), ``promoted_shutdowns`` (the task ids whose shutdown it
     took), ``t_kill`` and ``t_kill_wall`` (time.monotonic() and time.time() of
-    the kill), and with
+    the kill); with relays ``relays`` (the relays last up: their ``stats``,
+    ``clock_err`` and ``rank_clock``, a relayed rank's clock estimate), and
+    with a bounce ``t_bounce_wall`` (time.time() of the stop); and with
     ``journal_path`` ``file_bytes`` (``read_journal`` + ``replay`` of the
     file just after the kill) and ``standby_bytes`` (the standby's state at
     its takeover: the snapshot its promoted journal compacted the file
@@ -97,7 +110,7 @@ def run_job(world: int, niter: int, work, *, seed: int = 0, schedule: str = "aut
     if standby:
         journal = journal_cls(journal_path)
     tkw = dict(quiet=True, shrink_after_sec=1.5, promote_after_sec=0.1, schedule=schedule,
-               sched_repair=repair)
+               sched_repair=repair, reactor=reactor)
     if quorum:
         tkw.update(quorum=quorum, quorum_flag_after=quorum_flag_after)
     if journal is not None:
@@ -111,13 +124,17 @@ def run_job(world: int, niter: int, work, *, seed: int = 0, schedule: str = "aut
                          tracker_kwargs={k: v for k, v in tkw.items()
                                          if k != "ha_tick_sec"}).start()
     addrs = [addr, (sb.host, sb.port)] if sb is not None else addr
+    relay_objs = [relay_cls(addrs, relay_id=f"relay{i}", flush_sec=relay_flush, quiet=True)
+                  .start() for i in range(relays)]
+    dial = ([(r.host, r.port) for r in relay_objs] if relay_objs else None)
     # a degraded hop, or a peer busy computing, stalls frames without a death
     link_timeout = max(1.0, 4 * slow_link[2] if slow_link else 0.0, 4 * s_delay)
     qkw = dict(quorum=quorum, quorum_wait=quorum_wait) if quorum else {}
     if codec:
         qkw["codec"] = codec
     fails = fails or {}
-    workers = [worker_cls(addrs, str(i), contribution, niter, heartbeat_sec=heartbeat_sec,
+    workers = [worker_cls(dial[i % len(dial)] if dial else addrs, str(i), contribution, niter,
+                          heartbeat_sec=heartbeat_sec,
                           wave_timeout=10.0, link_timeout=link_timeout,
                           deadline_sec=deadline_sec, fail=fails.get(str(i)), **qkw)
                for i in range(world)]
@@ -139,12 +156,31 @@ def run_job(world: int, niter: int, work, *, seed: int = 0, schedule: str = "aut
     watcher = None
     if watch is not None:
         watcher = threading.Thread(target=lambda: watched.append(watch(*addr)), daemon=True)
+    bouncer = None
+    if relay_bounce is not None:
+        def bounce() -> None:
+            time.sleep(float(relay_bounce[0]))
+            old = relay_objs[0]
+            out["t_bounce_wall"] = time.time()
+            old.stop()
+            time.sleep(float(relay_bounce[1]))
+            for _ in range(30):  # the freed port can lag a beat
+                try:
+                    relay_objs[0] = relay_cls(addrs, relay_id=old.relay_id, port=old.port,
+                                              flush_sec=relay_flush, quiet=True).start()
+                    return
+                except OSError:
+                    time.sleep(0.1)
+
+        bouncer = threading.Thread(target=bounce, daemon=True)
     try:
         for i, th in enumerate(threads):
             if i not in hold_back:
                 th.start()
         if watcher is not None:
             watcher.start()
+        if bouncer is not None:
+            bouncer.start()
         if kill_primary is not None:
             end = t0 + deadline_sec
             if isinstance(kill_primary, tuple):
@@ -167,13 +203,25 @@ def run_job(world: int, niter: int, work, *, seed: int = 0, schedule: str = "aut
                 raise TimeoutError(f"a worker thread ran past the job's {deadline_sec} s")
         if watcher is not None:
             watcher.join(timeout=10.0)
+        if bouncer is not None:
+            bouncer.join(timeout=10.0)
         live = sb.tracker if sb is not None and sb.promoted.is_set() else tracker
+        if relay_objs and not getattr(live, "_killed", False):
+            # a relay ACKs a shutdown itself and forwards it at its next
+            # flush: the job ends once the tracker has them all
+            live.wait(5.0)
         # (rabit_tpu's tracker stops serving at the job's end: no final scrape)
         final = (top.scrape(live.host, live.port, registry=False)
                  if isinstance(live, Tracker) and not live._killed else None)
         if sb is not None:
             out.update(_failover_evidence(tracker, sb, journal_path))
+        if relay_objs:
+            out["relays"] = [{"relay": r.relay_id, "stats": dict(r.stats),
+                              "clock_err": r.clock_err, "rank_clock": _relayed_clock(r)}
+                             for r in relay_objs]
     finally:
+        for r in relay_objs:
+            r.stop()
         if sb is not None:
             sb.stop()
         tracker.stop()
@@ -224,6 +272,21 @@ def _failover_evidence(primary, sb, journal_path: str | None) -> dict:
             promoted.host, promoted.port, P.CMD_QUORUM, "check", message=msg, timeout=5.0,
             retries=2)
     return out
+
+
+def _relayed_clock(relay, samples: int = 4):
+    """A relayed rank's clock estimate: a ``ClockSync`` fed by clock pings
+    (heartbeats of interval 0) through ``relay``, whose ACKs carry its
+    projection of the tracker's clock; ``(offset_s, err_s)`` or None."""
+    sync = ClockSync()
+    for _ in range(samples):
+        try:
+            reply = P.tracker_rpc(relay.host, relay.port, P.CMD_HEARTBEAT, "clock-probe",
+                                  message="0", timeout=2.0, retries=0)
+        except P.TrackerUnreachable:
+            break
+        sync.update(reply.offset, reply.err)
+    return sync.estimate()
 
 
 def replay_file_bytes(path: str) -> bytes:

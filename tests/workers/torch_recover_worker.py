@@ -77,7 +77,8 @@ def main() -> int:
     if use_local:
         check(lmodel["rank"] == rank, f"local model {lmodel} not mine")
     if int(os.environ.get("DMLC_NUM_ATTEMPT", "0")) > 0:
-        rt.tracker_print(f"[{rank}] recovered version={version}")
+        # the recovered_at= stamp makes the tracker record a worker_recovered event
+        rt.tracker_print(f"[{rank}] recovered version={version} recovered_at={time.time():.6f}")
 
     for it in range(version, niter):
         if pause:

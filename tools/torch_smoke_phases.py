@@ -4,6 +4,7 @@ the card, for a same-call A/B of two checkouts.
     python3 tools/torch_smoke_phases.py                   # this checkout
     python3 tools/torch_smoke_phases.py --tree _tree/parent
     python3 tools/torch_smoke_phases.py --phases quorum,failover
+    python3 tools/torch_smoke_phases.py --phases relay
 
 Builds the kernels and the native engine, then runs, in chip_smoke.py's
 order and with its checks, the phases dp, engine, compress, hybrid and
@@ -11,7 +12,9 @@ recover of the checkout at ``--tree`` (default: the repository this file
 is in), and its diagnose phase where that checkout's chip_smoke.py has
 one.  ``--phases`` runs the named phases instead, in the order given
 (any ``Smoke.<name>_phase`` that needs no earlier phase: ``quorum``,
-``failover``, ``elastic``, ...).  Prints the card's name and power limit
+``failover``, ``relay``, ``elastic``, ...; ``relay`` runs the recover
+phase's clean and mid-tree kill gbdt runs itself unless ``recover`` ran
+before it).  Prints the card's name and power limit
 (``nvidia-smi``) and one
 ``[phases] <tree> {...}`` line: each phase's wall seconds, the build and
 the data set-up apart, and ``changed``, the sum of the phases.  Two whole
