@@ -210,18 +210,35 @@ Phases, each of which exits non-zero when it fails:
               arms: the relayed tracker accepts <= 8, the direct ones >= 256;
               each arm's accepts, handler-thread peak, heartbeat p99 and wave
               seconds.
-18. linear -- models.linear at the headline size (X = bins / 256, f32;
+18. chaos  -- the schedule runners (rabit_tpu_torch.chaos) on the port's
+              tracker: node_histograms_kernel first at the runners' shapes
+              ([n, 1] bins, n = 1 to 129, 8 bins) against its plain version
+              and np.bincount, exactly; (a) run_schedule seeds 0-9, each
+              converging with dense ranks; (b) run_elastic_schedule seeds
+              7000-7011 with device="cuda" (kills without restart, late,
+              dying and dying-promoted spares; every contribution
+              node_histograms_kernel on the card, held against np.bincount,
+              the first also against its plain version), each completed,
+              epochs strictly rising and worlds within [1, world]; (c) one
+              schedule of each fault plane with the JAX package's test
+              arguments: a relay bounce (seed 7101: no spurious
+              lease_expired, a relay_lost), a tracker death mid-bootstrap
+              (seed 9301: no journal gap, at most one failover) and a
+              straggler under quorum 0.5 with kills and spares (seed 9300).
+              Each schedule's line (seed, world, spares, died, worlds seen,
+              outcome, launches, seconds) and the phase's seconds.
+19. linear -- models.linear at the headline size (X = bins / 256, f32;
               logistic, the LinearConfig defaults, 50 steps): LinearModel.fit
               on the card bitwise its train_step loop, steps 0, 25, 49 held
               teacher-forced against the CPU (tests/test_models.py's rtol
               2e-4, atol 2e-5); train_step_dp on an NCCL group of one
               bitwise the loop; then a gloo world of two processes sharing
-              the card (500k rows each; spawned once, it also runs phases 19
-              and 20's two-process parts): train_step_dp, every step
+              the card (500k rows each; spawned once, it also runs phases 20
+              and 21's two-process parts): train_step_dp, every step
               teacher-forced against the single-process step, and
               LinearModel(engine_allreduce=api.allreduce) through TorchEngine,
               bitwise the dp weights; ms/step of each.
-19. kmeans -- models.kmeans on the same data, K = 64, 20 iterations, the
+20. kmeans -- models.kmeans on the same data, K = 64, 20 iterations, the
               init drawn by KMeans(seed=0): KMeans.fit bitwise its
               train_iter loop, iterations 0, 10, 19 teacher-forced against
               the CPU (assignments equal but for near ties within
@@ -232,7 +249,7 @@ Phases, each of which exits non-zero when it fails:
               the new centers within 2^-21 of the f64 means) and
               KMeans(engine_allreduce=...) bitwise the dp centers; ms/iteration
               and the f64 one-hot segment_sum's time.
-20. attention -- ring_attention and ulysses_attention at sequence 8192, 32
+21. attention -- ring_attention and ulysses_attention at sequence 8192, 32
               heads of 128, f32 and bf16, causal and not, on an NCCL group of
               one and on the gloo world (block 4096; k/v hops and Ulysses'
               all-to-alls through host memory), each against
@@ -240,14 +257,14 @@ Phases, each of which exits non-zero when it fails:
               a time (tests/test_parallel.py's rtol 2e-4, atol 2e-5; bf16 adds
               the output's half-ulp rounding, 2^-8); ms a call and the
               hops' share.
-21. durable -- the api's durable spill (rabit_checkpoint_dir) in two-process
+22. durable -- the api's durable spill (rabit_checkpoint_dir) in two-process
               gloo jobs on the card, each fitting the linear model with a
               checkpoint a step (tests/workers/torch_durable_worker.py): a job
               stopped at version 3 of 6 and resumed by a fresh job, and again
               with rank 1's global files deleted (served by rank 0's
               broadcast), both bit for bit the weights of a job never
               stopped; the frames' bytes and the jobs' times.
-22. report -- per-level times of the histogram kernels (d = 0..7, bf16
+23. report -- per-level times of the histogram kernels (d = 0..7, bf16
               and i8) and of the helpers, and a {"kernels": [...]} line
               with each kernel's time (CUDA events over back-to-back
               calls, "ms"; and the device time of the kernels a call
@@ -258,16 +275,16 @@ Phases, each of which exits non-zero when it fails:
               long run the card's profiler keeps only part of the launches
               (kernel_ms), and earlier its sessions would slow the launches
               of the phases after them.
-23. trace  -- one warm fused and one warm hook-based bf16 round under
+24. trace  -- one warm fused and one warm hook-based bf16 round under
               profile.device_trace (a Chrome trace under --trace-dir): each
               round's wall time, the device time of the port's kernels, of
               every other kernel by the top aten op that launched it, and
               the device's idle time inside the round.
 
-Launches are counted per path (phases 4-7, 14-17 and 23, and 7, 10, 11, 12,
+Launches are counted per path (phases 4-7, 14-18 and 24, and 7, 10, 11, 12,
 13 and 17 in their processes), each run with the counts set to 0 just before it and read
-just after; the phase-3 and phase-13 to phase-17 comparisons and the phase-22 timings do
-not count.  Phases 18-21 run no kernel of the port (their products are torch matmuls
+just after; the phase-3 and phase-13 to phase-18 comparisons and the phase-23 timings do
+not count.  Phases 19-22 run no kernel of the port (their products are torch matmuls
 and einsums, as in the JAX package, in f32 with TF32 off).  Each phase
 prints its wall time.  The histogram kernels count in
 boost.launches, their helpers (one hist_prep and one hist_partition a
@@ -363,6 +380,9 @@ RELAY_BOUNCE = (0.5, 0.4)   # relay 0 stopped this many s in, a new one this man
 RELAY_BOUNCE_SLEEP = 0.1    # s a bounce-run worker waits before each contribution
 RELAY_DIAG_WINDOW = "0.1"   # rabit_diag_window_sec of the bounce run
 RELAY_WORLD = 256           # the scale sweep's world
+CHAOS_BOOT_SEEDS = range(10)             # run_schedule seeds of the chaos phase's run (a)
+CHAOS_ELASTIC_SEEDS = range(7000, 7012)  # run_elastic_schedule seeds of its run (b)
+CHAOS_SHAPES = (1, 8, 24, 32, 127, 129)  # rows of the [n, 1] bin matrices it checks first
 REPLACES = {
     "hist_level0": "rabit_tpu/ops/boost.py:341",
     "hist_level": "rabit_tpu/ops/boost.py:374",
@@ -799,7 +819,7 @@ def _compress_part(rank: int, world: int, tmp: str) -> dict:
         dist.destroy_process_group()
 
 
-# -- phases 18-21: the linear and k-means models, attention, the durable spill ----
+# -- phases 19-22: the linear and k-means models, attention, the durable spill ----
 
 
 def slice_data(n_rows: int):
@@ -881,7 +901,7 @@ def attention_cases(torch, ring, rank: int, world: int, out: dict) -> None:
 
 
 def _slice_rank(rank: int, world: int, tmp: str, n_rows: int) -> None:
-    """One process of the gloo world of phases 18-20, on the card, on this
+    """One process of the gloo world of phases 19-21, on the card, on this
     rank's elastic shard: linear.train_step_dp and kmeans.train_iter_dp
     over the group (every step's weights; the iterations' centers, and the
     assignments at the checked ones), the engine-hook fits (LinearModel,
@@ -3205,14 +3225,108 @@ class Smoke:
         print(f"  relay phase: {out['wall_s']:.1f} s", flush=True)
         return out
 
-    # -- phases 18-21 -------------------------------------------------------------
+    # -- phase 18 -----------------------------------------------------------------
+    def chaos_count_check(self):
+        """node_histograms_kernel at the chaos runner's shapes ([n, 1] bins,
+        every node id 0, g = h = 1, 8 bins, n below and past one 128-row
+        block) against its plain version and np.bincount, exactly; these
+        launches are comparisons and do not count."""
+        torch = self.torch
+        rng = np.random.RandomState(18)
+        for n in CHAOS_SHAPES:
+            data = rng.randint(0, 8, size=n)
+            xb = torch.as_tensor(data.astype(np.int32).reshape(n, 1), device=self.dev)
+            ones = torch.ones(n, device=self.dev)
+            node = torch.zeros(n, dtype=torch.int32, device=self.dev)
+            got = self.hist.node_histograms_kernel(xb, ones, ones, node, 1, 8)
+            plain = self.hist.node_histograms_kernel_plain(xb, ones, ones, node, 1, 8)
+            count = np.bincount(data, minlength=8)
+            require(bool(torch.equal(got, plain))
+                    and np.array_equal(got[0, 0, :, 0].cpu().numpy(), count),
+                    f"chaos: node_histograms_kernel at [{n}, 1] x 8 bins differs from its "
+                    f"plain version or np.bincount")
+
+    def chaos_run(self, what: str, seed: int, **kw):
+        """One run_elastic_schedule on the card, node_histograms_kernel (and
+        its helpers) launched exactly once a contribution, with the counts
+        set to 0 just before the run and read just after; prints its line."""
+        from rabit_tpu_torch import chaos
+
+        self.clear_counts()
+        t0 = time.perf_counter()
+        r = chaos.run_elastic_schedule(seed, device=self.dev.type, **kw)
+        took = time.perf_counter() - t0
+        counts = self.read_counts(r.n_contributions)
+        require(counts == {"node_histograms_kernel": r.n_contributions} and r.n_contributions,
+                f"chaos {what} seed {seed}: launches {counts}, expected {r.n_contributions} "
+                "(one a contribution)")
+        epochs = [e["epoch"] for e in r.epochs]
+        require(r.outcome == "completed" and r.n_completed >= 1
+                and epochs == sorted(set(epochs))
+                and all(1 <= e["world"] <= r.world for e in r.epochs),
+                f"chaos {what} seed {seed}: {r}")
+        print(f"  ({what}) seed {seed}: world {r.world}, spares {r.n_spares}, died {r.n_died}, "
+              f"worlds_seen {r.worlds_seen}, {r.outcome}; {r.n_contributions} launches; "
+              f"{took:.2f} s", flush=True)
+        return r, took
+
+    def chaos_phase(self):
+        """The schedule runners on the card (phase 18 of the module
+        docstring)."""
+        from rabit_tpu_torch import chaos
+
+        t0 = time.perf_counter()
+        self.chaos_count_check()
+        boot = {}
+        for seed in CHAOS_BOOT_SEEDS:
+            t = time.perf_counter()
+            r = chaos.run_schedule(seed)
+            boot[seed] = time.perf_counter() - t
+            require(r.completed and sorted(r.rank_of.values()) == list(range(r.world))
+                    and r.epoch >= 0, f"chaos (a) seed {seed}: {r}")
+            print(f"  (a) seed {seed}: world {r.world}, {r.rounds} round(s), epoch {r.epoch}, "
+                  f"{r.stats.refused} refused, {r.stats.truncated} truncated, "
+                  f"{r.stats.blackholed} blackholed, {r.outcome}; {boot[seed]:.2f} s",
+                  flush=True)
+        fuzz = {seed: self.chaos_run("b", seed)[1] for seed in CHAOS_ELASTIC_SEEDS}
+        # (c) one schedule of each fault plane, with the JAX package's test
+        # arguments (tests/test_relay.py, tests/test_ha.py, tests/test_quorum.py)
+        runs = {
+            "relay bounce": (7101, dict(world=3, relays=2, heartbeat_sec=0.3, niter=8,
+                                        iter_sleep=0.15, deadline_sec=60.0,
+                                        relay_fault=chaos.FaultSpec(relay_death=(0.8, 0.4)))),
+            "tracker death": (9301, dict(world=3, niter=5, iter_sleep=0.1,
+                                         failover=chaos.FaultSpec(tracker_death=0.05))),
+            "straggler+quorum+kills": (9300, dict(world=4, straggler=(2, 0.25, 3), quorum="0.5",
+                                                  niter=5, mix_faults=True, deadline_sec=45.0)),
+        }
+        planes = {}
+        for what, (seed, kw) in runs.items():
+            r, planes[what] = self.chaos_run(f"c: {what}", seed, **kw)
+            if what == "relay bounce":
+                require(r.n_spurious_expired == 0 and r.n_relay_lost >= 1,
+                        f"chaos relay bounce: spurious expiries {r.n_spurious_expired}, "
+                        f"relay_lost {r.n_relay_lost}")
+            elif what == "tracker death":
+                require(r.n_journal_gap == 0 and r.n_spurious_expired == 0
+                        and (not r.primary_killed or r.n_failover <= 1),
+                        f"chaos tracker death: journal gaps {r.n_journal_gap}, spurious "
+                        f"expiries {r.n_spurious_expired}, failovers {r.n_failover}")
+        out = {"bootstrap_s": {k: round(v, 3) for k, v in boot.items()},
+               "elastic_s": {k: round(v, 3) for k, v in fuzz.items()},
+               "planes_s": {k: round(v, 3) for k, v in planes.items()},
+               "wall_s": time.perf_counter() - t0}
+        print(f"  chaos phase: {out['wall_s']:.1f} s", flush=True)
+        return out
+
+    # -- phases 19-22 -------------------------------------------------------------
     @functools.cached_property
     def X(self):
         """slice_data's features on the card."""
         return self.xb.float() / 256
 
     def slice_world(self):
-        """The gloo world of phases 18-20 (DP_RANKS processes on the card,
+        """The gloo world of phases 19-21 (DP_RANKS processes on the card,
         _slice_rank), spawned once; its results are read by each phase."""
         t0 = time.perf_counter()
         self.slice_runs = run_ranks(_slice_rank, DP_RANKS, self.n_rows)
@@ -3474,7 +3588,7 @@ class Smoke:
               "stop " + json.dumps(frames))
         print("  durable " + json.dumps(self.slice_ms["durable"]))
 
-    # -- phase 23 -----------------------------------------------------------------
+    # -- phase 24 -----------------------------------------------------------------
     def trace_phase(self, logdir: str):
         """One warm fused bf16 round and one warm hook-based bf16 round under
         profile.device_trace: each round's wall time, the device time in
@@ -3535,7 +3649,7 @@ class Smoke:
         print(f"  Chrome trace under {logdir}")
         return out
 
-    # -- phase 22 -----------------------------------------------------------------
+    # -- phase 23 -----------------------------------------------------------------
     def measure(self):
         torch, boost = self.torch, self.boost
         xb3, g3, h3 = self.xb3, self.g3, self.h3
@@ -3753,7 +3867,7 @@ def main() -> int:
     except ImportError as e:
         print(f"FAIL: run from the root of a checkout ({e})", file=sys.stderr)
         return 2
-    # the plain versions' matmuls, and the products of phases 18-20 (exact f32)
+    # the plain versions' matmuls, and the products of phases 19-21 (exact f32)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     phase, t_phase = "device", time.perf_counter()
@@ -3859,6 +3973,9 @@ def main() -> int:
 
         phase = next_phase("relay")
         print("[relay] " + json.dumps(smoke.relay_phase()), flush=True)
+
+        phase = next_phase("chaos")
+        print("[chaos] " + json.dumps(smoke.chaos_phase()), flush=True)
 
         phase = next_phase("linear")
         smoke.slice_world()

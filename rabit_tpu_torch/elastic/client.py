@@ -83,11 +83,6 @@ from rabit_tpu_torch.tracker import protocol as P
 #: in ``sendall`` with full socket buffers.
 _THREADED_SEND_BYTES = 1 << 16
 
-#: Seconds a message to the tracker (a check-in's connect, an epoch poll,
-#: a blob upload, the shutdown) may take.
-_RPC_TIMEOUT = 2.0
-
-
 class EpochBroken(Exception):
     """The current epoch's links are unusable (a peer died, a stale epoch,
     a timeout): abandon the epoch and re-enter a wave."""
@@ -149,7 +144,9 @@ class ElasticWorker:
     before any link is up.  ``tracker`` is ``(host, port)`` or a failover
     list of them; ``quorum`` is a ``rabit_quorum`` spec ("" for the exact
     rounds) and ``quorum_wait`` the round's deadline before a partial
-    report and a skip dial.
+    report and a skip dial.  ``rpc_timeout`` bounds every message to the
+    tracker (a check-in's connect, an epoch poll, a blob upload, a quorum
+    report, the shutdown).
     """
 
     def __init__(
@@ -161,6 +158,7 @@ class ElasticWorker:
         *,
         spare: bool = False,
         heartbeat_sec: float = 0.0,
+        rpc_timeout: float = 2.0,
         wave_timeout: float = 20.0,
         link_timeout: float = 10.0,
         deadline_sec: float = 60.0,
@@ -190,6 +188,7 @@ class ElasticWorker:
         self.niter = int(niter)
         self.spare = bool(spare)
         self.heartbeat_sec = float(heartbeat_sec)
+        self.rpc_timeout = float(rpc_timeout)
         self.wave_timeout = float(wave_timeout)
         self.link_timeout = float(link_timeout)
         self.deadline = time.monotonic() + float(deadline_sec)
@@ -267,7 +266,7 @@ class ElasticWorker:
         for i in range(len(self.addrs)):
             idx = (self._active + i) % len(self.addrs)
             try:
-                sock = socket.create_connection(self.addrs[idx], timeout=_RPC_TIMEOUT)
+                sock = socket.create_connection(self.addrs[idx], timeout=self.rpc_timeout)
             except OSError as exc:
                 last = exc
                 continue
@@ -381,7 +380,7 @@ class ElasticWorker:
                 f"wait={self._epoch_wait_s:.3f} share={share:.3f}")
         try:
             P.tracker_rpc(self.tracker[0], self.tracker[1], P.CMD_PRINT, self.task_id,
-                          prev_rank=asg.rank, message=line, timeout=_RPC_TIMEOUT,
+                          prev_rank=asg.rank, message=line, timeout=self.rpc_timeout,
                           retries=1, addrs=self.addrs)
         except (P.TrackerUnreachable, ValueError):
             pass  # a report must never fail the job
@@ -390,7 +389,7 @@ class ElasticWorker:
         try:
             info = P.tracker_rpc(self.tracker[0], self.tracker[1], P.CMD_EPOCH,
                                  self.task_id, prev_rank=self._rank,
-                                 message=str(self._version), timeout=_RPC_TIMEOUT,
+                                 message=str(self._version), timeout=self.rpc_timeout,
                                  retries=1, addrs=self.addrs)
             return info if isinstance(info, dict) else None
         except (P.TrackerUnreachable, ValueError):
@@ -407,7 +406,7 @@ class ElasticWorker:
             pickle.dumps((self._version, self._state), protocol=pickle.HIGHEST_PROTOCOL))
         try:
             with self._connect() as sock:
-                sock.settimeout(_RPC_TIMEOUT)
+                sock.settimeout(self.rpc_timeout)
                 P.send_hello(sock, P.CMD_BLOB, self.task_id, prev_rank=self._rank,
                              blob=blob, blob_version=self._version)
                 P.get_u32(sock)  # the ACK
@@ -750,7 +749,7 @@ class ElasticWorker:
         try:
             reply = P.tracker_rpc(self.tracker[0], self.tracker[1], P.CMD_QUORUM,
                                   self.task_id, prev_rank=asg.rank, message=msg,
-                                  timeout=_RPC_TIMEOUT, retries=1, addrs=self.addrs)
+                                  timeout=self.rpc_timeout, retries=1, addrs=self.addrs)
             return reply if isinstance(reply, dict) else None
         except (P.TrackerUnreachable, ValueError):
             return None
@@ -1007,7 +1006,7 @@ class ElasticWorker:
             # with a failover list the retries outlast a standby's takeover
             # lease, or the job's completion misses this clean exit
             P.tracker_rpc(self.tracker[0], self.tracker[1], P.CMD_SHUTDOWN, self.task_id,
-                          prev_rank=asg.rank, timeout=_RPC_TIMEOUT,
+                          prev_rank=asg.rank, timeout=self.rpc_timeout,
                           retries=7 if len(self.addrs) > 1 else 1, backoff_cap=0.5,
                           addrs=self.addrs)
         except (P.TrackerUnreachable, ValueError):

@@ -734,32 +734,46 @@ class TrackerUnreachable(ConnectionError):
 
 
 def tracker_rpc(host: str, port: int, cmd: int, task_id: str, *,
-                prev_rank: int = -1, message: str = "", blob: bytes = b"",
-                blob_version: int = 0, timeout: float = 10.0,
-                retries: int = 5, backoff: float = 0.1, backoff_cap: float = 2.0,
-                addrs: list[tuple[str, int]] | None = None):
-    """One Python-side tracker message (print, metrics, heartbeat,
-    shutdown, epoch poll, blob upload, quorum report, scrape), the
-    counterpart of ``rabit_tpu.tracker.protocol.tracker_rpc``.  Check-ins
-    are refused here: the native engine and ``ElasticWorker`` make them on
-    sockets of their own, and a spare's stays open.
+                prev_rank: int = -1, listen_port: int = 0, message: str = "",
+                blob: bytes = b"", blob_version: int = 0, timeout: float = 10.0,
+                reply_timeout: float | None = None, retries: int = 5,
+                backoff: float = 0.1, backoff_cap: float = 2.0,
+                rng: random.Random | None = None,
+                addrs: list[tuple[str, int]] | None = None, job: str = ""):
+    """One Python-side tracker message (a bootstrap check-in, print,
+    metrics, heartbeat, shutdown, epoch poll, blob upload, quorum report,
+    scrape), the counterpart of ``rabit_tpu.tracker.protocol.tracker_rpc``.
+    A spare's check-in does not ride this path: its socket stays open
+    (``elastic.client``).
 
     One RPC is a fresh connection, the hello and the reply; ``timeout``
-    bounds the connect and every read.  Transport failures (refused, reset,
-    a torn reply, a timed-out read) are retried up to ``retries`` more
-    times after ``backoff * 2^attempt`` seconds (capped at ``backoff_cap``, scaled by
-    a uniform 0.5-1.0 so a restart wave does not stampede the tracker);
-    when the budget is spent, :class:`TrackerUnreachable`.  ``addrs`` is the
-    failover list (``rabit_tracker_addrs``): attempt i goes to candidate
-    i mod n of ``(host, port)`` followed by the new addresses of ``addrs``,
-    so a dead primary costs one attempt and the next lands on its standby.
+    bounds the connect and every control reply, and ``reply_timeout``
+    (default: ``timeout``) the wait for a START / RECOVER Assignment, which
+    the tracker holds until the wave closes.  Transport failures (refused,
+    reset, a torn reply, a timed-out read) are retried up to ``retries``
+    more times after ``backoff * 2^attempt`` seconds (capped at
+    ``backoff_cap``, scaled by a uniform 0.5-1.0 drawn from ``rng``, default
+    the ``random`` module, so a restart wave does not stampede the
+    tracker); when the budget is spent, :class:`TrackerUnreachable`.
+    Retrying a check-in is safe: the tracker replaces a task id's stale
+    pending check-in.  ``addrs`` is the failover list
+    (``rabit_tracker_addrs``): attempt i goes to candidate i mod n of
+    ``(host, port)`` followed by the new addresses of ``addrs``, so a dead
+    primary costs one attempt and the next lands on its standby.  ``job``
+    (the multi-job key) is refused: ROADMAP.md Queue 1 item 10g.
 
-    Returns the ACK, as a :class:`TimedAck` for METRICS and HEARTBEAT, and
-    the reply's dict for EPOCH (``{"epoch", "world", "rewave"}``), QUORUM
-    (the round's record) and OBS (the scrape document)."""
-    if cmd not in (CMD_PRINT, CMD_SHUTDOWN, CMD_METRICS, CMD_HEARTBEAT, CMD_EPOCH,
-                   CMD_BLOB, CMD_QUORUM, CMD_OBS):
+    Returns the :class:`Assignment` for START and RECOVER, the ACK, as a
+    :class:`TimedAck` for METRICS and HEARTBEAT, and the reply's dict for
+    EPOCH (``{"epoch", "world", "rewave"}``), QUORUM (the round's record)
+    and OBS (the scrape document)."""
+    if job:
+        raise NotImplementedError(
+            "tracker_rpc with a multi-job key (job=) is not ported yet "
+            "(ROADMAP.md Queue 1 item 10g)")
+    if cmd not in (CMD_START, CMD_RECOVER, CMD_PRINT, CMD_SHUTDOWN, CMD_METRICS,
+                   CMD_HEARTBEAT, CMD_EPOCH, CMD_BLOB, CMD_QUORUM, CMD_OBS):
         raise ValueError(f"tracker_rpc does not send command {cmd}")
+    rng = rng if rng is not None else random
     retries = max(int(retries), 0)
     cands = [(host, int(port))]
     for a in addrs or []:
@@ -773,8 +787,12 @@ def tracker_rpc(host: str, port: int, cmd: int, task_id: str, *,
             with socket.create_connection((host, int(port)), timeout=timeout) as sock:
                 sock.settimeout(timeout)
                 t_send = time.time()
-                send_hello(sock, cmd, task_id, prev_rank=prev_rank, message=message,
-                           blob=blob, blob_version=blob_version)
+                send_hello(sock, cmd, task_id, prev_rank=prev_rank,
+                           listen_port=listen_port, message=message, blob=blob,
+                           blob_version=blob_version)
+                if cmd in (CMD_START, CMD_RECOVER):
+                    sock.settimeout(reply_timeout if reply_timeout is not None else timeout)
+                    return Assignment.recv(sock)
                 ack = get_u32(sock)
                 if cmd in (CMD_METRICS, CMD_HEARTBEAT):
                     server_ts = float(get_str(sock))
@@ -786,7 +804,7 @@ def tracker_rpc(host: str, port: int, cmd: int, task_id: str, *,
             last_err = exc
             if attempt < retries:
                 delay = min(backoff * (2 ** attempt), backoff_cap)
-                time.sleep(delay * (0.5 + 0.5 * random.random()))
+                time.sleep(delay * (0.5 + 0.5 * rng.random()))
     raise TrackerUnreachable(
         f"tracker {host}:{port} unreachable: {retries + 1} attempt(s) failed "
         f"(cmd={cmd}, task_id={task_id!r}); last error: {last_err!r}")

@@ -139,7 +139,6 @@ from rabit_tpu_torch.obs.metrics import GLOBAL_REGISTRY
 from rabit_tpu_torch.quorum import QuorumTable
 from rabit_tpu_torch.tracker import protocol as P
 
-HELLO_TIMEOUT_SEC = 60.0  # a torn hello must not pin its thread and socket forever
 MAX_MESSAGES = 4096       # the print log keeps the newest
 TELEMETRY_SCHEMA = 1
 
@@ -360,7 +359,10 @@ class Tracker:
     instead of ``host:port``) and ``ha_tick_sec`` (the journal's keepalive
     cadence, default ``rabit_ha_tick_sec``) are the HA plane's.  ``reactor``
     serves on one selectors loop (False: a thread a connection), with a
-    listen backlog of ``backlog`` (default ``rabit_tracker_backlog``)."""
+    listen backlog of ``backlog`` (default ``rabit_tracker_backlog``).
+    ``conn_timeout_sec`` bounds the read of a hello on both serving paths: a
+    torn or partial hello is dropped at that deadline instead of pinning a
+    thread and a socket (0 disables it)."""
 
     def __init__(self, world_size: int, host: str = "127.0.0.1", port: int = 0,
                  quiet: bool = False, obs_dir: str | None = None,
@@ -370,7 +372,7 @@ class Tracker:
                  sched_repair: bool = True, quorum: str = "", quorum_flag_after: int = 3,
                  journal=None, resume_from=None, listen_sock: socket.socket | None = None,
                  ha_tick_sec: float | None = None, reactor: bool = True,
-                 backlog: int | None = None):
+                 backlog: int | None = None, conn_timeout_sec: float = 60.0):
         if world_size < 1:
             raise ValueError(f"world_size must be >= 1, got {world_size}")
         if schedule not in sched.ALGOS:
@@ -381,6 +383,7 @@ class Tracker:
                                          shrink_after_sec=shrink_after_sec,
                                          promote_after_sec=promote_after_sec)
         self.quiet = quiet
+        self.conn_timeout_sec = float(conn_timeout_sec)
         self.on_suspect = on_suspect
         self.obs_dir = obs_dir if obs_dir is not None else (
             os.environ.get("RABIT_OBS_DIR", "") or None)
@@ -633,7 +636,8 @@ class Tracker:
 
     def _handle(self, conn: socket.socket, addr) -> None:
         try:
-            conn.settimeout(HELLO_TIMEOUT_SEC)
+            if self.conn_timeout_sec > 0:
+                conn.settimeout(self.conn_timeout_sec)
             if P.get_u32(conn) != P.MAGIC_HELLO:
                 conn.close()
                 return
@@ -736,8 +740,9 @@ class Tracker:
         """The default serving path: one selectors loop accepts, parses each
         hello as its bytes come and answers every short RPC inline;
         check-ins, spares, relay channels and journal channels leave the
-        loop once their hello is whole.  A hello torn past
-        HELLO_TIMEOUT_SEC is dropped."""
+        loop once their hello is whole.  A hello still torn
+        ``conn_timeout_sec`` after its accept is dropped by the sweep, which
+        runs every 0.5 s."""
         sel = selectors.DefaultSelector()
         try:
             self._srv.setblocking(False)
@@ -765,7 +770,7 @@ class Tracker:
                 now = time.monotonic()
                 if now >= next_sweep:
                     next_sweep = now + 0.5
-                    for rc in [r for r in conns if now > r.deadline]:
+                    for rc in [r for r in conns if r.deadline and now > r.deadline]:
                         self._reactor_drop(sel, conns, rc)
         finally:
             for rc in list(conns):
@@ -779,7 +784,9 @@ class Tracker:
             except OSError:  # BlockingIOError: nothing more to accept
                 return
             conn.setblocking(False)
-            rc = _RConn(conn, addr, time.monotonic() + HELLO_TIMEOUT_SEC)
+            deadline = (time.monotonic() + self.conn_timeout_sec
+                        if self.conn_timeout_sec > 0 else 0.0)
+            rc = _RConn(conn, addr, deadline)
             try:
                 sel.register(conn, selectors.EVENT_READ, rc)
             except (OSError, ValueError):
@@ -1477,6 +1484,23 @@ class Tracker:
         self.events.append({"ts": round(time.time(), 6), "kind": "spare_dropped",
                             "dropped": sorted(s.task_id for s in dead)})
 
+    def _awaited_locked(self) -> list[str]:
+        """Members of the current epoch that have not checked in to the
+        forming wave but still hold a live lease.  An elastic wave waits for
+        them: the members of one epoch leave it at different moments (one
+        polls the grow-back flag a version later than another, one detects a
+        dead peer later), and a wave that closed without a live member would
+        give its slot to a spare or shrink it away, leaving the member to
+        form a world of its own.  A dead member's lease lapses within
+        ``LEASE_FACTOR`` intervals (or the launcher drops it at once), after
+        which the promotion and shrink rules decide as before; a job
+        without leases never waits here."""
+        now = time.monotonic()
+        pending = {p.task_id for p in self._pending}
+        return sorted(t for t in self.elastic.current.rank_map
+                      if t not in pending and t not in self._shutdown_tasks
+                      and (lease := self._leases.get(t)) is not None and lease.expires > now)
+
     def _close_wave_locked(self, timer: bool) -> dict | None:
         """Close the pending wave if ``MembershipManager.decide`` says so;
         returns the wave (members, surplus check-ins to park) or None.
@@ -1503,6 +1527,8 @@ class Tracker:
             self._reap_spares_locked()
         if not self._pending:
             self._wave_started = None
+            return None
+        if elastic_active and self._awaited_locked():
             return None
         decision = self.elastic.decide(
             len(self._pending), len(self._spares) if elastic_active else 0, age)

@@ -1419,3 +1419,34 @@ def test_relayed_job_with_card_contributions(cuda):
     assert tel["serving"]["batch_msgs"] >= 3 * niter
     assert tel["serving"]["accepts"] <= 2 + niter
     assert boost_mod.launches.get("node_histograms_kernel", 0) == 3 * niter
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 8, 24, 32, 127, 129])
+def test_node_histograms_kernel_at_chaos_shapes(cuda, n):
+    """The schedule runners' contribution: an [n, 1] bin matrix, every node
+    id 0, g = h = 1, 8 bins, n below and past a 128-row block; the kernel
+    equals its plain version and np.bincount exactly."""
+    from rabit_tpu_torch.ops import hist
+
+    data = np.random.RandomState(n).randint(0, 8, size=n)
+    xb = torch.as_tensor(data.astype(np.int32).reshape(n, 1), device=cuda)
+    ones = torch.ones(n, device=cuda)
+    node = torch.zeros(n, dtype=torch.int32, device=cuda)
+    got = hist.node_histograms_kernel(xb, ones, ones, node, 1, 8)
+    assert torch.equal(got, hist.node_histograms_kernel_plain(xb, ones, ones, node, 1, 8))
+    assert np.array_equal(got[0, 0, :, 0].cpu().numpy(), np.bincount(data, minlength=8))
+
+
+@pytest.mark.gpu
+def test_elastic_schedule_with_card_contributions(cuda):
+    """A seeded shrink/grow schedule (seed 7003: a kill without restart, a
+    shrink to 3 and a grow-back to 4) with every contribution
+    node_histograms_kernel on the card: it converges bitwise (asserted inside
+    the runner), and the kernel launched exactly once a contribution."""
+    from rabit_tpu_torch import chaos
+
+    boost.launches.clear()
+    r = chaos.run_elastic_schedule(7003, device="cuda")
+    assert r.outcome == "completed" and r.n_completed >= 1
+    assert dict(boost.launches) == {"node_histograms_kernel": r.n_contributions}

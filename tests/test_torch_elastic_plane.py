@@ -227,9 +227,13 @@ def test_hellos_match_jax(cmd, kw):
 
 
 def test_tracker_rpc_refuses_check_ins():
-    for cmd in (P.CMD_START, P.CMD_RECOVER, P.CMD_SPARE):
-        with pytest.raises(ValueError):
-            P.tracker_rpc("127.0.0.1", 1, cmd, "0")
+    """A spare's check-in is refused (its park holds a socket of its own);
+    START and RECOVER ride tracker_rpc, so a dead port is unreachable."""
+    with pytest.raises(ValueError):
+        P.tracker_rpc("127.0.0.1", 1, P.CMD_SPARE, "0")
+    for cmd in (P.CMD_START, P.CMD_RECOVER):
+        with pytest.raises(P.TrackerUnreachable):
+            P.tracker_rpc("127.0.0.1", 1, cmd, "0", timeout=0.5, retries=0)
 
 
 # -- in-thread jobs -----------------------------------------------------------

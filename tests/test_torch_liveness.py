@@ -195,8 +195,8 @@ def test_tracker_rpc_retries_then_gives_up():
                       backoff=0.05)
     assert time.time() - t0 < 5
     assert not renew_lease(host, port, "0", HB)
-    with pytest.raises(ValueError):
-        P.tracker_rpc(host, port, P.CMD_START, "0")
+    with pytest.raises(ValueError):  # a spare's park holds its own socket
+        P.tracker_rpc(host, port, P.CMD_SPARE, "0")
 
 
 # -- the launcher ------------------------------------------------------------

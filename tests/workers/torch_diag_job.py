@@ -1,8 +1,12 @@
 """An elastic job of in-thread workers against an in-process tracker, with
-the faults the diagnosis, quorum and HA planes must handle: the port's
-counterpart of the slow-link, straggler, quorum and failover modes of
-``rabit_tpu.chaos.run_elastic_schedule`` (no worker kills, no spares), for
-the CPU tests and chip_smoke.py's diagnose, quorum and failover phases.
+the faults the diagnosis, quorum and HA planes must handle, for the CPU
+tests and chip_smoke.py's diagnose, quorum, failover and relay phases.
+The seeded campaigns that mix these faults with kills without restart and
+spares (``run_elastic_schedule``) are ``rabit_tpu_torch.chaos``'s; this job
+keeps the kill-free, spare-free shape those phases measure, with the
+caller's contribution ``work`` and the hooks the runner has no argument
+for (``watch``, a kill after n frozen quorum records, ``hold_back``, a file
+journal, a relay bounce at a set time).
 
 ``run_job(world, niter, work, ...)`` starts a tracker and ``world``
 ``ElasticWorker`` threads.  Each version a worker sleeps ``iter_sleep``
