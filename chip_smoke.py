@@ -227,18 +227,37 @@ Phases, each of which exits non-zero when it fails:
               straggler under quorum 0.5 with kills and spares (seed 9300).
               Each schedule's line (seed, world, spares, died, worlds seen,
               outcome, launches, seconds) and the phase's seconds.
-19. linear -- models.linear at the headline size (X = bins / 256, f32;
+19. delivery -- the model-delivery plane (rabit_tpu_torch.delivery) on the
+              card: (a) phase 11's gbdt job behind two relays with
+              rabit_delivery_publish=1 and a rabit_checkpoint_dir, rank 0 (the
+              publisher) killed in the commit window of version 2; two
+              subscribers poll and fetch every new version through the relays
+              (the run lingers until they hold the last one): each fetched
+              blob's sha256 the digest on its line, the last version's bytes
+              rank 0's committed blob, its decoded forest byte-identical to
+              the job's forest.npy, one restart, and node_histograms_kernel
+              launched once a level of every tree the final lives trained.
+              (b) tools/torch_delivery_bench.py's swarm arm, in a process of
+              its own, at tests/test_delivery.py's arguments (1000
+              subscribers in a spawned process, 2 relays, 3 rounds of 0.4 s,
+              64 KiB, polls every 0.15 s, 4 shards) and that test's bars
+              (the tool's own exit code holds the 10^4 swarm's): the
+              writer's cadence ratio >= 0.70, failed polls <= 5%, polls and
+              propagation delays seen; (c) its failover arm (2 subscribers):
+              the standby restores the line, every subscriber converges, no
+              subscriber errors.
+20. linear -- models.linear at the headline size (X = bins / 256, f32;
               logistic, the LinearConfig defaults, 50 steps): LinearModel.fit
               on the card bitwise its train_step loop, steps 0, 25, 49 held
               teacher-forced against the CPU (tests/test_models.py's rtol
               2e-4, atol 2e-5); train_step_dp on an NCCL group of one
               bitwise the loop; then a gloo world of two processes sharing
-              the card (500k rows each; spawned once, it also runs phases 20
-              and 21's two-process parts): train_step_dp, every step
+              the card (500k rows each; spawned once, it also runs phases 21
+              and 22's two-process parts): train_step_dp, every step
               teacher-forced against the single-process step, and
               LinearModel(engine_allreduce=api.allreduce) through TorchEngine,
               bitwise the dp weights; ms/step of each.
-20. kmeans -- models.kmeans on the same data, K = 64, 20 iterations, the
+21. kmeans -- models.kmeans on the same data, K = 64, 20 iterations, the
               init drawn by KMeans(seed=0): KMeans.fit bitwise its
               train_iter loop, iterations 0, 10, 19 teacher-forced against
               the CPU (assignments equal but for near ties within
@@ -249,7 +268,7 @@ Phases, each of which exits non-zero when it fails:
               the new centers within 2^-21 of the f64 means) and
               KMeans(engine_allreduce=...) bitwise the dp centers; ms/iteration
               and the f64 one-hot segment_sum's time.
-21. attention -- ring_attention and ulysses_attention at sequence 8192, 32
+22. attention -- ring_attention and ulysses_attention at sequence 8192, 32
               heads of 128, f32 and bf16, causal and not, on an NCCL group of
               one and on the gloo world (block 4096; k/v hops and Ulysses'
               all-to-alls through host memory), each against
@@ -257,14 +276,14 @@ Phases, each of which exits non-zero when it fails:
               a time (tests/test_parallel.py's rtol 2e-4, atol 2e-5; bf16 adds
               the output's half-ulp rounding, 2^-8); ms a call and the
               hops' share.
-22. durable -- the api's durable spill (rabit_checkpoint_dir) in two-process
+23. durable -- the api's durable spill (rabit_checkpoint_dir) in two-process
               gloo jobs on the card, each fitting the linear model with a
               checkpoint a step (tests/workers/torch_durable_worker.py): a job
               stopped at version 3 of 6 and resumed by a fresh job, and again
               with rank 1's global files deleted (served by rank 0's
               broadcast), both bit for bit the weights of a job never
               stopped; the frames' bytes and the jobs' times.
-23. report -- per-level times of the histogram kernels (d = 0..7, bf16
+24. report -- per-level times of the histogram kernels (d = 0..7, bf16
               and i8) and of the helpers, and a {"kernels": [...]} line
               with each kernel's time (CUDA events over back-to-back
               calls, "ms"; and the device time of the kernels a call
@@ -275,16 +294,16 @@ Phases, each of which exits non-zero when it fails:
               long run the card's profiler keeps only part of the launches
               (kernel_ms), and earlier its sessions would slow the launches
               of the phases after them.
-24. trace  -- one warm fused and one warm hook-based bf16 round under
+25. trace  -- one warm fused and one warm hook-based bf16 round under
               profile.device_trace (a Chrome trace under --trace-dir): each
               round's wall time, the device time of the port's kernels, of
               every other kernel by the top aten op that launched it, and
               the device's idle time inside the round.
 
-Launches are counted per path (phases 4-7, 14-18 and 24, and 7, 10, 11, 12,
-13 and 17 in their processes), each run with the counts set to 0 just before it and read
-just after; the phase-3 and phase-13 to phase-18 comparisons and the phase-23 timings do
-not count.  Phases 19-22 run no kernel of the port (their products are torch matmuls
+Launches are counted per path (phases 4-7, 14-18 and 25, and 7, 10, 11, 12,
+13, 17 and 19 in their processes), each run with the counts set to 0 just before it and read
+just after; the phase-3 and phase-13 to phase-18 comparisons and the phase-24 timings do
+not count.  Phases 20-23 run no kernel of the port (their products are torch matmuls
 and einsums, as in the JAX package, in f32 with TF32 off).  Each phase
 prints its wall time.  The histogram kernels count in
 boost.launches, their helpers (one hist_prep and one hist_partition a
@@ -298,9 +317,11 @@ import argparse
 import concurrent.futures
 import contextlib
 import functools
+import importlib
 import json
 import multiprocessing
 import os
+import pickle
 import re
 import shutil
 import signal
@@ -383,6 +404,13 @@ RELAY_WORLD = 256           # the scale sweep's world
 CHAOS_BOOT_SEEDS = range(10)             # run_schedule seeds of the chaos phase's run (a)
 CHAOS_ELASTIC_SEEDS = range(7000, 7012)  # run_elastic_schedule seeds of its run (b)
 CHAOS_SHAPES = (1, 8, 24, 32, 127, 129)  # rows of the [n, 1] bin matrices it checks first
+DELIVERY_SUBS = 2           # subscribers of the delivery phase's run (a), one a relay
+DELIVERY_KILL = 2           # the version in whose commit window run (a) kills the publisher
+                            # (mock= names the version the engine holds before it)
+DELIVERY_POLL = 0.05        # s between their polls
+DELIVERY_SWARM = ("--subs", "1000", "--relays", "2", "--rounds", "3", "--round-sec", "0.4",
+                  "--size", "65536", "--poll-sec", "0.15", "--shards", "4")  # tests/test_delivery.py's
+DELIVERY_FAILOVER = dict(n_subs=2, rounds=2, round_sec=0.1, size=8192, poll_sec=0.05)
 REPLACES = {
     "hist_level0": "rabit_tpu/ops/boost.py:341",
     "hist_level": "rabit_tpu/ops/boost.py:374",
@@ -819,7 +847,7 @@ def _compress_part(rank: int, world: int, tmp: str) -> dict:
         dist.destroy_process_group()
 
 
-# -- phases 19-22: the linear and k-means models, attention, the durable spill ----
+# -- phases 20-23: the linear and k-means models, attention, the durable spill ----
 
 
 def slice_data(n_rows: int):
@@ -901,7 +929,7 @@ def attention_cases(torch, ring, rank: int, world: int, out: dict) -> None:
 
 
 def _slice_rank(rank: int, world: int, tmp: str, n_rows: int) -> None:
-    """One process of the gloo world of phases 19-21, on the card, on this
+    """One process of the gloo world of phases 20-22, on the card, on this
     rank's elastic shard: linear.train_step_dp and kmeans.train_iter_dp
     over the group (every step's weights; the iterations' centers, and the
     assignments at the checked ones), the engine-hook fits (LinearModel,
@@ -2172,7 +2200,7 @@ class Smoke:
     # -- phase 11 -----------------------------------------------------------------
     def recover_run(self, mode: str, *args: str, preempt=None, wedge=None,
                     engine: str = "mock", obs: bool = False, keep_obs: str = "",
-                    relays: int = 0) -> dict:
+                    relays: int = 0, on_cluster=None) -> dict:
         """DP_RANKS workers of tests/workers/torch_gbdt_native_worker.py on
         the card under the port's LocalCluster, rabit_engine=``engine``:
         each trains RECOVER_TREES trees of the headline data (its elastic
@@ -2186,7 +2214,10 @@ class Smoke:
         ``wedge`` count from the run's first commit of version 1 (a
         worker's print to the tracker), not from launch: a process's start
         on the card varies by seconds between runs.  ``relays`` puts that many
-        relays between the workers and the tracker."""
+        relays between the workers and the tracker.  ``on_cluster(cluster)``,
+        called before the run, returns the run's ``linger`` predicate (the
+        tracker and the relays keep serving once the workers are gone until
+        it holds)."""
         from rabit_tpu_torch.tracker.launcher import LocalCluster
 
         with tempfile.TemporaryDirectory() as tmp:
@@ -2196,11 +2227,12 @@ class Smoke:
                    f"rows={self.n_rows}", f"ntrees={RECOVER_TREES}",
                    f"out={os.path.join(tmp, 'forest')}", f"stats={tmp}", *args]
             cluster = LocalCluster(DP_RANKS, max_restarts=2, quiet=True, relays=relays)
+            linger = on_cluster(cluster) if on_cluster is not None else None
             t0 = time.time()
             if obs:
                 os.environ["RABIT_OBS_DIR"] = obs_dir  # the tracker's too
             try:
-                cluster.run(cmd, timeout=600, preempt=preempt, wedge=wedge,
+                cluster.run(cmd, timeout=600, preempt=preempt, wedge=wedge, linger=linger,
                             start_when=lambda _: any(COMMIT_1.search(m)
                                                      for m in list(cluster.messages)))
             except (RuntimeError, TimeoutError) as e:
@@ -3319,14 +3351,138 @@ class Smoke:
         print(f"  chaos phase: {out['wall_s']:.1f} s", flush=True)
         return out
 
-    # -- phases 19-22 -------------------------------------------------------------
+    # -- phase 19 -----------------------------------------------------------------
+    def delivery_subscribers(self, cluster, got: list, stop: threading.Event):
+        """DELIVERY_SUBS subscriber threads, subscriber i behind relay i of
+        ``cluster`` once its run has started them: each polls the version
+        line and fetches every version it has not seen, appending
+        ``(subscriber, line, sha256 of the blob, blob)`` to ``got``, until it
+        holds version RECOVER_TREES (or ``stop``).  Returns the run's linger
+        predicate: every subscriber holds the last version."""
+        from rabit_tpu_torch.delivery import Subscriber, digest_of
+
+        done = [threading.Event() for _ in range(DELIVERY_SUBS)]
+
+        def follow(i: int) -> None:
+            while not cluster.relays and not stop.wait(0.02):
+                pass
+            relay = cluster.relays[i % len(cluster.relays)]
+            sub = Subscriber(relay.host, relay.port, task_id=f"chip-sub{i}", timeout=5.0,
+                             poll_sec=DELIVERY_POLL)
+            while not stop.is_set() and sub.seen_version < RECOVER_TREES:
+                try:
+                    line = sub.poll()
+                    if int(line.get("version", 0)) > sub.seen_version:
+                        line, blob = sub.fetch(line, deadline_sec=30.0)
+                        got.append((i, line, digest_of(blob), blob))
+                        continue
+                except (ConnectionError, LookupError, TimeoutError) as e:
+                    got.append((i, {"error": repr(e)}, "", b""))
+                stop.wait(DELIVERY_POLL)
+            done[i].set()
+
+        for i in range(DELIVERY_SUBS):
+            threading.Thread(target=follow, args=(i,), daemon=True,
+                             name=f"chip-sub{i}").start()
+        return lambda: all(d.is_set() for d in done)
+
+    def delivery_phase(self):
+        """The model-delivery plane on the card (phase 19 of the module
+        docstring)."""
+        from rabit_tpu_torch import api
+        from rabit_tpu_torch.store import CheckpointStore
+
+        t0 = time.perf_counter()
+        got: list = []
+        stop = threading.Event()
+        with tempfile.TemporaryDirectory() as ckpt:
+            try:
+                run = self.recover_run(
+                    "gbdt", "rabit_delivery_publish=1", f"rabit_checkpoint_dir={ckpt}",
+                    f"mock=0,{DELIVERY_KILL - 1},-3,0", relays=2,
+                    on_cluster=lambda c: self.delivery_subscribers(c, got, stop))
+            finally:
+                stop.set()
+            committed = CheckpointStore(ckpt, 0).load_global(RECOVER_TREES)
+        took_a = time.perf_counter() - t0
+        errors = [g for g in got if "error" in g[1]]
+        require(not errors, f"delivery (a): subscriber errors {[g[1] for g in errors]}")
+        require(all(sha == line["digest"] for _, line, sha, _ in got),
+                "delivery (a): a fetched blob's sha256 is not its line's digest")
+        last = {}
+        for i, line, _sha, blob in got:
+            last[i] = (line, blob)
+        require(sorted(last) == list(range(DELIVERY_SUBS))
+                and all(line["version"] == RECOVER_TREES for line, _ in last.values()),
+                f"delivery (a): the subscribers' last versions "
+                f"{ {i: ln['version'] for i, (ln, _) in last.items()} }")
+        blob = last[0][1]
+        require(all(b == committed for _, b in last.values()),
+                "delivery (a): the last version's bytes are not rank 0's committed blob")
+        _base, gblob = api._unwrap(blob)
+        decoded = np.concatenate([np.asarray(a, np.float32).reshape(-1)
+                                  for a in pickle.loads(gblob)])
+        require(decoded.tobytes() == run["forest"].tobytes(),
+                "delivery (a): the published forest differs from the job's forest.npy")
+        trained = sum(len(st["ms"]) for st in run["stats"])
+        want = {k: trained * DEPTH for k in ("node_histograms_kernel", *HELPERS)}
+        require(run["restarts"] == 1 and run["launches"] == want,
+                f"delivery (a): restarts {run['restarts']}, launches {run['launches']}, "
+                f"expected {want}")
+        versions = sorted({line["version"] for _, line, _, _ in got})
+        print(f"  (a) gbdt job behind 2 relays, publisher killed in the commit window of "
+              f"version {DELIVERY_KILL}: versions fetched {versions}, {len(got)} fetches "
+              f"({len(blob)} B each), digests verified, the last forest byte-identical to "
+              f"forest.npy; launches {run['launches']}; {took_a:.1f} s", flush=True)
+        # (b) in a fresh interpreter: the swarm measures the relays, not this
+        # process's threads and heap; the tool spawns the swarm's own process
+        t = time.perf_counter()
+        out = subprocess.run([sys.executable, os.path.join(os.path.dirname(
+            os.path.abspath(__file__)), "tools", "torch_delivery_bench.py"), "--arm", "swarm",
+            *DELIVERY_SWARM], capture_output=True, text=True, timeout=300)
+        took_b = time.perf_counter() - t
+        try:
+            swarm = json.loads(out.stdout.strip().splitlines()[-1])
+        except (IndexError, ValueError) as e:
+            raise PhaseFailed(f"delivery (b): no record ({e}): {out.stderr[-2000:]}") from e
+        require(swarm["polls"] > 0 and swarm["n_lat"] > 0
+                and swarm["writer_cadence_ratio"] >= 0.70
+                and swarm["failures"] <= swarm["polls"] * 0.05,
+                f"delivery (b): {swarm}")
+        print(f"  (b) swarm of {swarm['subs']} (spawned process) behind {swarm['relays']} "
+              f"relays: polls {swarm['polls']}, failures {swarm['failures']}, "
+              f"writer_cadence_ratio {swarm['writer_cadence_ratio']}, prop_p50_ms "
+              f"{swarm['prop_p50_ms']:.3f}, prop_p99_ms {swarm['prop_p99_ms']:.3f}; CPU s in "
+              f"the window: swarm {swarm['swarm_cpu_s']}, serving {swarm['serving_cpu_s']}; "
+              f"{took_b:.1f} s", flush=True)
+        bench = importlib.import_module("tools.torch_delivery_bench")
+        t = time.perf_counter()
+        fo = bench.run_failover(**DELIVERY_FAILOVER)
+        took_c = time.perf_counter() - t
+        require(fo["line_restored"] and fo["converged"] == DELIVERY_FAILOVER["n_subs"]
+                and fo["subscriber_errors"] == 0, f"delivery (c): {fo}")
+        print(f"  (c) failover: line_restored {fo['line_restored']}, converged "
+              f"{fo['converged']}, subscriber_errors {fo['subscriber_errors']}, takeover "
+              f"{fo['takeover_sec']} s; {took_c:.1f} s", flush=True)
+        return {"versions": versions, "fetches": len(got), "blob_bytes": len(blob),
+                "launches": run["launches"], "job_s": round(took_a, 3),
+                "swarm": {k: swarm[k] for k in ("polls", "failures", "n_lat",
+                                                "writer_cadence_ratio", "prop_p50_ms",
+                                                "prop_p99_ms", "fetch_errors", "swarm_cpu_s",
+                                                "serving_cpu_s")},
+                "swarm_s": round(took_b, 3),
+                "failover": {k: fo[k] for k in ("line_restored", "converged",
+                                                "subscriber_errors", "takeover_sec")},
+                "failover_s": round(took_c, 3), "wall_s": time.perf_counter() - t0}
+
+    # -- phases 20-23 -------------------------------------------------------------
     @functools.cached_property
     def X(self):
         """slice_data's features on the card."""
         return self.xb.float() / 256
 
     def slice_world(self):
-        """The gloo world of phases 19-21 (DP_RANKS processes on the card,
+        """The gloo world of phases 20-22 (DP_RANKS processes on the card,
         _slice_rank), spawned once; its results are read by each phase."""
         t0 = time.perf_counter()
         self.slice_runs = run_ranks(_slice_rank, DP_RANKS, self.n_rows)
@@ -3588,7 +3744,7 @@ class Smoke:
               "stop " + json.dumps(frames))
         print("  durable " + json.dumps(self.slice_ms["durable"]))
 
-    # -- phase 24 -----------------------------------------------------------------
+    # -- phase 25 -----------------------------------------------------------------
     def trace_phase(self, logdir: str):
         """One warm fused bf16 round and one warm hook-based bf16 round under
         profile.device_trace: each round's wall time, the device time in
@@ -3649,7 +3805,7 @@ class Smoke:
         print(f"  Chrome trace under {logdir}")
         return out
 
-    # -- phase 23 -----------------------------------------------------------------
+    # -- phase 24 -----------------------------------------------------------------
     def measure(self):
         torch, boost = self.torch, self.boost
         xb3, g3, h3 = self.xb3, self.g3, self.h3
@@ -3867,7 +4023,7 @@ def main() -> int:
     except ImportError as e:
         print(f"FAIL: run from the root of a checkout ({e})", file=sys.stderr)
         return 2
-    # the plain versions' matmuls, and the products of phases 19-21 (exact f32)
+    # the plain versions' matmuls, and the products of phases 20-22 (exact f32)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     phase, t_phase = "device", time.perf_counter()
@@ -3976,6 +4132,9 @@ def main() -> int:
 
         phase = next_phase("chaos")
         print("[chaos] " + json.dumps(smoke.chaos_phase()), flush=True)
+
+        phase = next_phase("delivery")
+        print("[delivery] " + json.dumps(smoke.delivery_phase()), flush=True)
 
         phase = next_phase("linear")
         smoke.slice_world()

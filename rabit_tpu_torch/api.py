@@ -44,7 +44,11 @@ which records them tagged with the engine's class.
 ``quorum_policy`` event; the engines' own collectives stay exact, since
 quorum rounds belong to the tracker and ``elastic.ElasticWorker``.
 
-Not ported (ROADMAP.md Queue 1): the delivery plane's publisher.
+The delivery plane (``delivery``): with ``rabit_delivery_publish=1`` and a
+tracker, rank 0 publishes every committed checkpoint (``_publish_commit``,
+after the store's save) as a content-addressed snapshot, pins the
+published version in the store and records ``snapshot_published``.
+Publishing is best-effort: a delivery outage never fails a commit.
 """
 
 from __future__ import annotations
@@ -78,6 +82,8 @@ _ckpt_base = 0
 # The world epoch this process last adopted, and the callbacks run when it
 # adopts another (register_rebalance).
 _world_epoch = {"epoch": 0, "world_size": 1}
+# The delivery plane's publisher (rank 0 with rabit_delivery_publish=1).
+_publisher = None
 _rebalance_cbs: list[Callable[[dict, dict], None]] = []
 
 _WRAP_TAG = "__rabit_tpu_ckpt1__"
@@ -133,7 +139,7 @@ def init(args: list[str] | None = None, **overrides: Any) -> None:
     """Start the engine.  ``args`` are ``"key=value"`` strings (default: the
     ones in ``sys.argv[1:]``; of a key given twice the last wins); keyword
     overrides win over them."""
-    global _engine, _ckpt_store, _ckpt_base, _world_epoch
+    global _engine, _ckpt_store, _ckpt_base, _world_epoch, _publisher
     if _engine is not None:
         if not getattr(_engine, "_provisional", False):
             import warnings
@@ -170,16 +176,28 @@ def init(args: list[str] | None = None, **overrides: Any) -> None:
     if ckpt_dir and ckpt_dir != "NULL":
         from rabit_tpu_torch.store import CheckpointStore
 
-        _ckpt_store = CheckpointStore(ckpt_dir, engine.get_rank(),
-                                      codec=pol.checkpoint, engine=engine)
+        _ckpt_store = CheckpointStore(ckpt_dir, engine.get_rank(), codec=pol.checkpoint,
+                                      keep=config.get_int("rabit_checkpoint_keep", 2),
+                                      engine=engine)
     else:
         _ckpt_store = None
+    # Only the committing rank 0 publishes: every rank holds the same global
+    # blob, and N publishes of it would be N redundant registrations.
+    _publisher = None
+    uri = config.get("rabit_tracker_uri", "NULL") or "NULL"
+    if config.get_bool("rabit_delivery_publish") and uri != "NULL" and engine.get_rank() == 0:
+        from rabit_tpu_torch.delivery import Publisher
+        from rabit_tpu_torch.tracker.protocol import parse_addrs
+
+        _publisher = Publisher(uri, config.get_int("rabit_tracker_port", 9091),
+                               task_id=f"pub-{config.get('rabit_task_id', '0')}",
+                               addrs=parse_addrs(config.get("rabit_tracker_addrs", "") or ""))
 
 
 def finalize() -> None:
     """Shut the engine down; the process runs solo after it.  The final
     metrics snapshot goes to the tracker first, while it still serves."""
-    global _engine, _ckpt_store, _ckpt_base, _world_epoch
+    global _engine, _ckpt_store, _ckpt_base, _world_epoch, _publisher
     if _engine is not None:
         obs.ship_final_snapshot()
         obs.record_event("engine_finalize", engine=type(_engine).__name__)
@@ -190,6 +208,7 @@ def finalize() -> None:
     _ckpt_store = None
     _ckpt_base = 0
     _world_epoch = {"epoch": 0, "world_size": 1}
+    _publisher = None
 
 
 def world_epoch() -> dict:
@@ -468,6 +487,7 @@ def checkpoint(global_model: Any, local_model: Any = None) -> None:
     if _ckpt_store is None:
         engine.checkpoint(gblob, lblob)
         _note_commit(engine, len(gblob))
+        _publish_commit(engine, gblob)
         return
     wrapped = _wrap(_ckpt_base, gblob)
     engine.checkpoint(wrapped, lblob)
@@ -477,6 +497,25 @@ def checkpoint(global_model: Any, local_model: Any = None) -> None:
     # adopted world epoch rides in the frame (RTC3 past epoch 0).
     _ckpt_store.save(_ckpt_base + engine.version_number(), wrapped, lblob,
                      epoch=_world_epoch["epoch"])
+    _publish_commit(engine, wrapped)
+
+
+def _publish_commit(engine: Engine, blob: bytes) -> None:
+    """Publish the committed blob (after the commit, and after the store's
+    save when there is one, so that the plane names only bytes a resume
+    could serve too), pin its version in the store so that no prune races
+    a fetch of it, and record ``snapshot_published``.  A delivery outage is
+    swallowed: it must never fail the job's commit."""
+    if _publisher is None:
+        return
+    version = _ckpt_base + engine.version_number()
+    try:
+        _publisher.publish(version, blob, epoch=_world_epoch["epoch"])
+        if _ckpt_store is not None:
+            _ckpt_store.pin(version)
+        engine.obs_event("snapshot_published", version=version, nbytes=len(blob))
+    except (ConnectionError, OSError, ValueError):
+        pass
 
 
 def lazy_checkpoint(global_model: Any) -> None:

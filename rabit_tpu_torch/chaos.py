@@ -41,7 +41,10 @@ same scenario here as in ``rabit_tpu.chaos``: the draws come from
 ``random.Random(seed)`` in the same order.  Each contribution is the
 histogram of the rank's shard computed by ``ops.hist.node_histograms_kernel``
 on ``device`` (the card by default; on CPU tensors, its plain twin).  The
-multi-job key (``job=``) is refused: ROADMAP.md Queue 1 item 10g.
+runner's multi-job mode (``run_elastic_schedule(job=)``) is refused:
+ROADMAP.md Queue 1 item 10g (``protocol.tracker_rpc(job=)`` itself only
+joins the key into the wire task id, which a tracker of one job serves as
+any other task id).
 """
 
 from __future__ import annotations

@@ -160,6 +160,14 @@ DEFAULTS: dict[str, str] = {
     # recently used beyond it).
     "rabit_tracker_backlog": "1024",
     "rabit_relay_cache_bytes": "256M",
+    # The delivery plane (delivery): rabit_delivery_publish=1 has rank 0
+    # publish every checkpoint commit as a content-addressed snapshot
+    # through the tracker; rabit_delivery_poll_sec is a subscriber's poll
+    # and retry cadence; rabit_checkpoint_keep is the durable store's
+    # window of unpinned versions (the published version stays pinned).
+    "rabit_delivery_publish": "0",
+    "rabit_delivery_poll_sec": "0.5",
+    "rabit_checkpoint_keep": "2",
 }
 
 _UNIT = {"B": 1, "K": 1 << 10, "M": 1 << 20, "G": 1 << 30}

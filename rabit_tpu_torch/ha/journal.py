@@ -9,7 +9,8 @@ into the in-memory :class:`~rabit_tpu_torch.ha.state.ControlState` mirror
 and hands the frame to every subscriber (the CMD_JOURNAL channels of warm
 standbys).  One writer puts file, mirror and subscribers in one total
 order, which makes "the standby's replay is the primary's state" a byte
-comparison.
+comparison.  ``streamed`` waits until what was enqueued has left on every
+stream: the tracker's write-ahead for a wave.
 
 Compaction: after ``snapshot_every`` records the writer rewrites the file
 as one ``snapshot`` record (a temporary file renamed over it) and sends the
@@ -32,6 +33,7 @@ from __future__ import annotations
 import os
 import queue
 import threading
+import time
 from typing import Callable
 
 from rabit_tpu_torch.ha.state import ControlState
@@ -115,6 +117,21 @@ class Journal:
         done = threading.Event()
         self._q.put(("flush", done))
         return done.wait(timeout)
+
+    def streamed(self, timeout: float = 5.0) -> bool:
+        """Wait until every record enqueued so far is written and has left on
+        every subscriber's stream: the writer hands each stream a marker
+        behind those records, which the stream sets once what came before
+        it is on its socket.  False past ``timeout``."""
+        if self._closed.is_set():
+            return False
+        marks: list[threading.Event] = []
+        handed = threading.Event()
+        self._q.put(("mark", marks, handed))
+        deadline = time.monotonic() + timeout
+        if not handed.wait(timeout):
+            return False
+        return all(m.wait(max(deadline - time.monotonic(), 0.0)) for m in marks)
 
     def close(self) -> None:
         self._closed.set()
@@ -218,6 +235,12 @@ class Journal:
                     self._subs.remove(item[1])
             elif op == "flush":
                 item[1].set()
+            elif op == "mark":
+                for sub in self._subs:
+                    mark = threading.Event()
+                    item[1].append(mark)
+                    sub.put(mark)
+                item[2].set()
         if self._file is not None:
             try:
                 self._file.close()

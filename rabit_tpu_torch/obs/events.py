@@ -33,9 +33,9 @@ _RESERVED = ("ts", "kind")
 
 #: The event-kind registry: every ``kind`` of ``rabit_tpu``'s registry
 #: (``rabit_tpu/obs/events.py`` ``KINDS``) that a plane of the port can
-#: record, with the same one-line meaning (the service and delivery planes'
-#: kinds wait for their port).  A kind is added here in the change that adds
-#: its producer.
+#: record, with the same one-line meaning (the service plane's kinds wait
+#: for its port).  A kind is added here in the change that adds its
+#: producer.
 KINDS: dict[str, str] = {
     # envelope / ring
     "flight_dump": "dump header line: pid, rank, reason, n_events, dropped",
@@ -127,6 +127,14 @@ KINDS: dict[str, str] = {
     "blob_cache_evicted": "a relay's digest-keyed snapshot cache dropped "
                           "an entry: digest, nbytes, reason "
                           "(lru|superseded|job_retired)",
+    # the delivery plane (delivery)
+    "snapshot_published": "a checkpoint commit registered as a "
+                          "content-addressed snapshot: version, epoch, "
+                          "digest, size (journaled so a standby restores "
+                          "the version line)",
+    "snapshot_fetched": "first CMD_SNAP fetch of a digest served: "
+                        "digest, nbytes (per-fetch byte counts stream as "
+                        "delivery_bytes_served)",
     # collective schedules (sched)
     "schedule_planned": "tracker planned a wave's schedule: epoch, algo, "
                         "ring_order, n_avoided",

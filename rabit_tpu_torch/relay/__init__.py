@@ -21,12 +21,21 @@ tracker:
   by task id.  A CMD_QUORUM report parks the same way under ``q#<task
   id>`` and gets its frozen record in the direct path's bytes.  A parked
   child's EOF goes upstream as ``CMD_HANGUP``;
+* **delivery**: a ``CMD_SUB`` poll is answered here from the version line
+  the last batch ACK carried; a publish, and a poll before any ACK named a
+  line, parks under ``s#<task id>`` and rides the next batch.  A
+  ``CMD_SNAP`` fetch of a digest in the cache is answered here with the
+  window it asks for (``snap_cache_hits``); a miss goes to the tracker on a
+  thread of its own, which fetches the whole blob once and caches it by
+  digest (``snap_proxies``);
 * **proxied**: a CMD_BLOB upload goes through on a short connection of its
   own, behind a per-job (version, digest) cache: an upload of a version the
   tracker already ACKed is ACKed here (``blob_cache_hits``).  The cache's
   bytes are keyed by digest and bounded by ``rabit_relay_cache_bytes``:
   least recently used and ``superseded`` entries go first
-  (``blob_cache_evicted`` events in ``events``);
+  (``blob_cache_evicted`` events in ``events``).  Snapshot fetches share
+  the cache: the digest the current version line names is held, and
+  released (``superseded``) when the line moves on;
 * **clock-projected**: the relay brackets every batch's round trip and
   keeps an NTP-style estimate of the tracker's clock; the ACKs of its
   children's heartbeats and metrics carry the projected tracker time, so a
@@ -43,10 +52,9 @@ twice); the tracker dedupes check-ins and shutdowns by task id and decides
 each quorum record once, so the replay is safe and the children never
 re-dial.
 
-Not ported here (they wait for the delivery and service planes):
-``CMD_SUB`` and ``CMD_SNAP`` (a child that sends one is dropped, as for
-any command the relay does not serve), and the batch ACK's per-job epoch
-map with its ``job_retired`` eviction.
+Not ported here (it waits for the service plane): the batch ACK's per-job
+epoch and delivery map, with its ``job_retired`` eviction; a child with a
+job key gets its polls answered by the tracker.
 """
 
 from __future__ import annotations
@@ -77,6 +85,12 @@ _HELLO_TIMEOUT = 60.0  # a child's torn hello is dropped after this long
 #: coalesce again at the next flush, and a delta the old tracker did fold
 #: would count twice.
 _NO_REPLAY = (P.CMD_HEARTBEAT, P.CMD_METRICS, P.CMD_OBS)
+
+#: The longest pause, in seconds, between two sweeps of the tracker list
+#: while the channel is down.  A promoted standby re-arms the children's
+#: leases at LEASE_FACTOR x their padded interval, so the channel must be
+#: back well inside that.
+_RECONNECT_CAP = 0.25
 
 
 class _Child:
@@ -162,6 +176,10 @@ class Relay:
         self._digest_refs: dict[str, int] = {}
         self._cache_used = 0
         self._cache_budget = Config().get_size("rabit_relay_cache_bytes", 256 << 20)
+        # The delivery lines the batch ACKs carry, by job (the tracker's own
+        # job "" only), and the digest each line holds in the cache.
+        self._sub_lines: dict[str, dict] = {}
+        self._line_digests: dict[str, str] = {}
         #: the relay's own timeline (blob_cache_evicted), bounded
         self.events: list[dict] = []
         # The last envelope's replayable sub-messages, kept until its ACK:
@@ -170,7 +188,8 @@ class Relay:
         self._replay = False
         self.stats = {"children": 0, "rpcs_terminated": 0, "batches": 0, "batch_msgs": 0,
                       "routed": 0, "reconnects": 0, "failovers": 0, "replayed_msgs": 0,
-                      "blob_cache_hits": 0, "evictions": 0}
+                      "blob_cache_hits": 0, "snap_cache_hits": 0, "snap_proxies": 0,
+                      "evictions": 0}
 
     @property
     def tracker(self) -> tuple[str, int]:
@@ -368,7 +387,39 @@ class Relay:
             threading.Thread(target=self._proxy_blob, args=(ch.sock, h, job), daemon=True,
                              name=f"relay-proxy-{self.relay_id}").start()
             return
-        if h.cmd == P.CMD_HEARTBEAT:
+        if h.cmd == P.CMD_SUB:
+            job = P.split_job(h.task_id)[0]
+            with self._lock:
+                line = self._sub_lines.get(job)
+            if line is None or "publish" in h.message:
+                key = "s#" + h.task_id
+                self._park(ch, key, P.BatchMsg(key, P.CMD_SUB, h.prev_rank, ch.addr[0], 0,
+                                               h.message.encode(), time.time()))
+                return
+            ch.out += P.put_u32(P.ACK) + P.put_str(json.dumps(line))
+        elif h.cmd == P.CMD_SNAP:
+            try:
+                req = json.loads(h.message) if h.message else {}
+            except ValueError:
+                req = {}
+            req = req if isinstance(req, dict) else {}
+            digest = str(req.get("digest", ""))
+            with self._lock:
+                blob = self._digest_blobs.get(digest)
+                if blob is not None:
+                    self._digest_blobs.move_to_end(digest)
+            if blob is None:
+                # the whole blob comes from the tracker once, on a thread
+                self.stats["snap_proxies"] += 1
+                obs_stream.stream_count("delivery_cache_misses", 1, relay=self.relay_id)
+                self._child_detach(sel, children, ch)
+                threading.Thread(target=self._proxy_snap, args=(ch.sock, h, req), daemon=True,
+                                 name=f"relay-snap-{self.relay_id}").start()
+                return
+            self.stats["snap_cache_hits"] += 1
+            obs_stream.stream_count("delivery_cache_hits", 1, relay=self.relay_id)
+            ch.out += self._snap_window(digest, blob, req)
+        elif h.cmd == P.CMD_HEARTBEAT:
             try:
                 interval = float(h.message)
             except ValueError:
@@ -455,19 +506,60 @@ class Relay:
         if acked and h.blob_version > 0:
             self._cache_put(hashlib.sha256(h.blob).hexdigest(), h.blob, job, h.blob_version)
 
+    def _proxy_snap(self, conn: socket.socket, h: P.Hello, req: dict) -> None:
+        """Fetch one digest's whole snapshot from the tracker, cache it by
+        digest and answer the child's window; a digest the tracker lacks
+        answers the empty frame, which the subscriber retries past."""
+        digest = str(req.get("digest", ""))
+        blob = None
+        try:
+            try:
+                with socket.create_connection(self.tracker, timeout=self.rpc_timeout) as up:
+                    up.settimeout(self.rpc_timeout)
+                    P.send_hello(up, P.CMD_SNAP, h.task_id,
+                                 message=json.dumps({"digest": digest}))
+                    got, total, _off, payload = P.read_snap_frame(up)
+                if got == digest and payload and len(payload) == total:
+                    blob = payload
+                    self._cache_put(digest, blob)
+            except (ConnectionError, OSError, ValueError):
+                pass
+            conn.settimeout(self.rpc_timeout)
+            conn.sendall(P.put_snap_frame("", 0, 0, b"") if blob is None
+                         else self._snap_window(digest, blob, req))
+        except OSError:
+            pass
+        finally:
+            conn.close()
+
+    @staticmethod
+    def _snap_window(digest: str, blob: bytes, req: dict) -> bytes:
+        """The snap frame of ``[off, off + len)`` of a cached blob (no len,
+        or 0: the rest of the blob)."""
+        try:
+            off = max(int(req.get("off", 0)), 0)
+            ln = int(req.get("len", 0) or 0)
+        except (TypeError, ValueError):
+            off, ln = 0, 0
+        chunk = blob[off:off + ln] if ln > 0 else blob[off:]
+        return P.put_snap_frame(digest, len(blob), off, chunk)
+
     # -- the blob cache --------------------------------------------------------
 
-    def _cache_put(self, digest: str, blob: bytes, job: str, version: int) -> None:
-        """Bind ``job``'s newest (version, digest), releasing the digest it
-        supersedes, and keep the bytes; past the byte budget the least
-        recently used digest no job holds goes."""
+    def _cache_put(self, digest: str, blob: bytes, job: str | None = None,
+                   version: int = 0) -> None:
+        """Keep the bytes under their digest and, for an upload, bind
+        ``job``'s newest (version, digest), releasing the digest it
+        supersedes; past the byte budget the least recently used digest
+        nothing holds goes."""
         with self._lock:
-            old = self._blob_cache.get(job)
-            self._blob_cache[job] = (version, digest)
-            if old is None or old[1] != digest:
-                self._digest_refs[digest] = self._digest_refs.get(digest, 0) + 1
-                if old is not None:
-                    self._release_digest_locked(old[1], "superseded")
+            if job is not None:
+                old = self._blob_cache.get(job)
+                self._blob_cache[job] = (version, digest)
+                if old is None or old[1] != digest:
+                    self._digest_refs[digest] = self._digest_refs.get(digest, 0) + 1
+                    if old is not None:
+                        self._release_digest_locked(old[1], "superseded")
             if digest in self._digest_blobs:
                 self._digest_blobs.move_to_end(digest)
             else:
@@ -481,6 +573,23 @@ class Relay:
                 vb = self._digest_blobs.pop(victim)
                 self._cache_used -= len(vb)
                 self._note_evicted_locked(victim, len(vb), "lru")
+
+    def _hold_line_locked(self, job: str, line: dict) -> None:
+        """Adopt ``job``'s delivery line from a batch ACK: the digest it
+        names is held in the cache (no LRU eviction while it is current)
+        and the digest of the line it supersedes is released."""
+        self._sub_lines[job] = dict(line)
+        digest = str(line.get("digest", ""))
+        old = self._line_digests.get(job)
+        if old == digest:
+            return
+        if digest:
+            self._line_digests[job] = digest
+            self._digest_refs[digest] = self._digest_refs.get(digest, 0) + 1
+        else:
+            self._line_digests.pop(job, None)
+        if old:
+            self._release_digest_locked(old, "superseded")
 
     def _release_digest_locked(self, digest: str, reason: str) -> None:
         """Drop one job's hold of a digest; its bytes go once none holds it."""
@@ -605,9 +714,13 @@ class Relay:
                 if self._chan is chan:
                     self._chan = None
             chan.close()
+            # a pump waiting for this channel's ACK redials now, not after
+            # rpc_timeout
+            self._ack.set()
 
     def _fold_ack(self, payload: bytes) -> None:
-        """A batch ACK: refresh the epoch cache and the clock projection
+        """A batch ACK: refresh the epoch cache, the delivery line and the
+        clock projection
         (the tightest bracket wins, with decay), and clear the envelope held
         for replay."""
         try:
@@ -617,6 +730,10 @@ class Relay:
         if "epoch" in info:
             self._epoch_cache = {"epoch": info.get("epoch", 0), "world": info.get("world", 0),
                                  "rewave": bool(info.get("rewave"))}
+        line = info.get("delivery")
+        if isinstance(line, dict):
+            with self._lock:
+                self._hold_line_locked("", line)
         t_recv, t_send = time.time(), self._last_batch_send
         server_ts = info.get("server_ts")
         if t_send is not None and server_ts is not None:
@@ -659,7 +776,7 @@ class Relay:
         return msgs + queued
 
     def _upstream_pump(self) -> None:
-        backoff = 0.05
+        backoff, misses = 0.05, 0
         while not self._stopped.is_set():
             self._flush_now.wait(self.flush_sec)
             self._flush_now.clear()
@@ -670,10 +787,14 @@ class Relay:
             if chan is None:
                 chan = self._connect_channel()
                 if chan is None:
-                    time.sleep(min(backoff, 1.0))
-                    backoff = min(backoff * 2, 1.0)
+                    # the next address is dialled at the next flush; only a
+                    # whole sweep of the list that failed backs off
+                    misses += 1
+                    if misses % len(self.trackers) == 0:
+                        time.sleep(backoff)
+                        backoff = min(backoff * 2, _RECONNECT_CAP)
                     continue
-                backoff = 0.05
+                backoff, misses = 0.05, 0
             # an empty batch goes out too: the keepalive that refreshes the
             # epoch cache and the clock projection
             msgs = self._build_batch()

@@ -77,6 +77,9 @@ SPARE_EXIT_SEC = 10.0
 #: Seconds a relayed run waits, once its workers are gone, for the shutdowns
 #: still in its relays to reach the tracker.
 RELAY_DRAIN_SEC = 5.0
+#: Seconds at most that ``run(linger=)`` keeps the tracker and the relays
+#: serving once the workers are gone.
+LINGER_SEC = 60.0
 
 
 def spare_task_id(i: int) -> str:
@@ -172,7 +175,8 @@ class LocalCluster:
             preempt: list[tuple[float, int]] | None = None,
             wedge: list[tuple[float, int]] | None = None,
             start_when: Callable[[list[dict]], bool] | None = None,
-            kill_tracker_after: float | None = None) -> int:
+            kill_tracker_after: float | None = None,
+            linger: Callable[[], bool] | None = None) -> int:
         """Run ``cmd`` x num_workers (and the spares) under a fresh
         tracker; returns 0 when every worker has exited cleanly.  Raises
         when a task id's restart budget is spent or ``timeout`` seconds
@@ -183,7 +187,10 @@ class LocalCluster:
         ``kill_tracker_after`` kills the primary tracker (``Tracker.kill``)
         that many seconds after launch; with ``standby=True`` the job fails
         over, and after the run ``events`` are the primary's up to the cut
-        and the promoted tracker's after it."""
+        and the promoted tracker's after it.  ``linger`` keeps the tracker
+        and the relays serving, once every worker has exited, until
+        ``linger()`` is true (at most ``LINGER_SEC``): a reader of the job's
+        delivery line behind the relays finishes its last fetch first."""
         self._suspects = []
         tracker_kwargs = dict(quiet=self.quiet, on_suspect=self._on_suspect,
                               shrink_after_sec=self.shrink_after_sec)
@@ -330,6 +337,9 @@ class LocalCluster:
                         # a relay ACKs a shutdown itself and forwards it at
                         # its next flush: let the tracker see the job's end
                         tracker.wait(RELAY_DRAIN_SEC)
+                    until = time.monotonic() + LINGER_SEC
+                    while linger is not None and not linger() and time.monotonic() < until:
+                        time.sleep(0.05)
                     return 0
                 time.sleep(0.02)
         finally:

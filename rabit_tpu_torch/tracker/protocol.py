@@ -71,6 +71,25 @@ Quorum rounds (``quorum``):
                                no quorum table, ``stale_epoch`` for a report
                                of another epoch).
 
+The delivery plane (``delivery``):
+
+      CMD_SUB:                 str JSON: a reader's poll (``{}``) or a
+                               writer's ``{"publish": {"version", "epoch",
+                               "digest", "size"}}``; answered with u32 ACK and
+                               a str JSON version line ``{"version", "epoch",
+                               "digest", "size"}`` (version 0: nothing
+                               published yet), a publish's reply with
+                               ``have``: whether the tracker already holds the
+                               digest's bytes (the publisher then skips its
+                               upload);
+      CMD_SNAP:                str JSON ``{"digest", "off", "len"}`` (off and
+                               len optional: the whole blob); answered with
+                               one snap frame and no ACK (``put_snap_frame``:
+                               MAGIC_SNAP, str digest, u32 total size, u32
+                               offset, u32 nbytes, the chunk); an unknown
+                               digest answers an empty frame (digest "", total
+                               0), a retryable absence.
+
 The HA standby's channel (``ha``):
 
       CMD_JOURNAL:             nothing more; answered with u32 ACK and then a
@@ -142,6 +161,7 @@ MAGIC_LINK = 0x7AB17003
 MAGIC_BLOB = 0x7AB17004
 MAGIC_SKIP = 0x7AB17005
 MAGIC_DELTA = 0x7AB17006
+MAGIC_SNAP = 0x7AB17007
 ACK = 0
 
 CMD_START = 1
@@ -164,9 +184,8 @@ CMD_HANGUP = 12
 #: As a hello, the live-telemetry scrape; as a relay's sub-message, one
 #: coalesced metric-delta frame to fold into the rollup.
 CMD_OBS = 14
-#: The delivery plane's version-line poll and snapshot fetch.  The port
-#: serves neither; the hello parser reads their message field as
-#: ``rabit_tpu``'s does, so a byte stream that carries one stays in step.
+#: The delivery plane's version-line poll or publish, and its
+#: content-addressed snapshot fetch (``delivery``).
 CMD_SUB = 15
 CMD_SNAP = 16
 
@@ -187,6 +206,8 @@ PARITY_EXEMPT = {
                      "channel itself",
         "CMD_JOURNAL": "a standby tails the journal over a direct socket, never through "
                        "a relay",
+        "CMD_SNAP": "proxied straight through by the relay with digest-keyed caching: "
+                    "snapshot fetches are large and the relay serves repeat digests itself",
     },
 }
 
@@ -353,6 +374,50 @@ def recv_blob_frame(sock) -> tuple[int, bytes]:
     return version, recv_exact(sock, n) if n else b""
 
 
+def put_snap_frame(digest: str, total: int, off: int, payload: bytes) -> bytes:
+    """One CMD_SNAP reply: MAGIC_SNAP, the content digest the bytes hash to,
+    the blob's total size, the chunk's offset, then the chunk.  A miss is
+    ``("", 0, 0, b"")``.  The same bytes go over a direct socket, a relay's
+    route frame and out of the relay's digest-keyed cache."""
+    return b"".join([put_u32(MAGIC_SNAP), put_str(digest), put_u32(total), put_u32(off),
+                     put_u32(len(payload)), payload])
+
+
+def read_snap_frame(sock) -> tuple[str, int, int, bytes]:
+    """Read one snap frame off a blocking stream: ``(digest, total, off,
+    chunk)``.  ValueError on a bad magic or an oversized chunk,
+    ConnectionError on EOF."""
+    magic = get_u32(sock)
+    if magic != MAGIC_SNAP:
+        raise ValueError(f"bad snap magic {magic:#x}")
+    digest = get_str(sock)
+    total = get_u32(sock)
+    off = get_u32(sock)
+    n = get_u32(sock)
+    if n > 1 << 30:
+        raise ValueError(f"oversized snap chunk ({n} bytes)")
+    return digest, total, off, recv_exact(sock, n) if n else b""
+
+
+def snap_frame_from_bytes(data: bytes) -> tuple[str, int, int, bytes]:
+    """Parse one whole snap frame held in memory.  ValueError on a bad magic
+    or a torn frame."""
+    if len(data) < 8:
+        raise ValueError(f"short snap frame ({len(data)} bytes)")
+    if _U32.unpack_from(data, 0)[0] != MAGIC_SNAP:
+        raise ValueError(f"bad snap magic {_U32.unpack_from(data, 0)[0]:#x}")
+    dn = _U32.unpack_from(data, 4)[0]
+    if len(data) < 8 + dn + 12:
+        raise ValueError(f"torn snap frame ({len(data)} bytes)")
+    digest = data[8:8 + dn].decode()
+    total = _U32.unpack_from(data, 8 + dn)[0]
+    off = _U32.unpack_from(data, 12 + dn)[0]
+    n = _U32.unpack_from(data, 16 + dn)[0]
+    if len(data) != 20 + dn + n:
+        raise ValueError(f"torn snap frame ({len(data)} of {20 + dn + n})")
+    return digest, total, off, data[20 + dn:]
+
+
 def put_block_frame(version: int, origin: int, payload: bytes) -> bytes:
     """A payload tagged with its version and origin rank."""
     return _U32.pack(version) + _I32.pack(origin) + payload
@@ -489,7 +554,8 @@ def send_hello(sock, cmd: int, task_id: str, prev_rank: int = -1,
     out = [put_u32(MAGIC_HELLO), put_u32(cmd), put_i32(prev_rank), put_str(task_id)]
     if cmd in (CMD_START, CMD_RECOVER, CMD_SPARE):
         out.append(put_u32(listen_port))
-    elif cmd in (CMD_PRINT, CMD_METRICS, CMD_HEARTBEAT, CMD_EPOCH, CMD_QUORUM, CMD_OBS):
+    elif cmd in (CMD_PRINT, CMD_METRICS, CMD_HEARTBEAT, CMD_EPOCH, CMD_QUORUM, CMD_OBS,
+                 CMD_SUB, CMD_SNAP):
         out.append(put_str(message))
     elif cmd == CMD_BLOB:
         out += [put_u32(blob_version), put_u32(len(blob)), blob]
@@ -742,7 +808,7 @@ def tracker_rpc(host: str, port: int, cmd: int, task_id: str, *,
                 addrs: list[tuple[str, int]] | None = None, job: str = ""):
     """One Python-side tracker message (a bootstrap check-in, print,
     metrics, heartbeat, shutdown, epoch poll, blob upload, quorum report,
-    scrape), the counterpart of ``rabit_tpu.tracker.protocol.tracker_rpc``.
+    scrape, delivery poll or publish, snapshot fetch), the counterpart of ``rabit_tpu.tracker.protocol.tracker_rpc``.
     A spare's check-in does not ride this path: its socket stays open
     (``elastic.client``).
 
@@ -759,20 +825,21 @@ def tracker_rpc(host: str, port: int, cmd: int, task_id: str, *,
     pending check-in.  ``addrs`` is the failover list
     (``rabit_tracker_addrs``): attempt i goes to candidate i mod n of
     ``(host, port)`` followed by the new addresses of ``addrs``, so a dead
-    primary costs one attempt and the next lands on its standby.  ``job``
-    (the multi-job key) is refused: ROADMAP.md Queue 1 item 10g.
+    primary costs one attempt and the next lands on its standby with no
+    backoff between them when the dead one refused the dial.  ``job``
+    is the multi-job key, joined into the wire task id (``join_job``: job
+    "tenant", task "0" arrive as "tenant/0").
 
     Returns the :class:`Assignment` for START and RECOVER, the ACK, as a
-    :class:`TimedAck` for METRICS and HEARTBEAT, and the reply's dict for
-    EPOCH (``{"epoch", "world", "rewave"}``), QUORUM (the round's record)
-    and OBS (the scrape document)."""
-    if job:
-        raise NotImplementedError(
-            "tracker_rpc with a multi-job key (job=) is not ported yet "
-            "(ROADMAP.md Queue 1 item 10g)")
+    :class:`TimedAck` for METRICS and HEARTBEAT, the reply's dict for EPOCH
+    (``{"epoch", "world", "rewave"}``), QUORUM (the round's record), OBS
+    (the scrape document) and SUB (the version line), and for SNAP the snap
+    frame's ``(digest, total, off, chunk)``, which comes with no ACK."""
     if cmd not in (CMD_START, CMD_RECOVER, CMD_PRINT, CMD_SHUTDOWN, CMD_METRICS,
-                   CMD_HEARTBEAT, CMD_EPOCH, CMD_BLOB, CMD_QUORUM, CMD_OBS):
+                   CMD_HEARTBEAT, CMD_EPOCH, CMD_BLOB, CMD_QUORUM, CMD_OBS, CMD_SUB,
+                   CMD_SNAP):
         raise ValueError(f"tracker_rpc does not send command {cmd}")
+    task_id = join_job(job, task_id)
     rng = rng if rng is not None else random
     retries = max(int(retries), 0)
     cands = [(host, int(port))]
@@ -793,16 +860,21 @@ def tracker_rpc(host: str, port: int, cmd: int, task_id: str, *,
                 if cmd in (CMD_START, CMD_RECOVER):
                     sock.settimeout(reply_timeout if reply_timeout is not None else timeout)
                     return Assignment.recv(sock)
+                if cmd == CMD_SNAP:
+                    return read_snap_frame(sock)
                 ack = get_u32(sock)
                 if cmd in (CMD_METRICS, CMD_HEARTBEAT):
                     server_ts = float(get_str(sock))
                     return TimedAck(ack, server_ts, t_send, time.time())
-                if cmd in (CMD_EPOCH, CMD_QUORUM, CMD_OBS):
+                if cmd in (CMD_EPOCH, CMD_QUORUM, CMD_OBS, CMD_SUB):
                     return json.loads(get_str(sock))
                 return ack
         except (ConnectionError, OSError) as exc:  # socket.timeout is an OSError
             last_err = exc
-            if attempt < retries:
+            # a refused dial names no live tracker to spare: the first pass
+            # over the failover list goes on at once, later retries back off
+            if attempt < retries and not (isinstance(exc, ConnectionRefusedError)
+                                          and attempt + 1 < len(cands)):
                 delay = min(backoff * (2 ** attempt), backoff_cap)
                 time.sleep(delay * (0.5 + 0.5 * rng.random()))
     raise TrackerUnreachable(

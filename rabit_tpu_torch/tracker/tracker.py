@@ -47,6 +47,17 @@ auto|tree|ring|swing).  A degraded link, flagged by a confirmed
 version boundary, as for a grow-back, and that wave's plan routes the ring
 around the link (``schedule_repaired``).
 
+Delivery (``delivery``): ``CMD_SUB`` is the version-line RPC.  A poll is
+answered with the newest published line; a ``publish`` registers a new line
+(``snapshot_published``, journaled, so a standby restores it) and says
+whether the digest's bytes are held already, so that a publisher of bytes
+another one shipped skips its upload.  Every ``CMD_BLOB`` upload is also
+kept by its sha256 digest, which the tracker computes itself, and
+``CMD_SNAP`` serves a window of those bytes as a snap frame (an unknown
+digest: an empty frame, which the subscriber retries); the first fetch of
+a digest is a ``snapshot_fetched`` event.  The line rides every relay's
+batch ACK, so relays answer their children's polls themselves.
+
 Quorum rounds (``quorum``): with ``quorum=`` set the tracker owns each
 round's exclusion record.  ``CMD_QUORUM`` reports name the blocks a rank
 holds; the first report that meets the K-of-N quorum freezes ``(epoch,
@@ -61,11 +72,16 @@ still outstanding (``correction_dropped``); a rank excluded
 High availability (``ha``): with ``journal=`` (a ``ha.Journal``, or a path)
 every mutation of the control state is journaled, with ``rabit_tpu``'s
 record kinds and fields, and ``CMD_JOURNAL`` streams the journal to a warm
-standby (refused when nothing is journaled).  ``kill`` is the in-process
+standby (refused when nothing is journaled).  A wave's Assignments leave
+only once its record has left on every standby's stream (write-ahead), so a
+promoted standby never closes an epoch a member already holds, and the
+wave's timeline entries go in only then.  ``kill`` is the in-process
 SIGKILL.  A standby's promoted tracker is built on its pre-bound socket
 (``listen_sock=``) from the replayed state (``resume_from=``): ranks, epoch
 line, shutdowns, flagged links, planned ring and frozen quorum records carry
-over, and the journaled leases re-arm with fresh deadlines.
+over, and the journaled leases re-arm with fresh deadlines, as does the
+delivery line (its bytes are not journaled: the publisher's next commit
+re-pushes them).
 
 Telemetry: ``CMD_METRICS`` snapshots (the newest a rank; their streamed
 ``delta`` windows folded into a rollup), the waves, the leases, the
@@ -87,8 +103,9 @@ registry, the document ``obs.top`` renders.
 Serving (``reactor``, the default): one ``selectors`` loop accepts every
 connection, parses its hello incrementally (``protocol.hello_parser``) and
 answers every short RPC (heartbeat, metrics, epoch poll, quorum report,
-print, blob, shutdown, scrape) inline, from ``_short_rpc_reply``, which the
-threaded path and the relay fold share, so all three give the same bytes.
+print, blob, shutdown, scrape, delivery poll and snapshot fetch) inline,
+from ``_short_rpc_reply``, which the threaded path and the relay fold
+share, so all three give the same bytes.
 A START / RECOVER check-in is registered on the loop and held off it; a wave
 it closes is sent from a thread of its own (``_send_wave_async``), as are a
 spare's park, a standby's journal stream and a relay's channel, so the loop
@@ -103,21 +120,22 @@ one the forming wave.
 Relays (``relay``): a relay checks in with ``CMD_BATCH`` and holds one
 channel, on a thread of its own (``_serve_relay``): every batch envelope is
 folded (``_fold_batch_msg``: check-ins, spares, heartbeats, metrics, prints,
-shutdowns, quorum reports, delta frames and hang-ups) and answered with an
-ACK frame that carries the tracker's clock and the epoch line; a check-in's
-reply (an Assignment, a park frame) and a quorum record go back by task id
-on the same channel.  A relayed check-in is a virtual connection
+shutdowns, quorum reports, delivery polls and publishes, delta frames and
+hang-ups) and answered with an ACK frame that carries the tracker's clock,
+the epoch line and the delivery line; a check-in's reply (an Assignment, a
+park frame), a quorum record and a delivery reply go back by task id on the
+same channel.  A relayed check-in is a virtual connection
 (``_RelayedConn``) that reads as hung up when its channel dies or the relay
 reports its child gone, so the wave purge and the spare reaping clean up
 after a relay as after a socket.  Relay channels are ``relay_up`` /
 ``relay_lost`` events, not membership: the relay reconnects and its
-children never notice.  The headless service partition and the delivery
-plane are ``rabit_tpu``'s and not ported; the scrape gives their sections
-the values ``rabit_tpu``'s gives with those planes off.
+children never notice.  The headless service partition is ``rabit_tpu``'s
+and not ported.
 """
 
 from __future__ import annotations
 
+import hashlib
 import json
 import os
 import queue
@@ -141,6 +159,9 @@ from rabit_tpu_torch.tracker import protocol as P
 
 MAX_MESSAGES = 4096       # the print log keeps the newest
 TELEMETRY_SCHEMA = 1
+#: Seconds at most a wave's Assignments wait for its journal record to leave
+#: on every standby's stream (the write-ahead in ``_send_assignments``).
+JOURNAL_WAVE_WAIT_SEC = 1.0
 
 
 def _aggregate_incidents(jobs: dict) -> dict:
@@ -445,6 +466,13 @@ class Tracker:
         self._spares: list[_Pending] = []  # parked spares (warm sockets)
         self._spares_seen = False  # a spare has parked: the job is elastic
         self._blob: tuple[int, bytes] | None = None  # (version, bootstrap blob)
+        # The delivery plane: the published version line (None: nothing
+        # published), every uploaded blob by its digest, the subscriber
+        # task ids seen and the digests fetched at least once.
+        self._delivery: dict | None = None
+        self._snaps: dict[str, bytes] = {}
+        self._sub_ids: set[str] = set()
+        self._fetched_digests: set[str] = set()
         self._ranks: dict[str, int] = {}  # task id -> its last rank
         self._n_starts: dict[str, int] = {}  # task id -> start check-ins
         self._shutdown_tasks: set[str] = set()
@@ -506,6 +534,11 @@ class Tracker:
             if task_id not in self._shutdown_tasks:
                 self._leases[task_id] = _Lease(now + P.LEASE_FACTOR * float(interval),
                                                float(interval), int(rank))
+        # The delivery line carries over; the snapshot bytes do not (relays
+        # keep their copies and the publisher re-pushes at its next commit,
+        # so a fetch of a digest not yet re-pushed reads an empty frame).
+        if st.delivery:
+            self._delivery = dict(st.delivery)
 
     def _drop_lease_locked(self, task_id: str) -> None:
         """Drop a lease, and journal the drop when there was one.  The
@@ -732,6 +765,11 @@ class Tracker:
         if h.cmd == P.CMD_OBS:
             return P.put_u32(P.ACK) + P.put_str(json.dumps(
                 self._scrape(h.task_id, h.message))), None
+        if h.cmd == P.CMD_SUB:
+            return self._sub_reply(h.task_id, h.message), None
+        if h.cmd == P.CMD_SNAP:
+            # the reply is a snap frame, with no ACK before it
+            return self._snap_reply(h.task_id, h.message), None
         raise ValueError(f"command {h.cmd} is not served")
 
     # -- the reactor -----------------------------------------------------------
@@ -932,21 +970,25 @@ class Tracker:
                       "relay reconnects)", flush=True)
 
     def _batch_ack_info(self) -> dict:
-        """The batch ACK's document: the tracker's clock and the epoch line
-        the relay answers its children's epoch polls from."""
+        """The batch ACK's document: the tracker's clock, and the epoch line
+        and delivery line the relay answers its children's polls from."""
         info = {"server_ts": round(time.time(), 6)}
         info.update(self._epoch_info())
+        with self._lock:
+            if self._delivery is not None:
+                info["delivery"] = dict(self._delivery)
         return info
 
     def _fold_batch_msg(self, channel: _RelayChannel, m: P.BatchMsg) -> float:
         """Fold one relayed sub-message; returns the tracker's clock at the
         fold, for the batch ACK's ``acks``.  A check-in becomes a virtual
         connection; a quorum report's record goes back to the child parked
-        as ``q#<task id>`` in the direct path's bytes; a delta frame folds
+        as ``q#<task id>``, and a delivery reply to the one parked as
+        ``s#<task id>``, in the direct path's bytes; a delta frame folds
         into the rollup; a hang-up marks the child's virtual connection
-        dead.  Epoch polls never ride a batch (the relay answers them) and
-        blobs are proxied around it; a sub-message the tracker does not
-        serve (CMD_SUB) is ignored, as is a malformed one."""
+        dead.  Epoch polls never ride a batch (the relay answers them), blobs
+        and snapshot fetches are proxied around it, and a malformed
+        sub-message is ignored."""
         ts = round(time.time(), 6)
         try:
             if m.cmd in (P.CMD_START, P.CMD_RECOVER, P.CMD_SPARE):
@@ -960,11 +1002,11 @@ class Tracker:
                 if vconn is not None:
                     vconn.child_dead = True
             elif m.cmd in (P.CMD_HEARTBEAT, P.CMD_METRICS, P.CMD_PRINT, P.CMD_SHUTDOWN,
-                           P.CMD_QUORUM):
+                           P.CMD_QUORUM, P.CMD_SUB):
                 reply, post = self._short_rpc_reply(
                     P.Hello(m.cmd, m.prev_rank, m.task_id, message=m.payload.decode()),
                     counted=False)
-                if m.cmd == P.CMD_QUORUM:
+                if m.cmd in (P.CMD_QUORUM, P.CMD_SUB):
                     channel.send_route(m.task_id, P.ROUTE_CLOSE, reply)
                 if post is not None:
                     post()
@@ -1000,6 +1042,9 @@ class Tracker:
                     frame = sub.get(timeout=0.25)
                 except queue.Empty:
                     continue
+                if isinstance(frame, threading.Event):
+                    frame.set()  # a write-ahead marker: what came before it is sent
+                    continue
                 conn.sendall(frame)
         except OSError:
             pass
@@ -1009,6 +1054,14 @@ class Tracker:
                 if conn in self._journal_conns:
                     self._journal_conns.remove(conn)
             conn.close()
+            # a gone stream holds no write-ahead wait up
+            while True:
+                try:
+                    frame = sub.get_nowait()
+                except queue.Empty:
+                    break
+                if isinstance(frame, threading.Event):
+                    frame.set()
 
     @staticmethod
     def _clock_stamp() -> bytes:
@@ -1078,14 +1131,93 @@ class Tracker:
                                or self._repair_wanted)}
 
     def _keep_blob(self, task_id: str, version: int, blob: bytes) -> None:
-        """Keep the newest uploaded state as the blob a parked spare gets."""
+        """Keep the newest uploaded state as the blob a parked spare gets,
+        and every upload under its sha256 digest for ``CMD_SNAP`` (computed
+        here, so the store is self-certifying, and identical uploads of two
+        publishers land on one entry)."""
+        digest = hashlib.sha256(blob).hexdigest()
         with self._lock:
             if self._blob is None or version >= self._blob[0]:
                 self._blob = (version, blob)
                 self._journal("blob", version=version)
+            self._snaps[digest] = blob
             self.events.append({"ts": round(time.time(), 6), "kind": "bootstrap_blob",
                                 "task_id": task_id, "version": version,
                                 "nbytes": len(blob)})
+
+    # -- delivery ------------------------------------------------------------
+
+    @staticmethod
+    def _json_doc(message: str) -> dict:
+        """A message's JSON object ({} when it is empty, malformed or not an
+        object)."""
+        try:
+            req = json.loads(message) if message else {}
+        except ValueError:
+            req = {}
+        return req if isinstance(req, dict) else {}
+
+    def _sub_reply(self, task_id: str, message: str) -> bytes:
+        """One ``CMD_SUB``: a poll gets the current line (a subscriber's
+        first poll counts into ``delivery_subscribers``); a ``publish``
+        registers a line no older than the current one, journals it and
+        says (``have``) whether the digest's bytes are held.  The threaded
+        path, the reactor and the relay fold all serve through this."""
+        req = self._json_doc(message)
+        pub = req.get("publish")
+        if isinstance(pub, dict):
+            try:
+                line = {"version": int(pub.get("version", 0)),
+                        "epoch": int(pub.get("epoch", 0)),
+                        "digest": str(pub.get("digest", "")), "size": int(pub.get("size", 0))}
+            except TypeError as exc:  # closed unanswered, as a malformed number is
+                raise ValueError(f"malformed publish: {exc}") from exc
+            with self._lock:
+                if self._delivery is None or line["version"] >= self._delivery["version"]:
+                    self._delivery = line
+                    self._journal("snapshot_published", **line)
+                    self.events.append({"ts": round(time.time(), 6),
+                                        "kind": "snapshot_published", "task_id": task_id,
+                                        **line})
+                reply = dict(self._delivery)
+                reply["have"] = line["digest"] in self._snaps
+            return P.put_u32(P.ACK) + P.put_str(json.dumps(reply))
+        with self._lock:
+            line = (dict(self._delivery) if self._delivery is not None
+                    else {"version": 0, "epoch": 0, "digest": "", "size": 0})
+            new_sub = task_id not in self._sub_ids
+            self._sub_ids.add(task_id)
+        if new_sub:
+            obs_stream.stream_count("delivery_subscribers", 1, job="")
+        return P.put_u32(P.ACK) + P.put_str(json.dumps(line))
+
+    def _snap_reply(self, task_id: str, message: str) -> bytes:
+        """One ``CMD_SNAP``: the requested window of a held digest's bytes
+        as a snap frame (no ACK before it).  An unknown digest answers an
+        empty frame: the line is registered before its bytes land, and a
+        promoted standby holds the line before anyone re-pushes the bytes,
+        so absence is a race the subscriber retries past."""
+        req = self._json_doc(message)
+        digest = str(req.get("digest", ""))
+        with self._lock:
+            blob = self._snaps.get(digest)
+        if blob is None:
+            return P.put_snap_frame("", 0, 0, b"")
+        try:
+            off = max(int(req.get("off", 0)), 0)
+            ln = int(req.get("len", 0) or 0)
+        except TypeError as exc:  # closed unanswered, as a malformed number is
+            raise ValueError(f"malformed fetch: {exc}") from exc
+        chunk = blob[off:off + ln] if ln > 0 else blob[off:]
+        with self._lock:
+            if digest not in self._fetched_digests:
+                # one event a digest: a swarm must not flood the timeline
+                self._fetched_digests.add(digest)
+                self.events.append({"ts": round(time.time(), 6), "kind": "snapshot_fetched",
+                                    "task_id": task_id, "digest": digest,
+                                    "nbytes": len(blob)})
+        obs_stream.stream_count("delivery_bytes_served", len(chunk), job="", digest=digest)
+        return P.put_snap_frame(digest, len(blob), off, chunk)
 
     # -- liveness ------------------------------------------------------------
 
@@ -1206,11 +1338,7 @@ class Tracker:
         """Serve one ``CMD_OBS`` scrape; the first of the tracker's life is
         recorded as an ``obs_scrape`` event (one, so a poller does not flood
         the timeline)."""
-        try:
-            opts = json.loads(message) if message else {}
-        except ValueError:
-            opts = {}
-        doc = self.build_scrape(opts if isinstance(opts, dict) else {})
+        doc = self.build_scrape(self._json_doc(message))
         with self._stats_lock:
             self.serve_stats["obs_scrapes"] += 1
         with self._lock:
@@ -1223,9 +1351,9 @@ class Tracker:
     def _scrape_job_state(self) -> dict:
         """The job's live scrape section, from copies of the control state
         taken under the lock: membership, leases, spares, the forming wave,
-        the link flags, the quorum records still owed, the rollup and the
-        incidents.  ``delivery`` carries ``rabit_tpu``'s value with that
-        plane off."""
+        the link flags, the quorum records still owed, the delivery line with
+        the digest store's size and the subscribers seen, the rollup and the
+        incidents."""
         with self._lock:
             live = {
                 "epoch": self.elastic.epoch,
@@ -1242,7 +1370,11 @@ class Tracker:
                 "n_events": len(self.events),
                 "n_snapshots": len(self.snapshots),
                 "messages_dropped": self.messages_dropped,
-                "delivery": {"line": None, "snaps": 0, "snap_bytes": 0, "subscribers": 0},
+                "delivery": {
+                    "line": dict(self._delivery) if self._delivery is not None else None,
+                    "snaps": len(self._snaps),
+                    "snap_bytes": sum(len(b) for b in self._snaps.values()),
+                    "subscribers": len(self._sub_ids)},
             }
         live["stream"] = self._stream.render()
         live["incidents"] = self._health.render()
@@ -1559,35 +1691,38 @@ class Tracker:
         wepoch, delta = self.elastic.commit(rank_map, world)
         self.world_size = world
         ts = round(time.time(), 6)
+        # the wave's timeline entries go in when its Assignments leave
+        # (_send_assignments): a tracker killed before then leaves no trace
+        commit_events: list[dict] = []
         if self._quorum is not None:
             # The epoch boundary drops the corrections still owed: ranks
             # renumber and shards re-cut, so an old block can never fold.
             for sv, r, w in self._quorum.epoch_changed(wepoch.epoch):
-                self.events.append({"ts": ts, "kind": "correction_dropped",
-                                    "epoch": wepoch.epoch, "src_version": sv, "rank": r,
-                                    "world": w})
+                commit_events.append({"ts": ts, "kind": "correction_dropped",
+                                      "epoch": wepoch.epoch, "src_version": sv, "rank": r,
+                                      "world": w})
         restarted = []
         for p in members:
             if p.cmd == P.CMD_START:
                 if self._n_starts.get(p.task_id, 0) > 0:
                     restarted.append(p.task_id)
                 self._n_starts[p.task_id] = self._n_starts.get(p.task_id, 0) + 1
-        self.events.append({
+        commit_events.append({
             "ts": ts, "kind": "wave", "epoch": wepoch.epoch,
             "world": world, "assignments": dict(rank_map),
             "recovering": sorted(p.task_id for p in members if p.cmd == P.CMD_RECOVER),
             "restarted": sorted(restarted), "delta": delta})
         for task_id in promoted:
-            self.events.append({"ts": ts, "kind": "spare_promoted", "task_id": task_id,
-                                "rank": rank_map[task_id], "epoch": wepoch.epoch})
+            commit_events.append({"ts": ts, "kind": "spare_promoted", "task_id": task_id,
+                                  "rank": rank_map[task_id], "epoch": wepoch.epoch})
         if world < prev_world:
-            self.events.append({"ts": ts, "kind": "world_shrunk", "epoch": wepoch.epoch,
-                                "from": prev_world, "to": world,
-                                "lost": sorted(t for t in prev_map if t not in rank_map)})
+            commit_events.append({"ts": ts, "kind": "world_shrunk", "epoch": wepoch.epoch,
+                                  "from": prev_world, "to": world,
+                                  "lost": sorted(t for t in prev_map if t not in rank_map)})
         elif world > prev_world:
-            self.events.append({"ts": ts, "kind": "world_grown", "epoch": wepoch.epoch,
-                                "from": prev_world, "to": world,
-                                "joined": sorted(delta["joined"])})
+            commit_events.append({"ts": ts, "kind": "world_grown", "epoch": wepoch.epoch,
+                                  "from": prev_world, "to": world,
+                                  "joined": sorted(delta["joined"])})
         # The wave is the control plane's commit: one record carries what a
         # standby needs to close the same waves, and its epoch boundary
         # settles the replayed quorum ledger as epoch_changed did this one.
@@ -1595,7 +1730,7 @@ class Tracker:
                       started=sorted(p.task_id for p in members if p.cmd == P.CMD_START),
                       promoted=sorted(promoted))
         return {"members": members, "world": world, "epoch": wepoch.epoch,
-                "rank_map": rank_map, "surplus": surplus}
+                "rank_map": rank_map, "surplus": surplus, "events": commit_events}
 
     def _wave_monitor(self) -> None:
         """The age-gated wave decisions (promotion, shrink, grow), every
@@ -1741,11 +1876,23 @@ class Tracker:
         world, rank_map = wave["world"], wave["rank_map"]
         peers = {rank_map[p.task_id]: (p.host, p.listen_port) for p in wave["members"]}
         splan = self._plan_schedule(world, rank_map)
-        ts = round(time.time(), 6)
         with self._lock:
             self._last_ring = list(splan.ring_order) or list(range(world))
             self._journal("sched", epoch=wave["epoch"], algo=splan.algo,
                           ring=list(self._last_ring))
+        if self.journal is not None:
+            # Write-ahead: the wave and its plan reach the journal file and
+            # every standby's stream before an Assignment leaves, so a standby
+            # promoted once a member holds the epoch never closes it again.
+            self.journal.streamed(JOURNAL_WAVE_WAIT_SEC)
+            if self._killed:
+                # died during the wait: a dead tracker sends nothing more
+                for p in wave["members"]:
+                    p.conn.close()
+                return
+        ts = round(time.time(), 6)
+        with self._lock:
+            self.events.extend(wave["events"])
             self.events.append({
                 "ts": ts, "kind": "schedule_planned",
                 "epoch": wave["epoch"], "algo": splan.algo, "world": world,

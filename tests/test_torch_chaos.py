@@ -147,10 +147,17 @@ def test_elastic_worker_rpc_timeout():
 
 
 def test_job_key_refused():
+    """The runner's job mode waits for item 10g; ``tracker_rpc(job=)`` joins the
+    key into the wire task id, which a live port tracker sees as
+    ``tenant/0``."""
     with pytest.raises(NotImplementedError, match="10g"):
         chaos.run_elastic_schedule(7000, job="tenant", device="cpu")
-    with pytest.raises(NotImplementedError, match="10g"):
-        P.tracker_rpc("127.0.0.1", _dead_port(), P.CMD_PRINT, "0", message="x", job="tenant")
+    tr = Tracker(1, quiet=True).start()
+    try:
+        ack = P.tracker_rpc(tr.host, tr.port, P.CMD_HEARTBEAT, "0", message="30", job="tenant")
+        assert ack == P.ACK and tr.live_tasks() == ["tenant/0"]
+    finally:
+        tr.stop()
 
 
 def test_cuda_without_a_card_raises(monkeypatch):

@@ -1450,3 +1450,90 @@ def test_elastic_schedule_with_card_contributions(cuda):
     r = chaos.run_elastic_schedule(7003, device="cuda")
     assert r.outcome == "completed" and r.n_completed >= 1
     assert dict(boost.launches) == {"node_histograms_kernel": r.n_contributions}
+
+
+# -- the delivery plane on the card -------------------------------------------------
+
+def _card_forest(cuda, n_trees=2):
+    """A small forest trained on the card (node_histograms_kernel a level),
+    as the tuple of numpy arrays the GBDT worker checkpoints."""
+    from rabit_tpu_torch.ops import hist
+
+    rng = np.random.RandomState(17)
+    xb = torch.as_tensor(rng.randint(0, B, size=(N, F)).astype(np.int32), device=cuda)
+    y = torch.as_tensor((rng.rand(N) > 0.5).astype(np.float32), device=cuda)
+    cfg = gbdt.GBDTConfig(n_features=F, n_trees=n_trees, depth=3, n_bins=B)
+    state = gbdt.init_state(cfg, N, cuda)
+    boost.launches.clear()
+    for _ in range(n_trees):
+        state = gbdt.train_round(state, xb, y, cfg, lambda *a: hist.node_histograms(*a))
+    assert boost.launches.get("node_histograms_kernel", 0) == n_trees * cfg.depth
+    return tuple(gbdt.forest_to_numpy(state.forest))
+
+
+@pytest.fixture
+def delivery_api(tmp_path):
+    """The api's publishing state pointed at a port tracker behind one port
+    relay, restored afterwards."""
+    from rabit_tpu_torch import api
+    from rabit_tpu_torch.delivery import Publisher
+    from rabit_tpu_torch.relay import Relay
+    from rabit_tpu_torch.store import CheckpointStore
+    from rabit_tpu_torch.tracker.tracker import Tracker
+
+    old = (api._engine, api._publisher, api._ckpt_store, api._ckpt_base)
+    tr = Tracker(1, quiet=True).start()
+    relay = Relay((tr.host, tr.port), relay_id="r0", flush_sec=0.05).start()
+    api._engine = None  # a fresh solo engine at version 0
+    api._publisher = Publisher(relay.host, relay.port, task_id="pub-0")
+    api._ckpt_store = CheckpointStore(str(tmp_path), 0)
+    api._ckpt_base = 0
+    try:
+        yield api, tr, relay
+    finally:
+        api._engine, api._publisher, api._ckpt_store, api._ckpt_base = old
+        relay.stop()
+        tr.stop()
+
+
+@pytest.mark.gpu
+def test_delivery_of_a_card_trained_forest_through_a_relay(cuda, delivery_api):
+    """A forest trained on the card, committed through api.checkpoint (store
+    on, publishing on): its line and bytes go through a port relay, and a
+    subscriber behind the relay fetches the committed blob byte for byte,
+    which decodes to the forest."""
+    import pickle
+
+    from rabit_tpu_torch.delivery import Subscriber, digest_of
+
+    api, tr, relay = delivery_api
+    forest = _card_forest(cuda)
+    api.checkpoint(forest)
+    committed = api._ckpt_store.load_global(1)
+    sub = Subscriber(relay.host, relay.port, task_id="s0", chunk_bytes=4096, poll_sec=0.05)
+    line, blob = sub.fetch(sub.wait_for(1, deadline_sec=10.0))
+    assert blob == committed and line["digest"] == digest_of(blob) == tr._delivery["digest"]
+    _base, inner = api._unwrap(blob)
+    for got, want in zip(pickle.loads(inner), forest):
+        assert np.array_equal(got, want)
+
+
+@pytest.mark.gpu
+def test_publish_commit_pins_a_card_forest(cuda, delivery_api):
+    """api._publish_commit with a card-trained forest's blob pins the
+    published version in the store and registers its line."""
+    import pickle
+
+    api, tr, _relay = delivery_api
+
+    class Eng:
+        def version_number(self):
+            return 3
+
+        def obs_event(self, kind, /, **fields):
+            pass
+
+    blob = pickle.dumps(_card_forest(cuda, n_trees=1))
+    api._publish_commit(Eng(), blob)
+    assert api._ckpt_store._pinned == {3}
+    assert tr._delivery["version"] == 3 and tr._delivery["size"] == len(blob)

@@ -133,6 +133,65 @@ def test_journal_buffers_parse_the_same(data):
             == JP.journal_frames_from_buffer(bytes(buf)))
 
 
+def test_tracker_rpc_goes_on_at_once_after_a_refused_dial():
+    """A refused dial names no live tracker: the first pass over the
+    failover list reaches the standby with no backoff (``backoff`` here
+    would sleep 0.5-1 s), and a single address still backs off."""
+    tracker = Tracker(1, quiet=True).start()
+    dead = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+    dead.bind(("127.0.0.1", 0))  # bound, not listening: refused
+    dead_addr = dead.getsockname()
+    try:
+        t0 = time.monotonic()
+        assert P.tracker_rpc(*dead_addr, P.CMD_PRINT, "t", message="hi", timeout=0.5,
+                             retries=2, backoff=1.0,
+                             addrs=[dead_addr, (tracker.host, tracker.port)]) == P.ACK
+        assert time.monotonic() - t0 < 0.4
+        t0 = time.monotonic()
+        with pytest.raises(P.TrackerUnreachable):
+            P.tracker_rpc(*dead_addr, P.CMD_PRINT, "t", message="x", timeout=0.5, retries=1,
+                          backoff=0.4)
+        assert time.monotonic() - t0 >= 0.2
+    finally:
+        dead.close()
+        tracker.stop()
+
+
+def test_journal_streamed_waits_for_every_stream():
+    """``Journal.streamed`` returns once every subscriber's stream has sent
+    what was enqueued before it (each sets its marker), False while one
+    has not, and at once with no subscriber."""
+    journal = pha.Journal(None)
+    try:
+        assert journal.streamed(1.0)
+        sub = journal.subscribe()
+        journal.append("tick")
+        assert not journal.streamed(0.2)  # nobody sends this stream's frames
+        stop = threading.Event()
+        sent = []
+
+        def stream():
+            while not stop.is_set():
+                try:
+                    item = sub.get(timeout=0.05)
+                except Exception:  # queue.Empty
+                    continue
+                if isinstance(item, threading.Event):
+                    item.set()
+                else:
+                    sent.append(item)
+
+        th = threading.Thread(target=stream, daemon=True)
+        th.start()
+        journal.append("tick")
+        assert journal.streamed(2.0)
+        # the snapshot frame and both ticks left before the marker was set
+        assert len(sent) == 3
+        stop.set()
+        th.join(2.0)
+    finally:
+        journal.close()
+
 def test_tracker_rpc_rotates_to_standby_address():
     tracker = Tracker(1, quiet=True).start()
     dead = socket.socket(socket.AF_INET, socket.SOCK_STREAM)

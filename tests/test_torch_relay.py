@@ -672,6 +672,47 @@ def test_relay_replays_an_unacked_envelope_across_a_failover():
         tr.stop()
 
 
+def test_relay_redials_at_once_when_its_channel_dies():
+    """The channel dies with an envelope un-ACKed: the pump, waiting for
+    that ACK, redials at once through the failover list instead of after
+    ``rpc_timeout``, so a promoted standby hears from the relay within a
+    flush or two."""
+    dead = socket.socket()
+    dead.bind(("127.0.0.1", 0))
+    dead.listen(1)
+    tr = Tracker(2, quiet=True).start()
+    relay = Relay([dead.getsockname(), (tr.host, tr.port)], relay_id="rd", flush_sec=0.05,
+                  rpc_timeout=3.0).start()
+    closed = []
+
+    def die_holding_an_envelope():
+        conn, _ = dead.accept()
+        with conn:
+            conn.settimeout(5.0)
+            hello = P.StreamParser(P.hello_parser())
+            while not hello.feed(P.recv_exact(conn, 1)):
+                pass
+            conn.sendall(P.put_u32(P.ACK))
+            P.read_batch_frame(conn)  # read, never ACKed
+            dead.close()  # the next dial is refused and rotates
+            closed.append(time.monotonic())
+
+    th = threading.Thread(target=die_holding_an_envelope, daemon=True)
+    th.start()
+    try:
+        th.join(10.0)
+        assert closed
+        deadline = time.monotonic() + 5.0
+        while (not any(e["kind"] == "relay_up" for e in tr.events)
+               and time.monotonic() < deadline):
+            time.sleep(0.01)
+        up = [e for e in tr.events if e["kind"] == "relay_up"]
+        assert up and relay.tracker == (tr.host, tr.port)
+        assert time.monotonic() - closed[0] < 1.5  # rpc_timeout is 3 s
+    finally:
+        relay.stop()
+        tr.stop()
+
 def test_relayed_cluster_process_level():
     """LocalCluster(3, relays=2): native workers under rabit_engine=mock, a
     mock kill, the restarted worker recovering through its relay."""
