@@ -50,7 +50,9 @@ Phases, each of which exits non-zero when it fails:
 7. dp      -- train_round_dp and train_round_dp_fused on an NCCL group of
               one, bitwise equal to train_round and train_round_fused; then
               two processes on the one card over gloo with CUDA tensors
-              (rows split by elastic_shard): identical forests on both
+              (rows split by elastic_shard; spawned once, they also run
+              the two-process parts of phases 8-10 and 21-23, one group
+              each): identical forests on both
               ranks, the single-process round's splits but for printed near
               ties; and in the same processes train_round_dp_fused exact and
               with wire_i8 (the int8-wire histogram ring), in turns, timed:
@@ -61,9 +63,8 @@ Phases, each of which exits non-zero when it fails:
               (every dtype x op against numpy_reduce, broadcast, allgather,
               prepare_fun, checkpoints) through the port's api and
               TorchEngine: in this process on NCCL at world 1, arrays
-              staged on the card, then on two processes over gloo
-              (spawned once, they also run phase 9's two-process part);
-              the time of a 64-node histogram's SUM.
+              staged on the card, then on phase 7's two processes over
+              gloo; the time of a 64-node histogram's SUM.
 9. compress -- the wire codecs on the card (each codec's bytes equal
               numpy's encode, its decode numpy's, on a depth-5 level
               histogram and on a block with inf, -inf and NaN; device
@@ -87,8 +88,10 @@ Phases, each of which exits non-zero when it fails:
               robust engine, built with g++ in the build phase), 3 trees of
               the headline data each, every level's histogram from
               node_histograms_kernel: a clean run of train_round with the
-              hop on every histogram and the leaf masses, and of
-              train_round_hybrid (each worker an NCCL group of one); then a
+              hop on every histogram and the leaf masses (under
+              rabit_engine=robust with phase 12's leases and obs: it is
+              also phase 12's clean run), and of train_round_hybrid (each
+              worker an NCCL group of one); then a
               mock kill mid-tree (with obs, rabit_trace_exit=1 and rank 0
               1 s late to each tree: the trace phase 14 merges), a kill
               in the checkpoint commit window and
@@ -100,8 +103,9 @@ Phases, each of which exits non-zero when it fails:
 12. liveness -- leases, the hang watchdog and obs on the card: phase 11's
               gbdt job under rabit_engine=robust with
               rabit_heartbeat_sec=0.5, the flight recorder and
-              rabit_trace_exit=1.  A clean run (the forest phase 11's clean
-              gbdt forest; both ranks' snapshots in the tracker's
+              rabit_trace_exit=1.  A clean run (phase 11's clean gbdt run,
+              whose forest phase 11's mock kills and phase 17's obs-off (d)
+              match; both ranks' snapshots in the tracker's
               telemetry.json, each counting one allreduce a hop and the
               accuracy count; no lease expired; an -exit dump a rank;
               ms/round); rank 1 frozen with SIGSTOP after its first commit
@@ -246,18 +250,37 @@ Phases, each of which exits non-zero when it fails:
               propagation delays seen; (c) its failover arm (2 subscribers):
               the standby restores the line, every subscriber converges, no
               subscriber errors.
-20. linear -- models.linear at the headline size (X = bins / 256, f32;
+20. service -- the multi-tenant collective service
+              (rabit_tpu_torch.service) on the card, every contribution
+              node_histograms_kernel (np.full(8, v (rank + 1)) as the g plane
+              of 8 rows, bins 0..7, node 0, held exactly against the closed
+              form, the first also against its plain version): (a)
+              tools/torch_service_bench.py's bench_service at
+              tests/test_service.py's arguments (4 jobs of world 2, 2
+              rounds, 0.02 s of sleep, 1 relay, a 0.25 s straggler in the
+              victim job, bar 1.2, 2 pooled workers serving 2 fits): clean
+              bitwise and completed, chaos neighbours bitwise and the victim
+              completed, both pooled fits completed, the legacy hello's bytes
+              unchanged; jobs a second and bootstrap p99 printed.  (b) a
+              CollectiveService with a file journal and two admitted jobs of
+              ElasticWorker threads (world 2, 6 rounds of 0.25 s) is killed
+              at their second round; a Standby(service=True) promotes a CollectiveService
+              that restores both jobs from the journal's stream, and both
+              complete bitwise their closed form; the takeover's seconds.
+              node_histograms_kernel's launches, one a contribution, in (a)
+              and in (b).
+21. linear -- models.linear at the headline size (X = bins / 256, f32;
               logistic, the LinearConfig defaults, 50 steps): LinearModel.fit
               on the card bitwise its train_step loop, steps 0, 25, 49 held
               teacher-forced against the CPU (tests/test_models.py's rtol
               2e-4, atol 2e-5); train_step_dp on an NCCL group of one
-              bitwise the loop; then a gloo world of two processes sharing
-              the card (500k rows each; spawned once, it also runs phases 21
-              and 22's two-process parts): train_step_dp, every step
+              bitwise the loop; then phase 7's two processes on the card
+              over gloo (500k rows each; they also run phases 22 and 23's
+              two-process parts): train_step_dp, every step
               teacher-forced against the single-process step, and
               LinearModel(engine_allreduce=api.allreduce) through TorchEngine,
               bitwise the dp weights; ms/step of each.
-21. kmeans -- models.kmeans on the same data, K = 64, 20 iterations, the
+22. kmeans -- models.kmeans on the same data, K = 64, 20 iterations, the
               init drawn by KMeans(seed=0): KMeans.fit bitwise its
               train_iter loop, iterations 0, 10, 19 teacher-forced against
               the CPU (assignments equal but for near ties within
@@ -268,7 +291,7 @@ Phases, each of which exits non-zero when it fails:
               the new centers within 2^-21 of the f64 means) and
               KMeans(engine_allreduce=...) bitwise the dp centers; ms/iteration
               and the f64 one-hot segment_sum's time.
-22. attention -- ring_attention and ulysses_attention at sequence 8192, 32
+23. attention -- ring_attention and ulysses_attention at sequence 8192, 32
               heads of 128, f32 and bf16, causal and not, on an NCCL group of
               one and on the gloo world (block 4096; k/v hops and Ulysses'
               all-to-alls through host memory), each against
@@ -276,14 +299,14 @@ Phases, each of which exits non-zero when it fails:
               a time (tests/test_parallel.py's rtol 2e-4, atol 2e-5; bf16 adds
               the output's half-ulp rounding, 2^-8); ms a call and the
               hops' share.
-23. durable -- the api's durable spill (rabit_checkpoint_dir) in two-process
+24. durable -- the api's durable spill (rabit_checkpoint_dir) in two-process
               gloo jobs on the card, each fitting the linear model with a
               checkpoint a step (tests/workers/torch_durable_worker.py): a job
               stopped at version 3 of 6 and resumed by a fresh job, and again
               with rank 1's global files deleted (served by rank 0's
               broadcast), both bit for bit the weights of a job never
               stopped; the frames' bytes and the jobs' times.
-24. report -- per-level times of the histogram kernels (d = 0..7, bf16
+25. report -- per-level times of the histogram kernels (d = 0..7, bf16
               and i8) and of the helpers, and a {"kernels": [...]} line
               with each kernel's time (CUDA events over back-to-back
               calls, "ms"; and the device time of the kernels a call
@@ -294,16 +317,16 @@ Phases, each of which exits non-zero when it fails:
               long run the card's profiler keeps only part of the launches
               (kernel_ms), and earlier its sessions would slow the launches
               of the phases after them.
-25. trace  -- one warm fused and one warm hook-based bf16 round under
+26. trace  -- one warm fused and one warm hook-based bf16 round under
               profile.device_trace (a Chrome trace under --trace-dir): each
               round's wall time, the device time of the port's kernels, of
               every other kernel by the top aten op that launched it, and
               the device's idle time inside the round.
 
-Launches are counted per path (phases 4-7, 14-18 and 25, and 7, 10, 11, 12,
+Launches are counted per path (phases 4-7, 14-18, 20 and 26, and 7, 10, 11, 12,
 13, 17 and 19 in their processes), each run with the counts set to 0 just before it and read
-just after; the phase-3 and phase-13 to phase-18 comparisons and the phase-24 timings do
-not count.  Phases 20-23 run no kernel of the port (their products are torch matmuls
+just after; the phase-3 and phase-13 to phase-18 and phase-20 comparisons and the phase-25
+timings do not count.  Phases 21-24 run no kernel of the port (their products are torch matmuls
 and einsums, as in the JAX package, in f32 with TF32 off).  Each phase
 prints its wall time.  The histogram kernels count in
 boost.launches, their helpers (one hist_prep and one hist_partition a
@@ -372,6 +395,9 @@ RECOVER_PAUSE = 1.0         # s before each tree of the preempted run
 TRACE_STRAGGLE = 1.0
 COMMIT_1 = re.compile(r"\[\d+\] commit version=1 ")  # a worker's first commit, as it prints it
 LIVE_HB = 0.5               # rabit_heartbeat_sec of the liveness phase
+#: the liveness phase's worker arguments (the recover phase's clean gbdt run's too; the
+#: frozen run adds a pause before each tree, where its freeze lands)
+LIVE_ARGS = (f"rabit_heartbeat_sec={LIVE_HB}", "rabit_trace_exit=1")
 HANG_PAUSE = 0.5            # s before each tree of the dump-then-die run
 ELASTIC_NODES = 64          # the elastic job's histogram: a depth-6 level
 ELASTIC_VERSIONS = 8        # versions a run of the elastic phase
@@ -404,6 +430,13 @@ RELAY_WORLD = 256           # the scale sweep's world
 CHAOS_BOOT_SEEDS = range(10)             # run_schedule seeds of the chaos phase's run (a)
 CHAOS_ELASTIC_SEEDS = range(7000, 7012)  # run_elastic_schedule seeds of its run (b)
 CHAOS_SHAPES = (1, 8, 24, 32, 127, 129)  # rows of the [n, 1] bin matrices it checks first
+#: the service phase's (a): tests/test_service.py's bench gate arguments
+SERVICE_BENCH = dict(n_jobs=4, world=2, niter=2, sleep=0.02, relays=1, chaos="straggler",
+                     straggle=0.25, bar=1.2, pool=2, pool_jobs=2, deadline=40.0,
+                     assert_isolation=False)
+SERVICE_TAKEOVER_ROUNDS = 6   # its (b): rounds a job, tests/test_service.py's takeover
+SERVICE_TAKEOVER_SLEEP = 0.25  # s before each contribution
+
 DELIVERY_SUBS = 2           # subscribers of the delivery phase's run (a), one a relay
 DELIVERY_KILL = 2           # the version in whose commit window run (a) kills the publisher
                             # (mock= names the version the engine holds before it)
@@ -655,23 +688,6 @@ def engine_matrix(api, worker) -> dict:
     return {"matrix_s": matrix_s, "hop_ms": _mean_ms(lambda: api.allreduce(a, api.SUM), 10)}
 
 
-def _engine_compress_rank(rank: int, world: int, tmp: str, port: int) -> None:
-    """One process of the gloo world of phases 8 and 9, spawned once: the
-    engine matrix through TorchEngine with host arrays (its own gloo group,
-    which api.finalize takes down), then the compress phase's part
-    (_compress_part).  Writes both parts' results, the engine's under
-    "engine/"."""
-    from rabit_tpu_torch import api
-
-    api.init(engine_args("cpu", port, world, rank))
-    try:
-        out = {f"engine/{k}": v for k, v in engine_matrix(api, basic_worker()).items()}
-    finally:
-        api.finalize()
-    out.update(_compress_part(rank, world, tmp))
-    np.savez(os.path.join(tmp, f"rank{rank}.npz"), **out)
-
-
 def _hybrid_part(rank: int, world: int, port: int, n_rows: int, n_trees: int) -> dict:
     """One worker of the hybrid phase: its local group an NCCL group of one
     (this process, on the card), the hop between workers the port's
@@ -716,15 +732,29 @@ def _hybrid_part(rank: int, world: int, port: int, n_rows: int, n_trees: int) ->
         api.finalize()
 
 
-def _dp_hybrid_rank(rank: int, world: int, tmp: str, n_rows: int, n_trees: int, port: int,
-                    hybrid_trees: int) -> None:
-    """One process of the gloo world of phases 7 and 10, spawned once: the
-    dp rounds (_dp_part, a FileStore gloo group it takes down), then the
-    hybrid round (_hybrid_part, TorchEngine's own group).  Writes both
-    parts' results, the hybrid's under "hybrid/"."""
+def _gloo_world_rank(rank: int, world: int, tmp: str, n_rows: int, n_trees: int, port: int,
+                     hybrid_trees: int, engine_port: int) -> None:
+    """One process of the gloo world of phases 7-10 and 21-23, spawned once
+    (one start of DP_RANKS processes for all of them): the dp rounds
+    (_dp_part), the hybrid round (_hybrid_part, "hybrid/"), the engine
+    matrix through TorchEngine with host arrays ("engine/"), the compress
+    phase's part (_compress_part, "compress/") and the models' and
+    attention's part (_slice_part, "slice/"), each on a group of its own
+    that it takes down.  Writes every part's results."""
+    from rabit_tpu_torch import api
+
     out = _dp_part(rank, world, tmp, n_rows, n_trees)
     out.update({f"hybrid/{k}": v
                 for k, v in _hybrid_part(rank, world, port, n_rows, hybrid_trees).items()})
+    api.init(engine_args("cpu", engine_port, world, rank))
+    try:
+        out.update({f"engine/{k}": v for k, v in engine_matrix(api, basic_worker()).items()})
+    finally:
+        api.finalize()
+    out.update({f"compress/{k}": v
+                for k, v in _compress_part(rank, world, tmp, "store-compress").items()})
+    out.update({f"slice/{k}": v
+                for k, v in _slice_part(rank, world, tmp, n_rows, "store-slice").items()})
     np.savez(os.path.join(tmp, f"rank{rank}.npz"), **out)
 
 
@@ -795,7 +825,7 @@ def _dp_part(rank: int, world: int, tmp: str, n_rows: int, n_trees: int) -> dict
         dist.destroy_process_group()
 
 
-def _compress_part(rank: int, world: int, tmp: str) -> dict:
+def _compress_part(rank: int, world: int, tmp: str, store: str) -> dict:
     """The compress phase's part of a process of the gloo world on the
     card: the port's TorchEngine adopts this program's gloo group with
     rabit_torch_device=cuda (codec work on the card, hops through host
@@ -812,7 +842,7 @@ def _compress_part(rank: int, world: int, tmp: str) -> dict:
     from rabit_tpu_torch.parallel import wire_device
 
     torch.cuda.set_device(0)
-    dist.init_process_group("gloo", store=dist.FileStore(os.path.join(tmp, "store"), world),
+    dist.init_process_group("gloo", store=dist.FileStore(os.path.join(tmp, store), world),
                             rank=rank, world_size=world)
     rng = np.random.RandomState(7)
     parts = [(rng.randn(LEVEL5) * 50).astype(np.float32) for _ in range(world)]
@@ -847,7 +877,7 @@ def _compress_part(rank: int, world: int, tmp: str) -> dict:
         dist.destroy_process_group()
 
 
-# -- phases 20-23: the linear and k-means models, attention, the durable spill ----
+# -- phases 21-24: the linear and k-means models, attention, the durable spill ----
 
 
 def slice_data(n_rows: int):
@@ -928,13 +958,14 @@ def attention_cases(torch, ring, rank: int, world: int, out: dict) -> None:
         torch.cuda.empty_cache()
 
 
-def _slice_rank(rank: int, world: int, tmp: str, n_rows: int) -> None:
-    """One process of the gloo world of phases 20-22, on the card, on this
-    rank's elastic shard: linear.train_step_dp and kmeans.train_iter_dp
+def _slice_part(rank: int, world: int, tmp: str, n_rows: int, store: str) -> dict:
+    """The models' and attention's part of a process of the gloo world
+    (phases 21-23), on the card, on this rank's elastic shard: linear.train_step_dp and kmeans.train_iter_dp
     over the group (every step's weights; the iterations' centers, and the
     assignments at the checked ones), the engine-hook fits (LinearModel,
     KMeans with engine_allreduce = api.allreduce through TorchEngine, which
-    adopts the group), each timed; then attention_cases."""
+    adopts the group), each timed; then attention_cases.  Returns the
+    results."""
     import torch
     import torch.distributed as dist
 
@@ -944,7 +975,7 @@ def _slice_rank(rank: int, world: int, tmp: str, n_rows: int) -> None:
 
     torch.cuda.set_device(0)
     torch.backends.cuda.matmul.allow_tf32 = False  # torch's default, made explicit
-    dist.init_process_group("gloo", store=dist.FileStore(os.path.join(tmp, "store"), world),
+    dist.init_process_group("gloo", store=dist.FileStore(os.path.join(tmp, store), world),
                             rank=rank, world_size=world)
     try:
         X, y = slice_data(n_rows)
@@ -986,7 +1017,7 @@ def _slice_rank(rank: int, world: int, tmp: str, n_rows: int) -> None:
             api.finalize()
         del Xs, ys
         attention_cases(torch, ring, rank, world, out)
-        np.savez(os.path.join(tmp, f"rank{rank}.npz"), **out)
+        return out
     finally:
         dist.destroy_process_group()
 
@@ -1904,20 +1935,34 @@ class Smoke:
         """DP_RANKS processes on the one card over gloo with CUDA tensors;
         their forests against each other and against the single-process
         round, teacher-forced on the ranks' tables.  The same processes then
-        run phase 10's hybrid round, whose results hybrid_phase checks."""
+        run the hybrid round, the engine matrix, the compress phase's part and
+        the models' and attention's (_gloo_world_rank), whose results phases
+        8-10 and 21-23 check."""
         t0 = time.perf_counter()
-        both = run_ranks(_dp_hybrid_rank, DP_RANKS, self.n_rows, n_trees, free_port(),
-                         hybrid_trees)
+        port = free_port()
+        engine_port = next(p for p in iter(free_port, None) if p != port)
+        world = run_ranks(_gloo_world_rank, DP_RANKS, self.n_rows, n_trees, port, hybrid_trees,
+                          engine_port)
         wall = time.perf_counter() - t0
-        runs = [{k: v for k, v in r.items() if not k.startswith("hybrid/")} for r in both]
-        self.hybrid_runs = [{k[7:]: v for k, v in r.items() if k.startswith("hybrid/")}
-                            for r in both]
+
+        def part(prefix: str) -> list[dict]:
+            return [{k[len(prefix):]: v for k, v in r.items() if k.startswith(prefix)}
+                    for r in world]
+
+        runs = [{k: v for k, v in r.items()
+                 if not k.startswith(("hybrid/", "engine/", "compress/", "slice/"))}
+                for r in world]
+        self.hybrid_runs = part("hybrid/")
+        self.engine_runs = part("engine/")
+        self.compress_runs = part("compress/")
+        self.slice_runs = part("slice/")
         self.hybrid_trees = hybrid_trees
         launches = self.check_ranks(runs, n_trees, "gloo")
         self.dp_forest = runs[0]
         self.check_forest(runs[0], n_trees, "gloo")
-        print(f"  gloo, {DP_RANKS} ranks on one card ({wall:.1f} s incl. start-up and "
-              "phase 10's hybrid rounds in the same processes): "
+        print(f"  gloo, {DP_RANKS} ranks on one card ({wall:.1f} s incl. start-up and the "
+              "hybrid, engine, compress, models' and attention's parts in the same "
+              "processes): "
               f"identical forests; launches per rank {launches}; the single-process "
               "round's splits at every level")
         # train_round_dp_fused exact and with wire_i8 (the int8-wire ring)
@@ -2026,9 +2071,9 @@ class Smoke:
     # -- phase 8 ------------------------------------------------------------------
     def engine_phase(self):
         """The engine matrix through the port's api: in this process on
-        NCCL at world 1 (arrays staged on the card), then DP_RANKS
-        processes over gloo, which go on to run phase 9's two-process part
-        (compress_phase checks it).  Returns each setting's times."""
+        NCCL at world 1 (arrays staged on the card), then the dp phase's
+        DP_RANKS processes over gloo (_gloo_world_rank).  Returns each
+        setting's times."""
         import torch.distributed as dist
 
         from rabit_tpu_torch import api
@@ -2041,14 +2086,7 @@ class Smoke:
         finally:
             api.finalize()
         require(not dist.is_initialized(), "finalize left the process group up")
-        t0 = time.perf_counter()
-        runs = run_ranks(_engine_compress_rank, DP_RANKS, free_port())
-        self.compress_runs = [{k: v for k, v in r.items() if not k.startswith("engine/")}
-                              for r in runs]
-        out[f"gloo_world{DP_RANKS}"] = {k[7:]: float(v) for k, v in runs[0].items()
-                                        if k.startswith("engine/")}
-        # the world's wall time covers phase 9's two-process part as well
-        out[f"gloo_world{DP_RANKS}"]["wall_s"] = time.perf_counter() - t0
+        out[f"gloo_world{DP_RANKS}"] = {k: float(v) for k, v in self.engine_runs[0].items()}
         self.gloo_hop_ms = out[f"gloo_world{DP_RANKS}"]["hop_ms"]
         for k, v in out.items():
             print(f"  engine matrix, {k}: every dtype x op equal to numpy_reduce, broadcast,"
@@ -2145,7 +2183,7 @@ class Smoke:
               "ring_allreduce_quantized (planes 1, 2) bitwise the CPU's; the fused ring on "
               "the card and api.allreduce(codec=...) bitwise reference_allreduce; ms "
               + json.dumps({k: round(v, 4) for k, v in nccl.items()}))
-        runs = self.compress_runs  # run by phase 8's processes
+        runs = self.compress_runs  # run by phase 7's processes
         gloo = {}
         for r, run in enumerate(runs):
             for k, v in run.items():
@@ -2281,16 +2319,20 @@ class Smoke:
         """The port's fault-tolerant engine on the card: the native mock
         engine under the port's tracker and launcher, DP_RANKS workers on
         the one card, a clean run of each mode (train_round with the hop on
-        every level's histogram and the leaf masses; train_round_hybrid, a
-        worker an NCCL group of one), then a mock kill mid-tree (rank 1,
-        version 1, the level-2 histogram's hop), a kill in the checkpoint
-        commit window (seqno -3) and one timed SIGKILL.  Every run's forest
-        byte-identical to its mode's clean run, the ranks' identical (each
+        every level's histogram and the leaf masses, under the robust engine
+        with the liveness phase's leases and obs, whose clean run it is;
+        train_round_hybrid, a worker an NCCL group of one), then a mock kill
+        mid-tree (rank 1, version 1, the level-2 histogram's hop), a kill in
+        the checkpoint commit window (seqno -3) and one timed SIGKILL.  Every
+        run's forest byte-identical to its mode's clean run, the ranks' identical (each
         worker checks), restarts equal to kills, and the clean hybrid forest
         the hybrid phase's (whose hops crossed TorchEngine over gloo)."""
         clean = {}
         for mode in ("gbdt", "hybrid"):
-            run = self.recover_run(mode, "time_hop=1")
+            # the clean gbdt run is also the liveness phase's clean run: the
+            # robust engine with leases and obs, one job less to start
+            run = (self.recover_run(mode, *LIVE_ARGS, engine="robust", obs=True) if mode == "gbdt"
+                   else self.recover_run(mode, "time_hop=1"))
             want = {k: RECOVER_TREES * DEPTH * DP_RANKS for k in ("node_histograms_kernel",
                                                                   *HELPERS)}
             require(run["restarts"] == 0 and run["launches"] == want,
@@ -2360,13 +2402,12 @@ class Smoke:
         exits with HANG_ABORT_EXIT within 10 s."""
         from rabit_tpu_torch.tracker.protocol import LEASE_FACTOR
 
-        live = [f"rabit_heartbeat_sec={LIVE_HB}", "rabit_trace_exit=1", f"pause={RECOVER_PAUSE}"]
-        clean = self.recover_run("gbdt", *live, engine="robust", obs=True)
+        # (a) is the recover phase's clean gbdt run; the relay phase's (d),
+        # the mock engine with obs off, is held to its forest
+        clean = self.clean_gbdt
         t = clean["telemetry"]
         require(clean["restarts"] == 0 and t["n_lease_expired"] == 0,
                 f"clean: restarts {clean['restarts']}, leases expired {t['n_lease_expired']}")
-        require(np.array_equal(clean["forest"], self.clean_gbdt["forest"]),
-                "clean: the forest with obs on differs from the recover phase's clean gbdt run's")
         require(clean.get("telemetry_file") == t, "clean: telemetry.json differs from the "
                 "tracker's document, or is missing")
         require(set(t["ranks"]) == {str(r) for r in range(DP_RANKS)},
@@ -2378,14 +2419,14 @@ class Smoke:
         exits = sorted(n.split("-")[1] for n in clean["obs_files"] if n.endswith("-exit.jsonl"))
         require(exits == [f"rank{r}" for r in range(DP_RANKS)], f"clean: exit dumps {exits}")
         ms = clean["stats"][0]["ms"].tolist()
-        print(f"  (a) clean, obs and leases on: {clean['wall_s']:.1f} s incl. start-up; "
-              f"forest byte-identical to the recover phase's clean gbdt run's; snapshots of "
+        print(f"  (a) clean, obs and leases on (the recover phase's clean gbdt run): "
+              f"{clean['wall_s']:.1f} s incl. start-up; snapshots of "
               f"ranks {sorted(t['ranks'])}, allreduce calls = hops + 1; exit dumps {exits}; "
-              "ms/round " + ", ".join(f"{x:.3f}" for x in ms) + " (recover phase, obs off: "
-              + ", ".join(f"{x:.3f}" for x in self.clean_gbdt["stats"][0]["ms"].tolist()) + ")")
+              "ms/round " + ", ".join(f"{x:.3f}" for x in ms))
 
         delay = 1.5 * RECOVER_PAUSE  # after the first commit
-        wedged = self.recover_run("gbdt", *live, engine="robust", obs=True, wedge=[(delay, 1)])
+        wedged = self.recover_run("gbdt", *LIVE_ARGS, f"pause={RECOVER_PAUSE}", engine="robust",
+                                  obs=True, wedge=[(delay, 1)])
         t = wedged["telemetry"]
         require(len(wedged["wedges"]) == 1, f"frozen: {len(wedged['wedges'])} wedges landed")
         leases = [e for e in t["events"] if e["kind"] == "lease_expired"]
@@ -2442,9 +2483,13 @@ class Smoke:
                     if rank == 0:
                         cmd += ["rabit_obs_hang_sec=1", "rabit_hang_abort_sec=3",
                                 "rabit_stall_timeout_sec=120", "rabit_timeout_sec=120"]
+                    # each worker in a session of its own: a stopped process
+                    # left in this script's process group exposes the whole
+                    # group to the kernel's SIGHUP of an orphaned group with
+                    # stopped members
                     with open(os.path.join(tmp, f"rank{rank}.err"), "w") as err:
                         procs.append(subprocess.Popen(cmd, env=env, stdout=subprocess.DEVNULL,
-                                                      stderr=err))
+                                                      stderr=err, start_new_session=True))
                 deadline = time.time() + 300
                 while not any(m.startswith("[1] commit version=1") for m in list(tracker.messages)):
                     require(time.time() < deadline and all(p.poll() is None for p in procs),
@@ -3475,19 +3520,133 @@ class Smoke:
                                                 "subscriber_errors", "takeover_sec")},
                 "failover_s": round(took_c, 3), "wall_s": time.perf_counter() - t0}
 
-    # -- phases 20-23 -------------------------------------------------------------
+    # -- phase 20 -----------------------------------------------------------------
+    def service_takeover(self, fill) -> dict:
+        """Run (b) of the service phase: a journaled CollectiveService, two
+        admitted jobs of ElasticWorker threads, the service killed mid-run and
+        a Standby(service=True) that restores both."""
+        from rabit_tpu_torch.elastic.client import ElasticWorker
+        from rabit_tpu_torch.ha import Standby
+        from rabit_tpu_torch.service import CollectiveService
+
+        bench = importlib.import_module("tools.torch_service_bench")
+        jobs = ("tenantA.fit", "tenantB.fit")
+
+        def contribution(v: int, world: int, rank: int) -> np.ndarray:
+            time.sleep(SERVICE_TAKEOVER_SLEEP)
+            return fill(v * (rank + 1))
+
+        with tempfile.TemporaryDirectory() as tmp:
+            svc = CollectiveService(quiet=True, journal=os.path.join(tmp, "svc.journal")).start()
+            standby = Standby(primary=(svc.host, svc.port), takeover_sec=0.6, service=True,
+                              journal=os.path.join(tmp, "standby.journal"), quiet=True).start()
+            try:
+                require(standby.wait_synced(5), "service (b): the standby never synced")
+                addrs = [(svc.host, svc.port), (standby.host, standby.port)]
+                for key in jobs:
+                    svc.admit(key, 2)
+                results: dict = {}
+                workers = [ElasticWorker(addrs, str(i), contribution, SERVICE_TAKEOVER_ROUNDS,
+                                         job=key, deadline_sec=60, heartbeat_sec=0.3,
+                                         rpc_timeout=1.0, wave_timeout=15.0)
+                           for key in jobs for i in range(2)]
+                threads = [threading.Thread(
+                    target=lambda w=w: results.__setitem__(w.task_id, w.run()), daemon=True)
+                    for w in workers]
+                for t in threads:
+                    t.start()
+                # both jobs mid-run: every worker's second contribution, on average
+                deadline = time.monotonic() + 30
+                while fill.n_calls < 2 * len(workers):
+                    require(time.monotonic() < deadline, "service (b): the jobs never started")
+                    time.sleep(0.01)
+                killed = time.monotonic()
+                svc.kill()
+                require(standby.wait_promoted(10), "service (b): the standby never took over")
+                takeover_s = time.monotonic() - killed
+                promoted = standby.tracker
+                require(isinstance(promoted, CollectiveService)
+                        and promoted.live_jobs() == sorted(jobs),
+                        f"service (b): the promoted tracker serves {promoted!r}")
+                for t in threads:
+                    t.join(timeout=70)
+                expired = [e for key in jobs if promoted.partition(key) is not None
+                           for e in promoted.partition(key).events
+                           if e["kind"] == "lease_expired"]
+                require(not expired, f"service (b): leases expired across the cut: {expired}")
+            finally:
+                standby.stop()
+                svc.stop()
+        want = bench.expected_state(2, SERVICE_TAKEOVER_ROUNDS)
+        require(sorted(results) == sorted(f"{k}/{i}" for k in jobs for i in range(2)),
+                f"service (b): results of {sorted(results)}")
+        for tid, r in sorted(results.items()):
+            require(r.completed and np.array_equal(r.state, want),
+                    f"service (b): {tid} completed {r.completed} ({r.error}), state "
+                    f"{r.state!r}, want {want!r}")
+        after = [t for r in results.values() for t in r.commit_times.values() if t > killed]
+        require(bool(after), "service (b): no commit after the kill")
+        return {"takeover_s": takeover_s, "kill_to_commit_s": min(after) - killed}
+
+    def service_phase(self):
+        """The multi-tenant collective service on the card (phase 20 of the
+        module docstring)."""
+        bench = importlib.import_module("tools.torch_service_bench")
+        t0 = time.perf_counter()
+        fill = bench.DeviceFill(self.dev.type)
+        self.clear_counts()
+        recs = bench.bench_service(**SERVICE_BENCH, device=self.dev.type)
+        by_mode = {r["mode"]: r for r in recs}
+        n_a = by_mode["summary"]["contributions"]
+        counts = self.read_counts(n_a)
+        require(counts == {"node_histograms_kernel": n_a} and n_a > 0,
+                f"service (a): launches {counts}, expected {n_a} (one a contribution)")
+        clean, chaos, pooled = by_mode["clean"], by_mode["chaos"], by_mode["pooled"]
+        require(clean["bitwise_ok"] and clean["completed"] and clean["jobs_per_sec"] > 0
+                and clean["boot_p99_ms"] > 0, f"service (a) clean: {clean}")
+        require(chaos["neighbors_bitwise_ok"] and chaos["victim_completed"],
+                f"service (a) chaos: {chaos}")
+        require(pooled["fits_completed"] == SERVICE_BENCH["pool_jobs"],
+                f"service (a) pooled: {pooled}")
+        require(by_mode["summary"]["wire_legacy_identical"], "service (a): the legacy hello changed")
+        took_a = time.perf_counter() - t0
+        print(f"  (a) bench_service, {SERVICE_BENCH['n_jobs']} jobs of world "
+              f"{SERVICE_BENCH['world']} behind {SERVICE_BENCH['relays']} relay: clean "
+              f"{clean['jobs_per_sec']} jobs/s, boot p50 {clean['boot_p50_ms']} ms, p99 "
+              f"{clean['boot_p99_ms']} ms; chaos (straggler {chaos['straggle_s']} s): victim "
+              f"{chaos['victim_wall_s']} s, neighbours' ratio max {chaos['neighbor_ratio_max']} "
+              f"(bar {chaos['neighbor_ratio_bar']}, recorded); pooled {pooled['fits_completed']} "
+              f"fits, {pooled['fits_per_sec']} fits/s, leases {pooled['leases_per_worker']}; "
+              f"launches {counts}; {took_a:.1f} s", flush=True)
+        t = time.perf_counter()
+        self.clear_counts()
+        n_before = fill.n_calls
+        tk = self.service_takeover(fill)
+        n_b = fill.n_calls - n_before
+        counts_b = self.read_counts(n_b)
+        require(counts_b == {"node_histograms_kernel": n_b} and n_b > 0,
+                f"service (b): launches {counts_b}, expected {n_b} (one a contribution)")
+        took_b = time.perf_counter() - t
+        print(f"  (b) two jobs on a journaled service killed at their second round: a "
+              f"Standby(service=True) took over {tk['takeover_s']:.3f} s after the kill, both "
+              f"jobs restored and bitwise their closed form; from the kill to the next commit "
+              f"{tk['kill_to_commit_s']:.3f} s; launches {counts_b}; {took_b:.1f} s", flush=True)
+        return {"clean": {k: clean[k] for k in ("jobs_per_sec", "boot_p50_ms", "boot_p99_ms",
+                                                 "wall_s")},
+                "chaos": {k: chaos[k] for k in ("victim_wall_s", "neighbor_ratio_max",
+                                                 "wall_s")},
+                "pooled": {k: pooled[k] for k in ("fits_completed", "fits_per_sec",
+                                                   "leases_per_worker")},
+                "launches": {"a": n_a, "b": n_b}, "bench_s": round(took_a, 3),
+                "takeover_s": round(tk["takeover_s"], 3),
+                "kill_to_commit_s": round(tk["kill_to_commit_s"], 3),
+                "wall_s": time.perf_counter() - t0}
+
+    # -- phases 21-24 -------------------------------------------------------------
     @functools.cached_property
     def X(self):
         """slice_data's features on the card."""
         return self.xb.float() / 256
-
-    def slice_world(self):
-        """The gloo world of phases 20-22 (DP_RANKS processes on the card,
-        _slice_rank), spawned once; its results are read by each phase."""
-        t0 = time.perf_counter()
-        self.slice_runs = run_ranks(_slice_rank, DP_RANKS, self.n_rows)
-        print(f"  the gloo world of phases linear, kmeans and attention: {DP_RANKS} "
-              f"processes on the card, {time.perf_counter() - t0:.1f} s incl. start-up")
 
     def slice_rank_equal(self, key: str):
         """The key's value, required bitwise equal on every rank."""
@@ -3744,7 +3903,7 @@ class Smoke:
               "stop " + json.dumps(frames))
         print("  durable " + json.dumps(self.slice_ms["durable"]))
 
-    # -- phase 25 -----------------------------------------------------------------
+    # -- phase 26 -----------------------------------------------------------------
     def trace_phase(self, logdir: str):
         """One warm fused bf16 round and one warm hook-based bf16 round under
         profile.device_trace: each round's wall time, the device time in
@@ -3805,7 +3964,7 @@ class Smoke:
         print(f"  Chrome trace under {logdir}")
         return out
 
-    # -- phase 24 -----------------------------------------------------------------
+    # -- phase 25 -----------------------------------------------------------------
     def measure(self):
         torch, boost = self.torch, self.boost
         xb3, g3, h3 = self.xb3, self.g3, self.h3
@@ -4023,7 +4182,7 @@ def main() -> int:
     except ImportError as e:
         print(f"FAIL: run from the root of a checkout ({e})", file=sys.stderr)
         return 2
-    # the plain versions' matmuls, and the products of phases 20-22 (exact f32)
+    # the plain versions' matmuls, and the products of phases 21-23 (exact f32)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     phase, t_phase = "device", time.perf_counter()
@@ -4136,8 +4295,10 @@ def main() -> int:
         phase = next_phase("delivery")
         print("[delivery] " + json.dumps(smoke.delivery_phase()), flush=True)
 
+        phase = next_phase("service")
+        print("[service] " + json.dumps(smoke.service_phase()), flush=True)
+
         phase = next_phase("linear")
-        smoke.slice_world()
         smoke.linear_phase()
 
         phase = next_phase("kmeans")

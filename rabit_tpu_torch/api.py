@@ -190,6 +190,7 @@ def init(args: list[str] | None = None, **overrides: Any) -> None:
         from rabit_tpu_torch.tracker.protocol import parse_addrs
 
         _publisher = Publisher(uri, config.get_int("rabit_tracker_port", 9091),
+                               job=config.get("rabit_job_key", "") or "",
                                task_id=f"pub-{config.get('rabit_task_id', '0')}",
                                addrs=parse_addrs(config.get("rabit_tracker_addrs", "") or ""))
 

@@ -40,11 +40,9 @@ with bitwise asserts at every intermediate world size.  A seed names the
 same scenario here as in ``rabit_tpu.chaos``: the draws come from
 ``random.Random(seed)`` in the same order.  Each contribution is the
 histogram of the rank's shard computed by ``ops.hist.node_histograms_kernel``
-on ``device`` (the card by default; on CPU tensors, its plain twin).  The
-runner's multi-job mode (``run_elastic_schedule(job=)``) is refused:
-ROADMAP.md Queue 1 item 10g (``protocol.tracker_rpc(job=)`` itself only
-joins the key into the wire task id, which a tracker of one job serves as
-any other task id).
+on ``device`` (the card by default; on CPU tensors, its plain twin).
+``run_elastic_schedule(job=)`` keys every worker's task id, the shape of
+one job of a multi-job ``CollectiveService``.
 """
 
 from __future__ import annotations
@@ -649,12 +647,10 @@ def run_elastic_schedule(seed: int, world: int | None = None,
 
     ``device`` is where the contributions' histograms run (``"cuda"``, the
     default, launches ``node_histograms_kernel``; ``"cpu"`` takes its plain
-    twin); asking for CUDA without a card raises.  ``job`` (the multi-job
-    key) is refused: ROADMAP.md Queue 1 item 10g.
+    twin); asking for CUDA without a card raises.  ``job`` namespaces every
+    worker's wire task id ("<job>/<task>"), as one job of a multi-job
+    ``CollectiveService`` is keyed; "" keeps the single-job ids.
     """
-    if job:
-        raise NotImplementedError("run_elastic_schedule(job=) is not ported yet "
-                                  "(ROADMAP.md Queue 1 item 10g)")
     from rabit_tpu_torch.elastic.client import ElasticWorker
     from rabit_tpu_torch.elastic.rebalance import shard_slice
 
@@ -824,7 +820,9 @@ def run_elastic_schedule(seed: int, world: int | None = None,
     def run_worker(w: "ElasticWorker") -> None:
         res = w.run()
         with lock:
-            results[w.task_id] = res
+            # keyed by the job's own id: the asserts below reason about
+            # task "0", "s1", ...
+            results[P.split_job(w.task_id)[1]] = res
 
     threads = []
     workers: list["ElasticWorker"] = []
@@ -841,7 +839,7 @@ def run_elastic_schedule(seed: int, world: int | None = None,
                           heartbeat_sec=heartbeat_sec, rpc_timeout=2.0,
                           wave_timeout=10.0, link_timeout=link_to,
                           deadline_sec=deadline_sec, fail=fail,
-                          quorum=quorum, quorum_wait=quorum_wait, codec=codec)
+                          quorum=quorum, quorum_wait=quorum_wait, codec=codec, job=job)
         workers.append(w)
         threads.append(threading.Thread(target=run_worker, args=(w,), daemon=True))
     link_proxy: ChaosProxy | None = None
@@ -868,7 +866,8 @@ def run_elastic_schedule(seed: int, world: int | None = None,
                           heartbeat_sec=heartbeat_sec, rpc_timeout=2.0,
                           wave_timeout=10.0, link_timeout=1.0,
                           deadline_sec=max(deadline_sec - (time.monotonic() - t0), 1.0),
-                          fail=fail, quorum=quorum, quorum_wait=quorum_wait, codec=codec)
+                          fail=fail, quorum=quorum, quorum_wait=quorum_wait, codec=codec,
+                          job=job)
         with lock:
             spare_workers.append(w)
         run_worker(w)

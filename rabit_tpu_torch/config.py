@@ -140,6 +140,22 @@ DEFAULTS: dict[str, str] = {
     "rabit_quorum": "",
     "rabit_quorum_wait_sec": "0.35",
     "rabit_quorum_flag_after": "3",
+    # The multi-tenant service (service): rabit_job_key is the job this
+    # worker belongs to; it prefixes the wire task id ("<job>/<task>"; ""
+    # is the legacy single-job namespace, byte-identical on the wire), so a
+    # CollectiveService routes the worker to its job's partition.
+    # rabit_service_max_jobs, rabit_service_max_jobs_per_tenant and
+    # rabit_service_max_ranks are the service's admission quotas (concurrent
+    # jobs service-wide, concurrent jobs a tenant, the job key up to its
+    # first ".", and the sum of admitted world sizes; 0 = unlimited).
+    # rabit_service_auto_world is the world of a job admitted from the wire
+    # (an unknown key's first check-in); 0 refuses unknown keys, so jobs are
+    # admitted only through CollectiveService.admit.
+    "rabit_job_key": "",
+    "rabit_service_max_jobs": "0",
+    "rabit_service_max_jobs_per_tenant": "0",
+    "rabit_service_max_ranks": "0",
+    "rabit_service_auto_world": "0",
     # The HA control plane (ha): rabit_tracker_addrs lists the tracker's
     # addresses, "host:port,host:port", the primary first and its warm
     # standby after it (every tracker message rotates through them);

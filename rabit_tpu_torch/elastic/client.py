@@ -55,8 +55,10 @@ reply asks for it (a grow-back).  A worker parked because its slot was
 taken, and a spare never needed, end when the tracker releases them.
 
 Every socket operation is bounded, so being stuck is an error, not a
-hang.  Left out, and refused with ``NotImplementedError``: the multi-job key
-(ROADMAP.md Queue 1 item 10g).
+hang.  ``job=`` prefixes the wire task id with a job key
+(``protocol.join_job``), so a multi-tenant ``CollectiveService`` routes
+the worker to its job's partition; "" is the single-job namespace, byte
+for byte.
 """
 
 from __future__ import annotations
@@ -125,11 +127,6 @@ class ElasticResult:
     commit_times: dict = field(default_factory=dict)
 
 
-def _refuse(what: str, item: str) -> None:
-    raise NotImplementedError(
-        f"ElasticWorker {what} is not ported yet (ROADMAP.md Queue 1 item {item})")
-
-
 class ElasticWorker:
     """One participant of an elastic job (see the module docstring).
 
@@ -146,7 +143,8 @@ class ElasticWorker:
     rounds) and ``quorum_wait`` the round's deadline before a partial
     report and a skip dial.  ``rpc_timeout`` bounds every message to the
     tracker (a check-in's connect, an epoch poll, a blob upload, a quorum
-    report, the shutdown).
+    report, the shutdown).  ``job`` is the job key the task id is joined
+    to ("j" and "0" check in as "j/0").
     """
 
     def __init__(
@@ -170,8 +168,6 @@ class ElasticWorker:
         quorum_wait: float = 0.35,
         job: str = "",
     ):
-        if job:
-            _refuse("with a multi-job key (job=)", "10g")
         self.quorum_spec = str(quorum or "")
         if self.quorum_spec:
             from rabit_tpu_torch.quorum import parse_spec
@@ -183,7 +179,7 @@ class ElasticWorker:
             self.addrs = [(tracker[0], int(tracker[1]))]
         self.tracker = self.addrs[0]
         self._active = 0  # the address that last answered a check-in
-        self.task_id = task_id
+        self.task_id = P.join_job(job, task_id)
         self.contribution = contribution
         self.niter = int(niter)
         self.spare = bool(spare)
@@ -237,6 +233,7 @@ class ElasticWorker:
         self._skip_in: list[socket.socket] = []   # dialed around a silent predecessor
         self._tee_out: list[socket.socket] = []   # dialed by someone routing around ours
         self._skip_from = -1
+        self._next_closed = False  # the ring's next rank closed its end this epoch
         self._qlike: np.ndarray | None = None     # the decode template
         self._q_rounds = 0
         self._q_excluded_rounds = 0
@@ -511,6 +508,7 @@ class ElasticWorker:
         self._qagreed_prev.clear()
         self._known_late.clear()
         self._skip_from = -1
+        self._next_closed = False
 
     @staticmethod
     def _send_frame(sock: socket.socket, payload: bytes) -> None:
@@ -633,8 +631,19 @@ class ElasticWorker:
         self._qseen.add(key)
         self._qframes[key] = payload
         frame = P.put_block_frame(v, origin, payload)
-        if asg.world_size > 1 and self._ring_next in self._links:
-            self._send_frame(self._links[self._ring_next], frame)
+        nxt = self._links.get(self._ring_next) if asg.world_size > 1 else None
+        if nxt is not None and not self._next_closed:
+            try:
+                nxt.sendall(P.put_u32(len(frame)) + frame)
+            except (BrokenPipeError, ConnectionResetError):
+                # The next rank closed its end: it folded the final round
+                # and left, or it died, which its own successor reads as EOF
+                # and passes around the ring to us.  Either way it needs
+                # nothing more from this rank, and the round goes on from
+                # what the inbound links still hold.
+                self._next_closed = True
+            except OSError as exc:
+                raise EpochBroken(f"link send failed: {exc!r}")
         for s in list(self._tee_out):
             try:
                 s.sendall(P.put_u32(len(frame)) + frame)
@@ -784,10 +793,73 @@ class ElasticWorker:
                 raise EpochBroken("quorum catch-up before any contribution")
             self._qlike = np.zeros_like(contrib)
         deadline = min(time.monotonic() + self.wave_timeout, self.deadline)
+        try:
+            rec = self._q_agree(asg, v, contrib is not None, exact, deadline)
+        except EpochBroken:
+            # A link closed under the round.  When the round's record is
+            # already frozen and every block it names is held, fold it as
+            # every other rank did: abandoning it would redo the round in
+            # the next epoch under other exclusions, with the corrections
+            # owed dropped at the wave, and this rank's state would no longer
+            # match theirs.
+            rec = self._q_frozen_record(asg, v)
+            if rec is None:
+                raise
+        excluded = {int(r) for r in rec.get("excluded", ())}
+        corrections = sorted((int(sv), int(r)) for sv, r in rec.get("corrections", ()))
+        # fold in rank order, the corrections after the round's blocks in
+        # (src_version, rank) order: the same bits on every rank
+        agreed = sorted(all_ranks - excluded)
+        parts = [self._decode_block(self._qframes[(v, r)], self._qlike) for r in agreed]
+        parts += [self._decode_block(self._qframes[key], self._qlike) for key in corrections]
+        total = refold(parts)
+        self._q_rounds += 1
+        if excluded:
+            self._q_excluded_rounds += 1
+        self._q_corrections += len(corrections)
+        self._known_late = set(excluded)
+        # the folded corrections go, and one round of payloads is kept for a
+        # skip dialer's catch-up
+        for key in corrections:
+            self._qframes.pop(key, None)
+        for key in self._qagreed_prev:
+            self._qframes.pop(key, None)
+        self._qagreed_prev = {(v, r) for r in agreed}
+        return total
+
+    @staticmethod
+    def _q_needs(rec: dict, v: int, world: int) -> set[tuple[int, int]]:
+        """The blocks a frozen record folds: round ``v``'s of every rank it
+        did not exclude, and the corrections it names."""
+        excluded = {int(r) for r in rec.get("excluded", ())}
+        return ({(v, r) for r in range(world) if r not in excluded}
+                | {(int(sv), int(r)) for sv, r in rec.get("corrections", ())})
+
+    def _q_frozen_record(self, asg: P.Assignment, v: int) -> dict | None:
+        """Round ``v``'s record when the tracker has frozen it and every
+        block it names is held, else None.  The report it sends holds no
+        block, so it can never decide the round itself."""
+        if self._stop.is_set() or time.monotonic() > self.deadline:
+            return None
+        for _ in range(2):
+            reply = self._q_rpc(asg, v, [], [])
+            if reply is not None:
+                break
+        if reply is None or not reply.get("decided"):
+            return None
+        if not self._q_needs(reply, v, asg.world_size) <= set(self._qframes):
+            return None
+        return reply
+
+    def _q_agree(self, asg: P.Assignment, v: int, contributed: bool, exact: bool,
+                 deadline: float) -> dict:
+        """Collect, agree and drain round ``v``: the frozen record, with every
+        block it names held."""
+        all_ranks = set(range(asg.world_size))
         # collect until the expected blocks landed (a rank known late is not
         # waited for) or the quorum deadline passed
         expected = set(all_ranks) if exact else all_ranks - self._known_late
-        if contrib is not None:
+        if contributed:
             expected.add(asg.rank)
         else:
             expected.discard(asg.rank)
@@ -819,35 +891,15 @@ class ElasticWorker:
                     rec = reply
                     break
             last_progress = self._q_wait_pass(asg, v, last_progress)
-        excluded = {int(r) for r in rec.get("excluded", ())}
-        corrections = sorted((int(sv), int(r)) for sv, r in rec.get("corrections", ()))
         # drain: the record is law; hold every block and correction it names
-        need = {(v, r) for r in all_ranks - excluded} | set(corrections)
+        need = self._q_needs(rec, v, asg.world_size)
         while not need <= set(self._qframes):
             self._check_deadline()
             if time.monotonic() > deadline:
                 raise EpochBroken(f"quorum round v{v}: agreed blocks never arrived: "
                                   f"{sorted(need - set(self._qframes))}")
             last_progress = self._q_wait_pass(asg, v, last_progress)
-        # fold in rank order, the corrections after the round's blocks in
-        # (src_version, rank) order: the same bits on every rank
-        agreed = sorted(all_ranks - excluded)
-        parts = [self._decode_block(self._qframes[(v, r)], self._qlike) for r in agreed]
-        parts += [self._decode_block(self._qframes[key], self._qlike) for key in corrections]
-        total = refold(parts)
-        self._q_rounds += 1
-        if excluded:
-            self._q_excluded_rounds += 1
-        self._q_corrections += len(corrections)
-        self._known_late = set(excluded)
-        # the folded corrections go, and one round of payloads is kept for a
-        # skip dialer's catch-up
-        for key in corrections:
-            self._qframes.pop(key, None)
-        for key in self._qagreed_prev:
-            self._qframes.pop(key, None)
-        self._qagreed_prev = {(v, r) for r in agreed}
-        return total
+        return rec
 
     def _sync_state(self, asg: P.Assignment) -> None:
         """After a wave: agree on the newest committed version, and bring
@@ -1001,16 +1053,19 @@ class ElasticWorker:
                 self._check_deadline()
                 self._close_links()
                 asg = self._checkin(P.CMD_RECOVER, asg.rank)
-        self._stop_heartbeat()
         try:
             # with a failover list the retries outlast a standby's takeover
-            # lease, or the job's completion misses this clean exit
+            # lease, or the job's completion misses this clean exit; the
+            # heartbeats go on until it is ACKed, so the lease a promoted
+            # standby re-arms does not lapse while the shutdown looks for it
+            # (the tracker takes no renewal of a task that has shut down)
             P.tracker_rpc(self.tracker[0], self.tracker[1], P.CMD_SHUTDOWN, self.task_id,
                           prev_rank=asg.rank, timeout=self.rpc_timeout,
                           retries=7 if len(self.addrs) > 1 else 1, backoff_cap=0.5,
                           addrs=self.addrs)
         except (P.TrackerUnreachable, ValueError):
             pass
+        self._stop_heartbeat()
         res.completed = True
         res.final_version = self._version
         res.state = self._state

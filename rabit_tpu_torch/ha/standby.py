@@ -44,18 +44,25 @@ class Standby:
     needed); ``journal`` is the file the promoted tracker journals to (by
     default the tailed one), and ``tracker_kwargs`` go to the promoted
     :class:`Tracker` (``quorum``, ``on_suspect``, ...).  ``service=True``
-    (a multi-job service's journal) waits for the service's port."""
+    tails a multi-job service's journal into a ``ServiceState`` and
+    promotes a ``CollectiveService`` that restores every live job."""
 
     def __init__(self, primary: tuple[str, int] | None = None, journal_path: str | None = None,
                  host: str = "127.0.0.1", port: int = 0, standby_id: str = "standby0",
                  takeover_sec: float = 1.0, poll_sec: float = 0.1, journal: str | None = None,
                  tracker_kwargs: dict | None = None, quiet: bool = True, service: bool = False):
-        if service:
-            raise NotImplementedError(
-                "Standby(service=True) is not ported yet (ROADMAP.md Queue 1 item 10g)")
         if primary is None and journal_path is None:
             raise ValueError("standby needs a primary address and/or a journal path to tail")
-        self.service = False
+        # A multi-job service's journal replays into a ServiceState (every
+        # job's partition from the one interleaved stream), and the takeover
+        # promotes a CollectiveService.
+        self.service = bool(service)
+        if service:
+            from rabit_tpu_torch.service.state import ServiceState
+
+            self._state_cls = ServiceState
+        else:
+            self._state_cls = ControlState
         self.primary = (primary[0], int(primary[1])) if primary is not None else None
         self.journal_path = journal_path
         self.standby_id = standby_id
@@ -64,7 +71,7 @@ class Standby:
         self.promoted_journal = journal if journal is not None else journal_path
         self.tracker_kwargs = dict(tracker_kwargs or {})
         self.quiet = quiet
-        self.state = ControlState()
+        self.state = self._state_cls()
         self.events: list[dict] = []  # seeded into the promoted tracker's timeline
         self.synced = threading.Event()    # the first snapshot applied
         self.promoted = threading.Event()
@@ -135,7 +142,7 @@ class Standby:
         for kind, fields in records:
             if kind == "snapshot" and self.synced.is_set():
                 mine = self.state.snapshot_bytes()
-                theirs = ControlState.from_snapshot(fields["state"]).snapshot_bytes()
+                theirs = self._state_cls.from_snapshot(fields["state"]).snapshot_bytes()
                 if mine != theirs:
                     # records were lost or applied differently: the evidence
                     # first, then the primary's snapshot
@@ -266,18 +273,29 @@ class Standby:
 
         if self._stop.is_set():
             return
-        self._note({"kind": "tracker_failover", "standby": self.standby_id,
-                    "epoch": self.state.epoch, "world": self.state.world,
-                    "synced": self.synced.is_set()})
+        ev = {"kind": "tracker_failover", "standby": self.standby_id,
+              "epoch": self.state.epoch, "world": self.state.world,
+              "synced": self.synced.is_set()}
+        if self.service:
+            ev["jobs"] = self.state.n_jobs
+        self._note(ev)
         kwargs = dict(self.tracker_kwargs)
         kwargs.setdefault("quiet", self.quiet)
         journal = Journal(self.promoted_journal, state=self.state) if self.promoted_journal \
             else None
         # The tracker listens on the bound socket (listen_sock=): only now do
         # the clients' rotations start landing here.
-        tracker = Tracker(self.state.base_world or self.state.world or 1,
-                          listen_sock=self._sock, resume_from=self.state, journal=journal,
-                          **kwargs)
+        if self.service:
+            # a whole service: every live job's partition is admitted again
+            # from the replayed ServiceState
+            from rabit_tpu_torch.service.service import CollectiveService
+
+            tracker = CollectiveService(self.state.world or 1, listen_sock=self._sock,
+                                        resume_from=self.state, journal=journal, **kwargs)
+        else:
+            tracker = Tracker(self.state.base_world or self.state.world or 1,
+                              listen_sock=self._sock, resume_from=self.state, journal=journal,
+                              **kwargs)
         with self._lock:
             tracker.events[:0] = self.events
         self.tracker = tracker

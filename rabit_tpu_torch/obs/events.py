@@ -33,9 +33,8 @@ _RESERVED = ("ts", "kind")
 
 #: The event-kind registry: every ``kind`` of ``rabit_tpu``'s registry
 #: (``rabit_tpu/obs/events.py`` ``KINDS``) that a plane of the port can
-#: record, with the same one-line meaning (the service plane's kinds wait
-#: for its port).  A kind is added here in the change that adds its
-#: producer.
+#: record, with the same one-line meaning.  A kind is added here in the
+#: change that adds its producer.
 KINDS: dict[str, str] = {
     # envelope / ring
     "flight_dump": "dump header line: pid, rank, reason, n_events, dropped",
@@ -117,6 +116,16 @@ KINDS: dict[str, str] = {
                       "world",
     "tracker_failover": "standby promoted itself over the dead primary: "
                         "standby, epoch, world, synced",
+    # the multi-tenant collective service (service)
+    "job_admitted": "a job passed admission and got its partition: job, "
+                    "world, tenant, pooled (restored=True after a "
+                    "failover/journal replay)",
+    "admission_refused": "a job hit a quota / bad key and was refused: "
+                         "job, tenant, reason",
+    "worker_leased": "a parked pool worker was leased into a job's "
+                     "wave: task_id, job, pool",
+    "job_completed": "a job finished and its partition retired: job, "
+                     "world, seconds",
     # serving at scale (the tracker's reactor and the relay tier)
     "relay_up": "a relay's persistent CMD_BATCH channel registered: "
                 "relay, host",

@@ -30,13 +30,10 @@ from rabit_tpu_torch.tracker import protocol as P
 
 def scrape(host: str, port: int, task_id: str = "obs", job: str = "",
            registry: bool = False, timeout: float = 5.0) -> dict:
-    """One ``CMD_OBS`` round trip: the tracker's whole view.  ``job`` (a
-    multi-job service's partition) is refused: job keys are not ported
-    (ROADMAP.md Queue 1 item 10g)."""
-    if job:
-        raise NotImplementedError(
-            "scrape(job=) is not ported yet (ROADMAP.md Queue 1 item 10g)")
-    doc = P.tracker_rpc(host, port, P.CMD_OBS, task_id,
+    """One ``CMD_OBS`` round trip.  A bare ``task_id`` gets the tracker's
+    (or a service's) whole view; ``job`` prefixes it, so a multi-job service
+    routes the scrape to that job's partition."""
+    doc = P.tracker_rpc(host, port, P.CMD_OBS, P.join_job(job, task_id),
                         message=json.dumps({"registry": bool(registry)}),
                         timeout=timeout, retries=1)
     if not isinstance(doc, dict):

@@ -52,9 +52,12 @@ twice); the tracker dedupes check-ins and shutdowns by task id and decides
 each quorum record once, so the replay is safe and the children never
 re-dial.
 
-Not ported here (it waits for the service plane): the batch ACK's per-job
-epoch and delivery map, with its ``job_retired`` eviction; a child with a
-job key gets its polls answered by the tracker.
+One relay tier serves every job of a multi-tenant ``CollectiveService``:
+a child's job key rides in its route key, and the service's batch ACK
+carries a ``jobs`` map whose epoch and delivery lines answer each job's
+``CMD_EPOCH`` and ``CMD_SUB`` polls here.  A job the map no longer names is
+over: its blob and line holds are released (``job_retired``), so their
+bytes leave once no other job holds the digest.
 """
 
 from __future__ import annotations
@@ -169,6 +172,9 @@ class Relay:
         self.clock_offset = 0.0   # tracker clock - relay clock
         self.clock_err = float("inf")
         self._epoch_cache = {"epoch": 0, "world": 0, "rewave": False}
+        # each job's epoch line from a service's batch ACK (bare task ids,
+        # and jobs the ACK has not named yet, read the cache above)
+        self._job_epochs: dict[str, dict] = {}
         # The blob cache: bytes by digest (LRU order, bounded), each job's
         # newest (version, digest), and a count of the jobs that hold a digest.
         self._blob_cache: dict[str, tuple[int, str]] = {}
@@ -176,8 +182,8 @@ class Relay:
         self._digest_refs: dict[str, int] = {}
         self._cache_used = 0
         self._cache_budget = Config().get_size("rabit_relay_cache_bytes", 256 << 20)
-        # The delivery lines the batch ACKs carry, by job (the tracker's own
-        # job "" only), and the digest each line holds in the cache.
+        # The delivery lines the batch ACKs carry, by job, and the digest
+        # each line holds in the cache.
         self._sub_lines: dict[str, dict] = {}
         self._line_digests: dict[str, str] = {}
         #: the relay's own timeline (blob_cache_evicted), bounded
@@ -433,7 +439,10 @@ class Relay:
             ch.out += P.put_u32(P.ACK) + self._stamp()
             self._keep_metrics(h)
         elif h.cmd == P.CMD_EPOCH:
-            ch.out += P.put_u32(P.ACK) + P.put_str(json.dumps(self._epoch_cache))
+            job = P.split_job(h.task_id)[0]
+            cache = self._job_epochs.get(job) if job else None
+            ch.out += P.put_u32(P.ACK) + P.put_str(
+                json.dumps(cache if cache is not None else self._epoch_cache))
         elif h.cmd in (P.CMD_PRINT, P.CMD_SHUTDOWN):
             with self._lock:
                 if h.cmd == P.CMD_SHUTDOWN:
@@ -719,10 +728,10 @@ class Relay:
             self._ack.set()
 
     def _fold_ack(self, payload: bytes) -> None:
-        """A batch ACK: refresh the epoch cache, the delivery line and the
-        clock projection
-        (the tightest bracket wins, with decay), and clear the envelope held
-        for replay."""
+        """A batch ACK: refresh the epoch caches, the delivery lines (a
+        service's ``jobs`` map: every job's, and the retirement sweep) and
+        the clock projection (the tightest bracket wins, with decay), and
+        clear the envelope held for replay."""
         try:
             info = json.loads(payload.decode())
         except (ValueError, UnicodeDecodeError):
@@ -734,6 +743,23 @@ class Relay:
         if isinstance(line, dict):
             with self._lock:
                 self._hold_line_locked("", line)
+        jobs = info.get("jobs")
+        if isinstance(jobs, dict):
+            # one swap of the whole map: a reader never sees it torn
+            self._job_epochs = {str(k): {"epoch": v.get("epoch", 0), "world": v.get("world", 0),
+                                         "rewave": bool(v.get("rewave"))}
+                                for k, v in jobs.items() if isinstance(v, dict)}
+            with self._lock:
+                for job, v in jobs.items():
+                    if isinstance(v, dict) and isinstance(v.get("delivery"), dict):
+                        self._hold_line_locked(str(job), v["delivery"])
+                for job in [j for j in self._blob_cache if j and j not in jobs]:
+                    self._release_digest_locked(self._blob_cache.pop(job)[1], "job_retired")
+                for job in [j for j in self._sub_lines if j and j not in jobs]:
+                    del self._sub_lines[job]
+                    old = self._line_digests.pop(job, None)
+                    if old:
+                        self._release_digest_locked(old, "job_retired")
         t_recv, t_send = time.time(), self._last_batch_send
         server_ts = info.get("server_ts")
         if t_send is not None and server_ts is not None:

@@ -92,7 +92,8 @@ class LocalCluster:
     def __init__(self, num_workers: int, max_restarts: int = 0, quiet: bool = False,
                  extra_env: dict[str, str] | None = None, spares: int = 0,
                  shrink_after_sec: float = 0.0, standby: bool = False, ha_journal: str = "",
-                 takeover_sec: float = 1.0, relays: int = 0, relay_flush_sec: float = 0.25):
+                 takeover_sec: float = 1.0, relays: int = 0, relay_flush_sec: float = 0.25,
+                 job: str = ""):
         self.num_workers = num_workers
         self.max_restarts = max_restarts
         self.quiet = quiet
@@ -136,6 +137,10 @@ class LocalCluster:
         self.num_relays = int(relays)
         self.relay_flush_sec = float(relay_flush_sec)
         self.relays: list = []
+        #: the job key, exported to the workers as rabit_job_key: they
+        #: prefix their wire task ids with it, so a CollectiveService routes
+        #: them to the job's partition
+        self.job = str(job)
 
     def _on_suspect(self, task_id: str) -> None:
         """The tracker's lease-expiry callback (on its monitor thread)."""
@@ -163,6 +168,8 @@ class LocalCluster:
                    DMLC_TASK_ID=task_id, DMLC_NUM_ATTEMPT=str(self.restarts[task_id]))
         if not task_id.isdigit():
             env["RABIT_TPU_RABIT_SPARE"] = "1"  # config's environment layer: rabit_spare=1
+        if self.job:
+            env["RABIT_TPU_RABIT_JOB_KEY"] = self.job
         if self._worker_addrs and not self.relays:
             # the failover list: the primary first, then the standby (a
             # relayed worker keeps its relay's address; the relay rotates)
@@ -398,6 +405,10 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--kill-tracker-after", type=float, default=None, metavar="SEC",
                     help="kill the primary tracker abruptly SEC seconds in (with --standby "
                          "the job fails over; without, it is lost)")
+    ap.add_argument("--job", default="", metavar="KEY",
+                    help="the job key (rabit_job_key): the workers prefix their task ids "
+                         "with KEY/, so a CollectiveService routes them to this job's "
+                         "partition (default: the rabit_job_key config key)")
     ap.add_argument("cmd", nargs=argparse.REMAINDER)
     args = ap.parse_args(argv)
     cmd = args.cmd[1:] if args.cmd[:1] == ["--"] else args.cmd
@@ -421,7 +432,8 @@ def main(argv: list[str] | None = None) -> int:
                            spares=args.spares, shrink_after_sec=args.shrink_after,
                            standby=args.standby,
                            ha_journal=args.ha_journal or cfg.get("rabit_ha_journal", "") or "",
-                           takeover_sec=takeover, relays=args.relays)
+                           takeover_sec=takeover, relays=args.relays,
+                           job=args.job or cfg.get("rabit_job_key", "") or "")
     return cluster.run(cmd, timeout=args.timeout, preempt=schedule(args.preempt, "--preempt"),
                        wedge=schedule(args.wedge, "--wedge"),
                        kill_tracker_after=args.kill_tracker_after)

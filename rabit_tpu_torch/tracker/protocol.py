@@ -149,6 +149,7 @@ from __future__ import annotations
 
 import json
 import random
+import re
 import socket
 import struct
 import time
@@ -214,6 +215,19 @@ PARITY_EXEMPT = {
 #: The job key's separator inside a wire task id, ``"<job>/<task>"``; a bare
 #: task id belongs to the job "".
 JOB_SEP = "/"
+
+#: The reserved task-id prefix of the service's pooled workers
+#: (``"pool/<name>"``: parked once, leased to successive jobs).  Never a job
+#: key.
+POOL_PREFIX = "pool"
+
+#: A valid job key: path-safe (it names a telemetry file), wire-safe (no
+#: ``JOB_SEP``), bounded.
+JOB_KEY_RE = re.compile(r"^[A-Za-z0-9_.\-]{1,64}$")
+
+#: Keys the service keeps for itself: ``pool`` prefixes its pooled workers,
+#: ``service`` names its own telemetry file and journal records.
+RESERVED_JOB_KEYS = frozenset({POOL_PREFIX, "service"})
 
 #: How many renewal intervals a lease survives without a renewal.  2 means
 #: one lost or late heartbeat is tolerated; the second expires the lease, so
@@ -549,8 +563,11 @@ def tree_topology(rank: int, world: int) -> tuple[int, list[int]]:
 
 def send_hello(sock, cmd: int, task_id: str, prev_rank: int = -1,
                listen_port: int = 0, message: str = "", blob: bytes = b"",
-               blob_version: int = 0) -> None:
-    """One worker hello (see the module docstring)."""
+               blob_version: int = 0, job: str = "") -> None:
+    """One worker hello (see the module docstring).  ``job`` is joined into
+    the task id (``join_job``): the key is a prefix, never a field, so ""
+    writes the single-job hello byte for byte."""
+    task_id = join_job(job, task_id)
     out = [put_u32(MAGIC_HELLO), put_u32(cmd), put_i32(prev_rank), put_str(task_id)]
     if cmd in (CMD_START, CMD_RECOVER, CMD_SPARE):
         out.append(put_u32(listen_port))
@@ -565,6 +582,17 @@ def send_hello(sock, cmd: int, task_id: str, prev_rank: int = -1,
 def join_job(job: str, task_id: str) -> str:
     """The wire task id of ``task_id`` in job ``job`` (unchanged for "")."""
     return f"{job}{JOB_SEP}{task_id}" if job else task_id
+
+
+def job_key_error(key: str) -> str | None:
+    """Why ``key`` cannot name a job (None when it can): it must match
+    ``JOB_KEY_RE`` ("" is the legacy job), and neither it nor its tenant
+    (the key up to its first ".") may be reserved."""
+    if key != "" and not JOB_KEY_RE.match(key):
+        return f"invalid job key {key!r} (want [A-Za-z0-9_.-], <=64)"
+    if key in RESERVED_JOB_KEYS or key.split(".", 1)[0] in RESERVED_JOB_KEYS:
+        return f"job key {key!r} is reserved"
+    return None
 
 
 def split_job(task_id: str) -> tuple[str, str]:

@@ -129,8 +129,16 @@ same channel.  A relayed check-in is a virtual connection
 reports its child gone, so the wave purge and the spare reaping clean up
 after a relay as after a socket.  Relay channels are ``relay_up`` /
 ``relay_lost`` events, not membership: the relay reconnects and its
-children never notice.  The headless service partition is ``rabit_tpu``'s
-and not ported.
+children never notice.
+
+The multi-tenant service (``service``): every hello goes through one
+routing seam, ``_route_hello``, to the tracker that owns it; a plain
+tracker owns every id itself, so single-job serving is unrouted and
+byte-identical.  ``headless=True`` builds a job's partition: no listen
+socket and no threads.  A ``service.CollectiveService`` serves every
+partition on its one loop, ticks their leases and waves from one monitor
+pair, and namespaces their journal records and telemetry files by the job
+key (``job``).
 """
 
 from __future__ import annotations
@@ -383,7 +391,10 @@ class Tracker:
     listen backlog of ``backlog`` (default ``rabit_tracker_backlog``).
     ``conn_timeout_sec`` bounds the read of a hello on both serving paths: a
     torn or partial hello is dropped at that deadline instead of pinning a
-    thread and a socket (0 disables it)."""
+    thread and a socket (0 disables it).  ``job`` names the tracker's job
+    (its telemetry file is ``telemetry-<job>.json``), and ``headless`` makes
+    it a service's partition: nothing listens and ``start`` refuses, since
+    the owning service serves it and ticks its monitors."""
 
     def __init__(self, world_size: int, host: str = "127.0.0.1", port: int = 0,
                  quiet: bool = False, obs_dir: str | None = None,
@@ -393,7 +404,8 @@ class Tracker:
                  sched_repair: bool = True, quorum: str = "", quorum_flag_after: int = 3,
                  journal=None, resume_from=None, listen_sock: socket.socket | None = None,
                  ha_tick_sec: float | None = None, reactor: bool = True,
-                 backlog: int | None = None, conn_timeout_sec: float = 60.0):
+                 backlog: int | None = None, conn_timeout_sec: float = 60.0,
+                 job: str = "", headless: bool = False):
         if world_size < 1:
             raise ValueError(f"world_size must be >= 1, got {world_size}")
         if schedule not in sched.ALGOS:
@@ -450,16 +462,22 @@ class Tracker:
         self._started_at = time.time()
         self._telemetry_written = False
         self._telemetry_flushed = threading.Event()
-        if listen_sock is not None:
-            # a standby's takeover: it bound its advertised address long
-            # ago, and listens only now
-            self._srv = listen_sock
+        self.job = str(job)
+        self.headless = bool(headless)
+        self._srv: socket.socket | None = None
+        if headless:
+            self.host, self.port = host, int(port)  # the owning service's address
         else:
-            self._srv = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
-            self._srv.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
-            self._srv.bind((host, port))
-        self._srv.listen(self.backlog)
-        self.host, self.port = self._srv.getsockname()
+            if listen_sock is not None:
+                # a standby's takeover: it bound its advertised address long
+                # ago, and listens only now
+                self._srv = listen_sock
+            else:
+                self._srv = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+                self._srv.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+                self._srv.bind((host, port))
+            self._srv.listen(self.backlog)
+            self.host, self.port = self._srv.getsockname()
         self._lock = threading.Lock()
         self._pending: list[_Pending] = []
         self._wave_started: float | None = None  # monotonic, the wave's first check-in
@@ -554,6 +572,9 @@ class Tracker:
     # -- lifecycle -----------------------------------------------------------
 
     def start(self) -> "Tracker":
+        if self.headless:
+            raise RuntimeError("a headless partition has no serving loop: its "
+                               "CollectiveService serves it and ticks its monitors")
         serve = self._serve_reactor if self._reactor else self._serve
         self._thread = threading.Thread(target=serve, daemon=True, name="rabit-torch-tracker")
         self._thread.start()
@@ -573,6 +594,8 @@ class Tracker:
         listening); the reactor's loop sees ``_stopping`` within a tick and
         closes the connections it holds."""
         self._stopping.set()
+        if self._srv is None:
+            return
         try:
             self._srv.shutdown(socket.SHUT_RDWR)
         except OSError:
@@ -686,11 +709,6 @@ class Tracker:
             if self._killed:
                 conn.close()  # a dead tracker answers nothing
                 return
-            if h.cmd in (P.CMD_START, P.CMD_RECOVER, P.CMD_SPARE):
-                conn.settimeout(None)  # held until the wave closes
-                self._checkin(_Pending(conn, h.task_id, h.listen_port, addr[0], h.cmd),
-                              inline=True)
-                return
             if h.cmd in (P.CMD_BATCH, P.CMD_JOURNAL):
                 conn.settimeout(None)  # this thread serves the channel
                 if h.cmd == P.CMD_BATCH:
@@ -698,7 +716,16 @@ class Tracker:
                 else:
                     self._serve_journal(conn, h.task_id)
                 return
-            reply, post = self._short_rpc_reply(h)
+            tr, h.task_id = self._route_hello(h.task_id, h.cmd)
+            if tr is None:
+                conn.close()  # refused admission: closed with no reply
+                return
+            if h.cmd in (P.CMD_START, P.CMD_RECOVER, P.CMD_SPARE):
+                conn.settimeout(None)  # held until the wave closes
+                tr._checkin(_Pending(conn, h.task_id, h.listen_port, addr[0], h.cmd),
+                            inline=True)
+                return
+            reply, post = tr._short_rpc_reply(h)
             conn.sendall(reply)
             if post is not None:
                 post()
@@ -877,9 +904,12 @@ class Tracker:
             self._reactor_drop(sel, conns, rc)  # a dead tracker answers nothing
             return
         if h.cmd in (P.CMD_START, P.CMD_RECOVER, P.CMD_SPARE):
+            tr, tid = self._route_hello(h.task_id, h.cmd)
+            if tr is None:
+                self._reactor_drop(sel, conns, rc)
+                return
             self._reactor_detach(sel, conns, rc)
-            self._checkin(_Pending(rc.sock, h.task_id, h.listen_port, rc.addr[0], h.cmd),
-                          inline=False)
+            tr._checkin(_Pending(rc.sock, tid, h.listen_port, rc.addr[0], h.cmd), inline=False)
             return
         if h.cmd == P.CMD_BATCH:
             self._reactor_detach(sel, conns, rc)
@@ -893,7 +923,11 @@ class Tracker:
                              daemon=True, name=f"rabit-torch-ha-tx-{h.task_id}").start()
             return
         try:
-            reply, post = self._short_rpc_reply(h)
+            tr, h.task_id = self._route_hello(h.task_id, h.cmd)
+            if tr is None:
+                self._reactor_drop(sel, conns, rc)
+                return
+            reply, post = tr._short_rpc_reply(h)
         except (ValueError, OSError):
             self._reactor_drop(sel, conns, rc)
             return
@@ -971,7 +1005,8 @@ class Tracker:
 
     def _batch_ack_info(self) -> dict:
         """The batch ACK's document: the tracker's clock, and the epoch line
-        and delivery line the relay answers its children's polls from."""
+        and delivery line the relay answers its children's polls from.  A
+        ``CollectiveService`` adds a ``jobs`` map, every job's lines."""
         info = {"server_ts": round(time.time(), 6)}
         info.update(self._epoch_info())
         with self._lock:
@@ -988,23 +1023,29 @@ class Tracker:
         into the rollup; a hang-up marks the child's virtual connection
         dead.  Epoch polls never ride a batch (the relay answers them), blobs
         and snapshot fetches are proxied around it, and a malformed
-        sub-message is ignored."""
+        sub-message is ignored.  The route key stays the whole wire task id
+        (the relay parks the child under it); the owning partition sees its
+        own id."""
         ts = round(time.time(), 6)
         try:
+            tr, tid = self._route_hello(m.task_id, m.cmd)
+            if tr is None:
+                if m.cmd != P.CMD_HANGUP:
+                    return ts  # refused admission: the child's RPC times out
+                tr, tid = self, m.task_id
             if m.cmd in (P.CMD_START, P.CMD_RECOVER, P.CMD_SPARE):
                 vconn = _RelayedConn(channel, m.task_id)
-                self._checkin(_Pending(vconn, m.task_id, m.listen_port, m.host, m.cmd),
-                              inline=False)
+                tr._checkin(_Pending(vconn, tid, m.listen_port, m.host, m.cmd), inline=False)
             elif m.cmd == P.CMD_OBS:
-                self._fold_delta_frame(m.payload, ts)
+                tr._fold_delta_frame(m.payload, ts)
             elif m.cmd == P.CMD_HANGUP:
                 vconn = channel.vconns.get(m.task_id)
                 if vconn is not None:
                     vconn.child_dead = True
             elif m.cmd in (P.CMD_HEARTBEAT, P.CMD_METRICS, P.CMD_PRINT, P.CMD_SHUTDOWN,
                            P.CMD_QUORUM, P.CMD_SUB):
-                reply, post = self._short_rpc_reply(
-                    P.Hello(m.cmd, m.prev_rank, m.task_id, message=m.payload.decode()),
+                reply, post = tr._short_rpc_reply(
+                    P.Hello(m.cmd, m.prev_rank, tid, message=m.payload.decode()),
                     counted=False)
                 if m.cmd in (P.CMD_QUORUM, P.CMD_SUB):
                     channel.send_route(m.task_id, P.ROUTE_CLOSE, reply)
@@ -1062,6 +1103,14 @@ class Tracker:
                     break
                 if isinstance(frame, threading.Event):
                     frame.set()
+
+    def _route_hello(self, task_id: str, cmd: int) -> "tuple[Tracker | None, str]":
+        """The routing seam: ``(owner, the owner's task id)`` of one hello.
+        A plain tracker owns every id as it is; a ``CollectiveService``
+        splits the job key off and answers with the job's partition, or
+        ``(None, reason)`` to refuse the hello (its connection closes with no
+        reply)."""
+        return self, task_id
 
     @staticmethod
     def _clock_stamp() -> bytes:
@@ -1188,7 +1237,7 @@ class Tracker:
             new_sub = task_id not in self._sub_ids
             self._sub_ids.add(task_id)
         if new_sub:
-            obs_stream.stream_count("delivery_subscribers", 1, job="")
+            obs_stream.stream_count("delivery_subscribers", 1, job=self.job)
         return P.put_u32(P.ACK) + P.put_str(json.dumps(line))
 
     def _snap_reply(self, task_id: str, message: str) -> bytes:
@@ -1216,7 +1265,8 @@ class Tracker:
                 self.events.append({"ts": round(time.time(), 6), "kind": "snapshot_fetched",
                                     "task_id": task_id, "digest": digest,
                                     "nbytes": len(blob)})
-        obs_stream.stream_count("delivery_bytes_served", len(chunk), job="", digest=digest)
+        obs_stream.stream_count("delivery_bytes_served", len(chunk), job=self.job,
+                                digest=digest)
         return P.put_snap_frame(digest, len(blob), off, chunk)
 
     # -- liveness ------------------------------------------------------------
@@ -1224,7 +1274,9 @@ class Tracker:
     def _renew_lease(self, task_id: str, rank: int, payload: str) -> None:
         """Grant or renew a lease: the worker renews every ``interval``
         seconds and is suspected after LEASE_FACTOR intervals of silence.
-        A malformed or non-positive interval is ignored."""
+        A malformed or non-positive interval is ignored, and so is a task
+        that has shut down (a heartbeat that raced its shutdown must not
+        leave a lease that lapses after a clean exit)."""
         try:
             interval = float(payload)
         except ValueError:
@@ -1232,6 +1284,8 @@ class Tracker:
         if not 0 < interval < 86400:
             return
         with self._lock:
+            if task_id in self._shutdown_tasks:
+                return
             prev = self._leases.get(task_id)
             self._leases[task_id] = _Lease(
                 time.monotonic() + P.LEASE_FACTOR * interval, interval, rank)
@@ -1392,7 +1446,7 @@ class Tracker:
             "ts": round(time.time(), 6),
             "started_at": round(self._started_at, 6),
             "serving": {"reactor": self._reactor, "backlog": self.backlog, **serve},
-            "jobs": {"": self._scrape_job_state()},
+            "jobs": {self.job: self._scrape_job_state()},
         }
         doc["incidents"] = _aggregate_incidents(doc["jobs"])
         if opts.get("registry", True):
@@ -1423,7 +1477,7 @@ class Tracker:
             self.events.append({"ts": round(time.time(), 6), "kind": "metrics_snapshot",
                                 "rank": rank, "task_id": snap.get("task_id", "")})
         if isinstance(delta, dict) and delta:
-            self._fold_delta_doc(obs_stream.delta_doc("", rank, delta))
+            self._fold_delta_doc(obs_stream.delta_doc(self.job, rank, delta))
 
     def _fold_delta_frame(self, payload: bytes, ts: float | None = None) -> None:
         """Fold one relay-coalesced CMD_OBS delta frame into the rollup."""
@@ -1470,7 +1524,7 @@ class Tracker:
                   if isinstance(s, dict) and s.get("clock")}
         return {
             "schema": TELEMETRY_SCHEMA,
-            "job": "",
+            "job": self.job,
             "world_size": self.world_size,
             "base_world": self.base_world,
             "started_at": round(self._started_at, 6),
@@ -1510,8 +1564,10 @@ class Tracker:
 
     def write_telemetry(self) -> str | None:
         """Build the document into ``self.telemetry`` and write it to
-        ``<obs_dir>/telemetry.json`` (a temporary file renamed into place,
-        so a reader never sees a torn file).  The first caller wins; a later
+        ``<obs_dir>/telemetry.json``, ``telemetry-<job>.json`` for a named
+        job so that jobs sharing an obs dir keep their own files (a
+        temporary file renamed into place, so a reader never sees a torn
+        file).  The first caller wins; a later
         one waits until the file is down.  Returns the path, or None without
         an obs dir.  Never raises on a write error."""
         with self._lock:
@@ -1525,7 +1581,8 @@ class Tracker:
             if not self.obs_dir:
                 return None
             os.makedirs(self.obs_dir, exist_ok=True)
-            path = os.path.join(self.obs_dir, "telemetry.json")
+            path = os.path.join(self.obs_dir, f"telemetry-{self.job}.json" if self.job
+                                else "telemetry.json")
             tmp = f"{path}.tmp.{os.getpid()}"
             with open(tmp, "w") as f:
                 json.dump(self.telemetry, f, indent=1, sort_keys=True)

@@ -16,7 +16,7 @@
   Pallas kernel run in the interpreter, exactly;
 * the pieces the runners need: ``tracker_rpc`` check-ins (fail fast on a
   dead port), the tracker's ``conn_timeout_sec`` on both serving paths,
-  ``ElasticWorker(rpc_timeout=)``, and the refusals of ``job=``.
+  ``ElasticWorker(rpc_timeout=)``, and the runner's ``job=`` keying.
 """
 
 from __future__ import annotations
@@ -146,12 +146,13 @@ def test_elastic_worker_rpc_timeout():
         w._listen.close()
 
 
-def test_job_key_refused():
-    """The runner's job mode waits for item 10g; ``tracker_rpc(job=)`` joins the
-    key into the wire task id, which a live port tracker sees as
+def test_job_key_keys_the_task_ids():
+    """The runner's job mode completes with every worker's task id keyed
+    (the tracker's waves assign ``tenant/0``, ...), and ``tracker_rpc(job=)``
+    joins the key into the wire task id, which a live port tracker sees as
     ``tenant/0``."""
-    with pytest.raises(NotImplementedError, match="10g"):
-        chaos.run_elastic_schedule(7000, job="tenant", device="cpu")
+    res = chaos.run_elastic_schedule(7000, job="tenant", device="cpu")
+    assert res.outcome == "completed" and res.n_completed >= 1
     tr = Tracker(1, quiet=True).start()
     try:
         ack = P.tracker_rpc(tr.host, tr.port, P.CMD_HEARTBEAT, "0", message="30", job="tenant")

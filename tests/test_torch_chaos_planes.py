@@ -12,19 +12,27 @@ times until every assertion holds at once, as tests/test_torch_diagnose.py
 runs the same scenarios: a host busy with other tests can starve a worker
 thread long enough for either package's monitor to see a straggler that
 is not there.
-tests/test_service.py's runner case needs the multi-job key (ROADMAP.md
-Queue 1 item 10g) and is not here.
+tests/test_service.py's runner case (the keyed job) is in
+tests/test_torch_service.py.  ``test_last_rank_folds_final_round_after_peers_left``
+forces the interleaving behind the quorum campaign's divergence under load:
+the last rank of the final round finds its neighbours' links closed.
 """
 
 from __future__ import annotations
 
 import functools
 import random
+import threading
+import time
 
+import numpy as np
 import pytest
 
 from rabit_tpu_torch.chaos import FaultSpec
 from rabit_tpu_torch.chaos import run_elastic_schedule as _run_elastic_schedule
+from rabit_tpu_torch.elastic.client import ElasticWorker
+from rabit_tpu_torch.elastic.rebalance import shard_slice
+from rabit_tpu_torch.tracker.tracker import Tracker
 
 run_elastic_schedule = functools.partial(_run_elastic_schedule, device="cpu")
 
@@ -172,6 +180,84 @@ def test_fuzz_straggler_quorum_kill_campaign(seed):
     r = run_elastic_schedule(seed, world=4, straggler=(2, 0.25, 3), quorum="0.5", niter=5,
                              mix_faults=True, deadline_sec=45.0)
     assert r.outcome == "completed", f"seed {seed}: {r}"
+
+
+class _LastToFold(ElasticWorker):
+    """A straggler held, once its final-round block is out (before the
+    others' blocks), until every other worker has folded the final round and
+    closed its links: the interleaving of the quorum campaign's bitwise
+    divergence under load.  Its next rank routes around it (a skip link to
+    its predecessor, dialed while it straggled in round 1), so the others
+    finish without its forwards, and the blocks it then reads are new to it:
+    it forwards them to a closed socket.  ``miss_rpc`` also loses its first final-round report, so that
+    the round goes on to read the closed predecessor's EOF before it has the
+    record."""
+
+    def __init__(self, *args, others_done: threading.Event, miss_rpc: bool, **kw):
+        super().__init__(*args, **kw)
+        self.others_done = others_done
+        self.miss_rpc = miss_rpc
+
+    def _qpost(self, asg, v, origin, payload):
+        new = super()._qpost(asg, v, origin, payload)
+        if new and v == self.niter and origin == asg.rank:
+            assert self.others_done.wait(30.0), "the other ranks never finished"
+        return new
+
+    def _q_rpc(self, asg, v, have, held):
+        if self.miss_rpc and v == self.niter and have:
+            self.miss_rpc = False
+            return None  # a transport miss: the round pumps its links again
+        return super()._q_rpc(asg, v, have, held)
+
+
+@pytest.mark.parametrize("miss_rpc", [False, True])
+def test_last_rank_folds_final_round_after_peers_left(miss_rpc):
+    """The last rank of a quorum job folds the final round's frozen record
+    after its ring neighbours have closed their links (the next rank refuses
+    its forwards, the previous one reads as EOF), in the same epoch, to the
+    same bits: it must not take the closed links for a failed epoch and redo
+    the round alone under other exclusions."""
+    world, niter = 4, 3
+    tracker = Tracker(world, quiet=True, quorum="0.5").start()
+    addr = (tracker.host, tracker.port)
+    data = np.arange(8 * world) % 8
+
+    def contribution(v: int, w: int, r: int) -> np.ndarray:
+        if r == world - 1 and v == 1:
+            time.sleep(0.6)  # past quorum_wait: the next rank dials around
+        if r != world - 1 and v == niter:
+            time.sleep(1.0)  # the held rank's final block goes out first
+        rows = data[shard_slice(len(data), w, r)]
+        return np.bincount(rows, minlength=8).astype(np.int64) * v
+
+    others_done = threading.Event()
+    results: dict = {}
+
+    def run(w: ElasticWorker) -> None:
+        results[w.task_id] = w.run()
+
+    kw = dict(rpc_timeout=2.0, wave_timeout=10.0, link_timeout=2.0, deadline_sec=15.0,
+              quorum="0.5", quorum_wait=0.15)
+    last = _LastToFold(addr, "3", contribution, niter, others_done=others_done,
+                       miss_rpc=miss_rpc, **kw)
+    others = [ElasticWorker(addr, str(i), contribution, niter, **kw) for i in range(world - 1)]
+    threads = [threading.Thread(target=run, args=(w,), daemon=True) for w in others]
+    last_thread = threading.Thread(target=run, args=(last,), daemon=True)
+    try:
+        for th in threads + [last_thread]:
+            th.start()
+        for th in threads:
+            th.join(30.0)
+        others_done.set()
+        last_thread.join(30.0)
+    finally:
+        tracker.stop()
+    assert all(r.completed for r in results.values()), {t: r.error for t, r in results.items()}
+    assert results["3"].epochs == [0], results["3"].epochs
+    ref = results["0"].state
+    for task, res in results.items():
+        assert np.array_equal(res.state, ref), f"task {task} diverges bitwise from task 0"
 
 
 @pytest.mark.slow

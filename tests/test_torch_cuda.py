@@ -1537,3 +1537,86 @@ def test_publish_commit_pins_a_card_forest(cuda, delivery_api):
     api._publish_commit(Eng(), blob)
     assert api._ckpt_store._pinned == {3}
     assert tr._delivery["version"] == 3 and tr._delivery["size"] == len(blob)
+
+
+# -- the multi-tenant service on the card -------------------------------------------
+
+def _wait_for(cond, timeout: float = 20.0) -> None:
+    import time
+
+    end = time.monotonic() + timeout
+    while not cond():
+        assert time.monotonic() < end, "timed out"
+        time.sleep(0.02)
+
+
+@pytest.mark.gpu
+def test_two_tenants_jobs_on_one_service_with_card_contributions(cuda):
+    """Two tenants' jobs on one CollectiveService, every contribution the g
+    plane of node_histograms_kernel on the card (tools/torch_service_bench.py's
+    DeviceFill): both complete bitwise their closed form, and the kernel
+    launched exactly once a contribution."""
+    import threading
+
+    from rabit_tpu_torch.elastic.client import ElasticWorker
+    from rabit_tpu_torch.service import CollectiveService
+    from tools.torch_service_bench import DeviceFill, expected_state
+
+    fill = DeviceFill("cuda")
+    jobs = ("teamA.fit", "teamB.fit")
+    boost.launches.clear()
+    svc = CollectiveService(quiet=True).start()
+    results = {}
+    try:
+        for key in jobs:
+            svc.admit(key, 2)
+        workers = [ElasticWorker((svc.host, svc.port), str(i), lambda v, w, r: fill(v * (r + 1)),
+                                 3, job=key, deadline_sec=60) for key in jobs for i in range(2)]
+        threads = [threading.Thread(target=lambda w=w: results.__setitem__(w.task_id, w.run()),
+                                    daemon=True) for w in workers]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(70)
+        _wait_for(lambda: not svc.live_jobs())
+    finally:
+        svc.stop()
+    assert sorted(results) == sorted(f"{k}/{i}" for k in jobs for i in range(2))
+    for tid, r in results.items():
+        assert r.completed and np.array_equal(r.state, expected_state(2, 3)), (tid, r.error)
+    assert dict(boost.launches) == {"node_histograms_kernel": fill.n_calls} and fill.n_calls
+
+
+@pytest.mark.gpu
+def test_pooled_worker_leased_to_two_jobs_with_card_contributions(cuda):
+    """Two pooled workers, each leased to two successive pool-filled jobs of
+    a CollectiveService, every contribution node_histograms_kernel on the
+    card: both fits of each worker complete bitwise their closed form."""
+    from rabit_tpu_torch.service import CollectiveService, PooledWorker
+    from tools.torch_service_bench import DeviceFill, expected_state
+
+    fill = DeviceFill("cuda")
+    boost.launches.clear()
+    svc = CollectiveService(quiet=True).start()
+    pool = [PooledWorker((svc.host, svc.port), f"w{i}", lambda v, w, r: fill(v * (r + 1)), 3,
+                         deadline_sec=60) for i in range(2)]
+    threads = [p.start_thread() for p in pool]
+    try:
+        _wait_for(lambda: sum(e["kind"] == "spare_parked" for e in list(svc.events)) >= 2)
+        for key in ("fit1", "fit2"):
+            assert svc.admit(key, 2, pooled=True).wait(30), key
+        _wait_for(lambda: all(sum(r.promoted for r in p.results) == 2 for p in pool))
+    finally:
+        for p in pool:
+            p.stop()
+        for t in threads:
+            t.join(10)
+        svc.stop()
+    for p in pool:
+        fits = [r for r in p.results if r.promoted]
+        assert len(fits) == 2, [r.error for r in p.results]
+        for r in fits:
+            assert r.completed and np.array_equal(r.state, expected_state(2, 3))
+    leased = [e for e in svc.events if e["kind"] == "worker_leased"]
+    assert sorted({e["job"] for e in leased}) == ["fit1", "fit2"]
+    assert dict(boost.launches) == {"node_histograms_kernel": fill.n_calls} and fill.n_calls

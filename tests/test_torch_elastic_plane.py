@@ -487,16 +487,15 @@ def test_codec_job_bitwise_against_jax(codec, direction):
     ({"quorum": "2"}, "10c"), ({"job": "j"}, "10g"), ({"slow_report_share": 0.3}, "10b"),
 ])
 def test_unported_arguments_name_their_item(kw, item):
-    if item in ("10b", "10c"):  # the slow-link report and quorum rounds are ported: accepted
-        w = ElasticWorker(("127.0.0.1", 1), "0", lambda v, w, r: np.zeros(1), 1, **kw)
-        if item == "10b":
-            assert w.slow_report_share == kw["slow_report_share"]
-        else:
-            assert w.quorum_spec == kw["quorum"]
-        w._listen.close()
+    # the slow-link report, quorum rounds and the job key are ported: accepted
+    w = ElasticWorker(("127.0.0.1", 1), "0", lambda v, w, r: np.zeros(1), 1, **kw)
+    if item == "10b":
+        assert w.slow_report_share == kw["slow_report_share"]
+    elif item == "10c":
+        assert w.quorum_spec == kw["quorum"]
     else:
-        with pytest.raises(NotImplementedError, match=item):
-            ElasticWorker(("127.0.0.1", 1), "0", lambda v, w, r: np.zeros(1), 1, **kw)
+        assert w.task_id == "j/0"
+    w._listen.close()
     # the tracker failover list is ported (item 10d): accepted, never refused
     w = ElasticWorker([("127.0.0.1", 1), ("127.0.0.1", 2)], "0", lambda v, w, r: np.zeros(1), 1)
     assert w.addrs == [("127.0.0.1", 1), ("127.0.0.1", 2)] and w.tracker == ("127.0.0.1", 1)

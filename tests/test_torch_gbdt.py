@@ -255,7 +255,8 @@ def test_cuda_without_a_card_raises():
 def test_port_imports_no_jax():
     """Importing the port and every module of it, chip_smoke.py, the
     workers of the port's own engine, tools/torch_trace_tool.py,
-    tools/torch_scale_sweep.py and tools/torch_delivery_bench.py leaves jax and rabit_tpu out of sys.modules
+    tools/torch_scale_sweep.py, tools/torch_delivery_bench.py and
+    tools/torch_service_bench.py leaves jax and rabit_tpu out of sys.modules
     (rabit_tpu_torch itself shares the prefix)."""
     code = (
         "import sys, pkgutil, importlib, rabit_tpu_torch\n"
@@ -266,7 +267,7 @@ def test_port_imports_no_jax():
         "for w in ('workers/torch_recover_worker', 'workers/torch_gbdt_native_worker',\n"
         "          'workers/torch_elastic_worker', 'workers/torch_diag_job',\n"
         "          '../tools/torch_trace_tool', '../tools/torch_scale_sweep',\n"
-        "          '../tools/torch_delivery_bench'):\n"
+        "          '../tools/torch_delivery_bench', '../tools/torch_service_bench'):\n"
         "    spec = importlib.util.spec_from_file_location(w.split('/')[-1], f'tests/{w}.py')\n"
         "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
@@ -295,7 +296,9 @@ def test_port_imports_no_jax():
         "          'rabit_tpu_torch.ha.state', 'rabit_tpu_torch.ha.journal',\n"
         "          'rabit_tpu_torch.ha.standby', 'rabit_tpu_torch.ha.__main__',\n"
         "          'rabit_tpu_torch.relay', 'rabit_tpu_torch.relay.__main__',\n"
-        "          'rabit_tpu_torch.delivery'):\n"
+        "          'rabit_tpu_torch.delivery', 'rabit_tpu_torch.service',\n"
+        "          'rabit_tpu_torch.service.service', 'rabit_tpu_torch.service.registry',\n"
+        "          'rabit_tpu_torch.service.state', 'rabit_tpu_torch.service.pool'):\n"
         "    assert m in sys.modules, m\n"
         "from rabit_tpu_torch.models import gbdt\n"
         "assert callable(gbdt.train_round_dp) and callable(gbdt.train_round_dp_fused)\n"

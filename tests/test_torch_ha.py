@@ -133,6 +133,26 @@ def test_journal_buffers_parse_the_same(data):
             == JP.journal_frames_from_buffer(bytes(buf)))
 
 
+def test_heartbeat_after_shutdown_grants_no_lease():
+    """A heartbeat that lands after its task's shutdown grants no lease: one
+    would lapse after the clean exit and suspect a worker that is done (a
+    worker beats until its shutdown is ACKed, so that a standby's re-armed
+    lease holds while the shutdown looks for it)."""
+    tr = Tracker(2, quiet=True).start()
+    try:
+        rpc = lambda cmd, **kw: P.tracker_rpc(tr.host, tr.port, cmd, "0", retries=1, **kw)
+        rpc(P.CMD_HEARTBEAT, message="30")
+        assert tr.live_tasks() == ["0"]
+        rpc(P.CMD_SHUTDOWN)
+        assert tr.live_tasks() == []
+        rpc(P.CMD_HEARTBEAT, message="30")
+        assert tr.live_tasks() == []
+        rpc(P.CMD_HEARTBEAT, message="30", job="")  # the same task, keyed with ""
+        assert tr.live_tasks() == []
+    finally:
+        tr.stop()
+
+
 def test_tracker_rpc_goes_on_at_once_after_a_refused_dial():
     """A refused dial names no live tracker: the first pass over the
     failover list reaches the standby with no backoff (``backoff`` here
@@ -465,8 +485,14 @@ def test_journalless_tracker_refuses_a_standby():
                 P.get_u32(sock)
     finally:
         tracker.stop()
-    with pytest.raises(NotImplementedError, match="10g"):
-        pha.Standby(primary=("127.0.0.1", 1), service=True)
+    # a service's standby replays into a ServiceState
+    from rabit_tpu_torch.service import ServiceState
+
+    sb = pha.Standby(primary=("127.0.0.1", 1), service=True)
+    try:
+        assert sb.service and isinstance(sb.state, ServiceState)
+    finally:
+        sb.stop()
 
 
 # -- standby takeover ----------------------------------------------------------

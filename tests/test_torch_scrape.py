@@ -192,8 +192,17 @@ def test_top_cli_polls_a_live_tracker():
         assert top.main([addr, "--once", "--registry", "--json"]) == 0
     finally:
         tracker.stop()
-    with pytest.raises(NotImplementedError, match="10g"):
-        top.scrape("127.0.0.1", 1, job="j")
+    # a keyed scrape reaches the job's partition of a live service
+    from rabit_tpu_torch.service import CollectiveService
+
+    svc = CollectiveService(quiet=True).start()
+    try:
+        svc.admit("j", 3)
+        doc = top.scrape(svc.host, svc.port, job="j")
+        assert list(doc["jobs"]) == ["j"] and doc["jobs"]["j"]["world"] == 3
+        assert "j" in top.scrape(svc.host, svc.port)["service"]["live"]
+    finally:
+        svc.stop()
     assert top.main([f"127.0.0.1:{tracker.port}", "--once"]) == 2  # the tracker is gone
 
 

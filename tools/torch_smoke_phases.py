@@ -5,6 +5,7 @@ the card, for a same-call A/B of two checkouts.
     python3 tools/torch_smoke_phases.py --tree _tree/parent
     python3 tools/torch_smoke_phases.py --phases quorum,failover
     python3 tools/torch_smoke_phases.py --phases relay
+    python3 tools/torch_smoke_phases.py --phases dp,hybrid,recover,liveness,service
 
 Builds the kernels and the native engine, then runs, in chip_smoke.py's
 order and with its checks, the phases dp, engine, compress, hybrid and
@@ -12,9 +13,11 @@ recover of the checkout at ``--tree`` (default: the repository this file
 is in), and its diagnose phase where that checkout's chip_smoke.py has
 one.  ``--phases`` runs the named phases instead, in the order given
 (any ``Smoke.<name>_phase`` that needs no earlier phase: ``quorum``,
-``failover``, ``relay``, ``elastic``, ...; ``relay`` runs the recover
-phase's clean and mid-tree kill gbdt runs itself unless ``recover`` ran
-before it).  Prints the card's name and power limit
+``failover``, ``relay``, ``elastic``, ``service``, ...; ``relay`` runs the
+recover phase's clean and mid-tree kill gbdt runs itself unless
+``recover`` ran before it; ``recover`` needs ``dp`` and ``hybrid`` before
+it, whose forest it holds the native engine's to, and ``liveness`` needs
+``recover``; ``dp`` is the dp phase's two steps).  Prints the card's name and power limit
 (``nvidia-smi``) and one
 ``[phases] <tree> {...}`` line: each phase's wall seconds, the build and
 the data set-up apart, and ``changed``, the sum of the phases.  Two whole
@@ -70,7 +73,12 @@ def main() -> int:
         lap("setup")
         if args.phases:
             for name in args.phases.split(","):
-                print(f"[{name}] " + json.dumps(getattr(smoke, f"{name}_phase")()), flush=True)
+                if name == "dp":
+                    smoke.dp_single()
+                    smoke.dp_two_ranks()
+                else:
+                    print(f"[{name}] " + json.dumps(getattr(smoke, f"{name}_phase")()),
+                          flush=True)
                 lap(name)
         else:
             smoke.dp_single()
