@@ -51,7 +51,7 @@ Phases, each of which exits non-zero when it fails:
               one, bitwise equal to train_round and train_round_fused; then
               two processes on the one card over gloo with CUDA tensors
               (rows split by elastic_shard; spawned once, they also run
-              the two-process parts of phases 8-10 and 21-23, one group
+              the two-process parts of phases 8-10 and 22-24, one group
               each): identical forests on both
               ranks, the single-process round's splits but for printed near
               ties; and in the same processes train_round_dp_fused exact and
@@ -93,7 +93,8 @@ Phases, each of which exits non-zero when it fails:
               also phase 12's clean run), and of train_round_hybrid (each
               worker an NCCL group of one); then a
               mock kill mid-tree (with obs, rabit_trace_exit=1 and rank 0
-              1 s late to each tree: the trace phase 14 merges), a kill
+              1 s late to each tree, behind 2 relays: the trace phase 14
+              merges, and phase 17's run (d)), a kill
               in the checkpoint commit window and
               a timed SIGKILL, each run's forest byte-identical to its clean
               run's, restarts equal to kills, and the clean hybrid forest
@@ -104,7 +105,7 @@ Phases, each of which exits non-zero when it fails:
               gbdt job under rabit_engine=robust with
               rabit_heartbeat_sec=0.5, the flight recorder and
               rabit_trace_exit=1.  A clean run (phase 11's clean gbdt run,
-              whose forest phase 11's mock kills and phase 17's obs-off (d)
+              whose forest phase 11's mock kills and phase 19's obs-off (a)
               match; both ranks' snapshots in the tracker's
               telemetry.json, each counting one allreduce a hop and the
               accuracy count; no lease expired; an -exit dump a rank;
@@ -204,13 +205,12 @@ Phases, each of which exits non-zero when it fails:
               one on its port 0.4 s later, rabit_diag_window_sec 0.1: no
               lease_expired, relay_lost then relay_up, one lost-relay
               incident opened and resolved, the states the totals; the
-              seconds from the stop to relay_up.  (d) phase 11's gbdt job
-              with its mid-tree mock kill (mock=1,1,2,0) behind 2 relays
+              seconds from the stop to relay_up.  (d) phase 11's mid-tree
+              mock kill run (mock=1,1,2,0), which runs behind 2 relays
               (LocalCluster(relays=2)): the forest byte-identical to phase
               11's clean gbdt forest, one restart, 2 relays up, root accepts
-              <= 4, node_histograms_kernel's launches phase 11's kill run's;
-              the seconds from the death to the next commit beside phase
-              11's.  (e) tools/torch_scale_sweep.py at world 256, its three
+              <= 4; its launches and the seconds from the death to the next
+              commit.  (e) tools/torch_scale_sweep.py at world 256, its three
               arms: the relayed tracker accepts <= 8, the direct ones >= 256;
               each arm's accepts, handler-thread peak, heartbeat p99 and wave
               seconds.
@@ -239,8 +239,10 @@ Phases, each of which exits non-zero when it fails:
               (the run lingers until they hold the last one): each fetched
               blob's sha256 the digest on its line, the last version's bytes
               rank 0's committed blob, its decoded forest byte-identical to
-              the job's forest.npy, one restart, and node_histograms_kernel
-              launched once a level of every tree the final lives trained.
+              the job's forest.npy and to phase 11's clean gbdt forest (the
+              mock engine with obs off), one restart, and
+              node_histograms_kernel launched once a level of every tree the
+              final lives trained.
               (b) tools/torch_delivery_bench.py's swarm arm, in a process of
               its own, at tests/test_delivery.py's arguments (1000
               subscribers in a spawned process, 2 relays, 3 rounds of 0.4 s,
@@ -269,18 +271,37 @@ Phases, each of which exits non-zero when it fails:
               complete bitwise their closed form; the takeover's seconds.
               node_histograms_kernel's launches, one a contribution, in (a)
               and in (b).
-21. linear -- models.linear at the headline size (X = bins / 256, f32;
+21. surface -- the user surface on the card.  (a) The five guide programs
+              (guide/torch_*.py) solo in this process through their
+              main(argv), each output holding what tests/test_guide.py
+              asserts; the hybrid one trains on the card (its local group
+              an NCCL group of one), launching node_histograms_kernel once a
+              level, counted.  (b) and (d) beside them: the port's
+              launcher's CLI, --schedule swing --sched-mesh 2x2, runs the
+              hybrid program at world 2 with rabit_engine=mock
+              mock=1,1,1,0: worker 1 restarts once, both reports give the
+              same train-acc and forest sha256, that forest is the one the
+              same world-2 job gives in this process (two threads, the hop a
+              float32 sum in rank order), and telemetry.json says swing
+              with every plan swing's.  (c) tools/torch_consensus_bench.py's
+              run_smoke on the card (one job per rabit_schedule value, all
+              bitwise the closed form) and schedule_job with swing at world
+              4 on 2x2 and world 6 on 3x2: the plans [0, 1, 3, 2] and
+              [0, 1, 3, 2, 4, 5] in the schedule_planned events and in
+              telemetry.json; node_histograms_kernel launched once a
+              contribution.
+22. linear -- models.linear at the headline size (X = bins / 256, f32;
               logistic, the LinearConfig defaults, 50 steps): LinearModel.fit
               on the card bitwise its train_step loop, steps 0, 25, 49 held
               teacher-forced against the CPU (tests/test_models.py's rtol
               2e-4, atol 2e-5); train_step_dp on an NCCL group of one
               bitwise the loop; then phase 7's two processes on the card
-              over gloo (500k rows each; they also run phases 22 and 23's
+              over gloo (500k rows each; they also run phases 23 and 24's
               two-process parts): train_step_dp, every step
               teacher-forced against the single-process step, and
               LinearModel(engine_allreduce=api.allreduce) through TorchEngine,
               bitwise the dp weights; ms/step of each.
-22. kmeans -- models.kmeans on the same data, K = 64, 20 iterations, the
+23. kmeans -- models.kmeans on the same data, K = 64, 20 iterations, the
               init drawn by KMeans(seed=0): KMeans.fit bitwise its
               train_iter loop, iterations 0, 10, 19 teacher-forced against
               the CPU (assignments equal but for near ties within
@@ -291,7 +312,7 @@ Phases, each of which exits non-zero when it fails:
               the new centers within 2^-21 of the f64 means) and
               KMeans(engine_allreduce=...) bitwise the dp centers; ms/iteration
               and the f64 one-hot segment_sum's time.
-23. attention -- ring_attention and ulysses_attention at sequence 8192, 32
+24. attention -- ring_attention and ulysses_attention at sequence 8192, 32
               heads of 128, f32 and bf16, causal and not, on an NCCL group of
               one and on the gloo world (block 4096; k/v hops and Ulysses'
               all-to-alls through host memory), each against
@@ -299,14 +320,14 @@ Phases, each of which exits non-zero when it fails:
               a time (tests/test_parallel.py's rtol 2e-4, atol 2e-5; bf16 adds
               the output's half-ulp rounding, 2^-8); ms a call and the
               hops' share.
-24. durable -- the api's durable spill (rabit_checkpoint_dir) in two-process
+25. durable -- the api's durable spill (rabit_checkpoint_dir) in two-process
               gloo jobs on the card, each fitting the linear model with a
               checkpoint a step (tests/workers/torch_durable_worker.py): a job
               stopped at version 3 of 6 and resumed by a fresh job, and again
               with rank 1's global files deleted (served by rank 0's
               broadcast), both bit for bit the weights of a job never
               stopped; the frames' bytes and the jobs' times.
-25. report -- per-level times of the histogram kernels (d = 0..7, bf16
+26. report -- per-level times of the histogram kernels (d = 0..7, bf16
               and i8) and of the helpers, and a {"kernels": [...]} line
               with each kernel's time (CUDA events over back-to-back
               calls, "ms"; and the device time of the kernels a call
@@ -317,16 +338,16 @@ Phases, each of which exits non-zero when it fails:
               long run the card's profiler keeps only part of the launches
               (kernel_ms), and earlier its sessions would slow the launches
               of the phases after them.
-26. trace  -- one warm fused and one warm hook-based bf16 round under
+27. trace  -- one warm fused and one warm hook-based bf16 round under
               profile.device_trace (a Chrome trace under --trace-dir): each
               round's wall time, the device time of the port's kernels, of
               every other kernel by the top aten op that launched it, and
               the device's idle time inside the round.
 
-Launches are counted per path (phases 4-7, 14-18, 20 and 26, and 7, 10, 11, 12,
+Launches are counted per path (phases 4-7, 14-18, 20, 21 and 27, and 7, 10, 11, 12,
 13, 17 and 19 in their processes), each run with the counts set to 0 just before it and read
-just after; the phase-3 and phase-13 to phase-18 and phase-20 comparisons and the phase-25
-timings do not count.  Phases 21-24 run no kernel of the port (their products are torch matmuls
+just after; the phase-3 and phase-13 to phase-18, phase-20 and phase-21 comparisons and the phase-26
+timings do not count.  Phases 22-25 run no kernel of the port (their products are torch matmuls
 and einsums, as in the JAX package, in f32 with TF32 off).  Each phase
 prints its wall time.  The histogram kernels count in
 boost.launches, their helpers (one hist_prep and one hist_partition a
@@ -340,6 +361,7 @@ import argparse
 import concurrent.futures
 import contextlib
 import functools
+import io
 import importlib
 import json
 import multiprocessing
@@ -437,6 +459,17 @@ SERVICE_BENCH = dict(n_jobs=4, world=2, niter=2, sleep=0.02, relays=1, chaos="st
 SERVICE_TAKEOVER_ROUNDS = 6   # its (b): rounds a job, tests/test_service.py's takeover
 SERVICE_TAKEOVER_SLEEP = 0.25  # s before each contribution
 
+#: the surface phase: the guide programs of (a) and what tests/test_guide.py
+#: asserts of each one's solo output
+SURFACE_GUIDES = {"basic": "after-allreduce-sum", "broadcast": "'hello world': 100",
+                  "lazy_allreduce": "run prepare function", "durable_resume": "final weights",
+                  "hybrid_gbdt": "hybrid gbdt: 3 trees"}
+SURFACE_KILL = "mock=1,1,1,0"  # (b): worker 1 dies in version 1's level-1 hop
+SURFACE_LAUNCHER = ("--schedule", "swing", "--sched-mesh", "2x2")  # (d)
+#: (c)'s jobs: the mesh spec, the world and the swing ring it plans
+SURFACE_MESHES = (("2x2", 4, [0, 1, 3, 2]), ("3x2", 6, [0, 1, 3, 2, 4, 5]))
+SURFACE_VERSIONS = 2        # versions a job of (c)
+RELAYS = 2                  # relays in front of the recover phase's traced kill and delivery's job
 DELIVERY_SUBS = 2           # subscribers of the delivery phase's run (a), one a relay
 DELIVERY_KILL = 2           # the version in whose commit window run (a) kills the publisher
                             # (mock= names the version the engine holds before it)
@@ -734,7 +767,7 @@ def _hybrid_part(rank: int, world: int, port: int, n_rows: int, n_trees: int) ->
 
 def _gloo_world_rank(rank: int, world: int, tmp: str, n_rows: int, n_trees: int, port: int,
                      hybrid_trees: int, engine_port: int) -> None:
-    """One process of the gloo world of phases 7-10 and 21-23, spawned once
+    """One process of the gloo world of phases 7-10 and 22-24, spawned once
     (one start of DP_RANKS processes for all of them): the dp rounds
     (_dp_part), the hybrid round (_hybrid_part, "hybrid/"), the engine
     matrix through TorchEngine with host arrays ("engine/"), the compress
@@ -877,7 +910,7 @@ def _compress_part(rank: int, world: int, tmp: str, store: str) -> dict:
         dist.destroy_process_group()
 
 
-# -- phases 21-24: the linear and k-means models, attention, the durable spill ----
+# -- phases 22-25: the linear and k-means models, attention, the durable spill ----
 
 
 def slice_data(n_rows: int):
@@ -960,7 +993,7 @@ def attention_cases(torch, ring, rank: int, world: int, out: dict) -> None:
 
 def _slice_part(rank: int, world: int, tmp: str, n_rows: int, store: str) -> dict:
     """The models' and attention's part of a process of the gloo world
-    (phases 21-23), on the card, on this rank's elastic shard: linear.train_step_dp and kmeans.train_iter_dp
+    (phases 22-24), on the card, on this rank's elastic shard: linear.train_step_dp and kmeans.train_iter_dp
     over the group (every step's weights; the iterations' centers, and the
     assignments at the checked ones), the engine-hook fits (LinearModel,
     KMeans with engine_allreduce = api.allreduce through TorchEngine, which
@@ -2351,7 +2384,8 @@ class Smoke:
         # every rank's exit dump and telemetry.json, rank 0 a straggler
         self.trace_obs = tempfile.mkdtemp(prefix="rabit-trace-obs-")
         kills = [("gbdt", "mid-tree mock kill (rank 1, version 1, level-2 hop; rank 0 "
-                  f"{TRACE_STRAGGLE} s late to each tree, obs and exit dumps on)",
+                  f"{TRACE_STRAGGLE} s late to each tree, obs and exit dumps on; behind "
+                  f"{RELAYS} relays)",
                   ["mock=1,1,2,0", "rabit_trace_exit=1", "straggler=0",
                    f"straggler_sleep={TRACE_STRAGGLE}"], None),
                  ("hybrid", "commit-window mock kill (rank 0, version 1, seqno -3)",
@@ -2363,16 +2397,17 @@ class Smoke:
                                                      for m, r in clean.items()}}
         for mode, what, args, preempt in kills:
             traced = "rabit_trace_exit=1" in args
+            # the traced kill runs behind RELAYS relays: it is the relay phase's run (d)
             run = self.recover_run(mode, *args, preempt=preempt, obs=traced,
-                                   keep_obs=self.trace_obs if traced else "")
+                                   keep_obs=self.trace_obs if traced else "",
+                                   relays=RELAYS if traced else 0)
             require(np.array_equal(run["forest"], clean[mode]["forest"]),
                     f"{what}: the forest differs from the clean {mode} run's")
             require(run["restarts"] == 1 and run["preempts"] == (1 if preempt else 0),
                     f"{what}: {run['restarts']} restarts, {run['preempts']} preemptions")
             out["recovery_s"][what] = self.recovery_s(run)
-            if traced:  # the relay phase's run (d) is this kill behind relays
-                self.mid_tree_kill = {"launches": run["launches"],
-                                      "recovery_s": out["recovery_s"][what]}
+            if traced:  # the relay phase's run (d)
+                self.mid_tree_kill = run
             print(f"  {what} ({mode}): forest byte-identical to the clean run's; restarts "
                   f"{run['restarts']}; from the death to the restarted worker's next "
                   f"commit {out['recovery_s'][what]:.2f} s; run {run['wall_s']:.1f} s")
@@ -2402,7 +2437,7 @@ class Smoke:
         exits with HANG_ABORT_EXIT within 10 s."""
         from rabit_tpu_torch.tracker.protocol import LEASE_FACTOR
 
-        # (a) is the recover phase's clean gbdt run; the relay phase's (d),
+        # (a) is the recover phase's clean gbdt run; the delivery phase's (a),
         # the mock engine with obs off, is held to its forest
         clean = self.clean_gbdt
         t = clean["telemetry"]
@@ -3250,29 +3285,25 @@ class Smoke:
               f"(rabit_diag_window_sec {RELAY_DIAG_WINDOW}); other incidents {others}; "
               f"launches {bounce['launches']}; {bounce['elapsed']:.2f} s")
 
-        ref = getattr(self, "mid_tree_kill", None)
-        if ref is None:  # a run of this phase alone: the recover phase's runs, here
+        relayed = getattr(self, "mid_tree_kill", None)
+        if relayed is None:  # a run of this phase alone: the recover phase's runs, here
             self.clean_gbdt = self.recover_run("gbdt", "time_hop=1")
-            run = self.recover_run("gbdt", "mock=1,1,2,0")
-            ref = {"launches": run["launches"], "recovery_s": self.recovery_s(run)}
-        relayed = self.recover_run("gbdt", "mock=1,1,2,0", relays=2)
+            relayed = self.recover_run("gbdt", "mock=1,1,2,0", relays=RELAYS)
         rt = relayed["telemetry"]
         require(np.array_equal(relayed["forest"], self.clean_gbdt["forest"]),
                 "(d) native GBDT behind relays: the forest differs from the clean gbdt run's")
-        require(relayed["restarts"] == 1 and rt["n_relays_up"] == 2
-                and rt["serving"]["accepts"] <= 4 and relayed["launches"] == ref["launches"],
+        require(relayed["restarts"] == 1 and rt["n_relays_up"] == RELAYS
+                and rt["serving"]["accepts"] <= 4,
                 f"(d) native GBDT behind relays: restarts {relayed['restarts']}, n_relays_up "
-                f"{rt['n_relays_up']}, serving {rt['serving']}, launches {relayed['launches']} "
-                f"(the recover phase's {ref['launches']})")
+                f"{rt['n_relays_up']}, serving {rt['serving']}")
         rec_s = self.recovery_s(relayed)
         rclocks = {r: (c.get("offset_s"), c.get("err_s")) for r, c in rt["clocks"].items()}
-        print(f"  (d) the recover phase's gbdt job, {DP_RANKS} native workers behind 2 relays, "
-              f"mock kill of rank 1 mid-tree: forest byte-identical to the clean gbdt run's; "
-              f"restarts 1; root accepts {rt['serving']['accepts']}, {rt['serving']['batches']} "
-              f"batches; launches equal the recover phase's kill run's {ref['launches']}; from "
-              f"the death to the restarted worker's next commit {rec_s:.2f} s (direct, recover "
-              f"phase: {ref['recovery_s']:.2f} s); the ranks' clock estimates through the relays "
-              f"{rclocks}; run {relayed['wall_s']:.1f} s")
+        print(f"  (d) the recover phase's mid-tree kill run (its gbdt job, {DP_RANKS} native "
+              f"workers behind {RELAYS} relays, rank 1 killed mid-tree): forest byte-identical "
+              f"to the clean gbdt run's; restarts 1; root accepts {rt['serving']['accepts']}, "
+              f"{rt['serving']['batches']} batches; launches {relayed['launches']}; from the "
+              f"death to the restarted worker's next commit {rec_s:.2f} s; the ranks' clock "
+              f"estimates through the relays {rclocks}; run {relayed['wall_s']:.1f} s")
 
         sweep = scale_sweep_module()
         recs = {r["arm"]: r for r in sweep.scale_sweep([RELAY_WORLD], hb_interval=0.4,
@@ -3293,7 +3324,6 @@ class Smoke:
                   f"{r['recovery']['wave_latency_s']} s, lease_expired {r['lease_expired']}")
         out.update(cadence_ms={"reactor": cad[True], "threaded": cad[False], "relayed": cad_b},
                    bounce_to_relay_up_s=to_up, relayed_recovery_s=rec_s,
-                   direct_recovery_s=ref["recovery_s"],
                    sweep={a: {"accepts": acc[a], "hb_p99_ms": r["liveness"]["rpc_p99_ms"],
                               "bootstrap_s": r["bootstrap"]["wave_latency_s"],
                               "recovery_s": r["recovery"]["wave_latency_s"]}
@@ -3444,7 +3474,7 @@ class Smoke:
             try:
                 run = self.recover_run(
                     "gbdt", "rabit_delivery_publish=1", f"rabit_checkpoint_dir={ckpt}",
-                    f"mock=0,{DELIVERY_KILL - 1},-3,0", relays=2,
+                    f"mock=0,{DELIVERY_KILL - 1},-3,0", relays=RELAYS,
                     on_cluster=lambda c: self.delivery_subscribers(c, got, stop))
             finally:
                 stop.set()
@@ -3469,6 +3499,10 @@ class Smoke:
                                   for a in pickle.loads(gblob)])
         require(decoded.tobytes() == run["forest"].tobytes(),
                 "delivery (a): the published forest differs from the job's forest.npy")
+        # the mock engine with obs off, held to the clean gbdt run (robust, obs on)
+        clean = getattr(self, "clean_gbdt", None)
+        require(clean is None or np.array_equal(run["forest"], clean["forest"]),
+                "delivery (a): the forest differs from the recover phase's clean gbdt run's")
         trained = sum(len(st["ms"]) for st in run["stats"])
         want = {k: trained * DEPTH for k in ("node_histograms_kernel", *HELPERS)}
         require(run["restarts"] == 1 and run["launches"] == want,
@@ -3642,7 +3676,173 @@ class Smoke:
                 "kill_to_commit_s": round(tk["kill_to_commit_s"], 3),
                 "wall_s": time.perf_counter() - t0}
 
-    # -- phases 21-24 -------------------------------------------------------------
+    # -- phase 21 -----------------------------------------------------------------
+    def surface_emulate(self, guide, world: int) -> str:
+        """The hybrid guide program's world-``world`` job in this process:
+        a thread a rank, the hop a float32 sum of the ranks' arrays in rank
+        order (what the native engine's SUM gives two ranks).  Returns the
+        forest's sha256.  A comparison: its launches do not count."""
+        parts: list = [None] * world
+        digests: list = [None] * world
+        barrier = threading.Barrier(world)
+        errors = []
+
+        def rank(r: int) -> None:
+            def hop(a):
+                parts[r] = np.asarray(a, np.float32)
+                barrier.wait()
+                total = parts[0].copy()
+                for p in parts[1:]:
+                    total = total + p
+                barrier.wait()
+                return total
+
+            try:
+                state, _, _ = guide.train(r, world, self.dev, hop)
+                digests[r] = guide.forest_digest(state.forest)
+            except BaseException as e:  # noqa: BLE001 (reported below)
+                errors.append(e)
+                barrier.abort()
+
+        threads = [threading.Thread(target=rank, args=(r,)) for r in range(world)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(60)
+        require(not errors and len(set(digests)) == 1 and digests[0],
+                f"surface: the in-process world-{world} job: {errors or digests}")
+        return digests[0]
+
+    def surface_phase(self):
+        """The user surface on the card (phase 21 of the module docstring)."""
+        from rabit_tpu_torch import api
+
+        root = os.path.dirname(os.path.abspath(__file__))
+        bench = importlib.import_module("tools.torch_consensus_bench")
+        guide = {n: load_module(f"torch_{n}", os.path.join(root, "guide", f"torch_{n}.py"))
+                 for n in SURFACE_GUIDES}
+        t0 = time.perf_counter()
+        obs = tempfile.mkdtemp(prefix="rabit-surface-obs-")
+        # (b) and (d) run beside (a) and (c): the launcher's CLI in a process
+        # (and a session) of its own, its workers on the card
+        job = subprocess.Popen(
+            [sys.executable, "-m", "rabit_tpu_torch.tracker.launcher", "-n", "2",
+             "--max-restarts", "3", "--timeout", "150", *SURFACE_LAUNCHER, "--",
+             sys.executable, os.path.join(root, "guide", "torch_hybrid_gbdt.py"),
+             "rabit_engine=mock", SURFACE_KILL], cwd=root, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True, start_new_session=True,
+            env=dict(os.environ, RABIT_OBS_DIR=obs))
+        lines: list[tuple[float, str]] = []  # (s from the job's start, line) of its output
+        reader = threading.Thread(target=lambda: lines.extend(
+            (time.perf_counter() - t0, ln.rstrip("\n")) for ln in job.stdout), daemon=True)
+        reader.start()
+        try:
+            require(api._engine is None or getattr(api._engine, "_provisional", False),
+                    "surface: the api is still initialized by an earlier phase")
+            outs, counts_a = {}, {}
+            for n, line in SURFACE_GUIDES.items():
+                buf = io.StringIO()
+
+                # as a user runs them; the hybrid one on this run's device (the card)
+                argv = [f"rabit_torch_device={self.dev.type}"] if n == "hybrid_gbdt" else []
+
+                def run(n=n, buf=buf, argv=argv):
+                    with contextlib.redirect_stdout(buf):
+                        require(guide[n].main(argv) == 0, f"surface (a): guide/torch_{n}.py failed")
+
+                if n == "hybrid_gbdt":
+                    _, counts_a = self.path(run)
+                else:
+                    run()
+                outs[n] = buf.getvalue()
+                require(line in outs[n], f"surface (a): guide/torch_{n}.py printed {outs[n]!r}")
+            n_a = guide["hybrid_gbdt"].N_TREES * guide["hybrid_gbdt"].CFG_KW["depth"]
+            require(counts_a == {"node_histograms_kernel": n_a},
+                    f"surface (a): the hybrid program's launches {counts_a}, expected {n_a}")
+            took_a = time.perf_counter() - t0
+            print(f"  (a) the five guide programs solo in this process: each printed what "
+                  f"tests/test_guide.py asserts; hybrid: "
+                  f"{outs['hybrid_gbdt'].splitlines()[0].split('] ', 1)[1]}, launches "
+                  f"{counts_a}; {took_a:.1f} s", flush=True)
+
+            t = time.perf_counter()
+            smoke, counts_c = self.path(lambda: bench.run_smoke(device=self.dev.type))
+            n_c = smoke["n_contributions"]
+            require(smoke["bitwise_identical"] and set(smoke["modes"]) == {
+                "auto", "tree", "ring", "swing"} and counts_c == {"node_histograms_kernel": n_c},
+                f"surface (c): run_smoke {smoke}, launches {counts_c}")
+            rings = {}
+            for mesh, world, ring in SURFACE_MESHES:
+                with tempfile.TemporaryDirectory() as tmp:
+                    mj, counts_m = self.path(lambda: bench.schedule_job(
+                        world, SURFACE_VERSIONS, "swing", mesh, device=self.dev.type,
+                        obs_dir=tmp))
+                    with open(os.path.join(tmp, "telemetry.json")) as f:
+                        tele = json.load(f)
+                planned = [e["ring_order"] for e in mj["planned"]]
+                filed = [e["ring_order"] for e in tele["events"]
+                         if e["kind"] == "schedule_planned"]
+                require(planned == filed == [ring] and tele["schedule"] == "swing"
+                        and counts_m == {"node_histograms_kernel": mj["n_contributions"]}
+                        and mj["n_contributions"] == world * SURFACE_VERSIONS,
+                        f"surface (c): world {world} on {mesh}: planned {planned}, "
+                        f"telemetry.json {filed}, launches {counts_m}")
+                rings[mesh] = planned[0]
+            took_c = time.perf_counter() - t
+            print(f"  (c) run_smoke on the card: {sorted(smoke['modes'])} bitwise the closed "
+                  f"form, launches {counts_c}; swing plans {rings} (events and telemetry.json); "
+                  f"{took_c:.1f} s", flush=True)
+
+            want = self.surface_emulate(guide["hybrid_gbdt"], 2)
+            try:
+                job.wait(timeout=180)
+            except subprocess.TimeoutExpired as e:
+                raise PhaseFailed("surface (b): the launcher's job did not end") from e
+            took_b = time.perf_counter() - t0
+            reader.join(10)
+        finally:
+            if job.poll() is None:
+                os.killpg(job.pid, signal.SIGKILL)
+                job.wait()
+        out = "\n".join(ln for _, ln in lines)
+
+        def first(text: str) -> float:  # s from the start to the first line holding text
+            return next((round(t, 2) for t, ln in lines if text in ln), -1.0)
+
+        timeline = {"died": first("[launcher] worker 1 died"),
+                    "recovered": first("recovered at version"),
+                    "report": first("hybrid gbdt: 3 trees"), "exited": round(took_b, 2)}
+        require(job.returncode == 0, f"surface (b): the launcher exited {job.returncode}:\n"
+                                     f"{out[-3000:]}")
+        # the workers share the pipe, so two prints can meet on one line: match, not split
+        reports = dict(re.findall(r"@node\[(\d+)\] hybrid gbdt: 3 trees, train-acc ([\d.]+)",
+                                  out))
+        digests = set(re.findall(r"forest sha256 ([0-9a-f]{64})", out))
+        acc = set(reports.values())
+        died = re.findall(r"\[launcher\] worker 1 died", out)
+        require(sorted(reports) == ["0", "1"] and len(acc) == 1 and digests == {want}
+                and len(died) == 1, f"surface (b): reports {reports}, digests {digests} (the "
+                f"in-process job's {want}), deaths {len(died)}")
+        with open(os.path.join(obs, "telemetry.json")) as f:
+            tele = json.load(f)
+        shutil.rmtree(obs, ignore_errors=True)
+        planned = [e for e in tele["events"] if e["kind"] == "schedule_planned"]
+        require(tele["restarts"] == {"1": 1} and tele["schedule"] == "swing" and planned
+                and all(e["algo"] == "swing" and e["ring_order"] == [0, 1] for e in planned),
+                f"surface (b)/(d): restarts {tele['restarts']}, schedule {tele['schedule']}, "
+                f"plans {planned}")
+        print(f"  (b) the launcher's CLI ({' '.join(SURFACE_LAUNCHER)}) ran the hybrid program "
+              f"at world 2 with {SURFACE_KILL}: one restart, train-acc {acc.pop()} on both, "
+              f"the forest the in-process world-2 job's ({want[:12]}); (d) telemetry.json: "
+              f"schedule swing, {len(planned)} swing plans; {took_b:.1f} s from its start "
+              f"(s from the start: {timeline})", flush=True)
+        return {"launches": {"a": n_a, "c": n_c + sum(w * SURFACE_VERSIONS
+                                                        for _, w, _ in SURFACE_MESHES)},
+                "rings": rings, "a_s": round(took_a, 3), "b_s": round(took_b, 3),
+                "b_timeline": timeline,
+                "c_s": round(took_c, 3), "wall_s": time.perf_counter() - t0}
+
+    # -- phases 22-25 -------------------------------------------------------------
     @functools.cached_property
     def X(self):
         """slice_data's features on the card."""
@@ -3903,7 +4103,7 @@ class Smoke:
               "stop " + json.dumps(frames))
         print("  durable " + json.dumps(self.slice_ms["durable"]))
 
-    # -- phase 26 -----------------------------------------------------------------
+    # -- phase 27 -----------------------------------------------------------------
     def trace_phase(self, logdir: str):
         """One warm fused bf16 round and one warm hook-based bf16 round under
         profile.device_trace: each round's wall time, the device time in
@@ -3964,7 +4164,7 @@ class Smoke:
         print(f"  Chrome trace under {logdir}")
         return out
 
-    # -- phase 25 -----------------------------------------------------------------
+    # -- phase 26 -----------------------------------------------------------------
     def measure(self):
         torch, boost = self.torch, self.boost
         xb3, g3, h3 = self.xb3, self.g3, self.h3
@@ -4182,7 +4382,7 @@ def main() -> int:
     except ImportError as e:
         print(f"FAIL: run from the root of a checkout ({e})", file=sys.stderr)
         return 2
-    # the plain versions' matmuls, and the products of phases 21-23 (exact f32)
+    # the plain versions' matmuls, and the products of phases 22-24 (exact f32)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     phase, t_phase = "device", time.perf_counter()
@@ -4297,6 +4497,9 @@ def main() -> int:
 
         phase = next_phase("service")
         print("[service] " + json.dumps(smoke.service_phase()), flush=True)
+
+        phase = next_phase("surface")
+        print("[surface] " + json.dumps(smoke.surface_phase()), flush=True)
 
         phase = next_phase("linear")
         smoke.linear_phase()

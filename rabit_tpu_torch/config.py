@@ -32,14 +32,32 @@ DEFAULTS: dict[str, str] = {
     # The native engine (engine.native) and its tracker: the tracker's
     # address (NULL: none), this worker's task id and restart count (the
     # launcher sets them through DMLC_*), and the connect retries before a
-    # missing tracker is an error.  The native library reads the rest of
-    # its settings (rabit_global_replica, rabit_bootstrap_cache, mock, ...)
-    # from the same key=value pairs, with rabit_tpu/config.py's defaults.
+    # missing tracker is an error.
     "rabit_tracker_uri": "NULL",
     "rabit_tracker_port": "9091",
     "rabit_task_id": "NULL",
     "rabit_num_trial": "0",
     "rabit_connect_retry": "5",
+    # The native engine's performance envelope, with the reference's
+    # defaults (allreduce_base.cc, allreduce_robust.cc): the element count
+    # from which an allreduce takes the ring, the byte size from which a
+    # tree reduce pipelines, the reduce buffer, the robust engine's global
+    # and local replica counts, its watchdog (rabit_timeout on, after
+    # rabit_timeout_sec), the bootstrap cache, debug prints, and TCP_NODELAY
+    # on its sockets (on: with Nagle, a cold header write waits on the
+    # peer's delayed ACK).  rabit_stall_timeout_sec has no default here: the
+    # native library's own depends on the engine, and a value here would go
+    # into its argv and override it.
+    "rabit_reduce_ring_mincount": str(32 << 10),
+    "rabit_tree_reduce_minsize": str(1 << 20),
+    "rabit_reduce_buffer": "256M",
+    "rabit_global_replica": "5",
+    "rabit_local_replica": "2",
+    "rabit_timeout": "1",
+    "rabit_timeout_sec": "1800",
+    "rabit_bootstrap_cache": "0",
+    "rabit_debug": "0",
+    "rabit_enable_tcp_no_delay": "1",
     # TorchEngine: "cuda" stages arrays on the card and uses NCCL, "cpu"
     # uses gloo.  The torch.distributed bootstrap falls back to the
     # standard MASTER_ADDR / MASTER_PORT / WORLD_SIZE / RANK variables
@@ -70,11 +88,13 @@ DEFAULTS: dict[str, str] = {
     "rabit_fused_chunk_kib": "256",
     # The ring order of the fused ring and the tracker's plans (sched):
     # auto|tree|ring|swing, the mesh model's dims "RxC[:nowrap]" (empty:
-    # near-square), and whether degraded-link reports trigger a repair
-    # replan at the next epoch boundary.
+    # near-square), whether degraded-link reports trigger a repair replan
+    # at the next epoch boundary, and the executor's wait-share threshold
+    # for indicting its incoming link.
     "rabit_schedule": "auto",
     "rabit_sched_mesh": "",
     "rabit_sched_repair": "1",
+    "rabit_sched_wait_share": "0.25",
     # Observability (obs): with rabit_obs_dir (or RABIT_OBS_DIR) set, a rank
     # dumps its flight recorder there on SIGTERM or when a collective is
     # stuck past rabit_obs_hang_sec, and the tracker writes telemetry.json
@@ -88,6 +108,8 @@ DEFAULTS: dict[str, str] = {
     "rabit_obs_heartbeat_sec": "0",
     "rabit_obs_spill_sec": "0",
     "rabit_obs_max_files": "256",
+    # The task id a CMD_OBS scrape client identifies as (obs.top, benches).
+    "rabit_obs_scrape": "obs",
     # Liveness: rabit_heartbeat_sec > 0 renews a lease with the tracker
     # that often, and the tracker suspects (the launcher SIGKILLs) a worker
     # silent for LEASE_FACTOR intervals; rabit_hang_abort_sec > 0 makes a
@@ -233,5 +255,24 @@ class Config:
             return default
         return val.strip().lower() not in ("0", "false", "no", "off", "")
 
+    def __getitem__(self, key: str) -> str:
+        return self._cfg[key]
+
+    def __contains__(self, key: str) -> bool:
+        return key in self._cfg
+
     def as_dict(self) -> dict[str, str]:
         return dict(self._cfg)
+
+    @property
+    def torch_device(self) -> str:
+        """``rabit_torch_device``: the device the port's engine and entry
+        points run on ("cuda" unless set)."""
+        return self.get("rabit_torch_device", "cuda") or "cuda"
+
+    @property
+    def timeout_sec(self) -> int:
+        """The watchdog's bound in seconds; 0 when the watchdog is off."""
+        if not self.get_bool("rabit_timeout"):
+            return 0
+        return self.get_int("rabit_timeout_sec", 1800)

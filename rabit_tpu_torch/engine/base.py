@@ -71,6 +71,12 @@ class Engine(ABC):
     def shutdown(self) -> None:
         """Graceful teardown.  Called by ``api.finalize``."""
 
+    def init_after_exception(self) -> None:
+        """Recover engine state after the caller caught an exception (the
+        reference's ``IEngine::InitAfterException``).  Only the native
+        engine can."""
+        raise RuntimeError(f"{type(self).__name__} cannot recover from exceptions")
+
     # -- topology ----------------------------------------------------------
 
     @abstractmethod
@@ -139,6 +145,26 @@ class Engine(ABC):
         path or the host transport.  Only ``TorchEngine`` says so."""
         return False
 
+    # -- custom reduction --------------------------------------------------
+
+    def allreduce_fn(self, data: np.ndarray,
+                     reduce_fn: Callable[[np.ndarray, np.ndarray], np.ndarray],
+                     prepare_fun: Callable[[np.ndarray], None] | None = None,
+                     cache_key: str | None = None) -> np.ndarray:
+        """Allreduce with a user reduction ``reduce_fn(acc, part) -> acc``
+        (the reference's Reducer): gather every rank's slice, then fold
+        them in rank order, so every rank computes the same result."""
+        if prepare_fun is not None:
+            prepare_fun(data)
+        flat = np.ascontiguousarray(data).reshape(-1)
+        gathered = self.allgather(flat, cache_key=cache_key)
+        world = self.get_world_size()
+        parts = gathered.reshape(world, *data.shape)
+        acc = np.array(parts[0], copy=True)
+        for i in range(1, world):
+            acc = reduce_fn(acc, parts[i])
+        return acc.astype(data.dtype).reshape(data.shape)
+
     # -- checkpoint / recovery --------------------------------------------
 
     @abstractmethod
@@ -160,6 +186,10 @@ class Engine(ABC):
 
     def tracker_print(self, msg: str) -> None:
         print(msg, end="" if msg.endswith("\n") else "\n", flush=True)
+
+
+class ShutdownSignal(Exception):
+    """Raised internally when the tracker orders shutdown."""
 
 
 class HostCheckpoints:

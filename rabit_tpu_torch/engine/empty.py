@@ -29,6 +29,11 @@ class SoloEngine(HostCheckpoints, Engine):
             prepare_fun(data)
         return data
 
+    def allreduce_fn(self, data, reduce_fn, prepare_fun=None, cache_key=None):
+        if prepare_fun is not None:
+            prepare_fun(data)
+        return data
+
     def broadcast(self, data, root, cache_key=None):
         if root != 0:
             raise ValueError(f"broadcast root {root} out of range for world size 1")

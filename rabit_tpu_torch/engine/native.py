@@ -92,6 +92,34 @@ def build_lib() -> Path:
     return out
 
 
+def build_program(source: Path) -> Path:
+    """Build a C++ program of the native API (``native/tests/speed_test.cc``,
+    ``guide/*.cc``) against the port's library, into the build directory
+    under a name that carries a hash of the program and the library; returns
+    its path.  Nothing is written beside the source."""
+    lib = build_lib()
+    source = Path(source)
+    digest = hashlib.sha256(lib.name.encode() + b"\0" + source.read_bytes()).hexdigest()[:16]
+    out = BUILD_DIR / f"{source.stem}-{digest}.run"
+    if out.exists():
+        return out
+    with open(BUILD_DIR / "libtpurabit.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if out.exists():
+            return out
+        fd, tmp = tempfile.mkstemp(suffix=".run", dir=BUILD_DIR)
+        os.close(fd)
+        cmd = ["g++", "-O2", "-std=c++17", "-pthread", "-I", str(NATIVE_DIR / "include"),
+               "-o", tmp, str(source), str(lib), f"-Wl,-rpath,{BUILD_DIR}"]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            Path(tmp).unlink(missing_ok=True)
+            raise RuntimeError(f"build of {source.name} failed ({' '.join(cmd)}):\n"
+                               f"{proc.stdout}\n{proc.stderr}")
+        os.replace(tmp, out)
+    return out
+
+
 def load_lib() -> ctypes.CDLL:
     global _lib
     with _lib_lock:

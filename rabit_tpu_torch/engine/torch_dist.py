@@ -75,7 +75,7 @@ class TorchEngine(HostCheckpoints, Engine):
     def __init__(self, config):
         Engine.__init__(self, config)
         HostCheckpoints.__init__(self)
-        self._device = torch.device(config.get("rabit_torch_device", "cuda"))
+        self._device = torch.device(config.torch_device)
         if self._device.type not in ("cuda", "cpu"):
             raise ValueError(f"rabit_torch_device={self._device}: the engine stages "
                              "arrays on cuda or cpu")

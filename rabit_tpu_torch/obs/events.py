@@ -269,6 +269,14 @@ def parse_stats_line(line: str) -> dict[str, str]:
     return dict(p.split("=", 1) for p in line.split() if "=" in p)
 
 
+def is_recovery_stats_line(line: str) -> bool:
+    """True for a recovered life's per-recovery ``recover_stats`` line; not
+    for the shutdown's ``recover_stats_final`` lines (same prefix, no
+    per-recovery fields) nor for a first life (version=0)."""
+    return ("recover_stats " in line and "recover_stats_final" not in line
+            and "version=0 " not in line)
+
+
 def _line_rank(line: str) -> int:
     """Rank from the conventional ``[N] ...`` print prefix, -1 if absent."""
     line = line.lstrip()

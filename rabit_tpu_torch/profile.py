@@ -71,7 +71,7 @@ def device_trace(logdir: str, device=None):
     configured) is where the traced work runs: ``cuda`` records the host
     and the card, and raises without a card; ``cpu`` records the host
     alone."""
-    dev = torch.device(device or Config().get("rabit_torch_device", "cuda"))
+    dev = torch.device(device or Config().torch_device)
     activities = [ProfilerActivity.CPU]
     if dev.type == "cuda":
         if not torch.cuda.is_available():

@@ -31,10 +31,11 @@ from rabit_tpu_torch.sched.repair import (  # noqa: F401 (re-exports)
 
 
 def resolve(cfg) -> dict:
-    """Resolve ``rabit_schedule``, ``rabit_sched_mesh`` and
-    ``rabit_sched_repair`` into the planner's knobs: the algorithm name,
-    the mesh spec, and whether degraded-link reports trigger a repair
-    replan."""
+    """Resolve ``rabit_schedule``, ``rabit_sched_mesh``,
+    ``rabit_sched_repair`` and ``rabit_sched_wait_share`` into the planner's
+    knobs: the algorithm name, the mesh spec, whether degraded-link reports
+    trigger a repair replan, and the executor's slow-link report
+    threshold."""
     algo = (cfg.get("rabit_schedule", "auto") or "auto").strip().lower()
     if algo not in ALGOS:
         raise ValueError(
@@ -43,4 +44,5 @@ def resolve(cfg) -> dict:
         "schedule": algo,
         "mesh": (cfg.get("rabit_sched_mesh", "") or "").strip(),
         "repair": cfg.get_bool("rabit_sched_repair", True),
+        "wait_share": float(cfg.get("rabit_sched_wait_share", "0.25") or "0.25"),
     }

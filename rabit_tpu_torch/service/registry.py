@@ -42,6 +42,11 @@ class JobRegistry:
         self.n_refused = 0
         self.n_completed = 0
 
+    @property
+    def ranks_in_use(self) -> int:
+        with self._lock:
+            return sum(self.jobs.values())
+
     def check(self, key: str, world: int) -> str | None:
         """The reason ``admit`` would refuse the job, or None when it fits.
         Changes nothing."""
@@ -88,6 +93,10 @@ class JobRegistry:
         with self._lock:
             if self.jobs.pop(key, None) is not None:
                 self.n_completed += 1
+
+    def live(self) -> list[str]:
+        with self._lock:
+            return sorted(self.jobs)
 
     def stats(self) -> dict:
         with self._lock:

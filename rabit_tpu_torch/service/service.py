@@ -50,7 +50,7 @@ from rabit_tpu_torch.obs import stream as obs_stream
 from rabit_tpu_torch.service.registry import JobRegistry, tenant_of
 from rabit_tpu_torch.service.state import ServiceState
 from rabit_tpu_torch.tracker import protocol as P
-from rabit_tpu_torch.tracker.tracker import Tracker, _aggregate_incidents
+from rabit_tpu_torch.tracker.tracker import MAX_MESSAGES, Tracker, _aggregate_incidents
 
 #: The route-key prefix of a pooled worker: "pool/<name>".
 _POOL_ROUTE = P.POOL_PREFIX + P.JOB_SEP
@@ -100,10 +100,12 @@ class CollectiveService(Tracker):
                  conn_timeout_sec: float = 60.0, on_suspect=None,
                  shrink_after_sec: float = 0.0, min_world: int = 1,
                  promote_after_sec: float = 0.25, schedule: str = "auto",
-                 sched_repair: bool = True, quorum: str = "", quorum_flag_after: int = 3,
+                 sched_mesh: str = "", sched_repair: bool = True,
+                 sched_wait_share: float = 0.25, quorum: str = "", quorum_flag_after: int = 3,
                  reactor: bool = True, backlog: int | None = None,
-                 max_jobs: int | None = None, max_jobs_per_tenant: int | None = None,
-                 max_ranks: int | None = None, auto_world: int | None = None,
+                 max_messages: int = MAX_MESSAGES, max_jobs: int | None = None,
+                 max_jobs_per_tenant: int | None = None, max_ranks: int | None = None,
+                 auto_world: int | None = None,
                  journal=None, resume_from: ServiceState | None = None,
                  listen_sock=None, ha_tick_sec: float | None = None):
         cfg = Config()
@@ -130,16 +132,20 @@ class CollectiveService(Tracker):
         self._part_kwargs = dict(
             conn_timeout_sec=conn_timeout_sec, shrink_after_sec=shrink_after_sec,
             min_world=min_world, promote_after_sec=promote_after_sec, schedule=schedule,
-            sched_repair=sched_repair, quorum=quorum, quorum_flag_after=quorum_flag_after)
+            sched_mesh=sched_mesh, sched_repair=sched_repair,
+            sched_wait_share=sched_wait_share, quorum=quorum,
+            quorum_flag_after=quorum_flag_after, max_messages=max_messages)
         # The service serves as the job "service": its telemetry file is
         # telemetry-service.json, its journal records are tagged "service"
         # (ServiceState drops them), and its own waves are never fed a
         # worker (the routing owns every hello).
         super().__init__(self._default_world, host=host, port=port, quiet=quiet,
                          obs_dir=obs_dir, conn_timeout_sec=conn_timeout_sec,
-                         on_suspect=on_suspect, schedule=schedule, sched_repair=sched_repair,
-                         reactor=reactor, backlog=backlog, journal=None,
-                         listen_sock=listen_sock, ha_tick_sec=ha_tick_sec, job="service")
+                         on_suspect=on_suspect, schedule=schedule, sched_mesh=sched_mesh,
+                         sched_repair=sched_repair, sched_wait_share=sched_wait_share,
+                         reactor=reactor, backlog=backlog, max_messages=max_messages,
+                         journal=None, listen_sock=listen_sock, ha_tick_sec=ha_tick_sec,
+                         job="service")
         if isinstance(journal, str):
             from rabit_tpu_torch.ha.journal import Journal
 

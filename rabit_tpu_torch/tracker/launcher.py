@@ -51,6 +51,7 @@ workers keep their relay's address.  The relays stop when the run ends.
 Usage:
     python -m rabit_tpu_torch.tracker.launcher --num-workers 4 \\
         [--max-restarts 20] [--spares K] [--shrink-after SEC] [--relays R] \\
+        [--schedule auto|tree|ring|swing] [--sched-mesh RxC[:nowrap]] \\
         [--standby [--ha-journal PATH] [--takeover-sec SEC]] \\
         [--kill-tracker-after SEC] \\
         [--preempt DELAY:TASK] [--wedge DELAY:TASK] \\
@@ -91,7 +92,8 @@ def spare_task_id(i: int) -> str:
 class LocalCluster:
     def __init__(self, num_workers: int, max_restarts: int = 0, quiet: bool = False,
                  extra_env: dict[str, str] | None = None, spares: int = 0,
-                 shrink_after_sec: float = 0.0, standby: bool = False, ha_journal: str = "",
+                 shrink_after_sec: float = 0.0, schedule: str = "auto", sched_mesh: str = "",
+                 standby: bool = False, ha_journal: str = "",
                  takeover_sec: float = 1.0, relays: int = 0, relay_flush_sec: float = 0.25,
                  job: str = ""):
         self.num_workers = num_workers
@@ -99,6 +101,10 @@ class LocalCluster:
         self.quiet = quiet
         self.extra_env = extra_env or {}
         self.shrink_after_sec = float(shrink_after_sec)
+        #: the tracker's schedule algorithm and mesh model (``Tracker``'s
+        #: ``schedule`` and ``sched_mesh``)
+        self.schedule = schedule
+        self.sched_mesh = sched_mesh
         tasks = [str(i) for i in range(num_workers)]
         tasks += [spare_task_id(i) for i in range(int(spares))]
         #: restarts and the last exit code, per task id ("0".."N-1", then
@@ -200,7 +206,8 @@ class LocalCluster:
         delivery line behind the relays finishes its last fetch first."""
         self._suspects = []
         tracker_kwargs = dict(quiet=self.quiet, on_suspect=self._on_suspect,
-                              shrink_after_sec=self.shrink_after_sec)
+                              shrink_after_sec=self.shrink_after_sec,
+                              schedule=self.schedule, sched_mesh=self.sched_mesh)
         journal = None
         if self.use_standby:
             from rabit_tpu_torch.ha import Journal
@@ -387,6 +394,12 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--shrink-after", type=float, default=0.0, metavar="SEC",
                     help="let a recovery wave close with the survivors when no spare "
                          "fills it within SEC seconds (0: wait for a full wave)")
+    ap.add_argument("--schedule", default="auto", choices=("auto", "tree", "ring", "swing"),
+                    help="the collective schedule the tracker plans each epoch "
+                         "(rabit_schedule)")
+    ap.add_argument("--sched-mesh", default="", metavar="RxC[:nowrap]",
+                    help="the mesh model's dims for the schedule's plan (rabit_sched_mesh; "
+                         "empty: near-square)")
     ap.add_argument("--standby", action="store_true",
                     help="run a warm-standby tracker in this process: the primary journals "
                          "every control-plane mutation, the workers get both addresses "
@@ -415,7 +428,7 @@ def main(argv: list[str] | None = None) -> int:
     if not cmd:
         ap.error("worker command required after --")
 
-    def schedule(entries: list[str], flag: str) -> list[tuple[float, int]]:
+    def parse_schedule(entries: list[str], flag: str) -> list[tuple[float, int]]:
         out = []
         for s in entries:
             try:
@@ -430,12 +443,14 @@ def main(argv: list[str] | None = None) -> int:
                 else float(cfg.get("rabit_ha_takeover_sec", "1.0") or "1.0"))
     cluster = LocalCluster(args.num_workers, args.max_restarts, quiet=args.quiet,
                            spares=args.spares, shrink_after_sec=args.shrink_after,
+                           schedule=args.schedule, sched_mesh=args.sched_mesh,
                            standby=args.standby,
                            ha_journal=args.ha_journal or cfg.get("rabit_ha_journal", "") or "",
                            takeover_sec=takeover, relays=args.relays,
                            job=args.job or cfg.get("rabit_job_key", "") or "")
-    return cluster.run(cmd, timeout=args.timeout, preempt=schedule(args.preempt, "--preempt"),
-                       wedge=schedule(args.wedge, "--wedge"),
+    return cluster.run(cmd, timeout=args.timeout,
+                       preempt=parse_schedule(args.preempt, "--preempt"),
+                       wedge=parse_schedule(args.wedge, "--wedge"),
                        kill_tracker_after=args.kill_tracker_after)
 
 

@@ -238,6 +238,10 @@ _U32 = struct.Struct("<I")
 _I32 = struct.Struct("<i")
 
 
+def send_all(sock, data: bytes) -> None:
+    sock.sendall(data)
+
+
 def recv_exact(sock, n: int) -> bytes:
     buf = bytearray()
     while len(buf) < n:

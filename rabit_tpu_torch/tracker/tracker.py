@@ -328,14 +328,16 @@ class _RConn:
 
 
 def assign_ranks(wave: list[tuple[str, str]], world_size: int,
-                 prev_ranks: dict[str, int]) -> dict[str, int]:
+                 prev_ranks: dict[str, int],
+                 host_order: list[str] | None = None) -> dict[str, int]:
     """Ranks for a wave ``[(task_id, host), ...]`` in check-in order
     (``rabit_tpu.tracker.tracker.assign_ranks``).  Precedence:
 
     1. a task id seen before keeps its rank;
     2. a launcher-numbered id ``int(task_id)`` takes that rank when free;
-    3. the rest get the free ranks grouped by host, hosts in first-seen
-       order, so ring neighbours share a host where they can.
+    3. the rest get the free ranks grouped by host, so ring neighbours
+       share a host where they can: hosts in ``host_order`` first, in that
+       order, then the unlisted ones in first-seen order.
     """
     ranks: dict[str, int] = {}
     taken: set[int] = set()
@@ -356,6 +358,7 @@ def assign_ranks(wave: list[tuple[str, str]], world_size: int,
         if 0 <= cand < world_size and cand not in taken:
             ranks[task_id] = cand
             taken.add(cand)
+    order_index = {h: i for i, h in enumerate(host_order or [])}
     groups: dict[str, list[str]] = {}
     first_seen: dict[str, int] = {}
     for i, (task_id, host) in enumerate(wave):
@@ -364,19 +367,34 @@ def assign_ranks(wave: list[tuple[str, str]], world_size: int,
         groups.setdefault(host, []).append(task_id)
         first_seen.setdefault(host, i)
     free = iter(r for r in range(world_size) if r not in taken)
-    for host in sorted(groups, key=first_seen.get):
+    for host in sorted(groups, key=lambda h: (order_index.get(h, len(order_index)),
+                                              first_seen[h])):
         for task_id in groups[host]:
             ranks[task_id] = next(free)
     return ranks
 
 
+def tpu_slice_host_order() -> list[str] | None:
+    """The slice's host order from ``TPU_WORKER_HOSTNAMES`` (comma-separated,
+    in worker-id order), or None when it is not set."""
+    names = os.environ.get("TPU_WORKER_HOSTNAMES", "")
+    hosts = [h.strip() for h in names.split(",") if h.strip()]
+    return hosts or None
+
+
 class Tracker:
     """A tracker for one job of ``world_size`` workers, listening on
     ``host:port`` (port 0: any free port; ``self.port`` says which) from
-    construction; ``start`` begins serving.  ``schedule`` is the algorithm
-    of each wave's plan (``sched.ALGOS``; on the near-square mesh model),
-    and ``sched_repair`` whether a flagged link is routed around at the
-    next wave.  ``obs_dir`` (default: ``RABIT_OBS_DIR``) is where
+    construction; ``start`` begins serving.  ``topology`` ("auto", "tpu"
+    or anything else for plain host grouping) and ``host_order`` set the
+    order of the host groups in rank assignment: "auto" reads
+    ``TPU_WORKER_HOSTNAMES`` when ``host_order`` is not given, "tpu"
+    requires it.  ``schedule`` is the algorithm of each wave's plan
+    (``sched.ALGOS``) on the mesh model ``sched_mesh`` ("RxC", "RxC:nowrap",
+    "" for the near-square one), ``sched_repair`` whether a flagged link is
+    routed around at the next wave, and ``sched_wait_share`` the executor's
+    lateness share.  The print log keeps the newest ``max_messages``.
+    ``obs_dir`` (default: ``RABIT_OBS_DIR``) is where
     telemetry.json goes; ``on_suspect(task_id)`` is called from the lease
     thread when a lease expires (its exceptions are swallowed).
     ``shrink_after_sec``, ``min_world`` and ``promote_after_sec`` are the
@@ -397,11 +415,14 @@ class Tracker:
     the owning service serves it and ticks its monitors."""
 
     def __init__(self, world_size: int, host: str = "127.0.0.1", port: int = 0,
-                 quiet: bool = False, obs_dir: str | None = None,
+                 quiet: bool = False, topology: str = "auto",
+                 host_order: list[str] | None = None, obs_dir: str | None = None,
                  on_suspect: Callable[[str], None] | None = None,
                  shrink_after_sec: float = 0.0, min_world: int = 1,
                  promote_after_sec: float = 0.25, schedule: str = "auto",
-                 sched_repair: bool = True, quorum: str = "", quorum_flag_after: int = 3,
+                 sched_mesh: str = "", sched_repair: bool = True,
+                 sched_wait_share: float = 0.25, quorum: str = "",
+                 quorum_flag_after: int = 3, max_messages: int = MAX_MESSAGES,
                  journal=None, resume_from=None, listen_sock: socket.socket | None = None,
                  ha_tick_sec: float | None = None, reactor: bool = True,
                  backlog: int | None = None, conn_timeout_sec: float = 60.0,
@@ -420,15 +441,22 @@ class Tracker:
         self.on_suspect = on_suspect
         self.obs_dir = obs_dir if obs_dir is not None else (
             os.environ.get("RABIT_OBS_DIR", "") or None)
-        self.messages: deque[str] = deque(maxlen=MAX_MESSAGES)
+        self.messages: deque[str] = deque(maxlen=max(int(max_messages), 1))
         self.messages_dropped = 0
         #: the job's timeline: one {"ts", "kind": "wave", "epoch", "world",
         #: "assignments", "recovering", "restarted", "delta"} a closed wave,
         #: the spares' and resizes' events, lease expiries, snapshots, and
         #: events from the workers' stats lines
         self.events: list[dict] = []
+        if host_order is None and topology in ("auto", "tpu"):
+            host_order = tpu_slice_host_order()
+            if topology == "tpu" and host_order is None:
+                raise RuntimeError("topology='tpu' but TPU_WORKER_HOSTNAMES is not set")
+        self.host_order = host_order
         self.schedule = schedule
+        self.sched_mesh = sched_mesh
         self.sched_repair = bool(sched_repair)
+        self.sched_wait_share = float(sched_wait_share)
         self._link_flags: set[tuple[str, str]] = set()  # (src task, dst task)
         self._repair_wanted = False
         # the quorum records (None: quorum mode off), and the newest planned
@@ -1122,10 +1150,11 @@ class Tracker:
         """Keep one worker print in the bounded log, and turn the robust
         engine's stats lines into events."""
         with self._lock:
-            if len(self.messages) >= MAX_MESSAGES:
+            if len(self.messages) >= self.messages.maxlen:
                 if self.messages_dropped == 0:
                     self.events.append({"ts": round(time.time(), 6),
-                                        "kind": "messages_dropped", "cap": MAX_MESSAGES})
+                                        "kind": "messages_dropped",
+                                        "cap": self.messages.maxlen})
                 self.messages_dropped += 1
             self.messages.append(msg)
         ev = event_from_stats_line(msg)
@@ -1741,7 +1770,7 @@ class Tracker:
         self._wave_started = time.monotonic() if self._pending else None
         promoted = [p.task_id for p in members if p.origin == "spare"]
         self._ranks.update(assign_ranks([(p.task_id, p.host) for p in members], world,
-                                        self._ranks))
+                                        self._ranks, host_order=self.host_order))
         rank_map = {p.task_id: self._ranks[p.task_id] for p in members}
         prev_world = self.world_size
         prev_map = dict(self.elastic.current.rank_map)
@@ -1912,8 +1941,8 @@ class Tracker:
         with self._lock:
             avoid = sched.tasks_to_flags(self._link_flags, rank_map)
             self._repair_wanted = False
-        return sched.plan(world, self.schedule, mesh=sched.mesh_for_world(world),
-                          avoid=avoid)
+        return sched.plan(world, self.schedule,
+                          mesh=sched.mesh_for_world(world, self.sched_mesh), avoid=avoid)
 
     def _send_wave_async(self, wave: dict) -> None:
         """``_send_wave`` on a thread of its own (the reactor's and the

@@ -1620,3 +1620,33 @@ def test_pooled_worker_leased_to_two_jobs_with_card_contributions(cuda):
     leased = [e for e in svc.events if e["kind"] == "worker_leased"]
     assert sorted({e["job"] for e in leased}) == ["fit1", "fit2"]
     assert dict(boost.launches) == {"node_histograms_kernel": fill.n_calls} and fill.n_calls
+
+
+# -- the user surface on the card ----------------------------------------------------
+
+@pytest.mark.gpu
+def test_schedule_smoke_and_hybrid_guide_on_the_card(cuda, capsys):
+    """tools/torch_consensus_bench.py's run_smoke with its contributions on
+    the card (every rabit_schedule value bitwise the closed form, the kernel
+    launched once a contribution), and guide/torch_hybrid_gbdt.py solo on the
+    card (the kernel once a level)."""
+    import importlib.util
+
+    root = Path(__file__).resolve().parents[1]
+    sys.path.insert(0, str(root))
+    from tools.torch_consensus_bench import run_smoke
+
+    boost.launches.clear()
+    out = run_smoke(device="cuda")
+    assert out["bitwise_identical"] and out["device"] == "cuda"
+    assert dict(boost.launches) == {"node_histograms_kernel": out["n_contributions"]}
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_hybrid_gbdt", root / "guide" / "torch_hybrid_gbdt.py")
+    guide = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(guide)
+    boost.launches.clear()
+    assert guide.main([]) == 0
+    assert "hybrid gbdt: 3 trees" in capsys.readouterr().out
+    assert dict(boost.launches) == {
+        "node_histograms_kernel": guide.N_TREES * guide.CFG_KW["depth"]}

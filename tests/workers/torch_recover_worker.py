@@ -22,6 +22,18 @@ Worker args (k=v, all also handed to the engine; the last one wins):
                    0.25) before each iteration's first collective: an
                    injected straggler whose arrival skew the trace
                    analytics must pin on R (tools/torch_trace_tool.py)
+    blob_mb=F      carry an F-MiB byte blob in the global model, its content
+                   a closed form of the version, so a recovered or resumed
+                   blob is checked byte for byte
+    stop_at=K      every worker exits cleanly right after checkpoint K (a
+                   whole-job stop, for the durable spill's resume)
+    codec=NAME     check the f32 MAX allreduce against the codec's
+                   reference fold (rabit_tpu_torch.compress
+                   .reference_allreduce) instead of the exact value; pair
+                   with rabit_compress_allreduce=NAME and a small
+                   rabit_compress_min_bytes so the engine compresses.  The
+                   check is exact: a compressed collective's result, after a
+                   recovery's replay too, is bitwise the reference fold's
 """
 
 import os
@@ -57,6 +69,12 @@ def main() -> int:
     pause = float(getarg("sleep", "0"))
     straggler = int(getarg("straggler", "-1"))
     straggler_sleep = float(getarg("straggler_sleep", "0.25"))
+    codec = getarg("codec", "")
+    blob_mb = float(getarg("blob_mb", "0"))
+    stop_at = int(getarg("stop_at", "0"))
+
+    def blob_for(ver: int) -> bytes:
+        return bytes([ver & 0xFF]) * int(blob_mb * (1 << 20))
 
     rt.init()
     rank, world = rt.get_rank(), rt.get_world_size()
@@ -70,13 +88,23 @@ def main() -> int:
     else:
         version, model = rt.load_checkpoint()
         lmodel = None
+    first_life = int(os.environ.get("DMLC_NUM_ATTEMPT", "0")) == 0
     if version == 0:
         model = {"iter": 0, "history": []}
         lmodel = {"rank": rank, "iter": 0}
+    elif use_local and lmodel is None and first_life:
+        # A durable resume's documented degradation: a first life killed
+        # between the commit and its own local save resumes at the agreed
+        # version with no local model, and rebuilds it.  A restarted life
+        # must get its local model from its peers' replicas.
+        lmodel = {"rank": rank, "iter": version}
+        rt.tracker_print(f"[{rank}] rebuilt local state at version {version}")
     check(model["iter"] == version, f"model vs version {version}")
+    if blob_mb and version > 0:
+        check(model.get("blob") == blob_for(version), f"blob mismatch at version {version}")
     if use_local:
         check(lmodel["rank"] == rank, f"local model {lmodel} not mine")
-    if int(os.environ.get("DMLC_NUM_ATTEMPT", "0")) > 0:
+    if not first_life:
         # the recovered_at= stamp makes the tracker record a worker_recovered event
         rt.tracker_print(f"[{rank}] recovered version={version} recovered_at={time.time():.6f}")
 
@@ -89,7 +117,15 @@ def main() -> int:
         # MAX: data[i] = rank + i + it  ->  world-1 + i + it
         a = (np.arange(ndata) + rank + it).astype(np.float32)
         out = rt.allreduce(a, rt.MAX)
-        expect = (np.arange(ndata) + world - 1 + it).astype(np.float32)
+        if codec:
+            # the compressed path: every rank's known contribution through
+            # the codec's reference fold
+            from rabit_tpu_torch.compress import reference_allreduce
+
+            expect = reference_allreduce([(np.arange(ndata) + r + it).astype(np.float32)
+                                          for r in range(world)], rt.MAX, codec)
+        else:
+            expect = (np.arange(ndata) + world - 1 + it).astype(np.float32)
         check(np.array_equal(out, expect), f"iter {it} max {out[:4]}")
 
         root = it % world
@@ -111,6 +147,8 @@ def main() -> int:
         # A fresh model object each iteration: a lazy checkpoint may still
         # serve the previous one while this one commits.
         model = {"iter": it + 1, "history": model["history"] + [it]}
+        if blob_mb:
+            model["blob"] = blob_for(it + 1)
         if use_local:
             lmodel = {"rank": rank, "iter": it + 1}
             rt.checkpoint(model, lmodel)
@@ -119,6 +157,11 @@ def main() -> int:
         else:
             rt.checkpoint(model)
         check(rt.version_number() == it + 1, "version after checkpoint")
+        if stop_at and it + 1 == stop_at:
+            check(model["history"] == list(range(stop_at)), f"history at stop {model['history']}")
+            rt.tracker_print(f"[{rank}] stopping at version {stop_at}")
+            rt.finalize()
+            return 0
 
     check(model["history"] == list(range(niter)), f"history {model['history']}")
     rt.tracker_print(f"[{rank}] all {niter} iterations verified")

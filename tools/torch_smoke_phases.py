@@ -6,6 +6,7 @@ the card, for a same-call A/B of two checkouts.
     python3 tools/torch_smoke_phases.py --phases quorum,failover
     python3 tools/torch_smoke_phases.py --phases relay
     python3 tools/torch_smoke_phases.py --phases dp,hybrid,recover,liveness,service
+    python3 tools/torch_smoke_phases.py --phases relay,delivery,surface
 
 Builds the kernels and the native engine, then runs, in chip_smoke.py's
 order and with its checks, the phases dp, engine, compress, hybrid and
@@ -13,9 +14,9 @@ recover of the checkout at ``--tree`` (default: the repository this file
 is in), and its diagnose phase where that checkout's chip_smoke.py has
 one.  ``--phases`` runs the named phases instead, in the order given
 (any ``Smoke.<name>_phase`` that needs no earlier phase: ``quorum``,
-``failover``, ``relay``, ``elastic``, ``service``, ...; ``relay`` runs the
-recover phase's clean and mid-tree kill gbdt runs itself unless
-``recover`` ran before it; ``recover`` needs ``dp`` and ``hybrid`` before
+``failover``, ``relay``, ``elastic``, ``service``, ``surface``, ...;
+``relay`` runs the recover phase's clean gbdt run and its mid-tree kill
+run behind relays itself unless ``recover`` ran before it; ``recover`` needs ``dp`` and ``hybrid`` before
 it, whose forest it holds the native engine's to, and ``liveness`` needs
 ``recover``; ``dp`` is the dp phase's two steps).  Prints the card's name and power limit
 (``nvidia-smi``) and one
