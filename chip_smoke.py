@@ -51,7 +51,7 @@ Phases, each of which exits non-zero when it fails:
               one, bitwise equal to train_round and train_round_fused; then
               two processes on the one card over gloo with CUDA tensors
               (rows split by elastic_shard; spawned once, they also run
-              the two-process parts of phases 8-10 and 22-24, one group
+              the two-process parts of phases 8-10 and 23-25, one group
               each): identical forests on both
               ranks, the single-process round's splits but for printed near
               ties; and in the same processes train_round_dp_fused exact and
@@ -290,18 +290,32 @@ Phases, each of which exits non-zero when it fails:
               [0, 1, 3, 2, 4, 5] in the schedule_planned events and in
               telemetry.json; node_histograms_kernel launched once a
               contribution.
-22. linear -- models.linear at the headline size (X = bins / 256, f32;
+22. recovery -- tools/torch_recovery_bench.py's in-thread modes on the card,
+              every contribution node_histograms_kernel over the shard's
+              [n, 1] bins (8 bins, one node, g = h = 1), each held exactly
+              against np.bincount and the first of a run against its plain
+              version: _failover_once at world 2 direct and world 3 behind a
+              relay (tests/test_ha.py's gate arguments: niter 8, 0.12 s a
+              version, the primary killed at 0.5 s, takeover 0.4 s), each
+              taken over in under 3.0 s with one post-failover wave and
+              exactly one lease_expired (the scheduled death's); and
+              _elastic_once at world 3 with a parked spare (promoted, the
+              world stays 3) and without (shrunk to 2, grown back to 3 by a
+              late spare; the --elastic sweep's 16 versions of 0.15 s).
+              Prints each JSON record; node_histograms_kernel's launches,
+              one a contribution, a run.
+23. linear -- models.linear at the headline size (X = bins / 256, f32;
               logistic, the LinearConfig defaults, 50 steps): LinearModel.fit
               on the card bitwise its train_step loop, steps 0, 25, 49 held
               teacher-forced against the CPU (tests/test_models.py's rtol
               2e-4, atol 2e-5); train_step_dp on an NCCL group of one
               bitwise the loop; then phase 7's two processes on the card
-              over gloo (500k rows each; they also run phases 23 and 24's
+              over gloo (500k rows each; they also run phases 24 and 25's
               two-process parts): train_step_dp, every step
               teacher-forced against the single-process step, and
               LinearModel(engine_allreduce=api.allreduce) through TorchEngine,
               bitwise the dp weights; ms/step of each.
-23. kmeans -- models.kmeans on the same data, K = 64, 20 iterations, the
+24. kmeans -- models.kmeans on the same data, K = 64, 20 iterations, the
               init drawn by KMeans(seed=0): KMeans.fit bitwise its
               train_iter loop, iterations 0, 10, 19 teacher-forced against
               the CPU (assignments equal but for near ties within
@@ -312,7 +326,7 @@ Phases, each of which exits non-zero when it fails:
               the new centers within 2^-21 of the f64 means) and
               KMeans(engine_allreduce=...) bitwise the dp centers; ms/iteration
               and the f64 one-hot segment_sum's time.
-24. attention -- ring_attention and ulysses_attention at sequence 8192, 32
+25. attention -- ring_attention and ulysses_attention at sequence 8192, 32
               heads of 128, f32 and bf16, causal and not, on an NCCL group of
               one and on the gloo world (block 4096; k/v hops and Ulysses'
               all-to-alls through host memory), each against
@@ -320,14 +334,14 @@ Phases, each of which exits non-zero when it fails:
               a time (tests/test_parallel.py's rtol 2e-4, atol 2e-5; bf16 adds
               the output's half-ulp rounding, 2^-8); ms a call and the
               hops' share.
-25. durable -- the api's durable spill (rabit_checkpoint_dir) in two-process
+26. durable -- the api's durable spill (rabit_checkpoint_dir) in two-process
               gloo jobs on the card, each fitting the linear model with a
               checkpoint a step (tests/workers/torch_durable_worker.py): a job
               stopped at version 3 of 6 and resumed by a fresh job, and again
               with rank 1's global files deleted (served by rank 0's
               broadcast), both bit for bit the weights of a job never
               stopped; the frames' bytes and the jobs' times.
-26. report -- per-level times of the histogram kernels (d = 0..7, bf16
+27. report -- per-level times of the histogram kernels (d = 0..7, bf16
               and i8) and of the helpers, and a {"kernels": [...]} line
               with each kernel's time (CUDA events over back-to-back
               calls, "ms"; and the device time of the kernels a call
@@ -338,16 +352,16 @@ Phases, each of which exits non-zero when it fails:
               long run the card's profiler keeps only part of the launches
               (kernel_ms), and earlier its sessions would slow the launches
               of the phases after them.
-27. trace  -- one warm fused and one warm hook-based bf16 round under
+28. trace  -- one warm fused and one warm hook-based bf16 round under
               profile.device_trace (a Chrome trace under --trace-dir): each
               round's wall time, the device time of the port's kernels, of
               every other kernel by the top aten op that launched it, and
               the device's idle time inside the round.
 
-Launches are counted per path (phases 4-7, 14-18, 20, 21 and 27, and 7, 10, 11, 12,
+Launches are counted per path (phases 4-7, 14-18, 20-22 and 28, and 7, 10, 11, 12,
 13, 17 and 19 in their processes), each run with the counts set to 0 just before it and read
-just after; the phase-3 and phase-13 to phase-18, phase-20 and phase-21 comparisons and the phase-26
-timings do not count.  Phases 22-25 run no kernel of the port (their products are torch matmuls
+just after; the phase-3 and phase-13 to phase-18, phase-20 to phase-22 comparisons and the
+phase-27 timings do not count.  Phases 23-26 run no kernel of the port (their products are torch matmuls
 and einsums, as in the JAX package, in f32 with TF32 off).  Each phase
 prints its wall time.  The histogram kernels count in
 boost.launches, their helpers (one hist_prep and one hist_partition a
@@ -458,6 +472,8 @@ SERVICE_BENCH = dict(n_jobs=4, world=2, niter=2, sleep=0.02, relays=1, chaos="st
                      assert_isolation=False)
 SERVICE_TAKEOVER_ROUNDS = 6   # its (b): rounds a job, tests/test_service.py's takeover
 SERVICE_TAKEOVER_SLEEP = 0.25  # s before each contribution
+RECOVERY_FAILOVER = dict(niter=8, iter_sleep=0.12, kill_at=0.5, takeover_sec=0.4)
+RECOVERY_GROW = dict(niter=16, iter_sleep=0.15)  # the --elastic sweep's grow-back job
 
 #: the surface phase: the guide programs of (a) and what tests/test_guide.py
 #: asserts of each one's solo output
@@ -767,7 +783,7 @@ def _hybrid_part(rank: int, world: int, port: int, n_rows: int, n_trees: int) ->
 
 def _gloo_world_rank(rank: int, world: int, tmp: str, n_rows: int, n_trees: int, port: int,
                      hybrid_trees: int, engine_port: int) -> None:
-    """One process of the gloo world of phases 7-10 and 22-24, spawned once
+    """One process of the gloo world of phases 7-10 and 23-25, spawned once
     (one start of DP_RANKS processes for all of them): the dp rounds
     (_dp_part), the hybrid round (_hybrid_part, "hybrid/"), the engine
     matrix through TorchEngine with host arrays ("engine/"), the compress
@@ -910,7 +926,7 @@ def _compress_part(rank: int, world: int, tmp: str, store: str) -> dict:
         dist.destroy_process_group()
 
 
-# -- phases 22-25: the linear and k-means models, attention, the durable spill ----
+# -- phases 23-26: the linear and k-means models, attention, the durable spill ----
 
 
 def slice_data(n_rows: int):
@@ -993,7 +1009,7 @@ def attention_cases(torch, ring, rank: int, world: int, out: dict) -> None:
 
 def _slice_part(rank: int, world: int, tmp: str, n_rows: int, store: str) -> dict:
     """The models' and attention's part of a process of the gloo world
-    (phases 22-24), on the card, on this rank's elastic shard: linear.train_step_dp and kmeans.train_iter_dp
+    (phases 23-25), on the card, on this rank's elastic shard: linear.train_step_dp and kmeans.train_iter_dp
     over the group (every step's weights; the iterations' centers, and the
     assignments at the checked ones), the engine-hook fits (LinearModel,
     KMeans with engine_allreduce = api.allreduce through TorchEngine, which
@@ -3842,7 +3858,55 @@ class Smoke:
                 "b_timeline": timeline,
                 "c_s": round(took_c, 3), "wall_s": time.perf_counter() - t0}
 
-    # -- phases 22-25 -------------------------------------------------------------
+    # -- phase 22 -----------------------------------------------------------------
+    def recovery_run(self, what: str, world: int, run) -> dict:
+        """One in-thread scenario of tools/torch_recovery_bench.py on the card,
+        its contribution counter made for ``world`` on the card, the launch
+        counts set to 0 just before and read just after; prints its record."""
+        bench = importlib.import_module("tools.torch_recovery_bench")
+        counter = bench.contribution_counter(world, self.dev.type)
+        self.clear_counts()
+        t0 = time.perf_counter()
+        rec = run(bench, counter)
+        took = time.perf_counter() - t0
+        counts = self.read_counts(counter.n_calls)
+        require(counts == {"node_histograms_kernel": counter.n_calls} and counter.n_calls,
+                f"recovery {what}: launches {counts}, expected {counter.n_calls} "
+                "(one a contribution)")
+        print(f"  ({what}) {json.dumps(rec)}; {counter.n_calls} launches; {took:.2f} s",
+              flush=True)
+        return {"record": rec, "launches": counter.n_calls, "wall_s": round(took, 3)}
+
+    def recovery_phase(self):
+        """The recovery bench's in-thread modes on the card (phase 22 of the
+        module docstring)."""
+        t0 = time.perf_counter()
+        out = {}
+        for what, world, relays in (("a: failover", 2, 0), ("b: failover, relay", 3, 1)):
+            r = out[what] = self.recovery_run(what, world, lambda b, c, w=world, n=relays: (
+                b._failover_once(w, relays=n, counter=c, **RECOVERY_FAILOVER)))
+            rec = r["record"]
+            require(rec["takeover_latency_s"] is not None and rec["takeover_latency_s"] < 3.0
+                    and rec["first_wave_after_s"] is not None and rec["n_lease_expired"] == 1,
+                    f"recovery {what}: {rec}")
+        r = out["c: promote"] = self.recovery_run("c: promote", 3, lambda b, c: b._elastic_once(
+            3, with_spare=True, grow_back=False, shrink_after_sec=1.0, counter=c))
+        rec = r["record"]
+        require(rec["promote_latency_s"] is not None and rec["epochs"]
+                and rec["epochs"][-1]["world"] == 3, f"recovery (c) promote: {rec}")
+        r = out["d: shrink, grow"] = self.recovery_run(
+            "d: shrink, grow", 3, lambda b, c: b._elastic_once(
+                3, with_spare=False, grow_back=True, shrink_after_sec=1.0, counter=c,
+                **RECOVERY_GROW))
+        rec = r["record"]
+        worlds = [e["world"] for e in rec["epochs"]]
+        require(rec["shrink_latency_s"] is not None and rec["grow_latency_s"] is not None
+                and 2 in worlds and worlds[-1] == 3, f"recovery (d) shrink, grow: {rec}")
+        out["wall_s"] = time.perf_counter() - t0
+        print(f"  recovery phase: {out['wall_s']:.1f} s", flush=True)
+        return out
+
+    # -- phases 23-26 -------------------------------------------------------------
     @functools.cached_property
     def X(self):
         """slice_data's features on the card."""
@@ -4103,7 +4167,7 @@ class Smoke:
               "stop " + json.dumps(frames))
         print("  durable " + json.dumps(self.slice_ms["durable"]))
 
-    # -- phase 27 -----------------------------------------------------------------
+    # -- phase 28 -----------------------------------------------------------------
     def trace_phase(self, logdir: str):
         """One warm fused bf16 round and one warm hook-based bf16 round under
         profile.device_trace: each round's wall time, the device time in
@@ -4164,7 +4228,7 @@ class Smoke:
         print(f"  Chrome trace under {logdir}")
         return out
 
-    # -- phase 26 -----------------------------------------------------------------
+    # -- phase 27 -----------------------------------------------------------------
     def measure(self):
         torch, boost = self.torch, self.boost
         xb3, g3, h3 = self.xb3, self.g3, self.h3
@@ -4382,7 +4446,7 @@ def main() -> int:
     except ImportError as e:
         print(f"FAIL: run from the root of a checkout ({e})", file=sys.stderr)
         return 2
-    # the plain versions' matmuls, and the products of phases 22-24 (exact f32)
+    # the plain versions' matmuls, and the products of phases 23-25 (exact f32)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     phase, t_phase = "device", time.perf_counter()
@@ -4500,6 +4564,9 @@ def main() -> int:
 
         phase = next_phase("surface")
         print("[surface] " + json.dumps(smoke.surface_phase()), flush=True)
+
+        phase = next_phase("recovery")
+        print("[recovery] " + json.dumps(smoke.recovery_phase()), flush=True)
 
         phase = next_phase("linear")
         smoke.linear_phase()

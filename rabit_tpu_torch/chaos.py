@@ -515,8 +515,8 @@ def _shard_counter(data: np.ndarray, n_bins: int, device: str):
 
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("run_elastic_schedule: device='cuda' but no CUDA device is "
-                           "available (pass device='cpu')")
+        raise RuntimeError("device='cuda' but no CUDA device is available "
+                           "(pass device='cpu')")
     xb = torch.as_tensor(data.astype(np.int32).reshape(-1, 1), device=dev)
     ones = torch.ones(len(data), dtype=torch.float32, device=dev)
     node = torch.zeros(len(data), dtype=torch.int32, device=dev)

@@ -108,8 +108,10 @@ from ``_short_rpc_reply``, which the threaded path and the relay fold
 share, so all three give the same bytes.
 A START / RECOVER check-in is registered on the loop and held off it; a wave
 it closes is sent from a thread of its own (``_send_wave_async``), as are a
-spare's park, a standby's journal stream and a relay's channel, so the loop
-never blocks on an O(world) broadcast, a large blob or a disk write.
+spare's park, a standby's journal stream, a relay's channel and a quorum
+record's reply that waits on the journal's write-ahead (``_answer_after``),
+so the loop never blocks on an O(world) broadcast, a large blob, a disk
+write or a standby's stream.
 ``reactor=False`` serves each connection on a thread of its own, the
 comparison arm.  The listen backlog is ``rabit_tracker_backlog``.  Either
 path serves until ``stop`` or ``kill``, past the job's end: a restarted
@@ -167,8 +169,9 @@ from rabit_tpu_torch.tracker import protocol as P
 
 MAX_MESSAGES = 4096       # the print log keeps the newest
 TELEMETRY_SCHEMA = 1
-#: Seconds at most a wave's Assignments wait for its journal record to leave
-#: on every standby's stream (the write-ahead in ``_send_assignments``).
+#: Seconds at most a wave's Assignments, or a frozen quorum record's reply,
+#: wait for the journal record to leave on every standby's stream (the
+#: write-ahead, ``_write_ahead``).
 JOURNAL_WAVE_WAIT_SEC = 1.0
 
 
@@ -527,6 +530,9 @@ class Tracker:
         # The HA plane: the journal (None: nothing journaled, and a standby's
         # CMD_JOURNAL is refused), the standbys' channels, kill()'s flag.
         self._killed = False
+        # decided quorum records already answered: a later report of the
+        # round is answered at once (cleared at each epoch, as the records are)
+        self._q_answered: set[tuple[int, int]] = set()
         self._journal_conns: list[socket.socket] = []
         if isinstance(journal, str):
             from rabit_tpu_torch.ha.journal import Journal
@@ -753,7 +759,9 @@ class Tracker:
                 tr._checkin(_Pending(conn, h.task_id, h.listen_port, addr[0], h.cmd),
                             inline=True)
                 return
-            reply, post = tr._short_rpc_reply(h)
+            reply, ahead, post = tr._short_rpc_reply(h)
+            if ahead is not None:
+                ahead()  # this thread may wait; a killed tracker answers nothing
             conn.sendall(reply)
             if post is not None:
                 post()
@@ -785,46 +793,50 @@ class Tracker:
             self._send_wave_async(wave)
 
     def _short_rpc_reply(self, h: P.Hello, counted: bool = True
-                         ) -> tuple[bytes, Callable[[], None] | None]:
+                         ) -> tuple[bytes, Callable[[], None] | None, Callable[[], None] | None]:
         """Serve one short RPC: its effects now, and its reply bytes with the
-        work that must follow the ACK (a shutdown's completion check).  The
-        threaded path, the reactor and the relay fold all serve through this,
-        so their bytes are the same.  ``counted`` counts it in ``rpcs`` (a
-        relay's sub-message counts in ``batch_msgs`` instead).  ValueError
-        for a command the tracker does not serve."""
+        wait that must pass before the reply goes out (a quorum record's
+        write-ahead, see ``_quorum_report``; the reactor and the relay fold
+        run it off their thread, ``_answer_after``) and the work that must
+        follow the ACK (a shutdown's completion check).  The threaded path,
+        the reactor and the relay fold all serve through this, so their bytes
+        are the same.  ``counted`` counts it in ``rpcs`` (a relay's
+        sub-message counts in ``batch_msgs`` instead).  ValueError for a
+        command the tracker does not serve."""
         if counted:
             with self._stats_lock:
                 self.serve_stats["rpcs"] += 1
         if h.cmd == P.CMD_EPOCH:
             # the worker's committed version rides as the message (informational)
-            return P.put_u32(P.ACK) + P.put_str(json.dumps(self._epoch_info())), None
+            return P.put_u32(P.ACK) + P.put_str(json.dumps(self._epoch_info())), None, None
         if h.cmd == P.CMD_BLOB:
             self._keep_blob(h.task_id, h.blob_version, h.blob)
-            return P.put_u32(P.ACK), None
+            return P.put_u32(P.ACK), None, None
         if h.cmd == P.CMD_QUORUM:
-            return P.put_u32(P.ACK) + P.put_str(json.dumps(self._quorum_report(h.message))), None
+            rec, ahead = self._quorum_report(h.message)
+            return P.put_u32(P.ACK) + P.put_str(json.dumps(rec)), ahead, None
         if h.cmd == P.CMD_PRINT:
             self._log_print(h.message)
-            return P.put_u32(P.ACK), None
+            return P.put_u32(P.ACK), None, None
         if h.cmd == P.CMD_METRICS:
             self._accept_snapshot(h.message)
-            return P.put_u32(P.ACK) + self._clock_stamp(), None
+            return P.put_u32(P.ACK) + self._clock_stamp(), None, None
         if h.cmd == P.CMD_HEARTBEAT:
             self._renew_lease(h.task_id, h.prev_rank, h.message)
-            return P.put_u32(P.ACK) + self._clock_stamp(), None
+            return P.put_u32(P.ACK) + self._clock_stamp(), None, None
         if h.cmd == P.CMD_SHUTDOWN:
             with self._lock:
                 # dropped before the ACK: a clean exit is never suspected
                 self._drop_lease_locked(h.task_id)
-            return P.put_u32(P.ACK), lambda: self._note_shutdown(h.task_id)
+            return P.put_u32(P.ACK), None, lambda: self._note_shutdown(h.task_id)
         if h.cmd == P.CMD_OBS:
             return P.put_u32(P.ACK) + P.put_str(json.dumps(
-                self._scrape(h.task_id, h.message))), None
+                self._scrape(h.task_id, h.message))), None, None
         if h.cmd == P.CMD_SUB:
-            return self._sub_reply(h.task_id, h.message), None
+            return self._sub_reply(h.task_id, h.message), None, None
         if h.cmd == P.CMD_SNAP:
             # the reply is a snap frame, with no ACK before it
-            return self._snap_reply(h.task_id, h.message), None
+            return self._snap_reply(h.task_id, h.message), None, None
         raise ValueError(f"command {h.cmd} is not served")
 
     # -- the reactor -----------------------------------------------------------
@@ -955,9 +967,21 @@ class Tracker:
             if tr is None:
                 self._reactor_drop(sel, conns, rc)
                 return
-            reply, post = tr._short_rpc_reply(h)
+            reply, ahead, post = tr._short_rpc_reply(h)
         except (ValueError, OSError):
             self._reactor_drop(sel, conns, rc)
+            return
+        if ahead is not None:
+            # the loop does not wait on a write-ahead: the reply leaves from
+            # a thread of its own, the socket off the loop
+            self._reactor_detach(sel, conns, rc)
+            sock = rc.sock
+
+            def send() -> None:
+                sock.sendall(reply)
+                sock.close()
+
+            tr._answer_after(ahead, send, sock.close)
             return
         rc.out += reply
         self._reactor_flush(sel, conns, rc)
@@ -1072,11 +1096,18 @@ class Tracker:
                     vconn.child_dead = True
             elif m.cmd in (P.CMD_HEARTBEAT, P.CMD_METRICS, P.CMD_PRINT, P.CMD_SHUTDOWN,
                            P.CMD_QUORUM, P.CMD_SUB):
-                reply, post = tr._short_rpc_reply(
+                reply, ahead, post = tr._short_rpc_reply(
                     P.Hello(m.cmd, m.prev_rank, tid, message=m.payload.decode()),
                     counted=False)
                 if m.cmd in (P.CMD_QUORUM, P.CMD_SUB):
-                    channel.send_route(m.task_id, P.ROUTE_CLOSE, reply)
+                    if ahead is None:
+                        channel.send_route(m.task_id, P.ROUTE_CLOSE, reply)
+                    else:
+                        # the fold does not wait on a write-ahead; a reply
+                        # that never leaves stays parked at the relay, which
+                        # sends the report again on its next channel
+                        tr._answer_after(ahead, lambda: channel.send_route(
+                            m.task_id, P.ROUTE_CLOSE, reply))
                 if post is not None:
                     post()
         except (ValueError, UnicodeDecodeError):
@@ -1783,6 +1814,7 @@ class Tracker:
         if self._quorum is not None:
             # The epoch boundary drops the corrections still owed: ranks
             # renumber and shards re-cut, so an old block can never fold.
+            self._q_answered.clear()
             for sv, r, w in self._quorum.epoch_changed(wepoch.epoch):
                 commit_events.append({"ts": ts, "kind": "correction_dropped",
                                       "epoch": wepoch.epoch, "src_version": sv, "rank": r,
@@ -1880,11 +1912,19 @@ class Tracker:
             print(f"[tracker] link {src}->{dst} flagged degraded; repair replan armed",
                   flush=True)
 
-    def _quorum_report(self, payload: str) -> dict:
+    def _quorum_report(self, payload: str) -> tuple[dict, Callable[[], None] | None]:
         """Fold one ``CMD_QUORUM`` report into the records, record the
         table's events, journal a freeze (once a round) and a late delivery,
         and flag the incoming ring link of a rank late ``quorum_flag_after``
-        rounds in a row (outside the lock: ``flag_link`` takes it)."""
+        rounds in a row (outside the lock: ``flag_link`` takes it).  Returns
+        the record and the wait that must pass before it is answered, or
+        None.  A journaling tracker answers a decided record first only once
+        its freeze has left on every standby's stream (``_write_ahead``): a
+        standby promoted after a rank folded by the record must hold it, or
+        it decides the round again, differently.  The report's timeline
+        entries and link flags go in with the answer; a tracker killed
+        during the wait raises ConnectionAbortedError there, answers nothing
+        and leaves no trace."""
         try:
             req = json.loads(payload)
             epoch = int(req["epoch"])
@@ -1892,21 +1932,21 @@ class Tracker:
             have = [int(r) for r in req.get("have", ())]
             held = [(int(sv), int(r)) for sv, r in req.get("held", ())]
         except (ValueError, TypeError, KeyError):
-            return {"decided": False, "error": "malformed report"}
+            return {"decided": False, "error": "malformed report"}, None
         late_links: list[tuple[int, int]] = []
         with self._lock:
             if self._quorum is None:
-                return {"decided": False, "disabled": True}
+                return {"decided": False, "disabled": True}, None
             if epoch != self.elastic.epoch:
                 # a worker a wave behind: its round is redone in the new
                 # epoch, never decided against a stale world
-                return {"decided": False, "stale_epoch": True}
+                return {"decided": False, "stale_epoch": True}, None
             known = self._quorum.has_record(epoch, version)
             rec, events, flag_ranks = self._quorum.report(epoch, version, self.world_size,
                                                           have, held)
             ts = round(time.time(), 6)
+            timeline = [{"ts": ts, **ev} for ev in events]
             for ev in events:
-                self.events.append({"ts": ts, **ev})
                 if ev["kind"] == "contribution_late":
                     self._journal("quorum_late", src_version=ev["src_version"],
                                   rank=ev["rank"])
@@ -1920,15 +1960,30 @@ class Tracker:
             for r in flag_ranks:
                 if r in pos and len(order) >= 2:
                     late_links.append((order[(pos[r] - 1) % len(order)], r))
-        for src, dst in late_links:
+            decided = bool(rec.get("decided"))
+            write_ahead = (self.journal is not None and decided
+                           and (epoch, version) not in self._q_answered)
+
+        def answer() -> None:
+            if write_ahead:
+                self._write_ahead()
             with self._lock:
-                self.events.append({"ts": round(time.time(), 6), "kind": "link_degraded",
-                                    "rank": dst, "src": src, "dst": dst, "via": "quorum"})
-            if not self.quiet:
-                print(f"[tracker] rank {dst} persistently late under quorum; flagging "
-                      f"incoming link {src}->{dst} for repair", flush=True)
-            self.flag_link(src, dst)
-        return rec
+                if decided:
+                    self._q_answered.add((epoch, version))
+                self.events.extend(timeline)
+            for src, dst in late_links:
+                with self._lock:
+                    self.events.append({"ts": round(time.time(), 6), "kind": "link_degraded",
+                                        "rank": dst, "src": src, "dst": dst, "via": "quorum"})
+                if not self.quiet:
+                    print(f"[tracker] rank {dst} persistently late under quorum; flagging "
+                          f"incoming link {src}->{dst} for repair", flush=True)
+                self.flag_link(src, dst)
+
+        if write_ahead:
+            return rec, answer
+        answer()
+        return rec, None
 
     def flag_link(self, src: int, dst: int) -> None:
         """Flag a degraded link directly (a confirmed incident, or an
@@ -1943,6 +1998,32 @@ class Tracker:
             self._repair_wanted = False
         return sched.plan(world, self.schedule,
                           mesh=sched.mesh_for_world(world, self.sched_mesh), avoid=avoid)
+
+    def _write_ahead(self) -> None:
+        """Wait, at most ``JOURNAL_WAVE_WAIT_SEC``, until every record
+        journaled so far has reached the journal file and left on every
+        standby's stream, before an answer that rests on them goes out.
+        ConnectionAbortedError when the tracker was killed meanwhile: a dead
+        tracker answers nothing."""
+        self.journal.streamed(JOURNAL_WAVE_WAIT_SEC)
+        if self._killed:
+            raise ConnectionAbortedError("tracker killed before its journal reached the standbys")
+
+    def _answer_after(self, ahead: Callable[[], None], send: Callable[[], None],
+                      drop: Callable[[], None] | None = None) -> None:
+        """Run ``ahead`` (a write-ahead) and then ``send`` a held reply, on a
+        thread of its own: the reactor and the relay fold must not block.
+        ``drop`` runs instead when the tracker was killed meanwhile or the
+        send failed."""
+        def run() -> None:
+            try:
+                ahead()
+                send()
+            except (ConnectionError, OSError):
+                if drop is not None:
+                    drop()
+
+        threading.Thread(target=run, daemon=True, name="rabit-torch-tracker-answer").start()
 
     def _send_wave_async(self, wave: dict) -> None:
         """``_send_wave`` on a thread of its own (the reactor's and the
@@ -1970,9 +2051,9 @@ class Tracker:
             # Write-ahead: the wave and its plan reach the journal file and
             # every standby's stream before an Assignment leaves, so a standby
             # promoted once a member holds the epoch never closes it again.
-            self.journal.streamed(JOURNAL_WAVE_WAIT_SEC)
-            if self._killed:
-                # died during the wait: a dead tracker sends nothing more
+            try:
+                self._write_ahead()
+            except ConnectionAbortedError:
                 for p in wave["members"]:
                     p.conn.close()
                 return

@@ -409,6 +409,89 @@ def test_membership_restore_continues_the_epoch_line():
         assert we.epoch == 5
 
 
+@pytest.mark.parametrize("seed", [11, 22])
+def test_replay_determinism_multi_job_interleaved(seed, tmp_path):
+    """Two jobs' mutation sequences interleaved into one journal: the
+    file's replay is byte-identical to the live ServiceState mirror (and to
+    rabit_tpu's replay of the same file), each job's partition to a solo
+    replay of its own records, and compaction keeps both partitions."""
+    from rabit_tpu.service import ServiceState as JaxServiceState
+
+    from rabit_tpu_torch.service import ServiceState
+
+    path = str(tmp_path / "svc.journal")
+    j = pha.Journal(path, state=ServiceState(), seeded=False, snapshot_every=10_000)
+    streams = {"a": _records(random.Random(seed), 60), "b": _records(random.Random(seed + 1), 60)}
+    rng = random.Random(seed * 7 + 1)
+    cursors = {k: 0 for k in streams}
+    while any(cursors[k] < len(streams[k]) for k in streams):
+        k = rng.choice([k for k in streams if cursors[k] < len(streams[k])])
+        kind, fields = streams[k][cursors[k]]
+        cursors[k] += 1
+        j.append(kind, job=k, **fields)
+    j.append("tick", job="service")  # serving evidence makes no job
+    assert j.flush(10.0)
+    mirror = j.state_bytes()
+    records, torn = pha.read_journal(path)
+    assert not torn
+    replayed = pha.replay(records, ServiceState())
+    assert replayed.snapshot_bytes() == mirror
+    assert jha.replay(jha.read_journal(path)[0], JaxServiceState()).snapshot_bytes() == mirror
+    assert sorted(replayed.jobs) == ["a", "b"]
+    for key, stream in streams.items():
+        solo = pha.replay([(k, dict(f)) for k, f in stream])
+        assert replayed.jobs[key].snapshot_bytes() == solo.snapshot_bytes(), key
+    j.close()
+    # reopened with a small window, the file compacts to one service
+    # snapshot that keeps both partitions byte for byte
+    j2 = pha.Journal(path, state=ServiceState(), seeded=False, snapshot_every=8)
+    assert j2.state_bytes() == mirror
+    j2.close()
+    records, torn = pha.read_journal(path)
+    assert not torn and records[0][0] == "snapshot"
+    again = pha.replay(records, ServiceState())
+    assert again.snapshot_bytes() == mirror and sorted(again.jobs) == ["a", "b"]
+
+
+_HASHSEED_SCRIPT = """\
+import sys
+from rabit_tpu_torch.ha import replay
+from rabit_tpu_torch.tracker import protocol as P
+
+records = [
+    ("init", {"base_world": 4}),
+    ("wave", {"epoch": 1, "world": 4, "rank_map": {"a": 0, "b": 1, "c": 2, "d": 3},
+              "started": ["a", "b"], "promoted": []}),
+    ("lease", {"task_id": "a", "interval": 2.5, "rank": 0}),
+    ("lease", {"task_id": "c", "interval": 2.5, "rank": 2}),
+    ("shutdown", {"task_id": "b"}),
+]
+st = replay(records)
+asg = P.Assignment(rank=1, world_size=4, parent=0, children=[2, 3], ring_prev=0, ring_next=2,
+                   peers={0: ("h0", 1), 1: ("h1", 2), 2: ("h2", 3), 3: ("h3", 4)},
+                   epoch=3, rank_map={"a": 0, "b": 1, "c": 2, "d": 3}, algo="ring",
+                   ring_order=[0, 1, 2, 3])
+sys.stdout.buffer.write(st.snapshot_bytes() + b"|" + asg.encode())
+"""
+
+
+def test_replay_and_assignment_bytes_survive_hashseed():
+    """The same journal replayed and the same Assignment encoded under two
+    PYTHONHASHSEED values (fresh processes: set and dict orders differ)
+    give the same bytes."""
+    import subprocess
+
+    root = Path(__file__).resolve().parents[1]
+    outs = []
+    for seed in ("0", "1"):
+        env = dict(os.environ, PYTHONHASHSEED=seed, PYTHONPATH=str(root))
+        proc = subprocess.run([sys.executable, "-c", _HASHSEED_SCRIPT], env=env, cwd=root,
+                              capture_output=True, timeout=60)
+        assert proc.returncode == 0, proc.stderr.decode()
+        outs.append(proc.stdout)
+    assert outs[0] and outs[0] == outs[1]
+
+
 # -- across packages -----------------------------------------------------------
 
 PACKAGES = {"port": (Tracker, pha, P), "jax": (JaxTracker, jha, JP)}
@@ -473,6 +556,144 @@ def test_standby_tails_the_other_package(primary, standby):
     finally:
         sb.stop()
         tracker.stop()
+
+
+def test_standby_stream_sync_byte_identical():
+    """The port's standby tails the port's primary over CMD_JOURNAL to the
+    primary's state bytes, leases and a link flag included, and does not
+    promote while the primary lives."""
+    tracker = Tracker(2, quiet=True, journal=pha.Journal(None)).start()
+    sb = pha.Standby(primary=(tracker.host, tracker.port), takeover_sec=30.0,
+                     poll_sec=0.05).start()
+    try:
+        assert sb.wait_synced(5.0)
+        tracker._renew_lease("0", 0, "0.25")
+        tracker._renew_lease("1", 1, "0.25")
+        tracker.flag_link(0, 1)  # no rank map yet: telemetry only
+        assert tracker.journal.flush(5.0)
+        assert _wait(lambda: sb.state.snapshot_bytes() == tracker.journal.state_bytes())
+        assert any(e["kind"] == "standby_synced" for e in sb.events)
+        assert not sb.promoted.is_set()
+    finally:
+        sb.stop()
+        tracker.stop()
+
+
+def _held_stream(journal):
+    """A standby stream the test holds: it collects the frames the writer
+    hands it and sets each write-ahead marker only once ``gate`` is set."""
+    sub, gate, frames = journal.subscribe(), threading.Event(), []
+
+    def pump():
+        while True:
+            item = sub.get()
+            if item is None:
+                return
+            if isinstance(item, threading.Event):
+                gate.wait()
+                item.set()
+            else:
+                frames.append(item)
+
+    threading.Thread(target=pump, daemon=True).start()
+    return sub, gate, frames
+
+
+@pytest.mark.parametrize("end", ["streamed", "killed"])
+def test_quorum_record_answered_only_once_its_freeze_is_streamed(end):
+    """F19: a frozen quorum record is answered only once its freeze has left
+    on every standby's stream, so a standby promoted after some rank folded
+    by the record holds it (it decided the round again, differently, and
+    the ranks' states parted).  A tracker killed while the freeze waits
+    answers nothing."""
+    tracker = Tracker(2, quiet=True, quorum="0.5", journal=pha.Journal(None)).start()
+    sub, gate, frames = _held_stream(tracker.journal)
+    try:
+        report = json.dumps({"epoch": tracker.elastic.epoch, "v": 1, "have": [0], "held": []})
+        got: dict = {}
+
+        def ask():
+            try:
+                rec, ahead = tracker._quorum_report(report)
+                assert ahead is not None
+                ahead()
+                got["rec"] = rec
+            except ConnectionError as exc:
+                got["error"] = exc
+
+        th = threading.Thread(target=ask, daemon=True)
+        th.start()
+        th.join(0.3)
+        assert th.is_alive() and not got, got  # held: the freeze has not left
+        assert "quorum_freeze" in [P.journal_frames_from_buffer(f)[0][0][0] for f in frames]
+        if end == "streamed":
+            gate.set()
+            th.join(2.0)
+            assert got["rec"]["decided"] and got["rec"]["excluded"] == [1]
+            # a later report of the same round is answered at once
+            t0 = time.monotonic()
+            gate.clear()
+            assert tracker._quorum_report(report) == (got["rec"], None)
+            assert time.monotonic() - t0 < 0.2
+        else:
+            threading.Thread(target=tracker.kill, daemon=True).start()
+            th.join(2.0)
+            assert isinstance(got.get("error"), ConnectionAbortedError), got
+    finally:
+        gate.set()
+        tracker.stop()
+
+
+@pytest.mark.parametrize("serving", ["reactor", "threaded", "service"])
+def test_held_quorum_reply_holds_no_other_rpc(serving, monkeypatch):
+    """A quorum reply held by the write-ahead (a standby's stream that does
+    not drain) holds no other RPC: a heartbeat is answered at once on every
+    serving path, a CollectiveService partition's included (its journal is
+    the service's), and the report is answered once the stream drains; a
+    report after the service's journal has closed is answered at once."""
+    from rabit_tpu_torch.service import CollectiveService, ServiceState
+    from rabit_tpu_torch.tracker import tracker as tracker_mod
+
+    monkeypatch.setattr(tracker_mod, "JOURNAL_WAVE_WAIT_SEC", 30.0)
+    if serving == "service":
+        journal = pha.Journal(None, state=ServiceState())
+        server = CollectiveService(quiet=True, quorum="0.5", journal=journal).start()
+        tracker, job = server.admit("ja", 2), "ja"
+    else:
+        journal = pha.Journal(None)
+        tracker = server = Tracker(2, quiet=True, quorum="0.5", journal=journal,
+                                   reactor=serving == "reactor").start()
+        job = ""
+    sub, gate, frames = _held_stream(journal)
+
+    def report(v: int) -> dict:
+        return P.tracker_rpc(server.host, server.port, P.CMD_QUORUM, "0", prev_rank=0,
+                             message=json.dumps({"epoch": tracker.elastic.epoch, "v": v,
+                                                 "have": [0], "held": []}),
+                             retries=0, job=job)
+
+    try:
+        got: dict = {}
+        th = threading.Thread(target=lambda: got.__setitem__("rec", report(1)), daemon=True)
+        th.start()
+        assert _wait(lambda: "quorum_freeze" in [P.journal_frames_from_buffer(f)[0][0][0]
+                                                 for f in list(frames)])
+        t0 = time.monotonic()
+        ack = P.tracker_rpc(server.host, server.port, P.CMD_HEARTBEAT, "1", prev_rank=1,
+                            message="2.0", retries=0, job=job)
+        assert ack == P.ACK and time.monotonic() - t0 < 0.5
+        assert th.is_alive() and not got, got  # held: the freeze has not left
+        gate.set()
+        th.join(5.0)
+        assert got["rec"]["decided"] and got["rec"]["excluded"] == [1]
+        if serving == "service":
+            journal.close()  # streamed() is False at once: no wait, no error
+            t0 = time.monotonic()
+            assert report(2)["decided"]
+            assert time.monotonic() - t0 < 0.5
+    finally:
+        gate.set()
+        server.stop()
 
 
 def test_journalless_tracker_refuses_a_standby():

@@ -89,11 +89,11 @@ def test_failed_build_raises(native_copy):
         native.build_lib()
 
 
-def run_matrix(world: int, args: list[str], monkeypatch) -> LocalCluster:
+def run_matrix(world: int, args: list[str], monkeypatch, n: int = 64) -> LocalCluster:
     for k in BOOT:  # nothing of torch.distributed's bootstrap reaches the workers
         monkeypatch.delenv(k, raising=False)
     cluster = LocalCluster(world, quiet=True, extra_env={"OMP_NUM_THREADS": "1"})
-    assert cluster.run([sys.executable, BASIC, "64", *args], timeout=120) == 0
+    assert cluster.run([sys.executable, BASIC, str(n), *args], timeout=120) == 0
     assert sorted(cluster.messages) == [f"worker {r}/{world} ok" for r in range(world)]
     return cluster
 
@@ -103,6 +103,50 @@ def test_engine_matrix_native(built, world, monkeypatch):
     cluster = run_matrix(world, ["rabit_engine=native", "lazy=0"], monkeypatch)
     assert all(rc == 0 for rc in cluster.returncodes.values())
     assert [e["epoch"] for e in cluster.events if e["kind"] == "wave"] == [0]
+
+
+@pytest.mark.parametrize("world", [2, 3, 5, 8])
+def test_cluster_collectives(built, world, monkeypatch):
+    """tests/test_native.py's cluster worlds on the base engine: trees and
+    rings of odd and larger worlds than the matrix above runs."""
+    run_matrix(world, ["rabit_engine=base"], monkeypatch)
+
+
+def test_cluster_large_payload_ring_path(built, monkeypatch):
+    """Counts past rabit_reduce_ring_mincount take the ring allreduce."""
+    run_matrix(4, ["rabit_engine=base"], monkeypatch, n=100_000)
+
+
+def test_cluster_reduce_buffer_budget(built, monkeypatch):
+    """A tiny rabit_reduce_buffer stages the tree and ring paths in
+    sub-chunks without changing any result."""
+    run_matrix(4, ["rabit_engine=base", "rabit_reduce_buffer=4K", "rabit_reduce_ring_mincount=1"],
+               monkeypatch, n=100_000)
+    run_matrix(3, ["rabit_engine=base", "rabit_reduce_buffer=1K"], monkeypatch, n=50_000)
+
+
+def test_native_solo_roundtrip(built):
+    """No tracker: the native engine runs solo through the C ABI (its C++
+    empty engine), in a process of its own."""
+    code = ("import numpy as np\n"
+            "from rabit_tpu_torch import api as rt\n"
+            "rt.init(['rabit_engine=native'])\n"
+            "assert type(rt.get_engine()).__name__ == 'NativeEngine'\n"
+            "assert rt.get_rank() == 0 and rt.get_world_size() == 1\n"
+            "x = np.arange(8, dtype=np.float32)\n"
+            "assert np.array_equal(rt.allreduce(x, rt.SUM), x)\n"
+            "assert rt.broadcast({'k': 1}, 0) == {'k': 1}\n"
+            "rt.checkpoint({'model': [1, 2]})\n"
+            "assert rt.version_number() == 1\n"
+            "assert rt.load_checkpoint() == (1, {'model': [1, 2]})\n"
+            "rt.tracker_print('native solo ok')\n"
+            "rt.finalize()\n")
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("DMLC_", "RABIT_TPU_")) and k not in BOOT}
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         timeout=60, cwd=ROOT, env=env)
+    assert out.returncode == 0, out.stderr
+    assert "native solo ok" in out.stdout + out.stderr
 
 
 def test_worker_finds_its_tracker_through_dmlc_alone(built, monkeypatch):

@@ -186,6 +186,18 @@ def test_hello_parser_refusals_agree(raw):
             mod.StreamParser(mod.hello_parser()).feed(raw)
 
 
+def test_assignment_head_tail_equals_encode():
+    """The reactor's split encoding (a head a member, one shared tail) is
+    the bytes of Assignment.encode."""
+    asg = P.Assignment(rank=2, world_size=5, parent=0, children=[5], ring_prev=1, ring_next=3,
+                       peers={r: ("127.0.0.1", 40000 + r) for r in range(5)}, epoch=7,
+                       rank_map={str(i): i for i in range(5)}, algo="swing",
+                       ring_order=[0, 2, 4, 3, 1])
+    split = (P.assignment_head_bytes(2, 5, 0, asg.children, 1, 3)
+             + P.assignment_tail_bytes(asg.peers, 7, asg.rank_map, "swing", asg.ring_order))
+    assert split == asg.encode()
+
+
 def test_relay_constants_agree():
     for name in ("CMD_BATCH", "CMD_HANGUP", "CMD_OBS", "CMD_SUB", "CMD_SNAP", "ROUTE_CLOSE",
                  "MAGIC_DELTA", "DELTA_MAX_BYTES", "JOB_SEP"):
@@ -522,6 +534,14 @@ def ship(addr, rank: int, delta: dict) -> None:
                          message=json.dumps(snap), timeout=5.0, retries=1) == P.ACK
 
 
+def folded_windows(rollup: dict) -> dict:
+    """Per rank: its counters and each histogram's count, the parts of a
+    rendered rollup that only grow as windows fold (no float sums)."""
+    return {rank: (state["counters"], {name: h["count"] for name, h in
+                                       state["histograms"].items()})
+            for rank, state in rollup["per_rank"].items()}
+
+
 def test_relay_deltas_fold_as_direct_and_equal_jax_payload():
     windows = [(r, delta_of(10 * r + k)) for k in range(3) for r in range(3)]
     # the CMD_OBS payload each relay builds from the same snapshots
@@ -546,8 +566,15 @@ def test_relay_deltas_fold_as_direct_and_equal_jax_payload():
         for rank, delta in windows:
             ship((direct.host, direct.port), rank, delta)
             ship((relay.host, relay.port), rank, delta)
+        # wait until all nine windows are folded: a relay flush can carry the
+        # first window of each rank while the later ones are still buffered
+        want = stream.StreamRollup()
+        for rank, delta in windows:
+            want.fold(rank, delta)
+        want = folded_windows(want.render())
         deadline = time.monotonic() + 10.0
-        while (relayed._stream.render()["n_folds"] < 3 and time.monotonic() < deadline):
+        while (folded_windows(relayed._stream.render()) != want
+               and time.monotonic() < deadline):
             time.sleep(0.05)
         mine, theirs = relayed._stream.render(), direct._stream.render()
         for key in ("total", "links", "per_rank"):
@@ -712,6 +739,45 @@ def test_relay_redials_at_once_when_its_channel_dies():
     finally:
         relay.stop()
         tr.stop()
+
+def test_relay_child_death_reported_and_recovered():
+    """A child dies mid-job behind a relay: its peers recover through a
+    wave, a new life of the same task id re-enters through the relay, and
+    every state is its closed form (the launcher's restart, in threads)."""
+    world, niter = 3, 4
+    tr = Tracker(world, quiet=True).start()
+    relay = Relay((tr.host, tr.port), relay_id="rR", flush_sec=0.1).start()
+    addr = (relay.host, relay.port)
+    contribution, expected = hist_job(world, niter)
+    results = {}
+    workers = [ElasticWorker(addr, str(i), contribution, niter, heartbeat_sec=0.2,
+                             wave_timeout=10.0, link_timeout=5.0, deadline_sec=40.0,
+                             fail=("die", 2) if i == 1 else None) for i in range(world)]
+    threads = [threading.Thread(target=lambda w=w: results.__setitem__(w.task_id, w.run()),
+                                daemon=True) for w in workers]
+    try:
+        for th in threads:
+            th.start()
+        deadline = time.monotonic() + 20.0
+        while "1" not in results and time.monotonic() < deadline:
+            time.sleep(0.05)
+        assert results.get("1") is not None and results["1"].died
+        restarted = {}
+        again = ElasticWorker(addr, "1", contribution, niter, heartbeat_sec=0.2,
+                              wave_timeout=10.0, link_timeout=5.0, deadline_sec=30.0)
+        th1 = threading.Thread(target=lambda: restarted.update(r1=again.run()), daemon=True)
+        th1.start()
+        for th in threads + [th1]:
+            th.join(timeout=30.0)
+            assert not th.is_alive()
+        assert restarted["r1"].completed, restarted["r1"].error
+        assert np.array_equal(restarted["r1"].state, expected)
+        for tid in ("0", "2"):
+            assert results[tid].completed and np.array_equal(results[tid].state, expected)
+    finally:
+        relay.stop()
+        tr.stop()
+
 
 def test_relayed_cluster_process_level():
     """LocalCluster(3, relays=2): native workers under rabit_engine=mock, a

@@ -29,7 +29,7 @@ memory) and runs a ``Standby`` (``takeover_sec``, ``poll_sec``) that tails
 the file when there is one, else the primary's CMD_JOURNAL stream; the
 workers get both addresses.  ``kill_primary`` kills the primary
 (``Tracker.kill``) after that many seconds, or, as ``("freezes", n)``, once
-it has journaled n ``quorum_freeze`` records; the ranks of ``hold_back``
+it may answer n frozen quorum records (``_freezes``); the ranks of ``hold_back``
 start only after the kill.  ``kill_standby`` kills the standby instead,
 after that many seconds (the job must not notice).
 
@@ -65,8 +65,15 @@ SLOW_REPORT_SHARE = 0.2
 HEARTBEAT_SEC = 0.15
 
 
-def _freezes(journal) -> int:
-    """quorum_freeze records the journal has written, from its mirror."""
+def _freezes(tracker, journal) -> int:
+    """Frozen quorum records the tracker has answered: the port's answers a
+    record once its freeze has left on every standby's stream, or the
+    write-ahead's wait ran out (``_q_answered``); for rabit_tpu's, the
+    records its journal has written."""
+    answered = getattr(tracker, "_q_answered", None)
+    if answered is not None:
+        with tracker._lock:
+            return len(answered)
     return len(journal.state_snapshot()["q_records"])
 
 
@@ -188,7 +195,8 @@ def run_job(world: int, niter: int, work, *, seed: int = 0, schedule: str = "aut
         if kill_primary is not None:
             end = t0 + deadline_sec
             if isinstance(kill_primary, tuple):
-                while _freezes(journal) < int(kill_primary[1]) and time.monotonic() < end:
+                while (_freezes(tracker, journal) < int(kill_primary[1])
+                       and time.monotonic() < end):
                     time.sleep(0.005)
             else:
                 time.sleep(float(kill_primary))
@@ -256,7 +264,12 @@ def _failover_evidence(primary, sb, journal_path: str | None) -> dict:
            "standby_bytes": None}
     table = getattr(primary, "_quorum", None)
     if table is not None:
-        out["primary_records"] = {k: dict(r) for k, r in table._records.items()}
+        # every record the port's tracker answered, whether or not the
+        # write-ahead's wait ran out: one frozen as it died was never
+        # answered, and the promoted tracker decides that round itself
+        answered = getattr(primary, "_q_answered", None)
+        out["primary_records"] = {k: dict(r) for k, r in table._records.items()
+                                  if answered is None or k in answered}
     promoted = sb.tracker if sb.promoted.is_set() else None
     if promoted is None:
         return out

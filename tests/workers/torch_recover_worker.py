@@ -107,6 +107,10 @@ def main() -> int:
     if not first_life:
         # the recovered_at= stamp makes the tracker record a worker_recovered event
         rt.tracker_print(f"[{rank}] recovered version={version} recovered_at={time.time():.6f}")
+    elif version > 0:
+        # a first life at version > 0 resumed from the durable spill: the
+        # stamp makes the tracker record a disk_resume event
+        rt.tracker_print(f"[{rank}] resumed from disk at version {version} ts={time.time():.6f}")
 
     for it in range(version, niter):
         if pause:

@@ -7,6 +7,7 @@ the card, for a same-call A/B of two checkouts.
     python3 tools/torch_smoke_phases.py --phases relay
     python3 tools/torch_smoke_phases.py --phases dp,hybrid,recover,liveness,service
     python3 tools/torch_smoke_phases.py --phases relay,delivery,surface
+    python3 tools/torch_smoke_phases.py --phases recovery
 
 Builds the kernels and the native engine, then runs, in chip_smoke.py's
 order and with its checks, the phases dp, engine, compress, hybrid and
