@@ -174,7 +174,13 @@ Phases, each of which exits non-zero when it fails:
               adjusted totals, rank 2 skipping contributions, a
               link_degraded via quorum with dst 2, and rank 0's commit
               cadence over versions 1-9 under half the exact run's (both
-              printed in ms).  The kernel is launched once a contribution.
+              printed in ms); (d) world 3, quorum 1.0, 3 versions, each
+              contribution the unfolded histogram ([64, 28, 256, 2] int64,
+              7.34 MB a block, larger than a socket's buffers), beside the
+              same job on the exact path: every state bitwise the world-1
+              totals of the card's histograms, both cadences and the block
+              size printed with the run's seconds.  The kernel is launched
+              once a contribution.
 16. failover -- the HA control plane on the card: the same jobs with a
               port Standby (takeover 0.5 s, polls 0.05 s) beside a primary
               that journals: (a) world 3, 4 versions, workers 0 and 1 check
@@ -450,7 +456,7 @@ DIAG_SLEEP = 0.1            # s a diagnose-phase worker waits before each contri
 DIAG_SLOW = (1, 2, 0.15)    # the slow link of run (b): src, dst, s a frame
 DIAG_STRAGGLER = (2, 0.4)   # the compute straggler of run (c): rank, s a version
 QUORUM_SLEEP = 0.01         # s a quorum-phase worker waits before each contribution
-QUORUM_VERSIONS = {"full": 6, "healing": 8, "persistent": 10}
+QUORUM_VERSIONS = {"full": 6, "healing": 8, "persistent": 10, "wide": 3}
 QUORUM_HEALING = (2, 0.4, 3)  # run (b)'s straggler: rank, s a version, up to this version
 QUORUM_PERSISTENT = (2, 0.2)  # run (c)'s: rank, s more than the others before each version
 FAILOVER_VERSIONS = {"mid-wave": 4, "mid-run": 10, "file": 4}
@@ -2749,7 +2755,7 @@ class Smoke:
         return out
 
     # -- phase 14 -----------------------------------------------------------------
-    def diag_work(self, ew):
+    def diag_work(self, ew, wide: bool = False):
         """The diagnose phase's contribution and its world-1 totals.  A
         worker's contribution is node_histograms_kernel over its shard_slice
         of the headline bins (ELASTIC_NODES nodes, the elastic job's integer
@@ -2768,7 +2774,10 @@ class Smoke:
         world, rank) (the fold of node_histograms_kernel_plain on the same
         shard, the contribution the quorum accounting subtracts); the
         totals' launches (version 1 held against node_histograms_kernel_plain)
-        are a comparison's and do not count."""
+        are a comparison's and do not count.  ``wide`` keeps the histogram
+        unfolded, [nodes, F, B, 2] int64 (7.34 MB at the headline size), the
+        block a user's histogram allreduce sends, for QUORUM_VERSIONS["wide"]
+        versions."""
         from rabit_tpu_torch.elastic import shard_slice
 
         torch = self.torch
@@ -2785,6 +2794,8 @@ class Smoke:
                       self.n_bins)
 
         def fold(hv):
+            if wide:
+                return hv.to(torch.int64).cpu().numpy()
             return (hv.to(torch.int64) * weight).sum((1, 2)).cpu().numpy()
 
         def kernel(*a):
@@ -2800,7 +2811,9 @@ class Smoke:
 
         whole = slice(0, self.n_rows)
         per_version = []
-        for v in range(1, max(*DIAG_VERSIONS.values(), *RELAY_VERSIONS.values()) + 1):
+        n_versions = (QUORUM_VERSIONS["wide"] if wide
+                      else max(*DIAG_VERSIONS.values(), *RELAY_VERSIONS.values()))
+        for v in range(1, n_versions + 1):
             hv = hist(v, whole, self.hist.node_histograms_kernel)
             if v == 1:
                 g = ew.row_grads(0, self.n_rows, v)
@@ -3110,7 +3123,33 @@ class Smoke:
               f"{[(x['src'], x['dst']) for x in flagged]}, {q['n_repaired']} repair(s); "
               f"states the record-adjusted totals; launches {q['launches']} and "
               f"{e['launches']}; {q['elapsed']:.2f} s and {e['elapsed']:.2f} s")
+
+        # (d) the unfolded histogram: blocks larger than the socket buffers,
+        # which every rank posts at once
+        t_wide = time.perf_counter()
+        work, want, _plain = self.diag_work(ew, wide=True)
+        n = QUORUM_VERSIONS["wide"]
+        wide = {}
+        for name, kw in (("quorum", dict(quorum="1.0")), ("exact", {})):
+            wide[name] = self.job_run(dj, f"quorum (d) wide {name}", n, work,
+                                      iter_sleep=QUORUM_SLEEP, **kw)
+            require(np.array_equal(self.equal_states(wide[name], f"(d) {name}"), want(n)),
+                    f"(d) wide {name}: the state differs from the world-1 totals")
+        require(all(r.quorum_rounds == n for r in wide["quorum"]["results"].values()),
+                f"(d) wide: rounds "
+                f"{[r.quorum_rounds for r in wide['quorum']['results'].values()]}")
+        block = int(want(n).nbytes)
+        wide_cad = {k: self.cadence_ms(r, last=n) for k, r in wide.items()}
+        wide_s = time.perf_counter() - t_wide
+        print(f"  (d) world 3, {n} versions, each contribution the unfolded histogram "
+              f"[{ELASTIC_NODES}, {N_FEATURES}, {self.n_bins}, 2] int64: quorum 1.0 and exact "
+              f"states bitwise the world-1 totals, {n} quorum rounds a rank; launches "
+              f"{wide['quorum']['launches']} and {wide['exact']['launches']}; "
+              f"{wide['quorum']['elapsed']:.2f} s and {wide['exact']['elapsed']:.2f} s")
+        print(f"  (d) block {block} bytes; rank 0's commit cadence {wide_cad['quorum']:.1f} ms "
+              f"with quorum 1.0, {wide_cad['exact']:.1f} ms exact; run (d) {wide_s:.1f} s")
         out.update(cadence_ms=cad, skipped=skipped, excluded_rounds=len(qm),
+                   wide_cadence_ms=wide_cad, wide_block_bytes=block, wide_s=wide_s,
                    wall_s=time.perf_counter() - t0)
         print(f"  quorum phase: {out['wall_s']:.1f} s", flush=True)
         return out

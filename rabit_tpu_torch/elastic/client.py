@@ -30,7 +30,9 @@ flood the planned ring, with skip links around a predecessor silent past
 ``quorum_wait`` (MAGIC_SKIP; the upstream rank tees its flow onto the
 dialer); each round asks the tracker for its frozen K-of-N exclusion record
 (``CMD_QUORUM``), waits for the blocks the record names and folds them in
-rank order, a straggler's late blocks after them as corrections.  The final
+rank order, a straggler's late blocks after them as corrections.  Each
+outbound link sends from a queue of its own, so a block larger than the
+socket buffers never stalls a ring in which every rank sends at once.  The final
 round is always exact, and a rank the group has moved past skips its
 contribution to a round the record already excluded it from (the bounded
 catch-up).  Every fold is bitwise the same on every rank.
@@ -63,6 +65,7 @@ for byte.
 
 from __future__ import annotations
 
+import collections
 import json
 import pickle
 import select
@@ -84,6 +87,82 @@ from rabit_tpu_torch.tracker import protocol as P
 #: two ranks that send each other a large frame at once must not both block
 #: in ``sendall`` with full socket buffers.
 _THREADED_SEND_BYTES = 1 << 16
+
+
+class _LinkSender:
+    """One outbound link of a quorum round: a queue of frames that a thread
+    of its own sends in order.  The worker never blocks on the link, so a
+    block larger than the socket buffers cannot stall a ring in which every
+    rank sends at once; the pump goes on reading meanwhile.  A send that
+    makes no progress for the socket's timeout ends the thread with
+    ``error`` set (as does any other send error), and the queue is
+    dropped."""
+
+    def __init__(self, sock: socket.socket):
+        self.sock = sock
+        self.error: OSError | None = None
+        self._queue: collections.deque[bytes] = collections.deque()
+        self._busy = False
+        self._closed = False
+        self._cv = threading.Condition()
+        threading.Thread(target=self._run, daemon=True, name="rabit-quorum-send").start()
+
+    def put(self, data: bytes) -> None:
+        with self._cv:
+            if self.error is None and not self._closed:
+                self._queue.append(data)
+                self._cv.notify_all()
+
+    def owes(self) -> bool:
+        """Frames queued or in flight, and the link still healthy."""
+        with self._cv:
+            return self.error is None and (self._busy or bool(self._queue))
+
+    def wait_sent(self, timeout: float) -> None:
+        """Wait until nothing is owed, the link failed or ``timeout`` passed."""
+        end = time.monotonic() + timeout
+        with self._cv:
+            while self.error is None and (self._busy or self._queue):
+                left = end - time.monotonic()
+                if left <= 0:
+                    return
+                self._cv.wait(left)
+
+    def close(self) -> None:
+        """Drop what is queued and end the thread; the link is shut down so
+        that a send blocked on it returns now (the caller closes it)."""
+        with self._cv:
+            self._closed = True
+            self._queue.clear()
+            self._cv.notify_all()
+        try:
+            self.sock.shutdown(socket.SHUT_RDWR)
+        except OSError:
+            pass
+
+    def _run(self) -> None:
+        while True:
+            with self._cv:
+                while not self._queue and not self._closed:
+                    self._cv.wait()
+                if self._closed:
+                    return
+                data = memoryview(self._queue.popleft())
+                self._busy = True
+            try:
+                while data:  # each send waits at most the socket's timeout
+                    data = data[self.sock.send(data):]
+            except OSError as exc:
+                with self._cv:
+                    self.error = exc
+                    self._busy = False
+                    self._queue.clear()
+                    self._cv.notify_all()
+                return
+            with self._cv:
+                self._busy = False
+                self._cv.notify_all()
+
 
 class EpochBroken(Exception):
     """The current epoch's links are unusable (a peer died, a stale epoch,
@@ -232,6 +311,7 @@ class ElasticWorker:
         self._known_late: set[int] = set()
         self._skip_in: list[socket.socket] = []   # dialed around a silent predecessor
         self._tee_out: list[socket.socket] = []   # dialed by someone routing around ours
+        self._senders: dict[socket.socket, _LinkSender] = {}  # the round's outbound queues
         self._skip_from = -1
         self._next_closed = False  # the ring's next rank closed its end this epoch
         self._qlike: np.ndarray | None = None     # the decode template
@@ -487,6 +567,14 @@ class ElasticWorker:
             expect_accept.discard(peer)
 
     def _close_links(self) -> None:
+        # what this rank still owes its successor goes out first, unless the
+        # worker was stopped; a send that stalls fails within link_timeout
+        nxt = self._senders.get(self._links.get(self._ring_next))
+        if nxt is not None and not self._stop.is_set():
+            nxt.wait_sent(min(self.link_timeout, max(self.deadline - time.monotonic(), 0.0)))
+        for sender in self._senders.values():
+            sender.close()
+        self._senders.clear()
         for s in self._links.values():
             try:
                 s.close()
@@ -622,36 +710,70 @@ class ElasticWorker:
         """Ranks whose version-``v`` block this worker holds."""
         return {r for (vv, r) in self._qframes if vv == v}
 
-    def _qpost(self, asg: P.Assignment, v: int, origin: int, payload: bytes) -> bool:
-        """Keep a tagged block the first time it is seen and pass it on to
-        the ring's next rank and every tee; True when it was new."""
-        key = (v, origin)
-        if key in self._qseen:
-            return False
-        self._qseen.add(key)
-        self._qframes[key] = payload
-        frame = P.put_block_frame(v, origin, payload)
-        nxt = self._links.get(self._ring_next) if asg.world_size > 1 else None
-        if nxt is not None and not self._next_closed:
-            try:
-                nxt.sendall(P.put_u32(len(frame)) + frame)
-            except (BrokenPipeError, ConnectionResetError):
+    def _q_send(self, s: socket.socket, frame: bytes) -> None:
+        """Queue a block frame on an outbound link's sender."""
+        sender = self._senders.get(s)
+        if sender is None:
+            sender = self._senders[s] = _LinkSender(s)
+        sender.put(P.put_u32(len(frame)) + frame)
+
+    def _q_check_sends(self) -> None:
+        """Act on the outbound links whose sender failed: a tee is dropped;
+        the ring's next rank having closed its end is noted; any other
+        failure of the next link (a stall past link_timeout included)
+        breaks the epoch."""
+        for s, sender in list(self._senders.items()):
+            exc = sender.error
+            if exc is None:
+                continue
+            if s in self._tee_out:
+                self._drop_tee(s)
+                continue
+            del self._senders[s]
+            if isinstance(exc, (BrokenPipeError, ConnectionResetError)):
                 # The next rank closed its end: it folded the final round
                 # and left, or it died, which its own successor reads as EOF
                 # and passes around the ring to us.  Either way it needs
                 # nothing more from this rank, and the round goes on from
                 # what the inbound links still hold.
                 self._next_closed = True
-            except OSError as exc:
-                raise EpochBroken(f"link send failed: {exc!r}")
-        for s in list(self._tee_out):
-            try:
-                s.sendall(P.put_u32(len(frame)) + frame)
-            except OSError:
-                self._drop_tee(s)
+                continue
+            raise EpochBroken(f"link send failed: {exc!r}")
+
+    def _q_flush(self, asg: P.Assignment, deadline: float) -> None:
+        """Pump until every outbound link has sent what it was given (or
+        failed, as ``_q_check_sends`` rules): a round folds only once this
+        rank owes nothing."""
+        while True:
+            self._q_check_sends()
+            if not any(sender.owes() for sender in self._senders.values()):
+                return
+            self._check_deadline()
+            if time.monotonic() > deadline:
+                raise EpochBroken("quorum round: outbound blocks not sent within bound")
+            self._qpump(asg, tick=0.002)
+
+    def _qpost(self, asg: P.Assignment, v: int, origin: int, payload: bytes) -> bool:
+        """Keep a tagged block the first time it is seen and queue it for
+        the ring's next rank and every tee; True when it was new."""
+        key = (v, origin)
+        if key in self._qseen:
+            return False
+        self._qseen.add(key)
+        self._qframes[key] = payload
+        self._q_check_sends()
+        frame = P.put_block_frame(v, origin, payload)
+        nxt = self._links.get(self._ring_next) if asg.world_size > 1 else None
+        if nxt is not None and not self._next_closed:
+            self._q_send(nxt, frame)
+        for s in self._tee_out:
+            self._q_send(s, frame)
         return True
 
     def _drop_tee(self, s: socket.socket) -> None:
+        sender = self._senders.pop(s, None)
+        if sender is not None:
+            sender.close()
         s.close()
         if s in self._tee_out:
             self._tee_out.remove(s)
@@ -683,13 +805,8 @@ class ElasticWorker:
         if epoch != asg.epoch:
             s.close()
             return
-        try:
-            for (v, origin) in sorted(self._qframes):
-                frame = P.put_block_frame(v, origin, self._qframes[(v, origin)])
-                s.sendall(P.put_u32(len(frame)) + frame)
-        except OSError:
-            s.close()
-            return
+        for (v, origin) in sorted(self._qframes):
+            self._q_send(s, P.put_block_frame(v, origin, self._qframes[(v, origin)]))
         self._tee_out.append(s)
 
     def _q_skip_dial(self, asg: P.Assignment, v: int) -> None:
@@ -719,6 +836,7 @@ class ElasticWorker:
         """One bounded pass over every inbound source (the ring's previous
         rank, the skip links, the listen socket for dials around our
         neighbour); True when a new block landed."""
+        self._q_check_sends()
         ins: list[socket.socket] = []
         if asg.world_size > 1 and self._ring_prev in self._links:
             ins.append(self._links[self._ring_prev])
@@ -795,16 +913,19 @@ class ElasticWorker:
         deadline = min(time.monotonic() + self.wave_timeout, self.deadline)
         try:
             rec = self._q_agree(asg, v, contrib is not None, exact, deadline)
+            self._q_flush(asg, deadline)
         except EpochBroken:
             # A link closed under the round.  When the round's record is
             # already frozen and every block it names is held, fold it as
             # every other rank did: abandoning it would redo the round in
             # the next epoch under other exclusions, with the corrections
             # owed dropped at the wave, and this rank's state would no longer
-            # match theirs.
+            # match theirs.  What the healthy links still owe goes out first.
             rec = self._q_frozen_record(asg, v)
             if rec is None:
                 raise
+            for sender in self._senders.values():
+                sender.wait_sent(max(deadline - time.monotonic(), 0.0))
         excluded = {int(r) for r in rec.get("excluded", ())}
         corrections = sorted((int(sv), int(r)) for sv, r in rec.get("corrections", ()))
         # fold in rank order, the corrections after the round's blocks in

@@ -56,9 +56,9 @@ class ControlState:
         self.sched_algo = ""
         self.last_ring: list[int] = []
         # the delivery plane's version line, the newest published
-        # {version, epoch, digest, size} ({} before any): the port journals
-        # none yet (item 10f), but replays a rabit_tpu journal's to the same
-        # bytes
+        # {version, epoch, digest, size} ({} before any): the tracker
+        # journals each as ``snapshot_published``, and a rabit_tpu journal's
+        # replays to the same bytes
         self.delivery: dict = {}
         # the quorum ledgers, mirroring quorum.QuorumTable
         self.q_records: dict[str, dict] = {}       # "epoch:v" -> record

@@ -33,8 +33,8 @@ _RESERVED = ("ts", "kind")
 
 #: The event-kind registry: every ``kind`` of ``rabit_tpu``'s registry
 #: (``rabit_tpu/obs/events.py`` ``KINDS``) that a plane of the port can
-#: record, with the same one-line meaning.  A kind is added here in the
-#: change that adds its producer.
+#: record, with the same one-line meaning, and the port's own kinds.  A
+#: kind is added here in the change that adds its producer.
 KINDS: dict[str, str] = {
     # envelope / ring
     "flight_dump": "dump header line: pid, rank, reason, n_events, dropped",
@@ -55,6 +55,10 @@ KINDS: dict[str, str] = {
                        "min_bytes, checkpoint codec, deflate stage",
     "recovery_blob_compressed": "disk-resume blob served over the wire "
                                 "zlib-compressed: raw, wire, version",
+    # the port's own: rabit_tpu meters a compressed collective only in its
+    # registry, the port also records it (compress.transport.observe)
+    "compress": "one compressed collective metered: codec, raw, wire, "
+                "encode_s, decode_s, fused",
     # checkpoint line (api.py / native bridge)
     "checkpoint_commit": "version bump committed: version, nbytes",
     "checkpoint_loaded": "bridge served a peer-recovered blob: version",

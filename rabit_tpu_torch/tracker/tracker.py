@@ -466,6 +466,9 @@ class Tracker:
         # ring, whose predecessor of a persistent straggler is flagged
         self._quorum = QuorumTable(quorum, flag_after=quorum_flag_after) if quorum else None
         self._last_ring: list[int] = []
+        # the newest wave's epoch and its members' link addresses, for
+        # releasing survivors stranded in its link set-up (note_exit)
+        self._wave_links: tuple[int, dict[str, tuple[str, int]]] | None = None
         self.snapshots: dict[int, dict] = {}  # rank -> newest shipped snapshot
         self.telemetry: dict | None = None
         self._stream = obs_stream.StreamRollup()
@@ -743,12 +746,13 @@ class Tracker:
             if self._killed:
                 conn.close()  # a dead tracker answers nothing
                 return
-            if h.cmd in (P.CMD_BATCH, P.CMD_JOURNAL):
-                conn.settimeout(None)  # this thread serves the channel
-                if h.cmd == P.CMD_BATCH:
-                    self._serve_relay(conn, h.task_id, addr)
-                else:
-                    self._serve_journal(conn, h.task_id)
+            if h.cmd == P.CMD_BATCH:
+                conn.settimeout(None)  # this thread serves the relay's channel
+                self._serve_relay(conn, h.task_id, addr)
+                return
+            if h.cmd == P.CMD_JOURNAL:
+                conn.settimeout(None)  # this thread streams the journal
+                self._serve_journal(conn, h.task_id)
                 return
             tr, h.task_id = self._route_hello(h.task_id, h.cmd)
             if tr is None:
@@ -1865,10 +1869,34 @@ class Tracker:
     def note_exit(self, task_id: str) -> None:
         """The launcher saw the process of ``task_id`` die: its lease goes
         (a dead life's lease must not suspect the next life while it
-        starts), and a parked spare takes its slot at once (``note_dead``)."""
+        starts), the newest wave's other members are released from its link
+        set-up (``_release_wave``), and a parked spare takes its slot at
+        once (``note_dead``)."""
         with self._lock:
             self._drop_lease_locked(task_id)
+            links = self._wave_links
+        if links is not None and task_id in links[1]:
+            threading.Thread(target=self._release_wave,
+                             args=(links[0], [a for t, a in links[1].items() if t != task_id]),
+                             daemon=True, name="rabit-torch-tracker-release").start()
         self.note_dead(task_id)
+
+    @staticmethod
+    def _release_wave(epoch: int, addrs: list[tuple[str, int]]) -> None:
+        """Tell the members of wave ``epoch`` that one of them died: each
+        gets a link hello of that epoch from no rank.  A member still
+        waiting in the wave's link set-up for the dead member's dial takes it
+        as a failed bootstrap and checks in again at once, instead of
+        waiting out ``rabit_bootstrap_timeout_sec``; a member past it never
+        reads the hello before its next wave, whose epoch differs, so it is
+        dropped as a stale dialer.  Best effort: a member gone is skipped."""
+        hello = P.put_u32(P.MAGIC_LINK) + P.put_i32(-1) + P.put_u32(epoch)
+        for addr in addrs:
+            try:
+                with socket.create_connection(addr, timeout=1.0) as s:
+                    s.sendall(hello)
+            except OSError:
+                pass
 
     def note_dead(self, task_id: str) -> None:
         """A task known dead (its lease expired): move a parked spare into
@@ -2045,6 +2073,8 @@ class Tracker:
         splan = self._plan_schedule(world, rank_map)
         with self._lock:
             self._last_ring = list(splan.ring_order) or list(range(world))
+            self._wave_links = (wave["epoch"], {p.task_id: (p.host, p.listen_port)
+                                                for p in wave["members"]})
             self._journal("sched", epoch=wave["epoch"], algo=splan.algo,
                           ring=list(self._last_ring))
         if self.journal is not None:

@@ -172,3 +172,55 @@ def test_configure_matches_jax(args):
         finally:
             mod.reset()
     assert outcomes[0] == outcomes[1]
+
+
+def _higgs_shaped(n_rows, n_features, n_bins, seed=0):
+    """tests/test_compress.py's Higgs-shaped synthetic."""
+    rng = np.random.RandomState(seed)
+    xb = rng.randint(0, n_bins, size=(n_rows, n_features), dtype=np.int32)
+    logits = (xb[:, 0] > n_bins // 2).astype(np.float32) + 0.01 * xb[:, 1]
+    y = (logits + rng.randn(n_rows) > 1.5).astype(np.float32)
+    return xb.astype(np.float32), y
+
+
+def test_gbdt_i8x2_matches_f32_within_bound():
+    """tests/test_compress.py:325 on the port: its GBDT (on the CPU) with an
+    i8x2 histogram allreduce through the port's api at world 1.  Every
+    compressed histogram lies within the 2^-14 block-relative bound of the
+    payload it encoded, the eval accuracy is the exact run's within 0.01,
+    and the codec paid fewer wire bytes than it was given."""
+    from rabit_tpu_torch import api
+    from rabit_tpu_torch.compress.codecs import BLOCK
+    from rabit_tpu_torch.models.gbdt import GBDT
+
+    X, y = _higgs_shaped(20000, 12, 64)
+    api.init([], rabit_compress_min_bytes=1)
+    try:
+        captured = []
+
+        def hook_exact(hist):
+            return api.allreduce(np.asarray(hist), api.SUM)
+
+        def hook_i8x2(hist):
+            a = np.asarray(hist)
+            out = api.allreduce(a, api.SUM, codec="i8x2")
+            captured.append((a, out))
+            return out
+
+        hyper = dict(n_trees=5, depth=4, n_bins=64, learning_rate=0.3)
+        m_exact = GBDT(engine_allreduce=hook_exact, device="cpu", **hyper).fit(X, y)
+        m_i8 = GBDT(engine_allreduce=hook_i8x2, device="cpu", **hyper).fit(X, y)
+        assert captured
+        for raw, out in captured:
+            flat = raw.reshape(-1).astype(np.float32)
+            pad = np.zeros(-(-flat.size // BLOCK) * BLOCK, np.float32)
+            pad[:flat.size] = flat
+            maxes = np.repeat(np.abs(pad.reshape(-1, BLOCK)).max(axis=1), BLOCK)[:flat.size]
+            assert np.all(np.abs(np.asarray(out).reshape(-1) - flat) <= 2.0 ** -14 * maxes * 1.001)
+        acc_exact = float(np.mean(m_exact.predict(X) == y))
+        acc_i8 = float(np.mean(m_i8.predict(X) == y))
+        assert abs(acc_exact - acc_i8) <= 0.01, (acc_exact, acc_i8)
+        counters = api.collective_stats().registry.snapshot()["counters"]
+        assert counters["compress_wire_bytes_total"] < counters["compress_raw_bytes_total"]
+    finally:
+        api.finalize()

@@ -155,3 +155,70 @@ def test_run_local_without_a_card_raises(monkeypatch, device):
     kw = {} if device is None else {"device": device}
     with pytest.raises(RuntimeError, match="no CUDA device"):
         fused.run_local([np.ones(4, np.float32)], SUM, "i8", **kw)
+
+
+# -- in-process units of tests/test_fused.py --------------------------------------------
+
+def test_fused_active_gating():
+    """``fused_active`` mirrors ``allreduce_compressed``'s routing: on for a
+    device codec and a fused op at world > 1, off at world 1, for a
+    host-only codec, for BITOR and under ``rabit_fused_allreduce=0``; the
+    solo engine always answers False."""
+    from rabit_tpu_torch.config import Config
+    from rabit_tpu_torch.engine.base import BITOR, MAX
+    from rabit_tpu_torch.engine.empty import SoloEngine
+    from rabit_tpu_torch.engine.torch_dist import TorchEngine
+
+    eng = TorchEngine(Config(["rabit_torch_device=cpu"]))
+    eng._rank, eng._world = 0, 4
+    assert eng.fused_active(tcompress.get_codec("i8"), SUM)
+    assert eng.fused_active(tcompress.get_codec("bf16x2"), MAX)
+    assert not eng.fused_active(tcompress.get_codec("zlib"), SUM)  # host-only codec
+    assert not eng.fused_active(tcompress.get_codec("i8"), BITOR)
+    eng._world = 1
+    assert not eng.fused_active(tcompress.get_codec("i8"), SUM)
+    off = TorchEngine(Config(["rabit_torch_device=cpu", "rabit_fused_allreduce=0"]))
+    off._rank, off._world = 0, 4
+    assert not off.fused_active(tcompress.get_codec("i8"), SUM)
+    assert not SoloEngine(Config([])).fused_active(tcompress.get_codec("i8"), SUM)
+
+
+def test_collective_events_carry_fused_identity():
+    """A fused collective's op_begin/op_end carry fused=1, a host-path op
+    none, and the trace merger's spans keep the flag."""
+    from rabit_tpu_torch import api, obs
+    from rabit_tpu_torch.obs import trace
+
+    api.init([], rabit_compress_min_bytes=1)
+    try:
+        obs.get_recorder().clear()
+        with obs.collective("allreduce", 64, cache_key="k", codec="i8", fused=True):
+            pass
+        api.allreduce(np.arange(600, dtype=np.float32), api.SUM, codec="i8")  # host path
+        evs = [e for e in obs.get_recorder().snapshot() if e.kind in ("op_begin", "op_end")]
+        assert len([e for e in evs if e.fields.get("fused") == 1]) == 2
+        assert len([e for e in evs if "fused" not in e.fields]) == 2
+        assert [s.fused for s in trace.pair_ops(evs)] == [True, False]
+    finally:
+        api.finalize()
+
+
+def test_build_fused_allreduce_refuses_bad_input(tmp_path):
+    """build_fused_allreduce refuses a ring order that is no permutation of the
+    group's ranks and an empty contribution, before any hop."""
+    import torch.distributed as dist
+
+    from rabit_tpu_torch.engine import fused
+
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path / 'store'}",
+                            world_size=1, rank=0)
+    try:
+        c = tcompress.get_codec("i8")
+        with pytest.raises(ValueError, match="permutation"):
+            fused.build_fused_allreduce(None, (0, 0), SUM, c, 64)
+        with pytest.raises(ValueError, match="permutation"):
+            fused.build_fused_allreduce(None, (0, 1), SUM, c, 64)
+        with pytest.raises(ValueError, match="n >= 1"):
+            fused.build_fused_allreduce(None, (0,), SUM, c, 0)
+    finally:
+        dist.destroy_process_group()

@@ -309,3 +309,38 @@ def test_port_imports_no_jax():
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120, check=True, cwd=root)
     assert out.stdout.strip() == "[]", out.stdout + out.stderr
+
+
+# -- tests/test_gbdt.py's learning checks, on the port ----------------------------------
+
+def _synth(n=2000, f=10, seed=0):
+    """tests/test_gbdt.py's make_synth: interactions and a threshold."""
+    rng = np.random.RandomState(seed)
+    X = rng.randn(n, f).astype(np.float32)
+    logits = X[:, 0] * X[:, 1] + np.sin(X[:, 2] * 2) + 0.5 * (X[:, 3] > 0.3)
+    return X, (logits > 0).astype(np.float32)
+
+
+def test_gbdt_learns():
+    X, y = _synth()
+    model = tgbdt.GBDT(n_trees=15, depth=4, n_bins=64, learning_rate=0.4,
+                       device="cpu").fit(X, y)
+    acc = (model.predict(X) == y).mean()
+    assert acc > 0.93, f"train accuracy {acc}"
+
+
+def test_gbdt_squared_objective():
+    rng = np.random.RandomState(1)
+    X = rng.randn(500, 5).astype(np.float32)
+    y = (2 * X[:, 0] - X[:, 1]).astype(np.float32)
+    model = tgbdt.GBDT(n_trees=20, depth=3, n_bins=64, objective="squared",
+                       learning_rate=0.5, device="cpu").fit(X, y)
+    mse = float(np.mean((model.predict(X) - y) ** 2))
+    assert mse < 0.4, f"mse {mse}"
+
+
+def test_predict_mid_training_zero_trees():
+    cfg = tgbdt.GBDTConfig(n_features=4, n_trees=3, depth=3)
+    forest = tgbdt.init_forest(cfg, device="cpu")
+    out = tgbdt.predict_margin(forest, torch.zeros((7, 4), dtype=torch.int32), cfg)
+    np.testing.assert_array_equal(out.numpy(), np.zeros(7))

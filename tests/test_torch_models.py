@@ -269,3 +269,25 @@ def test_entry_points_refuse_cuda_without_a_card(monkeypatch):
                  lambda: kmeans.KMeans(3).fit(X)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
+
+
+# -- tests/test_models.py's learning checks, on the port ---------------------------------
+
+def test_linear_learns():
+    rng = np.random.RandomState(0)
+    X = rng.randn(1600, 6).astype(np.float32)
+    w = rng.randn(6).astype(np.float32)
+    y = (X @ w + 0.3 > 0).astype(np.float32)
+    m = linear.LinearModel(n_steps=80, device="cpu").fit(X, y)
+    assert (m.predict(X) == y).mean() > 0.95
+
+
+def test_kmeans_recovers_blobs():
+    rng = np.random.RandomState(1)
+    centers = rng.randn(5, 4).astype(np.float32) * 6
+    X = centers[rng.randint(0, 5, size=1500)] + rng.randn(1500, 4).astype(np.float32)
+    km = kmeans.KMeans(n_clusters=5, n_iters=30, seed=3, device="cpu").fit(X)
+    d = np.linalg.norm(centers[:, None, :] - km.centers[None, :, :], axis=-1)
+    assert d.min(axis=1).max() < 1.0, d.min(axis=1)  # a centroid near every center
+    assert km.predict(X).shape == (len(X),)
+    assert km.inertia(X) / len(X) < 2 * X.shape[1]

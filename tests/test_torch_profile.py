@@ -82,3 +82,49 @@ def test_split_attributes_device_time():
     assert got["launches"] == 5
     with pytest.raises(ValueError, match="no host span"):
         profile.split(events, (), window="step")
+
+
+# -- per-collective stats (tests/test_profile.py) --------------------------------------
+
+def test_stats_accumulate_solo():
+    from rabit_tpu_torch import api
+
+    api.reset_collective_stats()
+    api.init()
+    api.allreduce(np.arange(10, dtype=np.float32), api.SUM)
+    api.allreduce(np.arange(4, dtype=np.float32), api.MAX)
+    api.broadcast({"x": 1}, 0)
+    api.finalize()
+    s = api.collective_stats()
+    assert s.ops["allreduce"].calls == 2
+    assert s.ops["allreduce"].nbytes == 10 * 4 + 4 * 4
+    assert s.ops["broadcast"].calls == 1
+    rep = s.report()
+    assert "allreduce" in rep and "MiB" in rep
+
+
+def test_stats_report_empty():
+    assert "no collectives" in profile.CollectiveStats().report()
+
+
+def test_timed_context():
+    s = profile.CollectiveStats()
+    with s.timed("allgather", 128):
+        pass
+    assert s.ops["allgather"].calls == 1
+    assert s.ops["allgather"].max_seconds >= 0
+
+
+def test_stats_line_parsers_live_in_obs_events():
+    """The stdout parsers are obs.events', not profile's (rabit_tpu removed
+    its profile facade): a recovery stats line splits on the first '='."""
+    from rabit_tpu_torch.obs.events import is_recovery_stats_line, parse_stats_line
+
+    assert not hasattr(profile, "parse_stats_line")
+    assert not hasattr(profile, "is_recovery_stats_line")
+    line = ("[3] recover_stats version=2 summary_rounds=4 table_rounds=2 "
+            "serve_bytes=1048576 summary_depth=8 table_hops=14")
+    kv = parse_stats_line(line)
+    assert kv["version"] == "2" and int(kv["summary_depth"]) == 8 and int(kv["table_hops"]) == 14
+    assert parse_stats_line("k=a=b x")["k"] == "a=b"
+    assert is_recovery_stats_line(line)

@@ -388,3 +388,83 @@ def test_quorum_across_packages(direction):
     qm = _kinds(out, "quorum_met")
     assert qm and all(e["excluded"] == [2] for e in qm)
     assert np.array_equal(state, adjusted_expected(out["events"], expected(niter), per))
+
+
+# -- blocks larger than the socket buffers (F20) --------------------------------
+#
+# Every rank posts its block at once, so a round whose block is larger than
+# what the loopback's socket buffers hold completes only when no rank blocks
+# on an outbound link while its inbound one fills.  The blocks are
+# integer-valued float64, so every order of summation gives the same bits.
+
+MIB = 1 << 20
+
+
+def _large_blocks(world: int, n_bytes: int, seed: int = 20):
+    rng = np.random.default_rng(seed)
+    base = [rng.integers(0, 1000, n_bytes // 8).astype(np.float64) for _ in range(world)]
+
+    def per(version, w, r):
+        return base[r] * version
+
+    def expected(niter):
+        return np.sum([per(v, world, r) for v in range(1, niter + 1) for r in range(world)],
+                      axis=0)
+
+    return per, expected
+
+
+@pytest.mark.parametrize("world", [2, 3])
+@pytest.mark.parametrize("mib", [4, 8])
+def test_quorum_round_with_blocks_past_the_socket_buffers(world, mib):
+    niter = 3
+    per, expected = _large_blocks(world, mib * MIB)
+    out = torch_diag_job.run_job(world, niter, per, iter_sleep=0.01, deadline_sec=30.0,
+                                 quorum="1.0")
+    assert np.array_equal(_states(out), expected(niter))
+    assert all(r.quorum_rounds == niter for r in out["results"].values())
+    assert out["elapsed"] < 15.0
+
+
+def test_large_blocks_cross_skip_links_and_tees():
+    world, niter = 3, 6
+    per, expected = _large_blocks(world, 8 * MIB)
+    out = torch_diag_job.run_job(world, niter, per, iter_sleep=0.01, deadline_sec=40.0,
+                                 quorum="0.6", quorum_wait=0.12, quorum_flag_after=0,
+                                 straggler=(2, 0.4, 3))
+    state = _states(out)
+    qm = _kinds(out, "quorum_met")
+    # the straggler is excluded; with 8 MiB frames on a loaded host another
+    # rank's block may miss a round's 0.12 s wait too, which the record
+    # accounts for like any exclusion
+    assert any(e["excluded"] == [2] for e in qm)
+    assert all(len(e["excluded"]) == 1 for e in qm)  # 2 of 3 fold
+    assert np.array_equal(state, adjusted_expected(out["events"], expected(niter), per))
+    assert max(e["version"] for e in qm) < niter  # the final round is exact
+
+
+def test_large_blocks_match_rabit_tpu_bitwise():
+    """3.67 MB blocks, which rabit_tpu's blocking sends still complete: the
+    port's states are rabit_tpu's, bit for bit."""
+    world, niter = 3, 3
+    per, expected = _large_blocks(world, 3_670_016)
+    port = torch_diag_job.run_job(world, niter, per, iter_sleep=0.01, deadline_sec=30.0,
+                                  quorum="1.0")
+    jax = torch_diag_job.run_job(world, niter, per, iter_sleep=0.01, deadline_sec=30.0,
+                                 quorum="1.0", worker_cls=JaxWorker, tracker_cls=JaxTracker)
+    assert np.array_equal(_states(port), _states(jax))
+    assert _states(port).tobytes() == expected(niter).tobytes()
+
+
+def test_consensus_bench_quorum_ablation_gate():
+    """tests/test_quorum.py:506 through the port's tool: quorum off tracks
+    the 8x straggler's cadence, quorum on sheds it (its bars)."""
+    from tools.torch_consensus_bench import quorum_ablation
+
+    out = quorum_ablation(world=3, niter=15, iter_sleep=0.02, straggler_factor=8.0,
+                          device="cpu")
+    assert out["arms"]["straggler_on"]["n_quorum_met"] >= 1
+    assert out["off_cadence_vs_base"] > 3.0, out
+    assert out["on_cadence_vs_base"] < 2.5, out
+    assert (out["arms"]["straggler_on"]["cadence_s"]
+            < 0.5 * out["arms"]["straggler_off"]["cadence_s"]), out

@@ -46,7 +46,8 @@ def run(cluster_cls, worker: str, nworkers: int, args: list[str], max_restarts=1
     return cluster
 
 
-# (workers, args, restarts per task id), after tests/test_recover.py
+# (workers, args, restarts per task id[, run's max_restarts and timeout]),
+# after tests/test_recover.py
 SCENARIOS = {
     "no-failure": (4, ["niter=3"], {}),
     "single-death": (4, ["niter=3", "mock=0,1,1,0"], {"0": 1}),
@@ -69,13 +70,34 @@ SCENARIOS = {
     "load-checkpoint-entry": (4, ["niter=3", "mock=2,1,0,0;2,0,-2,1"], {"2": 2}),
     "commit-window": (4, ["niter=3", "local=1", "mock=1,1,-3,0"], {"1": 1}),
     "commit-window-global-only": (4, ["niter=3", "mock=2,2,-3,0"], {"2": 1}),
+    # local models checkpointed but not replicated: a valid configuration
+    # that must not trip the consistency check
+    "local-model-zero-replicas": (4, ["niter=3", "local=1", "rabit_local_replica=0"], {},
+                                  {"max_restarts": 0}),
+    "local-double-death": (5, ["niter=4", "local=1", "mock=1,2,3,0;3,2,3,0"],
+                           {"1": 1, "3": 1}),
+    # each result kept by ~2 ranks only: the rotating replicas' drop rule
+    "reduced-replica-budget": (6, ["niter=3", "rabit_global_replica=2", "mock=1,1,2,0"],
+                               {"1": 1}),
+    # one rank still replaying seqnos while the other is served its checkpoint
+    "staggered-overlapping-recoveries": (5, ["niter=4", "mock=1,1,1,0;2,1,3,0"],
+                                         {"1": 1, "2": 1}),
+    "many-iterations-many-deaths": (4, ["niter=5", "mock=0,1,0,0;1,2,3,0;2,3,4,0;3,4,1,0"],
+                                    {"0": 1, "1": 1, "2": 1, "3": 1},
+                                    {"max_restarts": 10, "timeout": 180.0}),
+    # the reference's CI gate: 10 workers x 10k floats, with a die-hard
+    # second kill of rank 1 on its second life
+    "reference-scale-10-workers-10k": (10, ["niter=3", "ndata=10000",
+                                            "mock=0,0,1,0;1,1,1,0;4,1,1,0;9,1,1,0;1,1,1,1"],
+                                       {"0": 1, "1": 2, "4": 1, "9": 1},
+                                       {"max_restarts": 20, "timeout": 240.0}),
 }
 
 
 @pytest.mark.parametrize("name", list(SCENARIOS))
 def test_recover_scenario(name):
-    nworkers, args, restarts = SCENARIOS[name]
-    cluster = run(LocalCluster, WORKER, nworkers, args)
+    nworkers, args, restarts, *limits = SCENARIOS[name]
+    cluster = run(LocalCluster, WORKER, nworkers, args, **(limits[0] if limits else {}))
     assert cluster.restarts == {str(i): restarts.get(str(i), 0) for i in range(nworkers)}
     if restarts:
         assert any("recovered version=" in m for m in cluster.messages)
@@ -93,3 +115,24 @@ def test_interop(side):
         cluster = run(JaxCluster, WORKER, 4, ["niter=3", "preload_op=1",
                                               "rabit_bootstrap_cache=1", "mock=1,1,3,0"])
     assert cluster.restarts["1"] == 1
+
+
+def test_recover_stats_lines():
+    """tests/test_recover.py:195 on the port: with rabit_recover_stats=1 a
+    survivor's failure_detected stamp and the restarted life's recover_stats
+    counters at a nonzero version reach the tracker's events, and the
+    summary's merge depth a round stays within twice the heap's height."""
+    import math
+
+    cluster = run(LocalCluster, WORKER, 4, ["niter=3", "mock=1,1,1,0",
+                                            "rabit_recover_stats=1"])
+    assert [e for e in cluster.events if e["kind"] == "failure_detected" and "at" in e]
+    stats = [e for e in cluster.events
+             if e["kind"] == "recover_stats" and e.get("version", 0) > 0]
+    assert stats, cluster.events
+    fields = stats[0]
+    assert fields["summary_rounds"] >= 1 and fields["serve_bytes"] > 0
+    depth_per_op = fields["summary_depth"] / fields["summary_rounds"]
+    assert 1 <= depth_per_op <= 2 * math.ceil(math.log2(4)) + 1, fields
+    if fields["table_rounds"] > 0:
+        assert fields["table_hops"] / fields["table_rounds"] == 3, fields  # W - 1 hops

@@ -461,3 +461,180 @@ def test_trace_e2e_recovery_wave_and_straggler(tmp_path, monkeypatch):
 
 def pevents_rank(path: Path) -> int:
     return ptrace.parse_dump_name(str(path))["rank"]
+
+
+def test_trace_e2e_recovery_wave_wedge_and_straggler(tmp_path, monkeypatch):
+    """tests/test_trace.py's acceptance run on the port, with its worker
+    arguments: a world-4 job of the port's recover worker under the port's
+    launcher, with rank 1 killed by the mock engine (a recovery wave), rank
+    2 wedged (SIGSTOP, its lease lapses, SIGKILL, a restart) and rank 3 an
+    injected straggler.  Every final life leaves an exit dump whose
+    (version, seqno) line is contiguous from 0 in each version, the
+    identities agree across ranks, every rank ran the final iteration's
+    collectives, and the dumps merge into one valid trace naming rank 3."""
+    from rabit_tpu_torch.engine import native
+    from rabit_tpu_torch.tracker.launcher import LocalCluster
+
+    native.build_lib()
+    obs = tmp_path / "obs"
+    monkeypatch.setenv("RABIT_OBS_DIR", str(obs))  # the tracker's and the workers'
+    world, straggler = 4, 3
+    cluster = LocalCluster(world, max_restarts=6, quiet=True)
+    rc = cluster.run(
+        [sys.executable, WORKER, "rabit_engine=mock",
+         "ndata=500", "niter=4", "sleep=0.15",
+         f"straggler={straggler}", "straggler_sleep=0.3",
+         "preload_op=1", "rabit_bootstrap_cache=1",
+         "mock=1,1,1,0",            # rank 1 dies at (v1, seq1): wave 1
+         "rabit_trace_exit=1",      # clean exits leave trace dumps
+         "rabit_obs_heartbeat_sec=0.3",
+         "rabit_heartbeat_sec=0.25",  # the lease detector for the wedge
+         "rabit_stall_timeout_sec=3", "rabit_timeout_sec=90"],
+        timeout=180.0,
+        wedge=[(2.0, 2)],           # rank 2 freezes: wave 2
+    )
+    assert rc == 0 and all(r == 0 for r in cluster.returncodes.values())
+    assert cluster.restarts["1"] >= 1, "mock kill never restarted rank 1"
+    assert cluster.wedges_delivered == 1
+    assert cluster.restarts["2"] >= 1, "wedged rank 2 was never healed"
+    assert cluster.telemetry and cluster.telemetry["n_recovery_waves"] >= 1
+    tables = {pevents_rank(p): rank_op_table(p) for p in obs.glob("flight-*-exit.jsonl")}
+    assert set(tables) == set(range(world)), sorted(obs.iterdir())
+    for rank, table in tables.items():
+        by_version: dict[int, list[int]] = {}
+        for (v, s) in table:
+            by_version.setdefault(v, []).append(s)
+        for v, seqs in by_version.items():
+            assert sorted(seqs) == list(range(len(seqs))), (rank, v, seqs)
+        for key, op in table.items():
+            assert all(other.get(key, op) == op for other in tables.values()), (key, rank)
+    final_keys = [k for k in tables[0] if k[0] == 3]
+    assert final_keys, tables[0]
+    for rank in range(world):
+        assert all(key in tables[rank] for key in final_keys), rank
+    doc, path, report = ptrace.export_job(str(obs))
+    assert ptrace.validate_chrome_trace(doc) == [] and os.path.exists(path)
+    job = ptrace.load_job(str(obs))
+    assert set(job.clocks) == set(range(world)) and job.max_clock_err() < 0.5
+    assert report["collectives_analyzed"] >= 2
+    top = report["top_stragglers"][0]
+    assert top["rank"] == straggler and top["lateness_total_s"] >= 0.25
+    tele = json.loads((obs / "telemetry.json").read_text())
+    assert tele["stragglers"]["top_stragglers"][0]["rank"] == straggler
+    assert set(tele["clocks"]) >= {str(r) for r in range(world)}
+
+
+# -- the clock, span pairing and export units of tests/test_trace.py ------------------
+
+def test_clock_sync_keeps_lowest_error_sample():
+    """tests/test_trace.py:32 in both packages: the same samples give the
+    same estimate and snapshot."""
+    clocks = (ptrace.ClockSync(), jtrace.ClockSync())
+    for c in clocks:
+        assert c.estimate() is None and c.snapshot() is None
+        for off, err in ((0.5, 0.010), (0.9, 0.050), (0.48, 0.002)):
+            c.update(off, err)  # the worse error is ignored, the better wins
+    assert clocks[0].estimate() == clocks[1].estimate() == (0.48, 0.002)
+    assert clocks[0].snapshot() == clocks[1].snapshot() == {
+        "offset_s": 0.48, "err_s": 0.002, "samples": 3}
+    clocks[0].reset()
+    assert clocks[0].estimate() is None
+
+
+def test_timed_ack_midpoint_math():
+    from rabit_tpu.tracker import protocol as JP
+    from rabit_tpu_torch.tracker import protocol as P
+
+    acks = [mod.TimedAck(mod.ACK, server_ts=105.0, t_send=99.0, t_recv=101.0)
+            for mod in (P, JP)]
+    for ack in acks:
+        assert ack == P.ACK  # int-compatible for the callers that compare
+        assert (ack.rtt, ack.err, ack.offset) == pytest.approx((2.0, 1.0, 5.0))
+    assert (acks[0].rtt, acks[0].err, acks[0].offset) == (acks[1].rtt, acks[1].err,
+                                                          acks[1].offset)
+
+
+def test_clock_ping_live_tracker_no_lease():
+    """A heartbeat of interval 0 to the port's tracker gives clock samples
+    and no lease."""
+    from rabit_tpu_torch.obs.ship import clock_ping
+    from rabit_tpu_torch.tracker.tracker import Tracker
+
+    tracker = Tracker(world_size=1, quiet=True).start()
+    try:
+        ptrace.GLOBAL_CLOCK.reset()
+        assert clock_ping(tracker.host, tracker.port, "0", samples=3) == 3
+        assert tracker.live_tasks() == []
+        off, err = ptrace.GLOBAL_CLOCK.estimate()
+        assert abs(off) < 0.5 and 0 <= err < 0.5  # one host, one clock
+        assert ptrace.GLOBAL_CLOCK.samples == 3
+    finally:
+        tracker.stop()
+        ptrace.GLOBAL_CLOCK.reset()
+
+
+def test_clock_projection_is_monotonic_and_aligning():
+    """Two skewed clocks observing the same instants project onto one
+    timeline in rank order, as rabit_tpu's JobTrace projects them."""
+    true_times = [10.0, 10.5, 11.25, 12.0]
+    skews = {0: -3.0, 1: 0.25}
+    jobs = (ptrace.JobTrace(), jtrace.JobTrace())
+    for job, event in zip(jobs, (pevents.Event, jevents.Event)):
+        for rank, skew in skews.items():
+            job.ranks[rank] = [event(t + skew, "tick", {"i": i}) for i, t in enumerate(true_times)]
+            job.clocks[rank] = {"offset_s": -skew, "err_s": 0.001, "samples": 5}
+    for rank in skews:
+        got = [jobs[0].project(rank, e.ts) for e in jobs[0].ranks[rank]]
+        assert got == sorted(got) and got == pytest.approx(true_times, abs=1e-9)
+        assert got == [jobs[1].project(rank, e.ts) for e in jobs[1].ranks[rank]]
+
+
+def test_pair_ops_by_seqno_and_fifo_fallback():
+    """Keyed spans pair by (version, seqno, op), a span without a seqno
+    pairs first in first out, one in flight stays open: the same spans in
+    both packages."""
+    fields = [(1.0, "op_begin", {"op": "allreduce", "version": 0, "seqno": 0, "nbytes": 8}),
+              (1.1, "op_begin", {"op": "broadcast"}),
+              (1.2, "op_end", {"op": "broadcast"}),
+              (1.3, "op_end", {"op": "allreduce", "version": 0, "seqno": 0, "nbytes": 8}),
+              (1.4, "op_begin", {"op": "allgather", "version": 1, "seqno": 2, "nbytes": 4})]
+    spans = [trace_mod.pair_ops([event(*f) for f in fields])
+             for trace_mod, event in ((ptrace, pevents.Event), (jtrace, jevents.Event))]
+    assert len(spans[0]) == 3
+    keyed = {s.key: s for s in spans[0] if s.keyed}
+    assert keyed[(0, 0, "allreduce")].end == 1.3 and keyed[(1, 2, "allgather")].end is None
+    legacy = next(s for s in spans[0] if not s.keyed)
+    assert legacy.op == "broadcast" and legacy.end == 1.2
+    assert ([(s.key, s.keyed, s.begin, s.end) for s in spans[0]]
+            == [(s.key, s.keyed, s.begin, s.end) for s in spans[1]])
+
+
+def test_export_empty_dir_is_not_an_error(tmp_path):
+    doc, _path, report = ptrace.export_job(str(tmp_path))
+    assert doc["traceEvents"] == [] and report["collectives_total"] == 0
+    assert ptrace.validate_chrome_trace(doc) == []
+    with pytest.raises(ptrace.TraceError):  # a corrupt dump is refused
+        (tmp_path / "flight-rank0-pid1-n1-exit.jsonl").write_text("{not json\n")
+        ptrace.export_job(str(tmp_path))
+
+
+def test_lease_renewal_resumes_after_hang_recovery(tmp_path):
+    """Renewals are withheld while the watchdog holds a hang, and resume
+    (here: fail for want of a tracker) once it is released."""
+    from rabit_tpu_torch import obs
+    from rabit_tpu_torch.config import Config
+
+    obs.configure(Config([], {"rabit_obs_dir": str(tmp_path / "obs")}), rank=0)
+    try:
+        with obs._STATE.lock:
+            obs._STATE.hang_dumped = True
+        assert obs._renew_lease() is False  # withheld while hung
+        with obs._STATE.lock:
+            obs._STATE.hang_dumped = False
+        assert obs._renew_lease() is False
+        with obs._STATE.lock:
+            assert obs._STATE.tracker is None
+    finally:
+        with obs._STATE.lock:
+            obs._STATE.hang_dumped = False
+        obs.configure(Config([]), rank=-1)
